@@ -1,0 +1,247 @@
+"""Process model, topology and lifecycle — the ``init()`` layer.
+
+The PyTorch counterpart of the JAX package's ``common/basics.py``.  The
+process group is ``torch.distributed``: NCCL when the process runs on a
+CUDA device, gloo when the caller asks for ``device="cpu"``.
+
+``init`` reads the same launcher env contract as the JAX package
+(``HVDT_SIZE``, ``HVDT_RANK``, ``HVDT_LOCAL_*``, ``HVDT_CROSS_*``,
+``HVDT_COORDINATOR_ADDR``) and falls back to torchrun's ``RANK`` /
+``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``.  With neither set it
+makes a one-process world over an in-process store, with no networking.
+"""
+
+from __future__ import annotations
+
+import atexit
+import dataclasses
+import os
+import threading
+from typing import Optional, Sequence, Union
+
+import torch
+import torch.distributed as dist
+
+from . import config
+from .exceptions import NotInitializedError
+
+__all__ = [
+    "init",
+    "shutdown",
+    "is_initialized",
+    "rank",
+    "size",
+    "local_rank",
+    "local_size",
+    "cross_rank",
+    "cross_size",
+    "Topology",
+    "topology",
+    "resolve_device",
+]
+
+DeviceLike = Union[str, torch.device, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Static process topology, fixed at init."""
+
+    rank: int
+    size: int
+    local_rank: int
+    local_size: int
+    cross_rank: int
+    cross_size: int
+    device: torch.device
+
+
+class _GlobalState:
+    def __init__(self) -> None:
+        self.lock = threading.RLock()
+        self.initialized = False
+        self.topology: Optional[Topology] = None
+        self.process_set_table = None
+        self.owns_group = False
+
+    def reset(self) -> None:
+        self.initialized = False
+        self.topology = None
+        self.process_set_table = None
+        self.owns_group = False
+
+
+_state = _GlobalState()
+
+
+def _global_state() -> _GlobalState:
+    return _state
+
+
+def resolve_device(device: DeviceLike = None,
+                   index: Optional[int] = None) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    names another device.  Raises when no card is present and the caller
+    did not ask for the CPU — the port never carries on there silently."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on "
+                "the CPU")
+        return torch.device(
+            "cuda", torch.cuda.current_device() if index is None else index)
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    return dev
+
+
+def _env_int(*names: str) -> int:
+    """First of ``names`` set in the environment, as an int; -1 if none."""
+    for name in names:
+        raw = os.environ.get(name)
+        if raw:
+            try:
+                return int(raw)
+            except ValueError:
+                continue
+    return -1
+
+
+def init(*, device: DeviceLike = None,
+         coordinator_address: Optional[str] = None,
+         num_processes: Optional[int] = None,
+         process_id: Optional[int] = None,
+         process_sets: Optional[Sequence[Sequence[int]]] = None) -> None:
+    """Initialize the framework: join (or make) the process group and
+    build the process-set table.
+
+    Args:
+      device: where this process computes.  Default: the CUDA card of the
+        local rank (NCCL); ``"cpu"`` selects gloo.
+      coordinator_address: ``host:port`` of the rendezvous store for a
+        multi-process world.  Defaults to ``HVDT_COORDINATOR_ADDR``, then
+        to torchrun's ``MASTER_ADDR``/``MASTER_PORT``.
+      num_processes / process_id: override the env contract.
+      process_sets: rank lists to register as process sets at init.
+    """
+    with _state.lock:
+        if _state.initialized:
+            return
+        env_size = config.get_int("HVDT_SIZE")
+        if env_size <= 0:
+            env_size = _env_int("WORLD_SIZE")
+        env_rank = config.get_int("HVDT_RANK")
+        if env_rank < 0:
+            env_rank = _env_int("RANK")
+        n_proc = num_processes if num_processes is not None else (
+            env_size if env_size > 0 else 1)
+        proc_id = process_id if process_id is not None else (
+            env_rank if env_rank >= 0 else 0)
+
+        local_rank_ = config.get_int("HVDT_LOCAL_RANK")
+        local_size_ = config.get_int("HVDT_LOCAL_SIZE")
+        cross_rank_ = config.get_int("HVDT_CROSS_RANK")
+        cross_size_ = config.get_int("HVDT_CROSS_SIZE")
+        if local_rank_ < 0 and _env_int("LOCAL_RANK") >= 0:
+            local_rank_ = _env_int("LOCAL_RANK")
+            local_size_ = max(_env_int("LOCAL_WORLD_SIZE"), 1)
+            cross_size_ = max(n_proc // local_size_, 1)
+            cross_rank_ = proc_id // local_size_
+        if local_rank_ < 0:
+            local_rank_, local_size_ = 0, 1
+            cross_rank_, cross_size_ = proc_id, n_proc
+
+        dev = resolve_device(
+            device, index=local_rank_ % max(torch.cuda.device_count(), 1))
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+
+        owns = False
+        if dist.is_initialized():
+            proc_id, n_proc = dist.get_rank(), dist.get_world_size()
+        elif n_proc > 1:
+            coord = (coordinator_address
+                     or config.get_str("HVDT_COORDINATOR_ADDR"))
+            if coord:
+                init_method = f"tcp://{coord}"
+            elif os.environ.get("MASTER_ADDR"):
+                init_method = "env://"
+            else:
+                raise ValueError(
+                    f"a {n_proc}-process world needs a rendezvous: set "
+                    "HVDT_COORDINATOR_ADDR (host:port) or MASTER_ADDR/"
+                    "MASTER_PORT")
+            dist.init_process_group(backend, init_method=init_method,
+                                    rank=proc_id, world_size=n_proc)
+            owns = True
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+            owns = True
+
+        topo = Topology(rank=proc_id, size=n_proc, local_rank=local_rank_,
+                        local_size=local_size_, cross_rank=cross_rank_,
+                        cross_size=cross_size_, device=dev)
+        from . import process_sets as ps
+
+        _state.topology = topo
+        _state.owns_group = owns
+        _state.process_set_table = ps.ProcessSetTable(topo)
+        for ranks in process_sets or ():
+            _state.process_set_table.add(list(ranks))
+        _state.initialized = True
+
+
+def shutdown() -> None:
+    """Tear down; destroys the process group if ``init`` made it."""
+    with _state.lock:
+        if not _state.initialized:
+            return
+        owns = _state.owns_group
+        _state.reset()
+    if owns and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+atexit.register(shutdown)
+
+
+def _topo() -> Topology:
+    t = _state.topology
+    if t is None:
+        raise NotInitializedError()
+    return t
+
+
+def is_initialized() -> bool:
+    return _state.initialized
+
+
+def topology() -> Topology:
+    return _topo()
+
+
+def rank() -> int:
+    return _topo().rank
+
+
+def size() -> int:
+    return _topo().size
+
+
+def local_rank() -> int:
+    return _topo().local_rank
+
+
+def local_size() -> int:
+    return _topo().local_size
+
+
+def cross_rank() -> int:
+    return _topo().cross_rank
+
+
+def cross_size() -> int:
+    return _topo().cross_size

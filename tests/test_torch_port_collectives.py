@@ -1,0 +1,288 @@
+"""PyTorch port: process model, collectives, fused-bucket planning,
+DistributedOptimizer over a 2-process gloo world, and import isolation.
+
+* The bucket planner must give the JAX package's plan for the same
+  (shape, dtype) list, invalid thresholds included.
+* In a 2-process gloo world, broadcast_parameters makes rank 1 equal to
+  rank 0, and DistributedOptimizer(fused_sgd) takes the step whose
+  gradient is the mean of the JAX gradients on each rank's half-batch
+  (BN is per rank, so that is not the global-batch step).  Tolerance,
+  as relative L2 errors on the averaged gradients and on the updates:
+  3e-2 per tensor and 1.5e-2 over all of them, as in
+  tests/test_torch_port_resnet.py and for the same reason (the early
+  layers' gradients are ill-conditioned in f32).
+* ``import horovod_tpu_torch`` loads nothing of JAX or horovod_tpu.
+"""
+
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import optax
+import pytest
+import torch
+
+from horovod_tpu.models import resnet as jrn
+from horovod_tpu.ops import device as jdev
+from horovod_tpu.ops.optim_kernels import fused_sgd as jax_fused_sgd
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.convert import _param_tensors, resnet_params_from_jax
+from horovod_tpu_torch.ops import device as tdev
+from horovod_tpu_torch.ops import optim_kernels as tok
+from test_torch_port_resnet import _assert_rel, _numpy_init
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# ---- (d) bucket planner ---------------------------------------------------
+
+_NP = {"float32": np.float32, "bfloat16": ml_dtypes.bfloat16,
+       "float16": np.float16, "int32": np.int32}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16, "int32": torch.int32}
+
+
+def _leaf_lists(seed):
+    rng = np.random.default_rng(seed)
+    names = list(_NP)
+    specs = [(tuple(int(d) for d in rng.integers(1, 40, rng.integers(1, 4))),
+              names[rng.integers(len(names))]) for _ in range(30)]
+    return ([np.zeros(s, _NP[d]) for s, d in specs],
+            [torch.empty(s, dtype=_TORCH[d]) for s, d in specs])
+
+
+@pytest.mark.parametrize("threshold", [64, 256, 1000, 4096, 1 << 20, None,
+                                       0, -5, "garbage"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_bucket_plan_matches_jax(seed, threshold, monkeypatch):
+    monkeypatch.setenv("HVDT_FUSION_THRESHOLD", "512")
+    jleaves, tleaves = _leaf_lists(seed)
+    assert (tdev.fused_allreduce_buckets(tleaves, threshold)
+            == jdev.fused_allreduce_buckets(jleaves, threshold))
+
+
+def test_bucket_plan_ignores_dtype_interleaving():
+    a = [torch.empty(10), torch.empty(3, dtype=torch.bfloat16),
+         torch.empty(5)]
+    b = [a[1], a[0], a[2]]
+    plan_a = tdev.fused_allreduce_buckets(a, 1 << 20)
+    plan_b = tdev.fused_allreduce_buckets(b, 1 << 20)
+    assert plan_a == [[1], [0, 2]] and plan_b == [[0], [1, 2]]
+
+
+def test_invalid_env_threshold_clamps_to_default(monkeypatch):
+    monkeypatch.setenv("HVDT_FUSION_THRESHOLD", "-1")
+    assert tdev._validated_threshold(None) == 64 * 1024 * 1024
+    monkeypatch.setenv("HVDT_FUSION_THRESHOLD", "4096")
+    assert tdev._validated_threshold(None) == 4096
+
+
+# ---- one-process world ----------------------------------------------------
+
+
+@pytest.fixture
+def world1():
+    hvd.init(device="cpu")
+    yield hvd
+    hvd.shutdown()
+
+
+def test_one_process_world(world1):
+    assert (hvd.rank(), hvd.size(), hvd.local_rank(), hvd.local_size(),
+            hvd.cross_rank(), hvd.cross_size()) == (0, 1, 0, 1, 0, 1)
+    assert hvd.topology().device == torch.device("cpu")
+    t = torch.arange(6, dtype=torch.float32)
+    torch.testing.assert_close(
+        tdev.allreduce(t, prescale_factor=2.0, postscale_factor=0.5), t)
+    torch.testing.assert_close(tdev.allreduce(t, op=hvd.Sum), t)
+    torch.testing.assert_close(tdev.broadcast(t, 0), t)
+    grads = [torch.randn(5), torch.randn(3, 2, dtype=torch.bfloat16),
+             torch.randn(7)]
+    out = hvd.allreduce_gradients(grads, threshold_bytes=32,
+                                  compression=hvd.Compression.bf16)
+    for g, o in zip(grads, out):
+        assert o.shape == g.shape and o.dtype == g.dtype
+        torch.testing.assert_close(o, g.to(torch.bfloat16).to(g.dtype))
+    assert hvd.broadcast_object({"a": 1}) == {"a": 1}
+
+
+def test_unported_options_raise(world1):
+    opt = tok.fused_sgd([torch.zeros(2, requires_grad=True)], 0.1)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+        hvd.DistributedOptimizer(opt, op=hvd.Adasum)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+        hvd.DistributedOptimizer(opt, zero="states")
+
+
+def test_backward_passes_per_step_accumulates(world1):
+    """k=2: the first step() issues no collective and leaves the
+    parameter alone; the second applies the mean of both passes."""
+    p = torch.zeros(3, requires_grad=True)
+    opt = hvd.DistributedOptimizer(tok.fused_sgd([p], 1.0),
+                                   backward_passes_per_step=2)
+    for g in (torch.tensor([1.0, 2.0, 3.0]), torch.tensor([3.0, 2.0, 1.0])):
+        opt.zero_grad()
+        p.grad = g.clone()
+        opt.step()
+        if g[0] == 1.0:
+            assert float(p.detach().abs().sum()) == 0.0
+    torch.testing.assert_close(p.detach(), torch.full((3,), -2.0))
+
+
+def test_init_without_card_or_cpu_request_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hvd.init()
+    assert not hvd.is_initialized()
+
+
+# ---- (e) two-process gloo world -------------------------------------------
+
+_WORKER = r"""
+import sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.models import resnet as trn
+
+data = np.load(sys.argv[1])
+out = sys.argv[2]
+hvd.init(device="cpu")
+r = hvd.rank()
+cfg = trn.ResNetConfig(num_classes=10, dtype=torch.float32, depth=26)
+model = trn.resnet50_init(1 + r, cfg, device="cpu")
+if r == 0:
+    model.load_state_dict({k[3:]: torch.from_numpy(data[k])
+                           for k in data.files if k.startswith("sd.")})
+hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+res = {"bcast." + k: v.numpy().copy() for k, v in model.state_dict().items()}
+
+opt = hvd.DistributedOptimizer(
+    hvd.fused_sgd(model.parameters(), float(data["lr"]), momentum=0.9),
+    threshold_bytes=1 << 22)
+hvd.broadcast_optimizer_state(opt, root_rank=0)
+half = slice(2 * r, 2 * r + 2)
+loss, _ = trn.resnet_loss(model, torch.from_numpy(data["x"][half]),
+                          torch.from_numpy(data["y"][half]))
+loss.backward()
+opt.step()
+for k, p in model.named_parameters():
+    res["grad." + k] = p.grad.numpy().copy()
+    res["param." + k] = p.detach().numpy().copy()
+
+t = torch.full((3,), float(r + 1))
+res["avg"] = hvd.device.allreduce(t).numpy()
+res["sum"] = hvd.device.allreduce(t, op=hvd.Sum).numpy()
+res["max"] = hvd.device.allreduce(t, op=hvd.Max).numpy()
+res["bcast1"] = hvd.device.broadcast(t, root_rank=1).numpy()
+res["obj"] = np.array(hvd.broadcast_object(r + 10, root_rank=1))
+ps = hvd.add_process_set([0, 1])
+res["ps_sum"] = hvd.device.allreduce(t, op=hvd.Sum, process_set=ps).numpy()
+np.savez(out, **res)
+hvd.shutdown()
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_two_process_gloo_world(tmp_path, monkeypatch):
+    monkeypatch.delenv("HVDT_FUSED_CONV1X1", raising=False)
+    lr = 0.01
+    cfg = jrn.ResNetConfig(num_classes=10, dtype=jnp.float32, depth=26)
+    params, stats = _numpy_init(cfg)
+    np_params = jax.tree.map(np.asarray, params)
+    sd = resnet_params_from_jax(np_params, jax.tree.map(np.asarray, stats))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 64, 64, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 4).astype(np.int32)
+    np.savez(tmp_path / "in.npz", x=x, y=y, lr=np.float32(lr),
+             **{"sd." + k: v.numpy() for k, v in sd.items()})
+
+    env = dict(os.environ, HVDT_SIZE="2",
+               HVDT_COORDINATOR_ADDR=f"127.0.0.1:{_free_port()}",
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _WORKER, str(tmp_path / "in.npz"),
+         str(tmp_path / f"out{r}.npz")], env=dict(env, HVDT_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+
+    # Meanwhile, the JAX side: per-rank grads on each half-batch, their
+    # mean, one fused_sgd step.
+    grad_fn = jax.jit(jax.value_and_grad(jrn.resnet_loss, has_aux=True),
+                      static_argnums=(4,))
+    halves = [grad_fn(params, stats, jnp.asarray(x[2 * r:2 * r + 2]),
+                      jnp.asarray(y[2 * r:2 * r + 2]), cfg)[1]
+              for r in range(2)]
+    mean_grads = jax.tree.map(lambda a, b: (a + b) / 2, *halves)
+    tx = jax_fused_sgd(lr, momentum=0.9)
+    updates, _ = tx.update(mean_grads, tx.init(params), params)
+    new_params = optax.apply_updates(params, updates)
+
+    for p in procs:
+        out, _ = p.communicate(timeout=240)
+        assert p.returncode == 0, out.decode()[-3000:]
+    res = [np.load(tmp_path / f"out{r}.npz") for r in range(2)]
+
+    for k, v in sd.items():
+        np.testing.assert_array_equal(res[1]["bcast." + k], v.numpy(),
+                                      err_msg=k)
+    want_g = _param_tensors(jax.tree.map(np.asarray, mean_grads))
+    want_p = _param_tensors(jax.tree.map(np.asarray, new_params))
+    init = _param_tensors(np_params)
+    for r in range(2):
+        _assert_rel({k: res[r]["grad." + k] for k in want_g},
+                    {k: g.numpy() for k, g in want_g.items()})
+        _assert_rel({k: res[r]["param." + k] - init[k].numpy()
+                     for k in want_p},
+                    {k: (p - init[k]).numpy() for k, p in want_p.items()})
+    for k in want_p:
+        np.testing.assert_array_equal(res[0]["param." + k],
+                                      res[1]["param." + k], err_msg=k)
+    for r in range(2):
+        np.testing.assert_allclose(res[r]["avg"], [1.5] * 3)
+        np.testing.assert_allclose(res[r]["sum"], [3.0] * 3)
+        np.testing.assert_allclose(res[r]["max"], [2.0] * 3)
+        np.testing.assert_allclose(res[r]["bcast1"], [2.0] * 3)
+        assert int(res[r]["obj"]) == 11
+        np.testing.assert_allclose(res[r]["ps_sum"], [3.0] * 3)
+
+
+# ---- (f) import isolation -------------------------------------------------
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, importlib, pkgutil, horovod_tpu_torch as h\n"
+        "for m in pkgutil.walk_packages(h.__path__, 'horovod_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'optax', 'horovod_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_no_jax_imports_in_port_sources():
+    sources = list((ROOT / "horovod_tpu_torch").rglob("*.py"))
+    sources.append(ROOT / "chip_smoke.py")
+    for path in sources:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "jaxlib", "optax",
+                                   "horovod_tpu"), (path, line)
