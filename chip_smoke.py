@@ -21,7 +21,20 @@ Phases, one JSON line each:
 5. eval    — one eval forward through the fused conv+affine kernel (26
    launches), held against the unfused forward on the same card;
 6. adam    — 2 steps with DistributedOptimizer(fused_adam(1e-3));
-7. summary — the kernels line.
+7. quant_kernel — the four int8/int4 quantize/dequantize kernels against
+   their plain versions on the card at each fused-bucket size of the
+   ResNet-50 gradients (64 MiB threshold, padded to whole 256-element
+   blocks): payload, scales and dequantized values bit-identical;
+8. int8    — 3 train steps under quant.with_error_feedback(
+   DistributedOptimizer(fused_sgd(...), compression=Compression.int8)):
+   the int8 quantize/dequantize kernels launch exactly as often as the
+   leaf count and the bucket plan say, and one exchange of the same
+   gradients gives the same bytes with HVDT_QUANT_KERNELS=off; then the
+   step time against the uncompressed wire in turns, and host times of
+   error feedback and of one exchange over each wire;
+9. int4    — 2 steps with compression left unset and HVDT_COMPRESSION=
+   int4 (Compression.from_env), with_error_feedback(..., wire="int4");
+10. summary — the kernels line.
 
 Any failure raises and the script exits non-zero without the last line,
 which is exactly {"ok": true, "device": {...}} on success.  Without a
@@ -66,6 +79,19 @@ def cuda_ms(fn, iters: int = 10, reps: int = 5, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return sorted(times)[reps // 2]
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` in ms, each call ended by a
+    synchronize (for work that is many small launches)."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times[1:])[reps // 2]
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -267,24 +293,136 @@ def phase_optim_kernels(params, gen):
     return results
 
 
+QUANT_BLOCK = 256
+
+
+def _bits(t):
+    """A tensor's bytes as integers, for bit-identity checks."""
+    return t.contiguous().view(torch.uint8).to(torch.int16)
+
+
+def _bit_err(got, want) -> float:
+    """0 when ``got`` and ``want`` hold the same bytes, else the largest
+    absolute difference of their values."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if torch.equal(_bits(got), _bits(want)):
+        return 0.0
+    return (got.double() - want.double()).abs().max().item() or math.inf
+
+
+def phase_quant_kernels(params, gen):
+    """#5-#8 against their plain versions at each fused-bucket size of
+    the ResNet-50 gradients.  Tolerance 0: the max is exact and every
+    other step is one IEEE f32 operation on both sides."""
+    from horovod_tpu_torch.ops import device as tdev
+    from horovod_tpu_torch.quant import kernels as qk
+
+    sizes = [sum(params[i].numel() for i in b)
+             for b in tdev.fused_allreduce_buckets(params, None)]
+    totals = {name: dict(kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                         max_abs_err=0.0)
+              for name in ("_quant_kernel", "_dequant_kernel",
+                           "_quant4_kernel", "_dequant4_kernel")}
+    for size in sizes:
+        padded = -(-size // QUANT_BLOCK) * QUANT_BLOCK
+        nb = padded // QUANT_BLOCK
+        x = torch.randn(padded, generator=gen, device="cuda").mul_(1e-2)
+        x[:QUANT_BLOCK] = 0.0                   # an all-zero block
+        x2 = x.view(nb, QUANT_BLOCK)
+        q, s = qk._quantize_cuda(x2)
+        q4, s4 = qk._quantize4_cuda(x2)
+        # (name, kernel call, plain call, outputs, bytes, ops)
+        cases = (
+            ("_quant_kernel", lambda: qk._quantize_cuda(x2),
+             lambda: qk._quantize_plain(x2), 5.0 * padded + 4.0 * nb,
+             5.0 * padded),
+            ("_dequant_kernel", lambda: qk._dequantize_cuda(q, s),
+             lambda: qk._dequantize_plain(q, s), 5.0 * padded + 4.0 * nb,
+             1.0 * padded),
+            ("_quant4_kernel", lambda: qk._quantize4_cuda(x2),
+             lambda: qk._quantize4_plain(x2), 4.5 * padded + 4.0 * nb,
+             5.0 * padded),
+            ("_dequant4_kernel", lambda: qk._dequantize4_cuda(q4, s4),
+             lambda: qk._dequantize4_plain(q4, s4),
+             4.5 * padded + 4.0 * nb, 1.0 * padded))
+        for name, kern, plain, nbytes, ops in cases:
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            torch.cuda.synchronize()
+            err = max(_bit_err(g, w) for g, w in zip(got, want))
+            assert err == 0.0, (name, size, err)
+            b_ms, b_by = bound(nbytes, ops, PEAK_F32_FLOPS)
+            row = {"kernel_ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
+                   "bound_ms": b_ms}
+            emit({"phase": "quant_kernel", "name": name, "elements": padded,
+                  "block": QUANT_BLOCK, "max_abs_err": err, "tolerance": 0.0,
+                  "bound_by": b_by, "library_ms": None, **row})
+            tot = totals[name]
+            for key, val in row.items():
+                tot[key] += val
+            tot["bound_by"] = b_by
+        del x, q, s, q4, s4
+    return totals, sizes
+
+
 def reset_counters():
     from horovod_tpu_torch.ops import conv_fused as cf
     from horovod_tpu_torch.ops import optim_kernels as ok
+    from horovod_tpu_torch.quant import kernels as qk
 
     cf._mm_forward.launches = 0
     cf.matmul_batch_stats.launches = 0
     ok._sgd_leaf_fused.launches = 0
     ok._adam_leaf_fused.launches = 0
+    qk._quantize_cuda.launches = 0
+    qk._dequantize_cuda.launches = 0
+    qk._quantize4_cuda.launches = 0
+    qk._dequantize4_cuda.launches = 0
 
 
 def counters():
     from horovod_tpu_torch.ops import conv_fused as cf
     from horovod_tpu_torch.ops import optim_kernels as ok
+    from horovod_tpu_torch.quant import kernels as qk
 
     return {"_mm_kernel": cf._mm_forward.launches,
             "_mm_stats_kernel": cf.matmul_batch_stats.launches,
             "_sgd_kernel": ok._sgd_leaf_fused.launches,
-            "_adam_kernel": ok._adam_leaf_fused.launches}
+            "_adam_kernel": ok._adam_leaf_fused.launches,
+            "_quant_kernel": qk._quantize_cuda.launches,
+            "_dequant_kernel": qk._dequantize_cuda.launches,
+            "_quant4_kernel": qk._quantize4_cuda.launches,
+            "_dequant4_kernel": qk._dequantize4_cuda.launches}
+
+
+def expected_quant_launches(hvd, model, steps, wire):
+    """(quantize, dequantize) launches of ``steps`` steps of the
+    error-feedback + quantized-wire path: per step, error feedback
+    quantizes and dequantizes every gradient once; each float bucket is
+    quantized twice (before the reduce-scatter, after the accumulate)
+    and dequantized once after the gather, and once more before the
+    accumulate on the int4 wire (the int8 accumulate is plain PyTorch,
+    as it is XLA in the reference)."""
+    grads = [p for p in model.parameters() if p.requires_grad]
+    buckets = hvd.device.fused_allreduce_buckets(grads, None)
+    deq = 2 if wire == "int4" else 1
+    return (steps * (len(grads) + 2 * len(buckets)),
+            steps * (len(grads) + deq * len(buckets)))
+
+
+def quant_exchange_matches_plain(hvd, model, wire):
+    """One fused_allreduce of the model's gradients over ``wire``, with
+    the kernels and then with HVDT_QUANT_KERNELS=off: the same bytes."""
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    kern = hvd.device.fused_allreduce(grads, wire_dtype=wire)
+    os.environ["HVDT_QUANT_KERNELS"] = "off"
+    try:
+        plain = hvd.device.fused_allreduce(grads, wire_dtype=wire)
+    finally:
+        del os.environ["HVDT_QUANT_KERNELS"]
+    torch.cuda.synchronize()
+    return max(_bit_err(a, b) for a, b in zip(kern, plain))
 
 
 def run_steps(model, opt, images, labels, steps):
@@ -384,6 +522,78 @@ def main() -> int:
     assert adam_launches["_mm_stats_kernel"] == 52, adam_launches
     emit({"phase": "adam", "steps": 2, "losses": a_losses, "step_s": a_times,
           "launches": adam_launches})
+
+    quant, bucket_sizes = phase_quant_kernels(params, gen)
+
+    int8_opt = hvd.quant.with_error_feedback(hvd.DistributedOptimizer(
+        hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9),
+        compression=hvd.Compression.int8))
+    steps = 3
+    reset_counters()
+    q_times, q_losses = run_steps(model, int8_opt, images, labels, steps)
+    int8_launches = counters()
+    want_q, want_dq = expected_quant_launches(hvd, model, steps,
+                                             "int8")
+    assert all(math.isfinite(x) for x in q_losses), q_losses
+    assert int8_launches["_quant_kernel"] == want_q, (int8_launches, want_q)
+    assert int8_launches["_dequant_kernel"] == want_dq, (int8_launches,
+                                                         want_dq)
+    assert int8_launches["_sgd_kernel"] >= steps, int8_launches
+    assert int8_launches["_mm_stats_kernel"] == 26 * steps, int8_launches
+    int8_err = quant_exchange_matches_plain(hvd, model, hvd.quant.INT8_WIRE)
+    assert int8_err == 0.0, int8_err
+    # Step time against the uncompressed wire in turns (int8, plain,
+    # plain, int8) on the same card and model.
+    plain_opt = hvd.DistributedOptimizer(
+        hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9))
+    p_times = (run_steps(model, plain_opt, images, labels, steps)[0]
+               + run_steps(model, plain_opt, images, labels, steps)[0])
+    q_times += run_steps(model, int8_opt, images, labels, steps)[0]
+    del plain_opt
+    # Where the step's extra time goes: error feedback over the 161
+    # gradients, and the bucket exchange over each wire.
+    grads = [p.grad for p in model.parameters()]
+    split_ms = {"error_feedback": host_ms(int8_opt.compensate)}
+    for wire in (None, hvd.quant.INT8_WIRE, hvd.quant.INT4_WIRE):
+        split_ms[f"exchange_{wire or 'f32'}"] = host_ms(
+            lambda: hvd.device.fused_allreduce(grads, wire_dtype=wire))
+    q_steady = sorted(q_times[1:])[len(q_times[1:]) // 2]
+    p_steady = sorted(p_times[1:])[len(p_times[1:]) // 2]
+    emit({"phase": "int8", "steps": steps, "losses": q_losses,
+          "step_s": q_times, "steady_step_s": q_steady,
+          "images_per_s": BATCH / q_steady,
+          "uncompressed_step_s": p_times,
+          "uncompressed_steady_step_s": p_steady,
+          "uncompressed_images_per_s": BATCH / p_steady,
+          "buckets": bucket_sizes, "launches": int8_launches,
+          "expected_quant_dequant": [want_q, want_dq],
+          "exchange_vs_plain_max_abs_err": int8_err, "host_ms": split_ms,
+          "card": smi})
+    del int8_opt
+
+    os.environ["HVDT_COMPRESSION"] = "int4"
+    try:
+        assert hvd.Compression.from_env() is hvd.Compression.int4
+        int4_opt = hvd.quant.with_error_feedback(hvd.DistributedOptimizer(
+            hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9)),
+            wire="int4")
+        reset_counters()
+        f_times, f_losses = run_steps(model, int4_opt, images, labels, 2)
+        int4_launches = counters()
+    finally:
+        del os.environ["HVDT_COMPRESSION"]
+    want_q4, want_dq4 = expected_quant_launches(hvd, model, 2, "int4")
+    assert all(math.isfinite(x) for x in f_losses), f_losses
+    assert int4_launches["_quant4_kernel"] == want_q4, int4_launches
+    assert int4_launches["_dequant4_kernel"] == want_dq4, int4_launches
+    assert int4_launches["_quant_kernel"] == 0, int4_launches
+    int4_err = quant_exchange_matches_plain(hvd, model, hvd.quant.INT4_WIRE)
+    assert int4_err == 0.0, int4_err
+    emit({"phase": "int4", "steps": 2, "losses": f_losses, "step_s": f_times,
+          "launches": int4_launches,
+          "expected_quant_dequant": [want_q4, want_dq4],
+          "exchange_vs_plain_max_abs_err": int4_err})
+    del int4_opt
     hvd.shutdown()
 
     sources = {"_mm_kernel": ("cuda", "horovod_tpu_torch/csrc/conv_fused.cu",
@@ -401,12 +611,27 @@ def main() -> int:
                                 "horovod_tpu_torch/ops/optim_kernels.py",
                                 "horovod_tpu/ops/optim_kernels.py:120",
                                 adam_launches)}
+    quant_cu = "horovod_tpu_torch/csrc/quant.cu"
+    sources.update({
+        "_quant_kernel": ("cuda", quant_cu, "horovod_tpu/quant/kernels.py:141",
+                          int8_launches),
+        "_dequant_kernel": ("cuda", quant_cu,
+                            "horovod_tpu/quant/kernels.py:150",
+                            int8_launches),
+        "_quant4_kernel": ("cuda", quant_cu,
+                           "horovod_tpu/quant/kernels.py:321",
+                           int4_launches),
+        "_dequant4_kernel": ("cuda", quant_cu,
+                             "horovod_tpu/quant/kernels.py:328",
+                             int4_launches)})
     kernels = []
     for name, (route, source, replaces, launches) in sources.items():
         if name in conv:
             row = dict(conv[name])
             by = row.pop("bound_by")
             row["bound_by"] = max(by, key=by.get)
+        elif name in quant:
+            row = dict(quant[name], library_ms=None)
         else:
             row = dict(optim[name])
         kernels.append({"name": name, "route": route, "source": source,

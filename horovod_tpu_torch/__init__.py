@@ -11,6 +11,12 @@ Typical use::
     opt = hvd.DistributedOptimizer(hvd.fused_adam(model.parameters(), 1e-3))
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 
+The int8 gradient wire with error feedback::
+
+    opt = hvd.quant.with_error_feedback(hvd.DistributedOptimizer(
+        hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9),
+        compression=hvd.Compression.int8))
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.
 """
@@ -50,6 +56,7 @@ Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 
 from . import ops  # noqa: F401,E402
+from . import quant  # noqa: F401,E402
 from .ops import device  # noqa: F401,E402
 from .ops.compression import Compression  # noqa: F401,E402
 from .ops.optim_kernels import fused_adam, fused_sgd  # noqa: F401,E402

@@ -9,6 +9,8 @@ CUDA device, gloo when the caller asks for ``device="cpu"``.
 ``HVDT_COORDINATOR_ADDR``) and falls back to torchrun's ``RANK`` /
 ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``.  With neither set it
 makes a one-process world over an in-process store, with no networking.
+It also resolves ``HVDT_COMPRESSION`` / ``HVDT_QUANT``, so an unknown
+compressor name fails at init.
 """
 
 from __future__ import annotations
@@ -128,6 +130,12 @@ def init(*, device: DeviceLike = None,
     with _state.lock:
         if _state.initialized:
             return
+        # Resolve the wire compression now, so that an unknown
+        # HVDT_COMPRESSION fails here with the valid list and not at the
+        # first optimizer step on some rank.
+        from ..ops.compression import Compression
+
+        Compression.from_env()
         env_size = config.get_int("HVDT_SIZE")
         if env_size <= 0:
             env_size = _env_int("WORLD_SIZE")

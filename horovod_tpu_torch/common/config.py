@@ -49,6 +49,26 @@ KNOBS: Dict[str, Knob] = {
              "fuses the folded affine into the matmul epilogue.  Default "
              "off, as in the JAX package.  Eligibility: 1x1, stride 1, "
              "Cin % 128 == 0 and Cout % 128 == 0."),
+        Knob("HVDT_COMPRESSION", "", str,
+             "Gradient wire compressor by name: none|bf16|fp16|int8|int4 "
+             "(empty = none).  Consumed by init() and by "
+             "DistributedOptimizer / allreduce_gradients when "
+             "compression= is unset; unknown names raise with the valid "
+             "list."),
+        Knob("HVDT_QUANT", False, _parse_bool,
+             "Shorthand for HVDT_COMPRESSION=int8 (wins over it): route "
+             "gradient collectives over the block-scaled int8 wire "
+             "(quant/collectives two-stage quantized allreduce).  Pair "
+             "with quant.with_error_feedback."),
+        Knob("HVDT_QUANT_BLOCK", 256, int,
+             "Block size (elements) for int8/int4 wire quantization: one "
+             "f32 absmax scale per block (256 = 1.6% scale overhead).  "
+             "The CUDA kernels take any block (any even block for int4)."),
+        Knob("HVDT_QUANT_KERNELS", "auto", str,
+             "Quantize/dequantize route: auto (the CUDA kernel for a CUDA "
+             "tensor, the plain PyTorch version for a CPU tensor), on (the "
+             "kernel; a CPU tensor raises), off (the plain version "
+             "everywhere, an explicit opt-out)."),
         Knob("HVDT_RANK", -1, int, "Global process rank (set by launcher)."),
         Knob("HVDT_SIZE", -1, int, "Global process count (set by launcher)."),
         Knob("HVDT_LOCAL_RANK", -1, int,

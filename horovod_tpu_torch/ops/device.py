@@ -7,7 +7,9 @@ card, gloo on the CPU).
 
 Average is a Sum followed by a division by the set size on every
 backend: gloo has no ``ReduceOp.AVG``, and one formula keeps NCCL and
-gloo results the same.
+gloo results the same.  (The quantized wire is the exception: it
+multiplies by f32 ``1/n``, as the JAX package's quantized collective
+does.)
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from ..common.types import ReduceOp
 
 log = logging.getLogger(__name__)
 
-__all__ = ["allreduce", "broadcast", "fused_allreduce",
-           "fused_allreduce_buckets"]
+__all__ = ["allreduce", "allgather", "reduce_scatter", "alltoall",
+           "broadcast", "fused_allreduce", "fused_allreduce_buckets"]
 
 _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
              ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -62,6 +64,67 @@ def allreduce(tensor: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
     if postscale_factor != 1.0:
         out = out.mul_(postscale_factor)
     return out
+
+
+def allgather(tensor: torch.Tensor, concat_axis: int = 0, *,
+              tiled: bool = True,
+              process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Allgather over the process set: every rank's tensor concatenated
+    along ``concat_axis`` in rank order (``tiled=False`` stacks them on
+    a new axis there instead), as ``lax.all_gather`` does."""
+    ps = process_set or global_process_set()
+    n = ps.size()
+    t = tensor.detach()
+    gathered = t.new_empty((n,) + tuple(t.shape))
+    # Row r of [n, ...] is rank r's [1, ...]: the concatenated layout
+    # every backend takes.
+    dist.all_gather_into_tensor(gathered, t.unsqueeze(0).contiguous(),
+                                group=ps.group)
+    if not tiled:
+        return gathered.movedim(0, concat_axis).contiguous()
+    return torch.cat(list(gathered.unbind(0)), dim=concat_axis)
+
+
+def _split_rows(t: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """[..., n*c, ...] -> [n, ..., c, ...] (chunk j along ``axis`` is row
+    j), contiguous; raises unless ``axis`` divides by n."""
+    if t.shape[axis] % n:
+        raise ValueError(f"dimension {axis} ({t.shape[axis]}) is not "
+                         f"divisible by the set size {n}")
+    return torch.stack(t.chunk(n, dim=axis))
+
+
+def reduce_scatter(tensor: torch.Tensor, scatter_axis: int = 0,
+                   op: ReduceOp = ReduceOp.SUM,
+                   process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Reduce over the process set and keep this rank's chunk of
+    ``scatter_axis`` (chunk r on rank r).  Average divides the sum by
+    the set size, as ``horovod_tpu.ops.device.reduce_scatter`` does."""
+    ps = process_set or global_process_set()
+    op = ReduceOp(op)
+    if op == ReduceOp.ADASUM:
+        raise ValueError(f"Unsupported reduce op: {op}")
+    n = ps.size()
+    rows = _split_rows(tensor.detach(), scatter_axis, n)
+    out = rows.new_empty((1,) + rows.shape[1:])
+    dist.reduce_scatter_tensor(out, rows, _DIST_OPS[op], group=ps.group)
+    out = out[0]
+    if op == ReduceOp.AVERAGE:
+        out = out / n
+    return out
+
+
+def alltoall(tensor: torch.Tensor, split_axis: int = 0,
+             concat_axis: int = 0,
+             process_set: Optional[ProcessSet] = None) -> torch.Tensor:
+    """Equal-split all-to-all: chunk j of ``split_axis`` goes to rank j,
+    and the chunks received are concatenated along ``concat_axis`` in
+    rank order, as ``lax.all_to_all(..., tiled=True)`` does."""
+    ps = process_set or global_process_set()
+    rows = _split_rows(tensor.detach(), split_axis, ps.size())
+    recv = torch.empty_like(rows)
+    dist.all_to_all_single(recv, rows, group=ps.group)
+    return torch.cat(list(recv.unbind(0)), dim=concat_axis)
 
 
 def broadcast(tensor: torch.Tensor, root_rank: int = 0,
@@ -150,7 +213,7 @@ def fused_allreduce(tensors: Sequence[torch.Tensor],
                     threshold_bytes: Optional[int] = None,
                     prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0,
-                    wire_dtype: Optional[torch.dtype] = None,
+                    wire_dtype: Optional[Any] = None,
                     process_set: Optional[ProcessSet] = None
                     ) -> List[torch.Tensor]:
     """Allreduce a list of tensors as few fused flat collectives.
@@ -158,25 +221,40 @@ def fused_allreduce(tensors: Sequence[torch.Tensor],
     Each bucket is concatenated into one flat buffer (cast to
     ``wire_dtype`` when one is given and the bucket is floating), reduced
     by one ``all_reduce``, cast back, and split; the returned tensors are
-    views into the reduced buffers, in input order and shapes."""
+    views into the reduced buffers, in input order and shapes.  The
+    quantized-wire sentinels (``Compression.int8`` / ``.int4``
+    ``wire_dtype``) instead send each float bucket through the two-stage
+    quantized allreduce (``quant/collectives.py``); other buckets keep
+    the exact path."""
+    from ..quant.collectives import quant_wire_leg, quantized_allreduce_flat
+
     ps = process_set or global_process_set()
     tensors = list(tensors)
     if not tensors:
         return []
+    quant_leg = quant_wire_leg(wire_dtype)
+    if quant_leg is not None:
+        wire_dtype = None       # the quantized path owns the wire format
     buckets = fused_allreduce_buckets(tensors, threshold_bytes)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for bucket in buckets:
         parts = [tensors[i] for i in bucket]
         flat = torch.cat([p.detach().reshape(-1) for p in parts])
         orig_dtype = flat.dtype
-        if (wire_dtype is not None and flat.is_floating_point()
-                and flat.dtype != wire_dtype):
-            flat = flat.to(wire_dtype)
-        if prescale_factor != 1.0:
-            flat.mul_(prescale_factor)
-        red = _reduce_(flat, op, ps)
-        if postscale_factor != 1.0:
-            red.mul_(postscale_factor)
+        if quant_leg is not None and flat.is_floating_point():
+            red = quantized_allreduce_flat(
+                flat, op, prescale_factor=prescale_factor,
+                postscale_factor=postscale_factor, wire=quant_leg,
+                process_set=ps)
+        else:
+            if (wire_dtype is not None and flat.is_floating_point()
+                    and flat.dtype != wire_dtype):
+                flat = flat.to(wire_dtype)
+            if prescale_factor != 1.0:
+                flat.mul_(prescale_factor)
+            red = _reduce_(flat, op, ps)
+            if postscale_factor != 1.0:
+                red.mul_(postscale_factor)
         if red.dtype != orig_dtype:
             red = red.to(orig_dtype)
         offset = 0

@@ -12,8 +12,15 @@ mean and steps the wrapped optimizer; the other calls issue no
 collective and leave the parameters unchanged (the update ``optax.
 MultiSteps`` gives in the JAX package, without its per-pass exchange).
 
-ZeRO, overlap scheduling, Adasum and the int8/int4 wires are later work
-and raise ``NotImplementedError`` naming their ROADMAP item.
+``compression`` picks the wire: ``Compression.none`` / ``.fp16`` /
+``.bf16`` cast each bucket, ``.int8`` / ``.int4`` send each float bucket
+through the two-stage block-scaled quantized allreduce
+(``quant/collectives.py``); pair those with ``quant.with_error_feedback``.
+Left unset, it is read from the environment (``HVDT_COMPRESSION``,
+``HVDT_QUANT``) by ``Compression.from_env()``, as in the JAX package.
+
+ZeRO, overlap scheduling and Adasum are later work and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,32 +36,28 @@ from .ops.compression import Compression, Compressor
 
 __all__ = ["DistributedOptimizer", "allreduce_gradients"]
 
-_PORTED_COMPRESSION = (Compression.none, Compression.fp16, Compression.bf16)
-
-
-def _check_supported(op: ReduceOp, compression: Compressor) -> None:
+def _check_supported(op: ReduceOp) -> None:
     if ReduceOp(op) == ReduceOp.ADASUM:
         raise NotImplementedError(
             "Adasum is not ported yet (ROADMAP Queue 1, item 8)")
     if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM):
         raise ValueError(f"Unsupported gradient reduce op: {op}")
-    if compression not in _PORTED_COMPRESSION:
-        raise NotImplementedError(
-            f"compression {compression!r} is not ported yet: the int8/int4 "
-            "wires are ROADMAP Queue 1, item 6")
 
 
 def allreduce_gradients(grads: Sequence[torch.Tensor],
                         op: ReduceOp = ReduceOp.AVERAGE,
-                        compression: Compressor = Compression.none,
+                        compression: Optional[Compressor] = None,
                         threshold_bytes: Optional[int] = None,
                         prescale_factor: float = 1.0,
                         postscale_factor: float = 1.0,
                         process_set: Optional[ProcessSet] = None
                         ) -> List[torch.Tensor]:
     """Fused gradient allreduce for custom update loops: the reduced
-    tensors, in input order."""
-    _check_supported(op, compression)
+    tensors, in input order.  ``compression=None`` reads the
+    environment (``Compression.from_env()``)."""
+    _check_supported(op)
+    if compression is None:
+        compression = Compression.from_env()
     return dev.fused_allreduce(
         grads, op=op, threshold_bytes=threshold_bytes,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
@@ -143,7 +146,7 @@ class _DistributedOptimizer:
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                          op: ReduceOp = ReduceOp.AVERAGE,
-                         compression: Compressor = Compression.none,
+                         compression: Optional[Compressor] = None,
                          backward_passes_per_step: int = 1,
                          threshold_bytes: Optional[int] = None,
                          prescale_factor: float = 1.0,
@@ -161,8 +164,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     Args:
       optimizer: the optimizer to wrap.
       op: Average (default) or Sum.
-      compression: Compression.none / .fp16 / .bf16 — the wire type of
-        the fused collectives.
+      compression: the wire of the fused collectives: Compression.none /
+        .fp16 / .bf16 (casts) or .int8 / .int4 (the quantized allreduce).
+        None (default) reads ``HVDT_COMPRESSION`` / ``HVDT_QUANT``.
       backward_passes_per_step: passes accumulated locally between
         collectives (see module docstring).
       threshold_bytes: fusion bucket size; default ``HVDT_FUSION_THRESHOLD``.
@@ -173,7 +177,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     if zero is not None:
         raise NotImplementedError(
             "ZeRO state sharding is not ported yet (ROADMAP Queue 1, item 8)")
-    _check_supported(op, compression)
+    _check_supported(op)
+    if compression is None:
+        compression = Compression.from_env()
     return _DistributedOptimizer(optimizer, op, compression,
                                  backward_passes_per_step, threshold_bytes,
                                  prescale_factor, postscale_factor,

@@ -117,6 +117,10 @@ def test_unported_options_raise(world1):
         hvd.DistributedOptimizer(opt, op=hvd.Adasum)
     with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
         hvd.DistributedOptimizer(opt, zero="states")
+    # The int8/int4 wires are ported: they build.
+    for comp in (hvd.Compression.int8, hvd.Compression.int4):
+        assert hvd.DistributedOptimizer(
+            opt, compression=comp)._compression is comp
 
 
 def test_backward_passes_per_step_accumulates(world1):
