@@ -34,7 +34,23 @@ Phases, one JSON line each:
    error feedback and of one exchange over each wire;
 9. int4    — 2 steps with compression left unset and HVDT_COMPRESSION=
    int4 (Compression.from_env), with_error_feedback(..., wire="int4");
-10. summary — the kernels line.
+10. flash_kernel — the three flash-attention kernels (#9 forward, #10
+   dQ, #11 dK/dV) against their plain versions at the LM path's shape
+   (B 16, H 16, L 4096, D 64, bf16, causal), with
+   scaled_dot_product_attention's forward and backward as the library
+   yardstick; then one GQA case (Hkv 4) and one offset case of
+   flash_block_update;
+11. lm_train — the bert-large transformer LM preset at full width and
+   depth (24 x 1024, 16 heads, d_ff 4096, vocab 30528, bf16 compute, f32
+   params, remat full, loss_chunk 8192) at seq 4096, batch 16, through
+   init, broadcast_parameters and DistributedOptimizer(fused_adam(3e-4,
+   weight_decay=1e-4)), HVDT_FLASH_ATTENTION unset (the auto gate must
+   engage) and HVDT_FLASH_BWD=kernel, 3 steps: per step #9 launches 48
+   times (forward and remat recompute), #10 and #11 24 times each;
+12. lm_bwd_default — 2 steps with HVDT_FLASH_BWD unset (the plain
+   blockwise backward); the first step's gradients are held against the
+   kernel backward's from the same state;
+13. summary — total wall time, then the kernels line.
 
 Any failure raises and the script exits non-zero without the last line,
 which is exactly {"ok": true, "device": {...}} on success.  Without a
@@ -366,11 +382,310 @@ def phase_quant_kernels(params, gen):
     return totals, sizes
 
 
+# The LM path's attention shape: bert-large at seq 4096, batch 16.
+LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM = 16, 4096, 16, 64
+
+
+def _visible_pairs(lq: int, lk: int, q_offset: int, k_offset: int) -> int:
+    """(q, k) pairs a causal pass needs: q_offset + i >= k_offset + j."""
+    return sum(max(0, min(lk, q_offset + i - k_offset + 1))
+               for i in range(lq))
+
+
+def _flash_bounds(b, lq, lk, h, hkv, d, pairs):
+    """(bound_ms, bound_by) of #9 (finished form), #10 and #11: each
+    input read once, each output written once (o in bf16; dq and the
+    per-q-head dk/dv in f32; lse and delta one f32 per row); 2 FLOP per
+    multiply-add over the visible pairs, two products in the forward,
+    three in dQ, four in dK/dV."""
+    q_bytes, kv_bytes = 2.0 * b * lq * h * d, 2.0 * b * lk * hkv * d
+    row = 4.0 * b * h * lq
+    per_product = 2.0 * b * h * d * pairs
+    return {
+        "_kernel": bound(2 * q_bytes + 2 * kv_bytes + row,
+                         2 * per_product, PEAK_BF16_FLOPS),
+        "_dq_kernel": bound(4 * q_bytes + 2 * kv_bytes + 2 * row,
+                            3 * per_product, PEAK_BF16_FLOPS),
+        "_dkv_kernel": bound(2 * q_bytes + 2 * kv_bytes + 2 * row
+                             + 2 * 4.0 * b * lk * h * d,
+                             4 * per_product, PEAK_BF16_FLOPS),
+    }
+
+
+# One bf16 ulp relative (2^-7): the kernels and their plain versions
+# round the same f32 quantities to bf16 (P, dS, the output) and differ
+# only in the order of their f32 sums, so a rounding lands one ulp apart
+# now and then.  The logsumexp has no bf16 rounding: 1e-5.
+BF16_ULP, LSE_REL = 2.0 ** -7, 1e-5
+
+
+def closeness(got, want, rel: float) -> dict:
+    """How far ``got`` is from ``want``, each row against its own size.
+
+    A row is one [D] vector (one batch, position and head) of an output
+    shaped [B, L, H, D], else one value (lse, the carry's m and l).  The
+    tolerance of a row is ``rel * (|want row| + rms row norm)``: its own
+    L2 norm, plus the root-mean-square row norm as a floor for rows that
+    are near zero (row 0 of dQ is a sum that cancels to rounding noise).
+    Rows and not single elements, because an element of dQ or dK can
+    cancel to near zero while its terms are large.  ``err_over_tol`` is
+    the worst row's error over its tolerance: at most 1 to pass."""
+    g, w = got.float(), want.float()
+    diff = g - w
+    if w.dim() == 4:
+        err, size = diff.norm(dim=-1), w.norm(dim=-1)
+    else:
+        err, size = diff.abs(), w.abs()
+    floor = size.square().mean().sqrt()
+    worst = (err / (rel * (size + floor)).clamp_min(1e-30)).max().item()
+    return {"max_abs_err": diff.abs().max().item(),
+            "rel_l2": (diff.norm() / w.norm().clamp_min(1e-30)).item(),
+            "rms_want": w.square().mean().sqrt().item(),
+            "rel_tol": rel, "err_over_tol": worst}
+
+
+def _flash_case(pk, b, lq, lk, h, hkv, gen, *, q_offset=0, k_offset=0,
+                carry=False):
+    """Random bf16 operands of one flash call, [B, L, H, D]."""
+    d = LM_HEAD_DIM
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device).to(
+            torch.bfloat16)
+
+    case = dict(q=rnd(b, lq, h, d), k=rnd(b, lk, hkv, d),
+                v=rnd(b, lk, hkv, d), do=rnd(b, lq, h, d),
+                q_offset=q_offset, k_offset=k_offset, scale=d ** -0.5,
+                block_q=pk._fit_block(lq, 512), block_k=pk._fit_block(lk, 512),
+                block_kf=pk._fit_block(lk, 1024))
+    if carry:
+        case["carry"] = (
+            torch.randn((b, lq, h, d), generator=gen, device=gen.device),
+            torch.randn((b, h, lq), generator=gen, device=gen.device),
+            1.0 + torch.rand((b, h, lq), generator=gen, device=gen.device))
+    return case
+
+
+def _flash_calls(pk, c):
+    """{name: (kernel call, plain call)} of #9-#11 on case ``c``; the
+    backward pair reads the kernel forward's (out, lse)."""
+    fwd = dict(causal=True, scale=c["scale"], block_q=c["block_q"],
+               block_k=c["block_kf"], finish=True)
+    bwd = dict(causal=True, scale=c["scale"], block_q=c["block_q"],
+               block_k=c["block_k"])
+    args = (c["q"], c["k"], c["v"])
+    offs = (c["q_offset"], c["k_offset"])
+    out, lse = pk._flash_fwd(*args, None, *offs, **fwd)
+    delta = (c["do"].float() * out.float()).sum(-1).transpose(1, 2)
+    grad = (*args, c["do"], lse, delta, *offs)
+    return {
+        "_kernel": (lambda: pk._flash_fwd(*args, None, *offs, **fwd),
+                    lambda: pk._flash_fwd_plain(*args, None, *offs, **fwd)),
+        "_dq_kernel": (lambda: pk._flash_dq(*grad, **bwd),
+                       lambda: pk._flash_dq_plain(*grad, **bwd)),
+        "_dkv_kernel": (lambda: pk._flash_dkv(*grad, **bwd),
+                        lambda: pk._flash_dkv_plain(*grad, **bwd)),
+    }
+
+
+def _compare(name, got, want):
+    """:func:`closeness` of each of a kernel's outputs (the forward's
+    logsumexp at ``LSE_REL``, the rest at ``BF16_ULP``); raises if any is
+    out of tolerance."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    outs = [closeness(g, w, LSE_REL if name == "_kernel" and i == 1
+                      else BF16_ULP)
+            for i, (g, w) in enumerate(zip(got, want))]
+    assert all(o["err_over_tol"] <= 1.0 for o in outs), (name, outs)
+    return outs
+
+
+def phase_flash_kernels(gen, smi):
+    """#9-#11 against their plain versions at the LM path's shape, timed
+    beside their bounds and scaled_dot_product_attention (forward, and its
+    autograd backward, which computes dQ, dK and dV together); then a GQA
+    case and an offset case of flash_block_update."""
+    from horovod_tpu_torch.ops import pallas_kernels as pk
+
+    b, l, h, d = LM_BATCH, LM_SEQ, LM_HEADS, LM_HEAD_DIM
+    c = _flash_case(pk, b, l, l, h, h, gen)
+    calls = _flash_calls(pk, c)
+    bounds = _flash_bounds(b, l, l, h, h, d, _visible_pairs(l, l, 0, 0))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in
+                       (c["q"], c["k"], c["v"], c["do"]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True), iters=5)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    og = sdpa(qg, kg, vg, is_causal=True)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), dot,
+                                                  retain_graph=True), iters=5)
+    library = {"_kernel": lib_fwd, "_dq_kernel": lib_bwd,
+               "_dkv_kernel": lib_bwd}
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        outs = _compare(name, kern(), plain())
+        b_ms, b_by = bounds[name]
+        rows[name] = {"kernel_ms": cuda_ms(kern, iters=5),
+                      "plain_ms": cuda_ms(plain, iters=1, reps=3, warmup=1),
+                      "library_ms": library[name], "bound_ms": b_ms,
+                      "bound_by": b_by,
+                      "max_abs_err": max(o["max_abs_err"] for o in outs)}
+        emit({"phase": "flash_kernel", "name": name,
+              "shape": [b, l, h, h, d], "dtype": "bf16", "causal": True,
+              "outputs": outs, "card": smi, **rows[name]})
+    del c, calls, qt, kt, vt, dot, qg, kg, vg, og
+
+    # GQA (Hkv 4), and flash_block_update's offset form with a carry.
+    g = _flash_case(pk, 4, l, l, h, 4, gen)
+    gqa = {name: _compare(name, kern(), plain())
+           for name, (kern, plain) in _flash_calls(pk, g).items()}
+    o = _flash_case(pk, 4, 2048, 2048, h, h, gen, q_offset=2048,
+                    k_offset=1024, carry=True)
+    upd = dict(q_offset=o["q_offset"], k_offset=o["k_offset"], causal=True,
+               scale=o["scale"])
+    got = pk.flash_block_update(o["q"], o["k"], o["v"], *o["carry"], **upd)
+    want = pk._flash_fwd_plain(o["q"], o["k"], o["v"], o["carry"],
+                               o["q_offset"], o["k_offset"], causal=True,
+                               scale=o["scale"], block_q=512, block_k=1024,
+                               finish=False)
+    # The carry's acc sums P V unnormalized, P rounded to bf16 as in the
+    # forward: one bf16 ulp per row, as there; m and l are f32.
+    upd = [closeness(gt, w, BF16_ULP) for gt, w in zip(got, want)]
+    emit({"phase": "flash_kernel", "gqa": {"shape": [4, l, h, 4, d],
+                                           "outputs": gqa},
+          "block_update": {"shape": [4, 2048, h, h, d], "q_offset": 2048,
+                           "k_offset": 1024, "outputs": upd}})
+    assert all(o["err_over_tol"] <= 1.0 for o in upd), upd
+    del g, o, got, want
+    return rows
+
+
+def lm_config():
+    """The repo's bert-large preset (examples/jax_transformer_lm.py) at
+    seq 4096: the tools/tpu_ab.py lm_seq4096_fbwd_kernel configuration."""
+    from horovod_tpu_torch.models import TransformerConfig
+
+    return TransformerConfig(vocab=30528, layers=24, d_model=1024,
+                             heads=LM_HEADS, kv_heads=LM_HEADS, d_ff=4096,
+                             max_seq=LM_SEQ, dtype=torch.bfloat16,
+                             remat=True, loss_chunk=8192)
+
+
+def run_lm_steps(model, opt, tokens, cfg, steps, before_step=None):
+    from horovod_tpu_torch.models import transformer_loss
+
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = transformer_loss(model, tokens, cfg)
+        loss.backward()
+        if before_step is not None:
+            before_step()
+            before_step = None
+        opt.step()
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, losses
+
+
+def lm_grads(model, tokens, cfg):
+    """The loss's gradients from the model's current state (no step)."""
+    from horovod_tpu_torch.models import transformer_loss
+
+    model.zero_grad(set_to_none=True)
+    transformer_loss(model, tokens, cfg).backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def phase_lm(hvd, gen, smi):
+    """lm_train and lm_bwd_default; returns the lm_train launches."""
+    from horovod_tpu_torch.models import (transformer_flops_per_token,
+                                          transformer_init)
+
+    cfg = lm_config()
+    os.environ.pop("HVDT_FLASH_ATTENTION", None)
+    os.environ["HVDT_FLASH_BWD"] = "kernel"
+    model = transformer_init(0, cfg, device=gen.device)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4))
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_SEQ), generator=gen,
+                           device=gen.device)
+    tokens_per_step = LM_BATCH * LM_SEQ
+    flops_per_token = transformer_flops_per_token(cfg)
+    steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times, losses = run_lm_steps(model, opt, tokens, cfg, steps)
+    launches = counters()
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    emit({"phase": "lm_train", "model": "bert-large", "layers": cfg.layers,
+          "d_model": cfg.d_model, "heads": cfg.heads, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "batch": LM_BATCH, "seq": LM_SEQ,
+          "params": sum(p.numel() for p in model.parameters()),
+          "steps": steps, "losses": losses, "step_s": times,
+          "steady_step_s": steady, "tokens_per_s": tokens_per_step / steady,
+          "model_tflops": 3 * flops_per_token * tokens_per_step / steady
+          / 1e12,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "card": smi})
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_kernel"] == 48 * steps, launches
+    assert launches["_dq_kernel"] == 24 * steps, launches
+    assert launches["_dkv_kernel"] == 24 * steps, launches
+    assert launches["_adam_kernel"] >= 1, launches
+
+    # The plain blockwise backward: gradients from the same state as the
+    # kernel backward's, then 2 steps for their time.
+    kernel_grads = lm_grads(model, tokens, cfg)
+    del os.environ["HVDT_FLASH_BWD"]
+    errs = {}
+
+    def compare():
+        for n, p in model.named_parameters():
+            want = p.grad.float()
+            errs[n] = ((kernel_grads[n].float() - want).norm()
+                       / want.norm()).item()
+
+    reset_counters()
+    d_times, d_losses = run_lm_steps(model, opt, tokens, cfg, 2,
+                                     before_step=compare)
+    d_launches = counters()
+    # The kernel backward rounds P and dS to bf16 before its products
+    # (as the TPU kernels do); the blockwise backward keeps them f32.
+    # Each rounding moves a term by up to 2^-9 relative, and a gradient
+    # is a sum of such terms with heavy cancellation, carried back
+    # through 24 layers: about 1e-2 relative L2 per tensor on a 24-layer
+    # CPU rehearsal (d 256, seq 256).  5e-2 per tensor.
+    grad_tol = 5e-2
+    emit({"phase": "lm_bwd_default", "steps": 2, "losses": d_losses,
+          "step_s": d_times, "launches": d_launches,
+          "grad_rel_l2_vs_kernel_bwd": errs, "tolerance": grad_tol,
+          "card": smi})
+    assert all(math.isfinite(x) for x in d_losses), d_losses
+    assert d_launches["_kernel"] == 48 * 2, d_launches
+    assert d_launches["_dq_kernel"] == d_launches["_dkv_kernel"] == 0
+    assert max(errs.values()) <= grad_tol, errs
+    del model, opt, tokens, kernel_grads
+    torch.cuda.empty_cache()
+    return launches
+
+
 def reset_counters():
     from horovod_tpu_torch.ops import conv_fused as cf
     from horovod_tpu_torch.ops import optim_kernels as ok
+    from horovod_tpu_torch.ops import pallas_kernels as pk
     from horovod_tpu_torch.quant import kernels as qk
 
+    pk._flash_fwd.launches = 0
+    pk._flash_dq.launches = 0
+    pk._flash_dkv.launches = 0
     cf._mm_forward.launches = 0
     cf.matmul_batch_stats.launches = 0
     ok._sgd_leaf_fused.launches = 0
@@ -384,9 +699,13 @@ def reset_counters():
 def counters():
     from horovod_tpu_torch.ops import conv_fused as cf
     from horovod_tpu_torch.ops import optim_kernels as ok
+    from horovod_tpu_torch.ops import pallas_kernels as pk
     from horovod_tpu_torch.quant import kernels as qk
 
-    return {"_mm_kernel": cf._mm_forward.launches,
+    return {"_kernel": pk._flash_fwd.launches,
+            "_dq_kernel": pk._flash_dq.launches,
+            "_dkv_kernel": pk._flash_dkv.launches,
+            "_mm_kernel": cf._mm_forward.launches,
             "_mm_stats_kernel": cf.matmul_batch_stats.launches,
             "_sgd_kernel": ok._sgd_leaf_fused.launches,
             "_adam_kernel": ok._adam_leaf_fused.launches,
@@ -450,6 +769,7 @@ def main() -> int:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import ResNetConfig, resnet50_init
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
@@ -593,7 +913,11 @@ def main() -> int:
           "launches": int4_launches,
           "expected_quant_dequant": [want_q4, want_dq4],
           "exchange_vs_plain_max_abs_err": int4_err})
-    del int4_opt
+    del int4_opt, adam, opt, model, params, images, labels, grads
+    torch.cuda.empty_cache()
+
+    flash = phase_flash_kernels(gen, smi)
+    lm_launches = phase_lm(hvd, gen, smi)
     hvd.shutdown()
 
     sources = {"_mm_kernel": ("cuda", "horovod_tpu_torch/csrc/conv_fused.cu",
@@ -624,6 +948,12 @@ def main() -> int:
         "_dequant4_kernel": ("cuda", quant_cu,
                              "horovod_tpu/quant/kernels.py:328",
                              int4_launches)})
+    flash_cu = "horovod_tpu_torch/csrc/flash_attn.cu"
+    sources.update({
+        name: ("cuda", flash_cu, f"horovod_tpu/ops/pallas_kernels.py:{line}",
+               lm_launches)
+        for name, line in (("_kernel", 89), ("_dq_kernel", 412),
+                           ("_dkv_kernel", 461))})
     kernels = []
     for name, (route, source, replaces, launches) in sources.items():
         if name in conv:
@@ -632,6 +962,8 @@ def main() -> int:
             row["bound_by"] = max(by, key=by.get)
         elif name in quant:
             row = dict(quant[name], library_ms=None)
+        elif name in flash:
+            row = flash[name]
         else:
             row = dict(optim[name])
         kernels.append({"name": name, "route": route, "source": source,
@@ -642,6 +974,7 @@ def main() -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+    emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

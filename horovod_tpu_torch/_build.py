@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "build_log", "load_library", "BUILD_DIR",
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("conv_fused", "quant")
+SOURCES = ("conv_fused", "quant", "flash_attn")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()

@@ -69,6 +69,30 @@ KNOBS: Dict[str, Knob] = {
              "tensor, the plain PyTorch version for a CPU tensor), on (the "
              "kernel; a CPU tensor raises), off (the plain version "
              "everywhere, an explicit opt-out)."),
+        Knob("HVDT_FLASH_ATTENTION", "auto", str,
+             "Flash-attention kernel for the transformer's attention: auto "
+             "(CUDA tensors only, when the f32 score tensor batch x heads "
+             "x L x L would reach 4 GiB), on (whenever the sequence "
+             "tiles; the plain version for CPU tensors), off."),
+        Knob("HVDT_FLASH_BWD", "xla", str,
+             "flash_attention backward: xla (the reference's blockwise "
+             "recompute, plain PyTorch) or kernel (flash_grad_block: the "
+             "dQ and dK/dV kernels).  Read each time a backward runs."),
+        Knob("HVDT_FLASH_SMALLSEQ", "auto", str,
+             "Head-batched single-block attention (flash_attention_"
+             "smallseq) for seq <= 1024: auto (disengaged, as in the "
+             "reference), on (selects it; not ported yet, so it raises), "
+             "off.  HVDT_FLASH_ATTENTION=off overrides to off; "
+             "HVDT_FLASH_ATTENTION=on forces the streaming kernel."),
+        Knob("HVDT_REMAT", "", str,
+             "Activation rematerialization for the transformer block: "
+             "'none'/'' (default) saves all activations; 'full' saves "
+             "only block inputs (torch.utils.checkpoint per layer); "
+             "'dots' is not ported yet and raises."),
+        Knob("HVDT_FP8", "off", str,
+             "fp8 (e4m3) compute path: off (default) or matmul (the "
+             "transformer projections through fp8; not ported yet, so it "
+             "raises).  Unknown values raise with the valid list."),
         Knob("HVDT_RANK", -1, int, "Global process rank (set by launcher)."),
         Knob("HVDT_SIZE", -1, int, "Global process count (set by launcher)."),
         Knob("HVDT_LOCAL_RANK", -1, int,

@@ -1,9 +1,15 @@
-"""Carry ResNet weights and optimizer state from the JAX package's numpy
+"""Carry model weights and optimizer state from the JAX package's numpy
 pytrees into the PyTorch port (numpy in, tensors out; no JAX needed).
 
+ResNet:
 * conv weights HWIO → OIHW;
 * ``fc_w`` ``[cin, classes]`` → ``[classes, cin]``;
 * BN ``scale``/``bias`` and running ``mean``/``var`` copied.
+
+Transformer: every leaf copied under its dotted name (``embed``,
+``ln_f``, ``block.wq``, ...): the port keeps ``x @ w`` with ``w`` as
+[in, out] and the block leaves stacked [layers, ...], as the reference
+does.
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["resnet_params_from_jax", "optimizer_state_from_jax"]
+__all__ = ["resnet_params_from_jax", "transformer_params_from_jax",
+           "optimizer_state_from_jax"]
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -66,23 +73,47 @@ def resnet_params_from_jax(params_np: Dict, stats_np: Dict
     return sd
 
 
+def transformer_params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's transformer ``params`` numpy pytree → a
+    ``state_dict`` for :class:`horovod_tpu_torch.models.transformer.
+    Transformer` (copies, same layouts)."""
+    return _param_tensors(params_np)
+
+
+def _moments_state(opt_state: Any) -> Any:
+    """The ``TraceState`` / ``ScaleByAdamState`` inside ``opt_state``: the
+    state itself, or the first such member of an optax chain's tuple
+    (``optax.adamw``'s is ``opt_state[0]``)."""
+    if hasattr(opt_state, "trace") or hasattr(opt_state, "mu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for member in opt_state:
+            found = _moments_state(member)
+            if found is not None:
+                return found
+    return None
+
+
 def optimizer_state_from_jax(opt_state: Any, model: torch.nn.Module,
                              optimizer: torch.optim.Optimizer) -> None:
     """Copy an optax ``TraceState`` (``trace``) or ``ScaleByAdamState``
-    (``count``, ``mu``, ``nu``) of ResNet params into the port's
-    ``fused_sgd`` / ``fused_adam`` state, in place."""
+    (``count``, ``mu``, ``nu``) of the model's params into the port's
+    ``fused_sgd`` / ``fused_adam`` state, in place.  A chain's state (a
+    tuple, as ``optax.adamw`` gives) is searched for its first such
+    member."""
     named = dict(model.named_parameters())
+    state = _moments_state(opt_state)
     # A NamedTuple always has .count (tuple.count): key on the fields.
-    if hasattr(opt_state, "trace"):
-        fields = {"trace": opt_state.trace}
-    elif hasattr(opt_state, "mu"):
-        fields = {"mu": opt_state.mu, "nu": opt_state.nu}
-        for group in optimizer.param_groups:
-            group["count"] = int(np.asarray(opt_state.count))
-    else:
+    if state is None:
         raise TypeError(f"unsupported optimizer state {type(opt_state)!r}")
+    if hasattr(state, "trace"):
+        fields = {"trace": state.trace}
+    else:
+        fields = {"mu": state.mu, "nu": state.nu}
+        for group in optimizer.param_groups:
+            group["count"] = int(np.asarray(state.count))
     with torch.no_grad():
         for field, tree in fields.items():
             for name, t in _param_tensors(tree).items():
-                state = optimizer.state[named[name]][field]
-                state.copy_(t.to(state.device))
+                dst = optimizer.state[named[name]][field]
+                dst.copy_(t.to(dst.device))

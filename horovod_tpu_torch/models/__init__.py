@@ -7,3 +7,14 @@ from .resnet import (  # noqa: F401
     resnet_apply,
     resnet_loss,
 )
+from .transformer import (  # noqa: F401
+    Transformer,
+    TransformerConfig,
+    checkpoint_policy,
+    remat_from_env,
+    transformer_apply,
+    transformer_flops_per_token,
+    transformer_hidden,
+    transformer_init,
+    transformer_loss,
+)

@@ -1,0 +1,133 @@
+"""PyTorch port, the flash-attention CUDA kernels (csrc/flash_attn.cu)
+held against their plain PyTorch versions on the card.
+
+Every test is marked ``cuda`` and skips without a card.  This file
+imports neither JAX nor the JAX package, so it runs where only PyTorch
+is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_flash_card.py
+
+Tolerance, each row against its own size: a row is one [D] vector of
+an output shaped [B, L, H, D] (else one value), and its error in L2 must
+stay within one bf16/fp16 ulp relative (2^-7 / 2^-10) of its own norm
+plus the root-mean-square row norm (a floor for rows near zero).  The
+kernel and the plain version round the same f32 quantities (P, dS, the
+output) and differ only in the order of their f32 sums; rows and not
+elements, because an element of dQ or dK can cancel to near zero while
+its terms are large.  The logsumexp has no 16-bit rounding: 1e-5.
+"""
+
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import pallas_kernels as pk
+
+pytestmark = pytest.mark.cuda
+
+_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rand(gen, *shape, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def _assert_close(got, want, dtype, lse=False):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        rel = 1e-5 if (lse and i == 1) else _ULP[dtype]
+        diff, w = g.float() - w.float(), w.float()
+        if w.dim() == 4:
+            err, size = diff.norm(dim=-1), w.norm(dim=-1)
+        else:
+            err, size = diff.abs(), w.abs()
+        tol = rel * (size + size.square().mean().sqrt())
+        worst = (err / tol.clamp_min(1e-30)).max().item()
+        assert worst <= 1.0, (i, worst, diff.abs().max().item(),
+                              w.square().mean().sqrt().item())
+
+
+def _check(gen, b, lq, lk, h, hkv, d, dtype, causal, q_offset=0,
+           k_offset=0):
+    q, do = _rand(gen, b, lq, h, d, dtype=dtype), _rand(gen, b, lq, h, d,
+                                                        dtype=dtype)
+    k, v = (_rand(gen, b, lk, hkv, d, dtype=dtype) for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5, block_q=pk._fit_block(lq, 512),
+              block_k=pk._fit_block(lk, 512))
+    offs = (q_offset, k_offset)
+    got = pk._flash_fwd(q, k, v, None, *offs, finish=True, **kw)
+    _assert_close(got, pk._flash_fwd_plain(q, k, v, None, *offs, finish=True,
+                                           **kw), dtype, lse=True)
+    out, lse = got
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, lse, delta, *offs)
+    _assert_close(pk._flash_dq(*args, **kw), pk._flash_dq_plain(*args, **kw),
+                  dtype)
+    _assert_close(pk._flash_dkv(*args, **kw),
+                  pk._flash_dkv_plain(*args, **kw), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernels_match_plain(card, dtype, d, causal):
+    before = pk._flash_fwd.launches
+    _check(card, 2, 256, 256, 4, 2, d, dtype, causal)
+    assert pk._flash_fwd.launches == before + 1
+
+
+@pytest.mark.parametrize("lq,lk,hkv,d,causal", [
+    (200, 200, 2, 64, True), (200, 136, 1, 128, False),
+    (72, 200, 2, 64, False)])
+def test_ragged_lengths_are_masked(card, lq, lk, hkv, d, causal):
+    """Lengths that are not a multiple of the kernels' 64-row tiles."""
+    _check(card, 1, lq, lk, 2, hkv, d, torch.bfloat16, causal)
+
+
+def test_offsets_and_carry_match_plain(card):
+    """flash_block_update's carry form at global offsets, including a
+    K/V block wholly in the causal future (the carry comes back as it
+    went in)."""
+    b, lq, lk, h, d = 2, 128, 128, 4, 64
+    q = _rand(card, b, lq, h, d)
+    k, v = (_rand(card, b, lk, 2, d) for _ in range(2))
+    carry = (torch.randn((b, lq, h, d), generator=card, device="cuda"),
+             torch.randn((b, h, lq), generator=card, device="cuda"),
+             1.0 + torch.rand((b, h, lq), generator=card, device="cuda"))
+    for q_offset, k_offset in ((256, 128), (0, 10_000)):
+        kw = dict(q_offset=q_offset, k_offset=k_offset, causal=True,
+                  scale=d ** -0.5)
+        got = pk.flash_block_update(q, k, v, *carry, **kw)
+        want = pk._flash_fwd_plain(q, k, v, carry, q_offset, k_offset,
+                                   causal=True, scale=d ** -0.5, block_q=128,
+                                   block_k=128, finish=False)
+        _assert_close(got, want, torch.bfloat16)
+        if k_offset == 10_000:
+            for g, c in zip(got, carry):
+                assert torch.equal(g, c)
+    _check(card, 2, 256, 128, 4, 2, d, torch.bfloat16, True, 128, 64)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 96)])
+def test_unsupported_operands_raise(card, dtype, d):
+    """No quiet fallback on the card: another dtype or head dim raises."""
+    q = torch.zeros((1, 64, 2, d), dtype=dtype, device="cuda")
+    with pytest.raises(ValueError):
+        pk.flash_attention(q, q, q)
+    with pytest.raises(ValueError):
+        pk.flash_block_update(q, q, q, q.float(),
+                              torch.zeros((1, 2, 64), device="cuda"),
+                              torch.zeros((1, 2, 64), device="cuda"),
+                              q_offset=0, k_offset=0, causal=True,
+                              scale=1.0)
