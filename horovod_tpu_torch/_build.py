@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``horovod_tpu_torch/_build/`` (git-ignored), then loaded with
-``ctypes``.  The library's file name carries a hash of its source, so an
-edited source rebuilds and a stale library is never loaded.  A build
+``ctypes``.  The library's file name carries a hash of its source and of
+the ``csrc/*.cuh`` headers it includes, so an edited source or header
+rebuilds and a stale library is never loaded.  A build
 failure raises with the compiler's output: nothing falls back.
 
 ``build_all()`` starts one ``nvcc`` per source, all at once, and waits
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,8 +30,10 @@ __all__ = ["SOURCES", "build_all", "build_log", "load_library", "BUILD_DIR",
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("conv_fused", "quant", "flash_attn")
+SOURCES = ("conv_fused", "quant", "flash_attn", "flash_smallseq")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,10 +49,25 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes with
+    ``#include "..."``, directly or through another header."""
+    files, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        todo += [SRC_DIR / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(_ARCH).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(" ".join(_ARCH).encode())
+    for path in _sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _command(name: str, out: Path) -> List[str]:

@@ -79,11 +79,18 @@ KNOBS: Dict[str, Knob] = {
              "recompute, plain PyTorch) or kernel (flash_grad_block: the "
              "dQ and dK/dV kernels).  Read each time a backward runs."),
         Knob("HVDT_FLASH_SMALLSEQ", "auto", str,
-             "Head-batched single-block attention (flash_attention_"
-             "smallseq) for seq <= 1024: auto (disengaged, as in the "
-             "reference), on (selects it; not ported yet, so it raises), "
-             "off.  HVDT_FLASH_ATTENTION=off overrides to off; "
+             "Whole-sequence attention kernels (flash_attention_smallseq, "
+             "the forward and backward kernels of csrc/flash_smallseq.cu) "
+             "for the transformer at seq <= 1024: auto (disengaged until a "
+             "measured threshold is set, as in the reference), on (whenever "
+             "seq % 128 == 0 and seq <= 1024; the plain versions for CPU "
+             "tensors), off.  HVDT_FLASH_ATTENTION=off overrides to off; "
              "HVDT_FLASH_ATTENTION=on forces the streaming kernel."),
+        Knob("HVDT_FLASH_SMALLSEQ_HB", 8, int,
+             "heads_per_block for the smallseq attention kernels (clamped "
+             "to divide the head count and to whole GQA groups).  On the "
+             "card it shapes only the plain version's loop over heads; "
+             "auto's program count reads it."),
         Knob("HVDT_REMAT", "", str,
              "Activation rematerialization for the transformer block: "
              "'none'/'' (default) saves all activations; 'full' saves "

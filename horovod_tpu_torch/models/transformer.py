@@ -19,12 +19,17 @@ as the reference:
 * ``remat=True`` (``remat_policy="full"``) is ``jax.checkpoint`` per
   block in the reference and ``torch.utils.checkpoint`` per layer here;
   the recompute runs the attention forward a second time;
-* attention goes through the flash kernels (``ops/pallas_kernels.py``)
-  when :func:`_flash_fn` picks them: ``HVDT_FLASH_ATTENTION=auto``
-  engages on CUDA tensors when the f32 score tensor would reach 4 GiB
-  (the reference's gate, with "on the TPU" read as "on the card"), ``on``
-  whenever the sequence tiles (the plain versions on the CPU), ``off``
-  never; otherwise the materialized-score softmax;
+* attention goes through the kernels of ``ops/pallas_kernels.py`` when
+  :func:`_flash_fn` picks them, in the reference's order:
+  ``HVDT_FLASH_ATTENTION=off`` turns every kernel off and ``on`` forces
+  the streaming flash kernel; otherwise ``HVDT_FLASH_SMALLSEQ`` picks the
+  whole-sequence kernels (``flash_attention_smallseq``, ``on`` for seq %
+  128 == 0 up to 1024, ``auto`` disengaged while no measured threshold is
+  set), then ``HVDT_FLASH_ATTENTION=auto`` engages the streaming kernel on
+  CUDA tensors when the f32 score tensor would reach 4 GiB (the
+  reference's gates, with "on the TPU" read as "on the card"); otherwise
+  the materialized-score softmax.  On the CPU the kernels' plain versions
+  run;
 * the loss runs the full sequence and drops the last position; with
   ``loss_chunk`` the vocab is walked in checkpointed chunks with an
   online logsumexp (logits rounded to bf16 before the f32 math, the
@@ -250,15 +255,51 @@ def _flash_enabled(seq_len: int, head_dim: int, *, batch: int = 1,
             and device is not None and torch.device(device).type == "cuda")
 
 
+# 'auto' engagement threshold for the smallseq kernels: the least number
+# of (batch x head-block) programs, as in the reference.  None keeps auto
+# disengaged: no measured break-even exists for it on the card yet.
+_SMALLSEQ_AUTO_MIN_PROGRAMS: Optional[int] = None
+
+
+def _smallseq_vmem_ok(seq_len: int, head_dim: int, hb: int) -> bool:
+    """The reference's fit test for one (batch, head-block) program,
+    kept with its formula so ``auto`` answers as the reference does.
+
+    It models a TPU core's VMEM: the backward's bf16 q/do/out + k/v
+    blocks, f32 dq/dk/dv outputs and one head's f32 [L, L] probability
+    and d-score pair within a 12 MiB budget.  The card's kernels stream
+    64-row tiles through shared memory and do not depend on it; it is to
+    be re-fit when ``auto`` gets a threshold measured on the card."""
+    bf16_in = 5 * hb * seq_len * head_dim * 2
+    f32_out = 3 * hb * seq_len * head_dim * 4
+    scratch = 2 * seq_len * seq_len * 4
+    return bf16_in + f32_out + scratch <= 12 * 1024 ** 2
+
+
 def _smallseq_enabled(seq_len: int, head_dim: int, *, batch: int,
-                      heads: int) -> bool:
-    """Head-batched single-block kernel policy: HVDT_FLASH_SMALLSEQ.
-    'on' selects it for every sequence that fits one block (seq % 128
-    == 0 and seq <= 1024) — and :func:`flash_attention_smallseq` then
-    raises, since it is not ported yet; 'auto' stays disengaged, as in
-    the reference, which has no measured threshold for it."""
+                      heads: int, device: Optional[torch.device] = None
+                      ) -> bool:
+    """Whole-sequence kernel policy: HVDT_FLASH_SMALLSEQ=auto|on|off.
+
+    'on' selects :func:`flash_attention_smallseq` for every sequence that
+    fits one block (seq % 128 == 0 and seq <= 1024; on the CPU the plain
+    versions run).  'auto' engages it on CUDA tensors when the sequence
+    fits, :func:`_smallseq_vmem_ok` holds and there are at least
+    ``_SMALLSEQ_AUTO_MIN_PROGRAMS`` (batch x head-block) programs — never
+    while that threshold is None.  ``batch``/``heads`` are local sizes."""
     mode = config.get_str("HVDT_FLASH_SMALLSEQ").lower()
-    return mode == "on" and seq_len % 128 == 0 and seq_len <= 1024
+    if mode == "off":
+        return False
+    shapes_ok = seq_len % 128 == 0 and seq_len <= 1024
+    if mode == "on":
+        return shapes_ok
+    if _SMALLSEQ_AUTO_MIN_PROGRAMS is None:
+        return False
+    hb = min(config.get_int("HVDT_FLASH_SMALLSEQ_HB"), max(heads, 1))
+    programs = batch * max(heads, 1) // max(hb, 1)
+    return (shapes_ok and _smallseq_vmem_ok(seq_len, head_dim, hb)
+            and programs >= _SMALLSEQ_AUTO_MIN_PROGRAMS
+            and device is not None and torch.device(device).type == "cuda")
 
 
 def _flash_fn(seq_len: int, head_dim: int, *, batch: int, heads: int,
@@ -270,8 +311,10 @@ def _flash_fn(seq_len: int, head_dim: int, *, batch: int, heads: int,
     if mode == "off":
         return None
     if mode != "on" and _smallseq_enabled(seq_len, head_dim, batch=batch,
-                                          heads=heads):
-        return functools.partial(flash_attention_smallseq, causal=True)
+                                          heads=heads, device=device):
+        return functools.partial(
+            flash_attention_smallseq, causal=True,
+            heads_per_block=config.get_int("HVDT_FLASH_SMALLSEQ_HB"))
     if _flash_enabled(seq_len, head_dim, batch=batch, heads=heads,
                       device=device):
         return functools.partial(flash_attention, causal=True)

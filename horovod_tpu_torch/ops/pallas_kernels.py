@@ -1,4 +1,5 @@
-"""Flash attention: the streaming forward and its two backward passes.
+"""Flash attention: the streaming forward and its two backward passes,
+and the whole-sequence ("smallseq") forward and backward.
 
 The PyTorch counterpart of the JAX package's ``ops/pallas_kernels.py``
 (the module keeps its name so the two are found side by side).  The
@@ -6,9 +7,9 @@ naive einsum materializes the [B, H, Lq, Lk] score matrix in device
 memory; the flash kernels stream K/V blocks past a resident Q block with
 an online softmax, so memory traffic is O(L·D) instead of O(L²).
 
-Three kernels, written in CUDA C++ for Hopper in ``csrc/flash_attn.cu``
-(its header says what bounds them and how the design answers it), each
-beside its plain PyTorch version:
+Five kernels, written in CUDA C++ for Hopper (each source's header says
+what bounds its kernels and how the design answers it), each beside its
+plain PyTorch version.  In ``csrc/flash_attn.cu``:
 
 * ``_flash_fwd`` (replaces ``_kernel``, via ``_flash_call``) — #9: the
   online-softmax forward with an ``(acc, m, l)`` carry in and out, causal
@@ -21,11 +22,22 @@ beside its plain PyTorch version:
 * ``_flash_dkv`` (replaces ``_dkv_kernel``) — #11: dK, dV per q-head in
   f32 (``flash_grad_block`` sums a GQA group afterwards).
 
+In ``csrc/flash_smallseq.cu``, for sequences that fit one block (the
+short-sequence regime of BERT-style pretraining):
+
+* ``_smallseq_fwd`` (replaces ``_smallseq_fwd_kernel``) — #12:
+  softmax(q kᵀ · scale) v and the logsumexp against each row's exact max,
+  with no online carry;
+* ``_smallseq_bwd`` (replaces ``_smallseq_bwd_kernel``) — #13: dq, dk, dv
+  in the input dtype from the saved logsumexp, ``delta = rowsum(dO * O)``
+  computed inside and a GQA group's dk/dv summed inside; one call.
+
 Entry points, with the reference's signatures and [B, L, H, D] layouts:
 :func:`flash_attention` (differentiable), :func:`flash_block_update` (one
 ring step on the carry), :func:`flash_grad_block` (the kernel backward of
-one Q x K/V block pair), :func:`attention_reference` (the oracle), and
-:func:`flash_attention_smallseq`, which is not ported yet and raises.
+one Q x K/V block pair), :func:`flash_attention_smallseq`
+(differentiable, through #12 and #13) and :func:`attention_reference`
+(the oracle).
 
 A ``torch.autograd.Function`` takes the place of the reference's
 ``custom_vjp``.  Its backward reads ``HVDT_FLASH_BWD`` when it runs:
@@ -36,9 +48,10 @@ ported as plain PyTorch (:func:`_flash_attn_bwd_blockwise`).
 Each kernel wrapper takes its plain version only for a tensor on the
 CPU; on a CUDA tensor it launches the kernel or raises (``ValueError``
 for a dtype other than bf16/fp16 or a head dim other than 64/128).
-``block_q``/``block_k`` shape the plain versions' loops, which follow the
-TPU kernels' block order and pruning; the CUDA kernels tile at 64 rows.
-``launches`` on each wrapper counts kernel launches.
+``block_q``/``block_k`` (and ``heads_per_block`` for #12/#13) shape the
+plain versions' loops, which follow the TPU kernels' block order and
+pruning; the CUDA kernels tile at 64 rows.  ``launches`` on each wrapper
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -84,6 +97,22 @@ def _lib() -> ctypes.CDLL:
         lib.hvdt_flash_dkv.argtypes = [p] * 8 + tail
         for fn in (lib.hvdt_flash_fwd, lib.hvdt_flash_dq, lib.hvdt_flash_dkv):
             fn.restype = i
+        lib._hvdt_typed = True
+    return lib
+
+
+def _smallseq_lib() -> ctypes.CDLL:
+    from .._build import load_library
+
+    lib = load_library("flash_smallseq")
+    if not getattr(lib, "_hvdt_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # B, H, Hkv, L, D, fp16, causal; scale; stream.
+        tail = [i] * 7 + [f, p]
+        lib.hvdt_smallseq_fwd.argtypes = [p] * 5 + tail
+        lib.hvdt_smallseq_bwd.argtypes = [p] * 9 + tail
+        lib.hvdt_smallseq_fwd.restype = i
+        lib.hvdt_smallseq_bwd.restype = i
         lib._hvdt_typed = True
     return lib
 
@@ -517,15 +546,192 @@ def flash_block_update(q: torch.Tensor, k_blk: torch.Tensor,
                       finish=False)
 
 
-def flash_attention_smallseq(q, k, v, *, causal: bool = True,
+# ---- kernels #12 and #13: whole-sequence attention ------------------------
+
+
+def _fit_heads_per_block(h: int, group: int, heads_per_block: int) -> int:
+    """Largest hb <= requested that divides h and is a multiple of the
+    GQA group (so a block's kv heads are whole).  ``group`` is the floor:
+    a request below it (or a knob value <= 0) clamps up to one whole kv
+    group per block, never 0 — the reference's clamp."""
+    hb = max(min(heads_per_block, h), group)
+    while h % hb or hb % group:
+        hb -= 1
+    return max(hb, group)
+
+
+def _head_blocks(h: int, hkv: int, hb: int):
+    """The TPU kernels' grid over heads: (q heads, kv heads) slices of
+    ``hb`` q heads and their ``hb // group`` kv heads."""
+    group = h // hkv
+    for h0 in range(0, h, hb):
+        yield slice(h0, h0 + hb), slice(h0 // group, (h0 + hb) // group)
+
+
+def _smallseq_fwd_plain(q, k, v, *, causal: bool, scale: float, hb: int):
+    """Plain version of ``_smallseq_fwd``: the TPU kernel's body over
+    blocks of ``hb`` heads — f32 scores times scale, -1e30 where masked,
+    the row's max, p = exp(s - max) zeroed where masked, its f32 sum, P
+    rounded to V's dtype before P·V, and o = acc / sum without a clamp."""
+    b, l, h, _ = q.shape
+    group = h // k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    mask = _seq_mask(0, l, 0, l, q.device) if causal else None
+    for heads, kv in _head_blocks(h, k.shape[2], hb):
+        qh = q[:, :, heads].transpose(1, 2).float()
+        kh, vh = _heads(k[:, :, kv], group), _heads(v[:, :, kv], group)
+        s = qh @ kh.float().transpose(-1, -2) * scale
+        if causal:
+            s = torch.where(mask, s, _NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        lsum = p.sum(-1, keepdim=True)
+        acc = p.to(vh.dtype).float() @ vh.float()
+        out[:, :, heads] = (acc / lsum).to(q.dtype).transpose(1, 2)
+        lse[:, heads] = (m + torch.log(lsum))[..., 0]
+    return out, lse
+
+
+def _smallseq_fwd(q, k, v, *, causal: bool, scale: float, hb: int):
+    """Whole-sequence attention of q [B, L, H, D] over k/v [B, L, Hkv, D]:
+    (o [B, L, H, D] in q's dtype, lse [B, H, L] f32).  ``hb`` shapes only
+    the plain version's loop."""
+    if q.device.type == "cpu":
+        return _smallseq_fwd_plain(q, k, v, causal=causal, scale=scale,
+                                   hb=hb)
+    q, k, v = _cuda_operands(q, k, v)
+    b, l, h, d = q.shape
+    if k.shape[1] != l:
+        raise ValueError(f"the smallseq kernels need lq == lk, got {l} and "
+                         f"{k.shape[1]}")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _smallseq_lib().hvdt_smallseq_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, h, k.shape[2], l, d, _KERNEL_DTYPES[q.dtype],
+            int(causal), float(scale), _stream(q))
+    _check_rc(rc, "hvdt_smallseq_fwd")
+    _smallseq_fwd.launches += 1
+    return out, lse
+
+
+_smallseq_fwd.launches = 0
+
+
+def _smallseq_bwd_plain(q, k, v, do, out, lse, *, causal: bool,
+                        scale: float, hb: int):
+    """Plain version of ``_smallseq_bwd``: the TPU kernel's body over
+    blocks of ``hb`` heads — p = exp(s·scale - lse) zeroed where masked,
+    delta = rowsum(dO·O) in f32, dV = round(p)ᵀ dO, dS = p (dP - delta)
+    scale, dQ = round(dS) K, dK = round(dS)ᵀ Q, a GQA group's dK/dV summed
+    in f32 from its first head on; returned in the input dtype."""
+    b, l, h, _ = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    mask = _seq_mask(0, l, 0, l, q.device) if causal else None
+    for heads, kv in _head_blocks(h, hkv, hb):
+        qh, doh, oh = (x[:, :, heads].transpose(1, 2) for x in (q, do, out))
+        kh, vh = _heads(k[:, :, kv], group), _heads(v[:, :, kv], group)
+        s = qh.float() @ kh.float().transpose(-1, -2) * scale
+        p = torch.exp(s - lse[:, heads, :, None])
+        if causal:
+            p = torch.where(mask, p, 0.0)
+        delta = (doh.float() * oh.float()).sum(-1, keepdim=True)
+        dv_c = p.to(doh.dtype).float().transpose(-1, -2) @ doh.float()
+        dp = doh.float() @ vh.float().transpose(-1, -2)
+        ds = (p * (dp - delta) * scale).to(qh.dtype).float()
+        dq[:, :, heads] = (ds @ kh.float()).to(q.dtype).transpose(1, 2)
+        dk_c = ds.transpose(-1, -2) @ qh.float()
+        # [B, hb, L, D] -> [B, hb_kv, group, L, D]: sum each group in order.
+        dk_c = dk_c.unflatten(1, (-1, group))
+        dv_c = dv_c.unflatten(1, (-1, group))
+        dk_b, dv_b = dk_c[:, :, 0], dv_c[:, :, 0]
+        for i in range(1, group):
+            dk_b, dv_b = dk_b + dk_c[:, :, i], dv_b + dv_c[:, :, i]
+        dk[:, :, kv] = dk_b.to(k.dtype).transpose(1, 2)
+        dv[:, :, kv] = dv_b.to(v.dtype).transpose(1, 2)
+    return dq, dk, dv
+
+
+def _smallseq_bwd(q, k, v, do, out, lse, *, causal: bool, scale: float,
+                  hb: int):
+    """(dq [B, L, H, D], dk, dv [B, L, Hkv, D]) in the input dtype from
+    dO [B, L, H, D], the forward's out and lse [B, H, L] f32.  One
+    launch."""
+    if q.device.type == "cpu":
+        return _smallseq_bwd_plain(q, k, v, do, out, lse, causal=causal,
+                                   scale=scale, hb=hb)
+    q, k, v, do, out = _cuda_operands(q, k, v, do, out)
+    b, l, h, d = q.shape
+    if k.shape[1] != l:
+        raise ValueError(f"the smallseq kernels need lq == lk, got {l} and "
+                         f"{k.shape[1]}")
+    lse = lse.float().contiguous()
+    if lse.shape != (b, h, l):
+        raise ValueError(f"lse must be [B, H, L] = {(b, h, l)}, got "
+                         f"{tuple(lse.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = _smallseq_lib().hvdt_smallseq_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, k.shape[2], l, d, _KERNEL_DTYPES[q.dtype],
+            int(causal), float(scale), _stream(q))
+    _check_rc(rc, "hvdt_smallseq_bwd")
+    _smallseq_bwd.launches += 1
+    return dq, dk, dv
+
+
+_smallseq_bwd.launches = 0
+
+
+class _SmallseqAttn(torch.autograd.Function):
+    """Kernel forward (#12) saving (q, k, v, out, lse); kernel backward
+    (#13) — the reference's ``_smallseq_diff`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, hb):
+        out, lse = _smallseq_fwd(q, k, v, causal=causal, scale=scale, hb=hb)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = (causal, scale, hb)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, hb = ctx.opts
+        dq, dk, dv = _smallseq_bwd(q, k, v, do.contiguous(), out, lse,
+                                   causal=causal, scale=scale, hb=hb)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_smallseq(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
                              scale: Optional[float] = None,
-                             heads_per_block: int = 8):
-    """Head-batched single-block attention (the reference's kernels #12
-    and #13): not ported yet."""
-    raise NotImplementedError(
-        "flash_attention_smallseq (_smallseq_fwd_kernel / "
-        "_smallseq_bwd_kernel) is not ported yet (ROADMAP Queue 2, items "
-        "12-13)")
+                             heads_per_block: int = 8) -> torch.Tensor:
+    """Whole-sequence fused attention for the short-sequence regime (the
+    BERT-Large-shape complement of :func:`flash_attention`): q [B, L, H,
+    D], k/v [B, L, Hkv, D] (GQA via fewer kv heads) → [B, L, H, D] in q's
+    dtype.  Differentiable: the forward is kernel #12 and the backward
+    kernel #13, which recomputes the probabilities from the saved
+    logsumexp.  ``heads_per_block`` is clamped as the reference clamps it
+    and shapes the plain version's loop over heads."""
+    b, l, h, d = q.shape
+    hkv = k.shape[2]
+    if h % hkv:
+        raise ValueError(f"q heads {h} not divisible by kv heads {hkv}")
+    if k.shape[1] != l:
+        raise ValueError("flash_attention_smallseq needs lq == lk "
+                         f"(got {l} vs {k.shape[1]})")
+    if scale is None:
+        scale = d ** -0.5
+    hb = _fit_heads_per_block(h, h // hkv, heads_per_block)
+    return _SmallseqAttn.apply(q, k, v, causal, float(scale), hb)
 
 
 def attention_reference(q, k, v, *, causal=True, scale=None):

@@ -34,12 +34,16 @@ _ATOL = 2e-6
 _GRAD_ATOL = 1e-5
 
 
+_KERNELS = (tpk._flash_fwd, tpk._flash_dq, tpk._flash_dkv, tpk._smallseq_fwd,
+            tpk._smallseq_bwd)
+
+
 @pytest.fixture(autouse=True)
 def _no_launches():
-    for fn in (tpk._flash_fwd, tpk._flash_dq, tpk._flash_dkv):
+    for fn in _KERNELS:
         fn.launches = 0
     yield
-    for fn in (tpk._flash_fwd, tpk._flash_dq, tpk._flash_dkv):
+    for fn in _KERNELS:
         assert fn.launches == 0
 
 
@@ -235,6 +239,16 @@ def test_attention_reference_matches_jax(causal, h, hkv):
 
 
 def test_smallseq_is_not_ported_yet():
-    q, k, v = _t(*_qkv(14))
-    with pytest.raises(NotImplementedError, match="Queue 2, items 12-13"):
-        tpk.flash_attention_smallseq(q, k, v)
+    """Named for when flash_attention_smallseq raised; it is ported now
+    (tests/test_torch_port_smallseq.py holds it in full): on the CPU it
+    runs its plain versions, matches the reference's kernel and the
+    oracle, and is differentiable."""
+    q, k, v = _qkv(14, h=4, hkv=2)
+    want = jpk.flash_attention_smallseq(*_j(q, k, v), heads_per_block=2)
+    leaves = [x.requires_grad_() for x in _t(q, k, v)]
+    got = tpk.flash_attention_smallseq(*leaves, heads_per_block=2)
+    _close(got.detach(), want)
+    _close(got.detach(), tpk.attention_reference(*_t(q, k, v)), atol=2e-5)
+    got.sum().backward()
+    assert all(x.grad is not None and torch.isfinite(x.grad).all()
+               for x in leaves)

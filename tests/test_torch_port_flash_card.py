@@ -1,5 +1,6 @@
-"""PyTorch port, the flash-attention CUDA kernels (csrc/flash_attn.cu)
-held against their plain PyTorch versions on the card.
+"""PyTorch port, the attention CUDA kernels (csrc/flash_attn.cu, #9-#11,
+and csrc/flash_smallseq.cu, #12-#13) held against their plain PyTorch
+versions on the card.
 
 Every test is marked ``cuda`` and skips without a card.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch
@@ -131,3 +132,74 @@ def test_unsupported_operands_raise(card, dtype, d):
                               torch.zeros((1, 2, 64), device="cuda"),
                               q_offset=0, k_offset=0, causal=True,
                               scale=1.0)
+
+
+# ---- the whole-sequence kernels #12 and #13 ---------------------------------
+
+
+def _check_smallseq(gen, b, l, h, hkv, d, dtype, causal):
+    q, do = _rand(gen, b, l, h, d, dtype=dtype), _rand(gen, b, l, h, d,
+                                                       dtype=dtype)
+    k, v = (_rand(gen, b, l, hkv, d, dtype=dtype) for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5,
+              hb=pk._fit_heads_per_block(h, h // hkv, 8))
+    got = pk._smallseq_fwd(q, k, v, **kw)
+    _assert_close(got, pk._smallseq_fwd_plain(q, k, v, **kw), dtype,
+                  lse=True)
+    args = (q, k, v, do, *got)
+    grads = pk._smallseq_bwd(*args, **kw)
+    assert all(g.dtype == dtype for g in grads)
+    _assert_close(grads, pk._smallseq_bwd_plain(*args, **kw), dtype)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_smallseq_kernels_match_plain(card, dtype, d, causal):
+    before = (pk._smallseq_fwd.launches, pk._smallseq_bwd.launches)
+    _check_smallseq(card, 2, 256, 4, 2, d, dtype, causal)
+    assert (pk._smallseq_fwd.launches, pk._smallseq_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("l,hkv,d,causal", [
+    (200, 2, 64, True), (200, 1, 128, False), (72, 4, 64, True),
+    (65, 2, 64, True)])
+def test_smallseq_ragged_lengths_are_masked(card, l, hkv, d, causal):
+    """Lengths that are not a multiple of the kernels' 64-row tiles, and
+    GQA groups of 1, 2 and 4."""
+    _check_smallseq(card, 2, l, 4, hkv, d, torch.bfloat16, causal)
+
+
+def test_smallseq_autograd_runs_the_kernels(card):
+    """flash_attention_smallseq on CUDA tensors: one launch of #12 in the
+    forward and one of #13 in the backward, gradients as the plain
+    backward's."""
+    q, k, v = (_rand(card, 2, 128, 4, 64) for _ in range(3))
+    do = _rand(card, 2, 128, 4, 64)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (pk._smallseq_fwd.launches, pk._smallseq_bwd.launches)
+    out = pk.flash_attention_smallseq(*leaves)
+    out.backward(do)
+    assert (pk._smallseq_fwd.launches, pk._smallseq_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    o_ref, lse = pk._smallseq_fwd_plain(q, k, v, causal=True,
+                                        scale=64 ** -0.5, hb=4)
+    want = pk._smallseq_bwd_plain(q, k, v, do, out.detach(), lse,
+                                  causal=True, scale=64 ** -0.5, hb=4)
+    _assert_close(out.detach(), o_ref, torch.bfloat16)
+    _assert_close(tuple(x.grad for x in leaves), want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 96)])
+def test_smallseq_unsupported_operands_raise(card, dtype, d):
+    """No quiet fallback on the card: another dtype or head dim raises."""
+    q = torch.zeros((1, 64, 2, d), dtype=dtype, device="cuda")
+    with pytest.raises(ValueError):
+        pk.flash_attention_smallseq(q, q, q)
+    with pytest.raises(ValueError):
+        pk._smallseq_bwd(q, q, q, q, q, torch.zeros((1, 2, 64), device="cuda"),
+                         causal=True, scale=1.0, hb=2)

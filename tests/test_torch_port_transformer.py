@@ -87,8 +87,8 @@ def _np(tree):
 
 @pytest.fixture(autouse=True)
 def _no_launches():
-    fns = (tpk._flash_fwd, tpk._flash_dq, tpk._flash_dkv,
-           tok._adam_leaf_fused)
+    fns = (tpk._flash_fwd, tpk._flash_dq, tpk._flash_dkv, tpk._smallseq_fwd,
+           tpk._smallseq_bwd, tok._adam_leaf_fused)
     for fn in fns:
         fn.launches = 0
     yield
@@ -212,21 +212,35 @@ def test_flash_gate_default_is_auto(monkeypatch):
 
 
 def test_smallseq_on_raises_and_streaming_overrides(monkeypatch, jax_side):
-    params, tokens, _ = jax_side
+    """Named for when HVDT_FLASH_SMALLSEQ=on raised; now it routes the
+    attention through flash_attention_smallseq (the loss matches the
+    materialized-score path's), HVDT_FLASH_ATTENTION=on forces the
+    streaming kernel instead and off turns both off; auto stays
+    disengaged."""
+    params, tokens, get = jax_side
     cfg = _tcfg()
     model = _port(params, cfg)
+    calls = {"smallseq": 0, "flash": 0}
+    for name, key in (("flash_attention_smallseq", "smallseq"),
+                      ("flash_attention", "flash")):
+        real = getattr(tt, name)
+        monkeypatch.setattr(
+            tt, name, lambda *a, _r=real, _k=key, **k:
+            calls.__setitem__(_k, calls[_k] + 1) or _r(*a, **k))
+    want, _ = get("off", "xla", 0)
     monkeypatch.setenv("HVDT_FLASH_SMALLSEQ", "on")
-    monkeypatch.delenv("HVDT_FLASH_ATTENTION", raising=False)
-    with pytest.raises(NotImplementedError, match="Queue 2, items 12-13"):
-        tt.transformer_loss(model, torch.from_numpy(tokens), cfg)
-    # HVDT_FLASH_ATTENTION=on forces the streaming kernel instead; off
-    # turns both off.
-    for mode in ("on", "off"):
-        monkeypatch.setenv("HVDT_FLASH_ATTENTION", mode)
-        assert torch.isfinite(tt.transformer_loss(
-            model, torch.from_numpy(tokens), cfg))
+    for mode, smallseq, flash in ((None, 2, 0), ("on", 0, 2), ("off", 0, 0)):
+        if mode is None:
+            monkeypatch.delenv("HVDT_FLASH_ATTENTION", raising=False)
+        else:
+            monkeypatch.setenv("HVDT_FLASH_ATTENTION", mode)
+        calls.update(smallseq=0, flash=0)
+        loss = tt.transformer_loss(model, torch.from_numpy(tokens), cfg)
+        assert calls == {"smallseq": smallseq, "flash": flash}, mode
+        np.testing.assert_allclose(loss.item(), want, rtol=1e-5)
     monkeypatch.setenv("HVDT_FLASH_SMALLSEQ", "auto")
-    assert not tt._smallseq_enabled(512, 64, batch=128, heads=16)
+    assert not tt._smallseq_enabled(512, 64, batch=128, heads=16,
+                                    device=_CUDA)
 
 
 @pytest.mark.parametrize("kw,match", [
