@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc (CUDA_HOME or /usr/local/cuda) and triton.
+Needs one CUDA card and nvcc (CUDA_HOME or /usr/local/cuda).
 Phases, one JSON line each:
 
 1. device  — the card's name and power limit (nvidia-smi);
@@ -12,7 +12,10 @@ Phases, one JSON line each:
    on the card, at the shapes ResNet-50 at batch 64 gives it, with its
    time, the plain version's, the least time the card could take
    (bound) and one PyTorch library call's (timed only, never used by
-   the port);
+   the port); the optimizer kernels (#1, #2) as the train step calls
+   them, one FusedAdam / FusedSGD step over the 161 leaves, held
+   bit-identical to use_kernels=False, with the step's device and host
+   times;
 4. train   — full-width ResNet-50 (1000 classes, 224x224, bf16 compute,
    f32 params, batch 64) in an NCCL world of one, broadcast_parameters,
    HVDT_FUSED_CONV1X1=1, DistributedOptimizer(fused_sgd(0.01, momentum
@@ -60,12 +63,17 @@ Phases, one JSON line each:
    width and depth, HVDT_FLASH_SMALLSEQ=on (HVDT_FLASH_ATTENTION and
    HVDT_FLASH_SMALLSEQ_HB unset), fused_adam(3e-4, weight_decay=1e-4), 3
    steps: per step #12 launches 48 times (forward and remat recompute),
-   #13 24 times and #9-#11 never;
+   #13 24 times and #9-#11 never (and in every train phase the optimizer
+   kernel exactly once a step);
 15. lm_smallseq_default — 2 steps with HVDT_FLASH_SMALLSEQ unset (the
    materialized-score attention: 2.1 GB of f32 scores stays under the 4
    GiB flash gate); the first step's gradients are held against the
    smallseq path's from the same state, and no attention kernel runs;
-16. summary — total wall time, then the kernels line (13 kernels).
+16. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
+   weight_decay=1e-4) step over clones of the bert-large leaves (11
+   leaves, 434.0M parameters), held bit-identical to the plain version,
+   beside torch.optim.AdamW(fused=True);
+17. summary — total wall time, then the kernels line (13 kernels).
 
 Any failure raises and the script exits non-zero without the last line,
 which is exactly {"ok": true, "device": {...}} on success.  Without a
@@ -96,6 +104,19 @@ def cuda_ms(fn, iters: int = 10, reps: int = 5, warmup: int = 3) -> float:
     """Time of one call of ``fn`` by CUDA events: the median over
     ``reps`` runs of the mean over ``iters`` back-to-back calls (one
     stray slow call moves a mean, not the median)."""
+    return cuda_ms_stats(fn, iters, reps, warmup)["median"]
+
+
+def _stats(times):
+    times = sorted(times)
+    return {"median": times[len(times) // 2], "min": times[0],
+            "max": times[-1]}
+
+
+def cuda_ms_stats(fn, iters: int = 10, reps: int = 5,
+                  warmup: int = 3) -> dict:
+    """:func:`cuda_ms` with the min and max of the reps beside the
+    median."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -109,7 +130,7 @@ def cuda_ms(fn, iters: int = 10, reps: int = 5, warmup: int = 3) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    return sorted(times)[reps // 2]
+    return _stats(times)
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -123,6 +144,42 @@ def host_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return sorted(times[1:])[reps // 2]
+
+
+def device_ms_stats(fn, iters: int = 10, reps: int = 5,
+                    sleep_cycles: int = 20_000_000) -> dict:
+    """Device time of one call of ``fn``: ``iters`` calls queued behind a
+    device sleep of ``sleep_cycles`` clocks (~10 ms), long enough for the
+    host to enqueue them all, so the events time the device alone and
+    not the host's enqueue.  Median, min and max over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return _stats(times)
+
+
+def enqueue_ms_stats(fn, reps: int = 21) -> dict:
+    """Host-clock time of one call of ``fn`` from an idle queue to its
+    return, without waiting for the device: what the host spends to
+    enqueue it."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return _stats(times)
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -157,12 +214,10 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    import triton
-
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "triton": triton.__version__})
+          "cuda": torch.version.cuda})
     return smi
 
 
@@ -255,86 +310,119 @@ def phase_conv_kernels(gen):
     return totals
 
 
-def _leaf_copies(params, gen, n_state):
-    """Clones of ``params`` with random grads and state tensors."""
-    def rand(p):   # in p's memory layout, as autograd gives grads
-        return torch.empty_like(p).normal_(generator=gen).mul_(0.01)
+def optim_row(name, base, gen, make_opt, make_lib, bytes_per, flops_per,
+              plain_iters=10):
+    """#1 or #2 as a train step calls it: ``make_opt(leaves,
+    use_kernels).step()`` over clones of ``base`` with random grads set,
+    through the kernel and through the plain version from the same state
+    (two steps, every parameter and moment held bit-identical), then
+    timed: the kernel step by CUDA events back to back, by CUDA events
+    behind a device sleep (the device alone) and by the host clock of
+    its enqueue (median, min, max), the plain step, and ``make_lib`` (a
+    torch.optim optimizer of the same function) on the same leaves."""
+    from horovod_tpu_torch.ops import optim_kernels as ok
 
-    return [(p.detach().clone(), rand(p), [rand(p).abs_()
-                                           for _ in range(n_state)])
-            for p in params]
-
-
-def _clone(leaves):
-    return [(q.clone(), g, [s.clone() for s in st]) for q, g, st in leaves]
+    grads = [torch.empty_like(b).normal_(generator=gen).mul_(0.01)
+             for b in base]
+    sides = []
+    for use_kernels in (True, False):
+        leaves = [b.detach().clone() for b in base]
+        for q, g in zip(leaves, grads):
+            q.grad = g
+        opt = make_opt(leaves, use_kernels)
+        before = ok._sgd_multi.launches + ok._adam_multi.launches
+        for _ in range(2):
+            opt.step()
+        launches = ok._sgd_multi.launches + ok._adam_multi.launches - before
+        assert launches == (2 if use_kernels else 0), (name, launches)
+        sides.append((leaves, opt))
+    torch.cuda.synchronize()
+    (kl, kopt), (pl, popt) = sides
+    err = 0.0
+    for a, b in zip(kl, pl):
+        err = max(err, _bit_err(a, b), *(
+            _bit_err(kopt.state[a][k], popt.state[b][k])
+            for k in kopt.state[a]))
+    assert err == 0.0, (name, err)
+    lib = [b.detach().clone() for b in base]
+    for t, g in zip(lib, grads):
+        t.grad = g
+    try:
+        library_ms = cuda_ms(make_lib(lib).step)
+    except (RuntimeError, TypeError) as e:   # no fused form in this torch
+        print(f"library optimizer unavailable: {e}", file=sys.stderr)
+        library_ms = None
+    n_params = sum(b.numel() for b in base)
+    kern = cuda_ms_stats(kopt.step)
+    dev = device_ms_stats(kopt.step)
+    host = enqueue_ms_stats(kopt.step)
+    b_ms, b_by = bound(float(bytes_per) * n_params,
+                       float(flops_per) * n_params, PEAK_F32_FLOPS)
+    row = {"kernel_ms": kern["median"], "kernel_ms_min": kern["min"],
+           "kernel_ms_max": kern["max"], "device_ms": dev["median"],
+           "device_ms_min": dev["min"], "device_ms_max": dev["max"],
+           "host_ms": host["median"],
+           "host_ms_min": host["min"], "host_ms_max": host["max"],
+           "plain_ms": cuda_ms(popt.step, iters=plain_iters),
+           "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err}
+    del sides, kl, pl, kopt, popt, lib, grads
+    torch.cuda.empty_cache()
+    return row, n_params
 
 
 def phase_optim_kernels(params, gen):
-    """#1 and #2 over all ResNet-50 leaves: one optimizer step through
-    the kernel against the plain version, from the same state."""
+    """#2 and #1 over all ResNet-50 leaves: one FusedSGD(0.01, momentum
+    0.9) / FusedAdam(1e-3) step, as the train and adam phases call it."""
     from horovod_tpu_torch.ops import optim_kernels as ok
 
-    n_params = sum(p.numel() for p in params)
     results = {}
-    for name, n_state, bytes_per in (("_sgd_kernel", 1, 20),
-                                     ("_adam_kernel", 2, 28)):
-        base = _leaf_copies(params, gen, n_state)
-
-        def step(leaves, use_kernels, name=name):
-            if name == "_sgd_kernel":
-                for q, g, (m,) in leaves:
-                    ok._sgd_leaf(g, m, 0.01, momentum=0.9, nesterov=False,
-                                 use_kernels=use_kernels, p=q)
-            else:
-                sc = ok._adam_scalars(3, 1e-3, 0.9, 0.999)
-                for q, g, (m, v) in leaves:
-                    ok._adam_leaf(q, g, m, v, sc, b1=0.9, b2=0.999, eps=1e-8,
-                                  eps_root=0.0, wd=0.0,
-                                  use_kernels=use_kernels, apply=True)
-
-        kern, plain = _clone(base), _clone(base)
-        step(kern, True)
-        step(plain, False)
-        torch.cuda.synchronize()
-        err = max(max((a - b).abs().max().item()
-                      for a, b in zip([q, *st], [q2, *st2]))
-                  for (q, _, st), (q2, _, st2) in zip(kern, plain))
-        # A few f32 ulps of the largest parameter: same formulas, same
-        # order, IEEE sqrt and division, no contraction on either side.
-        tol = 1e-6 * max(p.abs().max().item() for p in params)
-        assert err <= tol, (name, err, tol)
-
-        lib = [q.clone().requires_grad_() for q, _, _ in base]
-        for t, (_, g, _) in zip(lib, base):
-            t.grad = g
-        try:
-            lib_opt = (torch.optim.SGD(lib, lr=0.01, momentum=0.9, fused=True)
-                       if name == "_sgd_kernel" else
-                       torch.optim.Adam(lib, lr=1e-3, fused=True))
-            library_ms = cuda_ms(lib_opt.step)
-        except (RuntimeError, TypeError) as e:   # no fused form in this torch
-            print(f"library optimizer unavailable: {e}", file=sys.stderr)
-            library_ms = None
-        b_ms, b_by = bound(float(bytes_per) * n_params,
-                           (4.0 if n_state == 1 else 12.0) * n_params,
-                           PEAK_F32_FLOPS)
-        row = {"kernel_ms": cuda_ms(lambda: step(kern, True)),
-               "plain_ms": cuda_ms(lambda: step(plain, False)),
-               "library_ms": library_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "max_abs_err": err}
+    for name, make_opt, make_lib, bytes_per, flops_per in (
+            ("_sgd_kernel",
+             lambda ls, uk: ok.fused_sgd(ls, 0.01, momentum=0.9,
+                                         use_kernels=uk),
+             lambda ls: torch.optim.SGD(ls, lr=0.01, momentum=0.9,
+                                        fused=True), 20, 4),
+            ("_adam_kernel",
+             lambda ls, uk: ok.fused_adam(ls, 1e-3, use_kernels=uk),
+             lambda ls: torch.optim.Adam(ls, lr=1e-3, fused=True), 28, 12)):
+        row, n_params = optim_row(name, params, gen, make_opt, make_lib,
+                                  bytes_per, flops_per)
         emit({"phase": "kernel", "name": name, "leaves": len(params),
-              "params": n_params, "tolerance": tol, **row})
+              "params": n_params, "tolerance": 0.0, **row})
         results[name] = row
-        del kern, plain, base, lib
     return results
+
+
+def phase_optim_lm(gen, smi, shapes):
+    """#1 over clones of the bert-large leaves (``shapes``): one
+    FusedAdam(3e-4, weight_decay=1e-4) step as the LM phases call it,
+    beside torch.optim.AdamW(fused=True), the same decoupled decay."""
+    from horovod_tpu_torch.ops import optim_kernels as ok
+
+    base = [torch.randn(s, generator=gen, device=gen.device)
+            for s in shapes]
+    row, n_params = optim_row(
+        "_adam_kernel", base, gen,
+        lambda ls, uk: ok.fused_adam(ls, 3e-4, weight_decay=1e-4,
+                                     use_kernels=uk),
+        lambda ls: torch.optim.AdamW(ls, lr=3e-4, weight_decay=1e-4,
+                                     fused=True), 28, 12, plain_iters=3)
+    emit({"phase": "optim_lm", "name": "_adam_kernel", "leaves": len(base),
+          "params": n_params, "tolerance": 0.0, "card": smi, **row})
+    del base
+    torch.cuda.empty_cache()
+    return row
 
 
 QUANT_BLOCK = 256
 
 
 def _bits(t):
-    """A tensor's bytes as integers, for bit-identity checks."""
-    return t.contiguous().view(torch.uint8).to(torch.int16)
+    """A tensor's bytes as integers of its element size, for bit-identity
+    checks."""
+    return t.contiguous().view({1: torch.uint8, 2: torch.int16,
+                                4: torch.int32}[t.element_size()])
 
 
 def _bit_err(got, want) -> float:
@@ -782,7 +870,7 @@ def lm_train_phase(hvd, gen, smi, phase, seq, batch, per_step):
     assert all(math.isfinite(x) for x in losses), losses
     for step in steps_launches:
         assert all(step[n] == want for n, want in per_step.items()), step
-        assert step["_adam_kernel"] >= 1, step
+        assert step["_adam_kernel"] == 1, step
     return model, opt, tokens, cfg, launches
 
 
@@ -843,7 +931,7 @@ def phase_lm(hvd, gen, smi):
 def phase_lm_smallseq(hvd, gen, smi):
     """lm_smallseq (HVDT_FLASH_SMALLSEQ=on, the other attention knobs
     unset) and lm_smallseq_default (the materialized scores); returns the
-    lm_smallseq launches."""
+    lm_smallseq launches and the shapes of the model's leaves."""
     for knob in ("HVDT_FLASH_ATTENTION", "HVDT_FLASH_SMALLSEQ_HB",
                  "HVDT_FLASH_BWD"):
         os.environ.pop(knob, None)
@@ -859,9 +947,10 @@ def phase_lm_smallseq(hvd, gen, smi):
     for name in ("_kernel", "_dq_kernel", "_dkv_kernel",
                  "_smallseq_fwd_kernel", "_smallseq_bwd_kernel"):
         assert d_launches[name] == 0, d_launches
+    shapes = [tuple(p.shape) for p in model.parameters()]
     del model, opt, tokens
     torch.cuda.empty_cache()
-    return launches
+    return launches, shapes
 
 
 def reset_counters():
@@ -877,8 +966,8 @@ def reset_counters():
     pk._smallseq_bwd.launches = 0
     cf._mm_forward.launches = 0
     cf.matmul_batch_stats.launches = 0
-    ok._sgd_leaf_fused.launches = 0
-    ok._adam_leaf_fused.launches = 0
+    ok._sgd_multi.launches = 0
+    ok._adam_multi.launches = 0
     qk._quantize_cuda.launches = 0
     qk._dequantize_cuda.launches = 0
     qk._quantize4_cuda.launches = 0
@@ -898,8 +987,8 @@ def counters():
             "_smallseq_bwd_kernel": pk._smallseq_bwd.launches,
             "_mm_kernel": cf._mm_forward.launches,
             "_mm_stats_kernel": cf.matmul_batch_stats.launches,
-            "_sgd_kernel": ok._sgd_leaf_fused.launches,
-            "_adam_kernel": ok._adam_leaf_fused.launches,
+            "_sgd_kernel": ok._sgd_multi.launches,
+            "_adam_kernel": ok._adam_multi.launches,
             "_quant_kernel": qk._quantize_cuda.launches,
             "_dequant_kernel": qk._dequantize_cuda.launches,
             "_quant4_kernel": qk._quantize4_cuda.launches,
@@ -991,7 +1080,7 @@ def main() -> int:
     train_launches = counters()
     assert all(math.isfinite(x) for x in losses), losses
     assert train_launches["_mm_stats_kernel"] == 26 * steps, train_launches
-    assert train_launches["_sgd_kernel"] >= steps, train_launches
+    assert train_launches["_sgd_kernel"] == steps, train_launches
     steady = sorted(times[1:])[len(times[1:]) // 2]
     emit({"phase": "train", "model": "resnet50", "batch": BATCH,
           "image": IMAGE, "steps": steps, "losses": losses,
@@ -1029,7 +1118,7 @@ def main() -> int:
     a_times, a_losses = run_steps(model, adam, images, labels, 2)
     adam_launches = counters()
     assert all(math.isfinite(x) for x in a_losses), a_losses
-    assert adam_launches["_adam_kernel"] >= 2, adam_launches
+    assert adam_launches["_adam_kernel"] == 2, adam_launches
     assert adam_launches["_mm_stats_kernel"] == 52, adam_launches
     emit({"phase": "adam", "steps": 2, "losses": a_losses, "step_s": a_times,
           "launches": adam_launches})
@@ -1049,7 +1138,7 @@ def main() -> int:
     assert int8_launches["_quant_kernel"] == want_q, (int8_launches, want_q)
     assert int8_launches["_dequant_kernel"] == want_dq, (int8_launches,
                                                          want_dq)
-    assert int8_launches["_sgd_kernel"] >= steps, int8_launches
+    assert int8_launches["_sgd_kernel"] == steps, int8_launches
     assert int8_launches["_mm_stats_kernel"] == 26 * steps, int8_launches
     int8_err = quant_exchange_matches_plain(hvd, model, hvd.quant.INT8_WIRE)
     assert int8_err == 0.0, int8_err
@@ -1098,6 +1187,7 @@ def main() -> int:
     assert int4_launches["_quant4_kernel"] == want_q4, int4_launches
     assert int4_launches["_dequant4_kernel"] == want_dq4, int4_launches
     assert int4_launches["_quant_kernel"] == 0, int4_launches
+    assert int4_launches["_sgd_kernel"] == 2, int4_launches
     int4_err = quant_exchange_matches_plain(hvd, model, hvd.quant.INT4_WIRE)
     assert int4_err == 0.0, int4_err
     emit({"phase": "int4", "steps": 2, "losses": f_losses, "step_s": f_times,
@@ -1110,8 +1200,9 @@ def main() -> int:
     flash = phase_flash_kernels(gen, smi)
     lm_launches = phase_lm(hvd, gen, smi)
     flash.update(phase_smallseq_kernels(gen, smi))
-    ss_launches = phase_lm_smallseq(hvd, gen, smi)
+    ss_launches, lm_shapes = phase_lm_smallseq(hvd, gen, smi)
     hvd.shutdown()
+    phase_optim_lm(gen, smi, lm_shapes)
 
     sources = {"_mm_kernel": ("cuda", "horovod_tpu_torch/csrc/conv_fused.cu",
                               "horovod_tpu/ops/conv_fused.py:99",
@@ -1120,12 +1211,10 @@ def main() -> int:
                                     "horovod_tpu_torch/csrc/conv_fused.cu",
                                     "horovod_tpu/ops/conv_fused.py:267",
                                     train_launches),
-               "_sgd_kernel": ("triton",
-                               "horovod_tpu_torch/ops/optim_kernels.py",
+               "_sgd_kernel": ("cuda", "horovod_tpu_torch/csrc/optim.cu",
                                "horovod_tpu/ops/optim_kernels.py:289",
                                train_launches),
-               "_adam_kernel": ("triton",
-                                "horovod_tpu_torch/ops/optim_kernels.py",
+               "_adam_kernel": ("cuda", "horovod_tpu_torch/csrc/optim.cu",
                                 "horovod_tpu/ops/optim_kernels.py:120",
                                 adam_launches)}
     quant_cu = "horovod_tpu_torch/csrc/quant.cu"

@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "build_all", "build_log", "load_library", "BUILD_DIR",
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("conv_fused", "quant", "flash_attn", "flash_smallseq")
+SOURCES = ("conv_fused", "quant", "flash_attn", "flash_smallseq", "optim")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)

@@ -1,4 +1,4 @@
-"""Fused optimizer updates: one pass over each parameter per step.
+"""Fused optimizer updates: one pass over the parameters per step.
 
 The PyTorch counterpart of the JAX package's ``ops/optim_kernels.py``.
 A stock Adam step is some ten elementwise passes over every parameter
@@ -6,25 +6,27 @@ A stock Adam step is some ten elementwise passes over every parameter
 scale, apply); these kernels run the whole recurrence in f32 registers
 and touch each parameter's bytes once.
 
-Two Triton kernels for Hopper, built at first launch:
+Two multi-tensor CUDA kernels for Hopper in ``csrc/optim.cu``, built at
+first use:
 
-* ``_adam_kernel`` (replaces the TPU kernel ``_adam_kernel`` via
-  ``_adam_leaf_fused``): Adam/AdamW — ``m, v`` update, bias-corrected
-  ``u``, additive weight decay, ``delta = -lr * u``;
-* ``_sgd_kernel`` (replaces ``_sgd_kernel`` via ``_sgd_leaf_fused``):
-  the momentum/nesterov trace, ``delta = -lr * u``.
+* ``hvdt_adam_multi`` (replaces the TPU kernel ``_adam_kernel``):
+  Adam/AdamW — ``m, v`` update, bias-corrected ``u``, additive weight
+  decay, ``delta = -lr * u``;
+* ``hvdt_sgd_multi`` (replaces ``_sgd_kernel``): the momentum/nesterov
+  trace, ``delta = -lr * u``.
 
-What bounds them on the card: bytes.  Both are elementwise f32 passes
-with no reuse and a few flops per byte, far below the tensor cores'
-line; an SGD-momentum step over ResNet-50's 25.56 M f32 parameters must
-move about 20 B per parameter (read p, g, m; write p, m), 511 MB or
-0.15 ms at 3.35 TB/s, and Adam about 28 B per parameter.  The design
-answers that by reading each operand once with masked, contiguous
-1024-element blocks (16-byte accesses per thread), keeping all
-arithmetic in registers, updating the moments in place, and — in the
-optimizers — applying ``p += delta`` in the same pass (fusing
-``optax.apply_updates``; the plain versions do the same), so no delta
-tensor is written and read back.  One launch per parameter for now.
+One launch walks every leaf of a table: per leaf its pointers, element
+count, first chunk and an alignment flag (:data:`_LEAF`), carried in the
+kernel's parameters.  ``FusedSGD.step()`` and ``FusedAdam.step()``
+launch once for each (param group, device, dtype combination) of the
+leaves that have a grad, cut into tables of at most :data:`_TABLE_CAP`
+leaves: for ResNet-50's 161 leaves and the transformer LM's 11, one
+launch a step.  What does not change from step to step (the params' and
+moments' device, dtype, layout and pointers) is checked once, when the
+tables are built, and the tables are cached on the optimizer; a step
+gathers only the grads' pointers and layouts.  The cache is dropped by
+``load_state_dict`` and ``add_param_group``; a parameter or moment given
+new storage some other way (``p.data = ...``) needs a new optimizer.
 
 The scalars follow the JAX package exactly: lr comes from the
 pre-increment step count, the bias corrections from the incremented
@@ -32,15 +34,18 @@ count, ``eps_root`` sits inside the sqrt and ``eps`` outside it, weight
 decay is additive; the kernels use IEEE-rounded sqrt and division and
 no fused multiply-add, so they round as the plain versions do.
 
-Each wrapper takes the plain PyTorch version for tensors on the CPU, or
+Each update takes the plain PyTorch version for tensors on the CPU, or
 when the caller passes ``use_kernels=False``; on a CUDA tensor it
-launches its kernel or raises.  ``launches`` on each wrapper counts
-kernel launches.
+launches its kernel or raises.  ``launches`` on ``_sgd_multi`` and
+``_adam_multi`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Union
+import ctypes
+from dataclasses import dataclass
+from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -48,9 +53,20 @@ import torch
 __all__ = ["fused_adam", "fused_sgd", "fused_update_eligible",
            "sgd_leaf_update", "adam_leaf_update", "FusedAdam", "FusedSGD"]
 
-_BLOCK = 1024      # elements per program: 8 per thread at 4 warps
-_NUM_WARPS = 4
-_kernels: dict = {}
+# The table layout of csrc/optim.cu (checked against the library when it
+# loads): one record per leaf, after a 64-byte header of scalars and
+# counts, all inside CUDA's 32,764 bytes of kernel parameters.
+_LEAF = np.dtype([("p", "<u8"), ("g", "<u8"), ("m", "<u8"), ("v", "<u8"),
+                  ("d", "<u8"), ("n", "<i8"), ("chunk0", "<i4"),
+                  ("aligned", "<i4")])
+_OPERANDS = ("p", "g", "m", "v", "d")
+_HEADER_BYTES = 64
+_PARAM_BYTES = 32764
+_TABLE_CAP = (_PARAM_BYTES - _HEADER_BYTES) // _LEAF.itemsize
+_CHUNK = 16384          # elements a CTA
+_ALIGN = 16             # bytes a vector access needs
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_APPLY, _NESTEROV, _WEIGHT_DECAY = 1, 2, 4
 
 
 def fused_update_eligible(leaf: torch.Tensor, *extra_dtypes) -> bool:
@@ -64,68 +80,71 @@ def fused_update_eligible(leaf: torch.Tensor, *extra_dtypes) -> bool:
     return leaf.numel() > 0
 
 
-def _triton_kernels() -> dict:
-    """Compile-on-first-use Triton kernels (triton is imported here, not
-    at module import: it exists only where there is a card)."""
-    if _kernels:
-        return _kernels
-    global triton, tl
-    import triton
-    import triton.language as tl
+# ---- the host side of a launch: tables of leaves ---------------------------
 
-    @triton.jit
-    def _sgd_kernel(g_ptr, m_ptr, p_ptr, d_ptr, n, lr, momentum,
-                    NESTEROV: tl.constexpr, APPLY: tl.constexpr,
-                    BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        g = tl.load(g_ptr + offs, mask=mask).to(tl.float32)
-        m = g + momentum * tl.load(m_ptr + offs, mask=mask).to(tl.float32)
-        if NESTEROV:
-            u = g + momentum * m
-        else:
-            u = m
-        tl.store(m_ptr + offs, m.to(m_ptr.dtype.element_ty), mask=mask)
-        if APPLY:
-            p = tl.load(p_ptr + offs, mask=mask)
-            d = (-lr * u).to(p.dtype)
-            tl.store(p_ptr + offs,
-                     (p.to(tl.float32) + d.to(tl.float32)).to(p.dtype),
-                     mask=mask)
-        else:
-            tl.store(d_ptr + offs, (-lr * u).to(d_ptr.dtype.element_ty),
-                     mask=mask)
 
-    @triton.jit
-    def _adam_kernel(p_ptr, g_ptr, m_ptr, v_ptr, d_ptr, n, lr, bc1, bc2,
-                     b1, one_minus_b1, b2, one_minus_b2, eps, eps_root, wd,
-                     WD: tl.constexpr, APPLY: tl.constexpr,
-                     BLOCK: tl.constexpr):
-        offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n
-        g = tl.load(g_ptr + offs, mask=mask).to(tl.float32)
-        m = b1 * tl.load(m_ptr + offs, mask=mask).to(tl.float32) \
-            + one_minus_b1 * g
-        v = b2 * tl.load(v_ptr + offs, mask=mask).to(tl.float32) \
-            + one_minus_b2 * (g * g)
-        u = tl.div_rn(m * bc1, tl.sqrt_rn(v * bc2 + eps_root) + eps)
-        if WD or APPLY:
-            p = tl.load(p_ptr + offs, mask=mask)
-            if WD:
-                u = u + wd * p.to(tl.float32)
-        tl.store(m_ptr + offs, m.to(m_ptr.dtype.element_ty), mask=mask)
-        tl.store(v_ptr + offs, v.to(v_ptr.dtype.element_ty), mask=mask)
-        if APPLY:
-            d = (-lr * u).to(p.dtype)
-            tl.store(p_ptr + offs,
-                     (p.to(tl.float32) + d.to(tl.float32)).to(p.dtype),
-                     mask=mask)
-        else:
-            tl.store(d_ptr + offs, (-lr * u).to(d_ptr.dtype.element_ty),
-                     mask=mask)
+@dataclass
+class _Table:
+    """The leaves of one launch: ``rec`` is the kernel's table, ``index``
+    each record's position in the caller's list of leaves."""
+    group: Hashable
+    dtypes: int
+    index: np.ndarray
+    rec: np.ndarray
+    nchunks: int
 
-    _kernels.update(sgd=_sgd_kernel, adam=_adam_kernel, cdiv=triton.cdiv)
-    return _kernels
+    def set_grads(self, gptrs: np.ndarray) -> None:
+        """Take the grads' pointers (indexed like the caller's leaves)
+        and recompute the alignment flags."""
+        self.rec["g"] = gptrs[self.index]
+        self.rec["aligned"] = np.logical_and.reduce(
+            [self.rec[name] % _ALIGN == 0 for name in _OPERANDS])
+
+
+def _pack_dtypes(codes: Sequence[int]) -> int:
+    """The kernel's dtype word: 4-bit codes of p, g, m, v, d."""
+    return sum(c << (4 * i) for i, c in enumerate(codes))
+
+
+def _build_tables(groups: Sequence[Hashable], codes: Sequence[Tuple[int, ...]],
+                  numels: Sequence[int], ptrs: np.ndarray,
+                  cap: Optional[int] = None) -> List[_Table]:
+    """Tables for leaves ``i`` with group ``groups[i]``, dtype codes
+    ``codes[i]`` (p, g, m, v, d; 0 where unused), ``numels[i]`` elements
+    and pointers ``ptrs[i]`` (uint64 [n, 5], 0 where unused).  Leaves are
+    grouped by (group, codes) in order of first appearance, each group
+    cut into runs of at most ``cap`` (default :data:`_TABLE_CAP`)
+    leaves; each leaf's first chunk is the running sum of the chunks
+    before it in its table."""
+    cap = cap or _TABLE_CAP
+    ptrs = np.asarray(ptrs, np.uint64).reshape(-1, len(_OPERANDS))
+    numels = np.asarray(numels, np.int64)
+    order: Dict[Tuple[Hashable, Tuple[int, ...]], List[int]] = {}
+    for i, key in enumerate(zip(groups, map(tuple, codes))):
+        order.setdefault(key, []).append(i)
+    tables = []
+    for (group, code), members in order.items():
+        for start in range(0, len(members), cap):
+            index = np.asarray(members[start:start + cap], np.int64)
+            chunks = -(-numels[index] // _CHUNK)
+            rec = np.zeros(len(index), _LEAF)
+            for col, name in enumerate(_OPERANDS):
+                rec[name] = ptrs[index, col]
+            rec["n"] = numels[index]
+            rec["chunk0"] = np.cumsum(chunks) - chunks
+            table = _Table(group, _pack_dtypes(code), index, rec,
+                           int(chunks.sum()))
+            table.set_grads(ptrs[:, 1])
+            tables.append(table)
+    return tables
+
+
+def _chunk_owner(rec: np.ndarray, block: int) -> Tuple[int, int, int]:
+    """What CTA ``block`` of a launch over ``rec`` updates, as the kernel
+    computes it: (leaf, first element, end element)."""
+    leaf = int(np.searchsorted(rec["chunk0"], block, side="right")) - 1
+    start = (block - int(rec["chunk0"][leaf])) * _CHUNK
+    return leaf, start, min(start + _CHUNK, int(rec["n"][leaf]))
 
 
 def _same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -142,16 +161,21 @@ def _in_layout_of(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 
 
 def _check_cuda_leaf(*ts: torch.Tensor) -> None:
-    """The kernels walk every operand as one flat, dense buffer in the
-    same element order: same device, shape and layout, and dense."""
-    ref = ts[0]
-    if ref.device.type != "cuda":
+    """Operands the kernels can take: on CUDA, and :func:`_check_leaf`."""
+    if ts[0].device.type != "cuda":
         raise ValueError(f"fused optimizer kernels run on CUDA, got "
-                         f"{ref.device}")
-    if not fused_update_eligible(ref, *(t.dtype for t in ts[1:])):
-        raise TypeError("fused optimizer kernels take non-empty floating "
-                        "tensors of 2 bytes or more, got "
-                        f"{[t.dtype for t in ts]}")
+                         f"{ts[0].device}")
+    _check_leaf(*ts)
+
+
+def _check_leaf(*ts: torch.Tensor) -> None:
+    """The kernels walk every operand as one flat, dense buffer in the
+    same element order: same device, shape and layout, dense, and of a
+    type the kernels take."""
+    ref = ts[0]
+    if any(t.dtype not in _DTYPE_CODE for t in ts):
+        raise TypeError("fused optimizer kernels take float32, bfloat16 or "
+                        f"float16 tensors, got {[t.dtype for t in ts]}")
     for t in ts:
         if t.device != ref.device or not _same_layout(t, ref):
             raise ValueError("fused optimizer operands must share device, "
@@ -165,13 +189,175 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+def _one_leaf(p=None, g=None, m=None, v=None, d=None) -> _Table:
+    """The table of one CUDA leaf (operands that are None are unused)."""
+    ops = (p, g, m, v, d)
+    codes = [0 if t is None else _DTYPE_CODE[t.dtype] for t in ops]
+    ptrs = np.array([[0 if t is None else t.data_ptr() for t in ops]],
+                    np.uint64)
+    return _build_tables([None], [codes], [g.numel()], ptrs)[0]
+
+
+# ---- the launches ----------------------------------------------------------
+
+
+def _lib() -> ctypes.CDLL:
+    from .._build import load_library
+
+    lib = load_library("optim")
+    if not getattr(lib, "_hvdt_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for name in ("hvdt_sgd_multi", "hvdt_adam_multi"):
+            fn = getattr(lib, name)
+            fn.argtypes = [p, i, i, i, i, p, p]
+            fn.restype = i
+        lib.hvdt_optim_layout.argtypes = [p]
+        lib.hvdt_optim_layout.restype = i
+        got = (ctypes.c_int * 4)()
+        lib.hvdt_optim_layout(got)
+        want = (_TABLE_CAP, _LEAF.itemsize, _HEADER_BYTES, _CHUNK)
+        if tuple(got) != want:
+            raise RuntimeError(f"csrc/optim.cu table layout {tuple(got)} "
+                               f"differs from the wrapper's {want}")
+        lib._hvdt_typed = True
+    return lib
+
+
+def _launch(entry: str, table: _Table, scalars: Sequence[float], flags: int,
+            device: torch.device) -> None:
+    """Call the C entry on ``device``'s current stream; raises on a CUDA
+    error.  The scalars round to f32 as PyTorch rounds a Python scalar."""
+    sc = np.asarray(scalars, np.float32)
+    with torch.cuda.device(device):
+        rc = getattr(_lib(), entry)(
+            table.rec.ctypes.data, len(table.rec), table.nchunks,
+            table.dtypes, flags, sc.ctypes.data,
+            torch.cuda.current_stream(device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+
+
+def _sgd_multi(table: _Table, lr: float, momentum: float, *, nesterov: bool,
+               apply: bool, device: torch.device) -> None:
+    """#2: one launch of ``hvdt_sgd_multi`` over every leaf of ``table``."""
+    flags = (_APPLY if apply else 0) | (_NESTEROV if nesterov else 0)
+    _launch("hvdt_sgd_multi", table, [lr, momentum], flags, device)
+    _sgd_multi.launches += 1
+
+
+def _adam_multi(table: _Table, scalars: Sequence[float], *, b1: float,
+                b2: float, eps: float, eps_root: float, wd: float,
+                apply: bool, device: torch.device) -> None:
+    """#1: one launch of ``hvdt_adam_multi`` over every leaf of ``table``;
+    ``scalars`` is ``[lr, 1/(1-b1^t), 1/(1-b2^t)]``."""
+    flags = (_APPLY if apply else 0) | (_WEIGHT_DECAY if wd else 0)
+    _launch("hvdt_adam_multi", table,
+            [*scalars, b1, 1.0 - b1, b2, 1.0 - b2, eps, eps_root, wd],
+            flags, device)
+    _adam_multi.launches += 1
+
+
+_sgd_multi.launches = 0
+_adam_multi.launches = 0
+
+
+class _Plan:
+    """The kernel side of an optimizer step for one set of leaves with a
+    grad: their tables, checked and built once.  ``leaves`` is a list of
+    (position in the step's grads, param group index, p, moments)."""
+
+    def __init__(self, leaves):
+        self.pos = [pos for pos, _, _, _ in leaves]
+        self.params = [p for _, _, p, _ in leaves]
+        self.strides = [p.stride() for p in self.params]
+        self._moments = [st for _, _, _, st in leaves]   # kept alive
+        groups, codes, numels, ptrs = [], [], [], []
+        for _, gi, p, (m, v) in leaves:
+            _check_cuda_leaf(p, m, *(() if v is None else (v,)))
+            groups.append((gi, p.device))
+            codes.append((_DTYPE_CODE[p.dtype], _DTYPE_CODE[p.dtype],
+                          _DTYPE_CODE[m.dtype],
+                          0 if v is None else _DTYPE_CODE[v.dtype], 0))
+            numels.append(p.numel())
+            ptrs.append((p.data_ptr(), 0, m.data_ptr(),
+                         0 if v is None else v.data_ptr(), 0))
+        self.tables = _build_tables(groups, codes, numels,
+                                    np.array(ptrs, np.uint64))
+
+    def set_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Put this step's grads into the tables; returns the copies made
+        for grads in another layout than their param, which must live
+        until the launches are enqueued.  (PyTorch's ``.grad`` setter
+        keeps a grad's dtype, device and shape those of its param.)"""
+        gs = [grads[pos] for pos in self.pos]
+        copies = []
+        if [g.stride() for g in gs] != self.strides:
+            for j, (g, p) in enumerate(zip(gs, self.params)):
+                if g.stride() != self.strides[j]:
+                    gs[j] = _in_layout_of(g, p)
+                    copies.append(gs[j])
+        gptrs = np.array([g.data_ptr() for g in gs], np.uint64)
+        for t in self.tables:
+            t.set_grads(gptrs)
+        return copies
+
+
+class _MultiTensorOptimizer(torch.optim.Optimizer):
+    """What FusedSGD and FusedAdam share: the flat list of leaves and the
+    cached :class:`_Plan` per set of leaves that have a grad."""
+
+    _MAX_PLANS = 8
+
+    def _moments(self, gi: int, p) -> Optional[Tuple[torch.Tensor, Any]]:
+        """(m, v or None) of leaf ``p`` of group ``gi`` if the kernel
+        takes it, else None."""
+        raise NotImplementedError
+
+    def _plan(self, grads, key: tuple) -> Tuple[_Plan, List[int]]:
+        """(plan, positions of the leaves the plain version takes) for
+        this step's ``grads``, built on first sight of ``key``."""
+        hit = self._plans.get(key)
+        if hit is None:
+            leaves, plain = [], []
+            for pos, ((gi, p), g) in enumerate(zip(self._leaves, grads)):
+                if g is None:
+                    continue
+                st = (self._moments(gi, p) if self.use_kernels
+                      and not _on_cpu(p) and p.numel() else None)
+                if st is None:
+                    plain.append(pos)
+                else:
+                    leaves.append((pos, gi, p, st))
+            if len(self._plans) >= self._MAX_PLANS:
+                self._plans.clear()
+            hit = self._plans[key] = (_Plan(leaves), plain)
+        return hit
+
+    def _grads(self):
+        """This step's grads in leaf order, and the key of their plan."""
+        grads = [p.grad for _, p in self._leaves]
+        missing = tuple(i for i, g in enumerate(grads) if g is None)
+        return grads, (self.use_kernels, missing)
+
+    def add_param_group(self, param_group: dict) -> None:
+        super().add_param_group(param_group)
+        self._leaves = [(gi, p) for gi, group in enumerate(self.param_groups)
+                        for p in group["params"]]
+        self._plans: Dict[tuple, Tuple[_Plan, List[int]]] = {}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        self._plans = {}
+
+
 # ---- SGD (momentum) ------------------------------------------------------
 
 
 def _sgd_leaf_plain(g, m, lr: float, *, momentum: float, nesterov: bool,
                     p: Optional[torch.Tensor] = None):
-    """Plain version of ``_sgd_leaf_fused``: the same f32 formulas; m is
-    updated in place; with ``p`` the delta is applied to it in place."""
+    """Plain version of ``hvdt_sgd_multi`` over one leaf: the same f32
+    formulas; m is updated in place; with ``p`` the delta is applied to
+    it in place."""
     g32 = g.float()
     m_new = g32 + momentum * m.float()
     u = g32 + momentum * m_new if nesterov else m_new
@@ -182,51 +368,29 @@ def _sgd_leaf_plain(g, m, lr: float, *, momentum: float, nesterov: bool,
     return (-lr * u).to(g.dtype), m
 
 
-def _sgd_leaf_fused(g, m, lr: float, *, momentum: float, nesterov: bool,
-                    p: Optional[torch.Tensor] = None):
-    """One launch of ``_sgd_kernel`` over a leaf: returns ``(delta, m)``,
-    or ``(None, m)`` after applying the delta to ``p`` in place."""
-    _check_cuda_leaf(g, m, *(() if p is None else (p,)))
-    k = _triton_kernels()
-    n = g.numel()
-    d = torch.empty_like(g) if p is None else None
-    with torch.cuda.device(g.device):
-        k["sgd"][(k["cdiv"](n, _BLOCK),)](
-            g, m, g if p is None else p, g if d is None else d, n,
-            float(lr), float(momentum), NESTEROV=bool(nesterov),
-            APPLY=p is not None, BLOCK=_BLOCK, num_warps=_NUM_WARPS,
-            enable_fp_fusion=False)
-    _sgd_leaf_fused.launches += 1
-    return d, m
-
-
-_sgd_leaf_fused.launches = 0
-
-
-def _sgd_leaf(g, m, lr, *, momentum, nesterov, use_kernels, p=None):
-    if g.numel() == 0 or _on_cpu(g) or not use_kernels:
-        return _sgd_leaf_plain(g, m, lr, momentum=momentum,
-                               nesterov=nesterov, p=p)
-    return _sgd_leaf_fused(g, m, lr, momentum=momentum, nesterov=nesterov,
-                           p=p)
-
-
 def sgd_leaf_update(g: torch.Tensor, m: torch.Tensor,
                     scalars: Sequence[float], *, momentum: float,
                     nesterov: bool = False, use_kernels: bool = True):
     """Per-leaf SGD-momentum update ``(delta, new_trace)``; ``scalars``
     is ``[lr]``.  The trace ``m`` is updated in place and returned."""
-    return _sgd_leaf(g, m, float(scalars[0]), momentum=momentum,
-                     nesterov=nesterov, use_kernels=use_kernels)
+    lr = float(scalars[0])
+    if g.numel() == 0 or _on_cpu(g) or not use_kernels:
+        return _sgd_leaf_plain(g, m, lr, momentum=momentum,
+                               nesterov=nesterov)
+    _check_cuda_leaf(g, m)
+    d = torch.empty_like(g)
+    _sgd_multi(_one_leaf(g=g, m=m, d=d), lr, momentum, nesterov=nesterov,
+               apply=False, device=g.device)
+    return d, m
 
 
-class FusedSGD(torch.optim.Optimizer):
+class FusedSGD(_MultiTensorOptimizer):
     """``optax.sgd`` semantics as a ``torch.optim.Optimizer``: with
-    ``momentum`` each parameter takes one ``_sgd_kernel`` pass per step
-    (trace update and apply); without it there is no state and the step
-    is one plain scale-and-add, as in the JAX package.  State per
-    parameter: ``{"trace": m}``, zeros from construction (optax's
-    ``TraceState``)."""
+    ``momentum`` one ``hvdt_sgd_multi`` launch a step updates every CUDA
+    leaf (trace update and apply); without it there is no state and the
+    step is one plain scale-and-add per leaf, as in the JAX package.
+    State per parameter: ``{"trace": m}``, zeros from construction
+    (optax's ``TraceState``)."""
 
     def __init__(self, params, learning_rate: float, momentum: float = 0.0,
                  nesterov: bool = False, *, use_kernels: bool = True):
@@ -244,24 +408,37 @@ class FusedSGD(torch.optim.Optimizer):
                 for p in group["params"]:
                     self.state[p]["trace"] = torch.zeros_like(p)
 
+    def _moments(self, gi, p):
+        if not self.param_groups[gi]["momentum"]:
+            return None
+        return self.state[p]["trace"], None
+
     @torch.no_grad()
     def step(self, closure: Optional[Callable[[], Any]] = None):
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        for group in self.param_groups:
+        grads, key = self._grads()
+        key += (tuple(bool(g["momentum"]) for g in self.param_groups),)
+        plan, plain = self._plan(grads, key)
+        for pos in plain:
+            gi, p = self._leaves[pos]
+            group = self.param_groups[gi]
             lr, mom = group["lr"], group["momentum"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                if not mom:
-                    p.add_((-lr * p.grad.float()).to(p.dtype))
-                    continue
-                _sgd_leaf(_in_layout_of(p.grad, p), self.state[p]["trace"],
-                          lr, momentum=mom,
-                          nesterov=group["nesterov"],
-                          use_kernels=self.use_kernels, p=p)
+            if not mom:
+                p.add_((-lr * grads[pos].float()).to(p.dtype))
+                continue
+            _sgd_leaf_plain(_in_layout_of(grads[pos], p),
+                            self.state[p]["trace"], lr, momentum=mom,
+                            nesterov=group["nesterov"], p=p)
+        copies = plan.set_grads(grads)
+        for t in plan.tables:
+            gi, device = t.group
+            group = self.param_groups[gi]
+            _sgd_multi(t, group["lr"], group["momentum"],
+                       nesterov=group["nesterov"], apply=True, device=device)
+        del copies
         return loss
 
 
@@ -290,8 +467,9 @@ def _adam_scalars(count: int, learning_rate, b1: float, b2: float):
 
 def _adam_leaf_plain(p, g, m, v, scalars, *, b1, b2, eps, eps_root, wd,
                      apply: bool):
-    """Plain version of ``_adam_leaf_fused``: the same f32 formulas; m, v
-    updated in place; with ``apply`` the delta goes into p in place."""
+    """Plain version of ``hvdt_adam_multi`` over one leaf: the same f32
+    formulas; m, v updated in place; with ``apply`` the delta goes into
+    p in place."""
     lr, bc1, bc2 = scalars
     g32 = g.float()
     m_new = b1 * m.float() + (1.0 - b1) * g32
@@ -307,36 +485,6 @@ def _adam_leaf_plain(p, g, m, v, scalars, *, b1, b2, eps, eps_root, wd,
     return (-lr * u).to(p.dtype), m, v
 
 
-def _adam_leaf_fused(p, g, m, v, scalars, *, b1, b2, eps, eps_root, wd,
-                     apply: bool):
-    """One launch of ``_adam_kernel`` over a leaf: returns ``(delta, m,
-    v)``, or ``(None, m, v)`` after applying the delta to p in place."""
-    _check_cuda_leaf(p, g, m, v)
-    k = _triton_kernels()
-    n = g.numel()
-    d = None if apply else torch.empty_like(p)
-    lr, bc1, bc2 = scalars
-    with torch.cuda.device(g.device):
-        k["adam"][(k["cdiv"](n, _BLOCK),)](
-            p, g, m, v, p if d is None else d, n, float(lr), float(bc1),
-            float(bc2), float(b1), 1.0 - b1, float(b2), 1.0 - b2, float(eps),
-            float(eps_root), float(wd), WD=bool(wd), APPLY=apply,
-            BLOCK=_BLOCK, num_warps=_NUM_WARPS, enable_fp_fusion=False)
-    _adam_leaf_fused.launches += 1
-    return d, m, v
-
-
-_adam_leaf_fused.launches = 0
-
-
-def _adam_leaf(p, g, m, v, scalars, *, b1, b2, eps, eps_root, wd,
-               use_kernels, apply):
-    fn = (_adam_leaf_plain if g.numel() == 0 or _on_cpu(g)
-          or not use_kernels else _adam_leaf_fused)
-    return fn(p, g, m, v, scalars, b1=b1, b2=b2, eps=eps, eps_root=eps_root,
-              wd=wd, apply=apply)
-
-
 def adam_leaf_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                      v: torch.Tensor, scalars: Sequence[float], *,
                      b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -344,18 +492,25 @@ def adam_leaf_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                      use_kernels: bool = True):
     """Per-leaf Adam update ``(delta, m_new, v_new)``; ``scalars`` is
     ``[lr, 1/(1-b1^t), 1/(1-b2^t)]``.  m and v are updated in place."""
-    return _adam_leaf(p, g, m, v, [float(s) for s in scalars], b1=b1, b2=b2,
-                      eps=eps, eps_root=eps_root, wd=weight_decay,
-                      use_kernels=use_kernels, apply=False)
+    scalars = [float(s) for s in scalars]
+    kw = dict(b1=b1, b2=b2, eps=eps, eps_root=eps_root, wd=weight_decay)
+    if g.numel() == 0 or _on_cpu(g) or not use_kernels:
+        return _adam_leaf_plain(p, g, m, v, scalars, apply=False, **kw)
+    _check_cuda_leaf(p, g, m, v)
+    d = torch.empty_like(p)
+    _adam_multi(_one_leaf(p, g, m, v, d), scalars, apply=False,
+                device=g.device, **kw)
+    return d, m, v
 
 
-class FusedAdam(torch.optim.Optimizer):
+class FusedAdam(_MultiTensorOptimizer):
     """``optax.adam``/``adamw`` semantics as a ``torch.optim.Optimizer``:
-    each parameter takes one ``_adam_kernel`` pass per step (moments,
-    bias correction, decay and apply).  ``learning_rate`` may be a float
-    or a schedule ``count -> lr``, evaluated at the pre-increment count.
-    State per parameter: ``{"mu", "nu"}``, zeros from construction; the
-    step count (optax's ``ScaleByAdamState.count``) is ``group["count"]``.
+    one ``hvdt_adam_multi`` launch a step updates every CUDA leaf
+    (moments, bias correction, decay and apply).  ``learning_rate`` may
+    be a float or a schedule ``count -> lr``, evaluated at the
+    pre-increment count.  State per parameter: ``{"mu", "nu"}``, zeros
+    from construction; the step count (optax's
+    ``ScaleByAdamState.count``) is ``group["count"]``.
     """
 
     def __init__(self, params, learning_rate: Union[float, Callable],
@@ -374,25 +529,39 @@ class FusedAdam(torch.optim.Optimizer):
                     p, dtype=mu_dtype or p.dtype)
                 self.state[p]["nu"] = torch.zeros_like(p)
 
+    def _moments(self, gi, p):
+        st = self.state[p]
+        return st["mu"], st["nu"]
+
     @torch.no_grad()
     def step(self, closure: Optional[Callable[[], Any]] = None):
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        grads, key = self._grads()
+        plan, plain = self._plan(grads, key)
+        scalars = [_adam_scalars(g["count"], g["learning_rate"], g["b1"],
+                                 g["b2"]) for g in self.param_groups]
+
+        def hyper(group):
+            return dict(b1=group["b1"], b2=group["b2"], eps=group["eps"],
+                        eps_root=group["eps_root"],
+                        wd=group["weight_decay"])
+
+        for pos in plain:
+            gi, p = self._leaves[pos]
+            st = self.state[p]
+            _adam_leaf_plain(p, _in_layout_of(grads[pos], p), st["mu"],
+                             st["nu"], scalars[gi], apply=True,
+                             **hyper(self.param_groups[gi]))
+        copies = plan.set_grads(grads)
+        for t in plan.tables:
+            gi, device = t.group
+            _adam_multi(t, scalars[gi], apply=True, device=device,
+                        **hyper(self.param_groups[gi]))
+        del copies
         for group in self.param_groups:
-            scalars = _adam_scalars(group["count"], group["learning_rate"],
-                                    group["b1"], group["b2"])
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                st = self.state[p]
-                _adam_leaf(p, _in_layout_of(p.grad, p), st["mu"], st["nu"],
-                           scalars,
-                           b1=group["b1"], b2=group["b2"], eps=group["eps"],
-                           eps_root=group["eps_root"],
-                           wd=group["weight_decay"],
-                           use_kernels=self.use_kernels, apply=True)
             group["count"] += 1
         return loss
 

@@ -146,11 +146,11 @@ def jax_side():
 def _no_launches():
     tcf._mm_forward.launches = 0
     tcf.matmul_batch_stats.launches = 0
-    tok._sgd_leaf_fused.launches = 0
+    tok._sgd_multi.launches = 0
     yield
     assert tcf._mm_forward.launches == 0
     assert tcf.matmul_batch_stats.launches == 0
-    assert tok._sgd_leaf_fused.launches == 0
+    assert tok._sgd_multi.launches == 0
 
 
 def _assert_stats(model, want):

@@ -88,7 +88,7 @@ def _np(tree):
 @pytest.fixture(autouse=True)
 def _no_launches():
     fns = (tpk._flash_fwd, tpk._flash_dq, tpk._flash_dkv, tpk._smallseq_fwd,
-           tpk._smallseq_bwd, tok._adam_leaf_fused)
+           tpk._smallseq_bwd, tok._adam_multi)
     for fn in fns:
         fn.launches = 0
     yield
