@@ -41,8 +41,11 @@ Phases, one JSON line each:
    dQ, #11 dK/dV) against their plain versions at the LM path's shape
    (B 16, H 16, L 4096, D 64, bf16, causal), with
    scaled_dot_product_attention's forward and backward as the library
-   yardstick; then one GQA case (Hkv 4) and one offset case of
-   flash_block_update;
+   yardstick, each line with its fraction of the bound and the kernel's
+   registers and spills from the build log; then one GQA case (Hkv 4),
+   one offset case of flash_block_update, and a ragged one (L 1000, Hkv
+   4, offsets and a carry, the rows that see no key passed through bit
+   for bit);
 11. lm_train — the bert-large transformer LM preset at full width and
    depth (24 x 1024, 16 heads, d_ff 4096, vocab 30528, bf16 compute, f32
    params, remat full, loss_chunk 8192) at seq 4096, batch 16, through
@@ -57,8 +60,8 @@ Phases, one JSON line each:
    backward) against their plain versions at the seq-512 LM path's shape
    (B 128, H 16, L 512, D 64, bf16, causal), with
    scaled_dot_product_attention's forward and backward as the library
-   yardstick; then GQA (Hkv 4), D 128, non-causal, fp16 and ragged (L
-   200) cases;
+   yardstick (fraction of the bound, registers and spills as in 10);
+   then GQA (Hkv 4), D 128, non-causal, fp16 and ragged (L 200) cases;
 14. lm_smallseq — the same bert-large preset at seq 512, batch 128, full
    width and depth, HVDT_FLASH_SMALLSEQ=on (HVDT_FLASH_ATTENTION and
    HVDT_FLASH_SMALLSEQ_HB unset), fused_adam(3e-4, weight_decay=1e-4), 3
@@ -219,6 +222,46 @@ def phase_device():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     return smi
+
+
+def ptxas_of(log: str, entry: str) -> dict:
+    """Registers and spill bytes of the kernel whose mangled entry name
+    contains ``entry``, from a build log (``nvcc -Xptxas -v``)."""
+    found, out = False, {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = entry in line
+        elif found and "spill stores" in line:
+            words = line.split()
+            out["spill_store_bytes"] = int(words[words.index("spill") - 2])
+            out["spill_load_bytes"] = int(words[-4])
+        elif found and "registers" in line:
+            words = line.split()
+            out["registers"] = int(words[words.index("registers,") - 1]
+                                   if "registers," in words else
+                                   words[words.index("registers") - 1])
+            found = False
+    return out
+
+
+def kernel_ptxas(name: str) -> dict:
+    """:func:`ptxas_of` the bf16, D 64 attention kernel ``name`` (the LM
+    paths') in its library's last build log."""
+    from horovod_tpu_torch import _build
+
+    lib, entry = KERNEL_ENTRY[name]
+    return ptxas_of(_build.build_log(lib) or "", entry)
+
+
+KERNEL_ENTRY = {
+    "_kernel": ("flash_attn", "flash_fwd_kernelI13__nv_bfloat16Li64E"),
+    "_dq_kernel": ("flash_attn", "flash_dq_kernelI13__nv_bfloat16Li64E"),
+    "_dkv_kernel": ("flash_attn", "flash_dkv_kernelI13__nv_bfloat16Li64E"),
+    "_smallseq_fwd_kernel": ("flash_smallseq",
+                             "smallseq_fwd_kernelI13__nv_bfloat16Li64E"),
+    "_smallseq_bwd_kernel": ("flash_smallseq",
+                             "smallseq_bwd_kernelI13__nv_bfloat16Li64E"),
+}
 
 
 def phase_build():
@@ -641,7 +684,9 @@ def phase_flash_kernels(gen, smi):
                       "max_abs_err": max(o["max_abs_err"] for o in outs)}
         emit({"phase": "flash_kernel", "name": name,
               "shape": [b, l, h, h, d], "dtype": "bf16", "causal": True,
-              "outputs": outs, "card": smi, **rows[name]})
+              "outputs": outs, "card": smi, **rows[name],
+              "fraction_of_bound": b_ms / rows[name]["kernel_ms"],
+              "ptxas": kernel_ptxas(name)})
     del c, calls, qt, kt, vt, dot, qg, kg, vg, og
 
     # GQA (Hkv 4), and flash_block_update's offset form with a carry.
@@ -660,12 +705,33 @@ def phase_flash_kernels(gen, smi):
     # The carry's acc sums P V unnormalized, P rounded to bf16 as in the
     # forward: one bf16 ulp per row, as there; m and l are f32.
     upd = [closeness(gt, w, BF16_ULP) for gt, w in zip(got, want)]
+    # Ragged: L 1000 (off the kernel's 128-row q and K/V tiles), Hkv 4,
+    # k_offset 16 past q_offset so q rows 0-15 see no key and pass their
+    # carry through bit for bit.
+    r = _flash_case(pk, 4, 1000, 1000, h, 4, gen, q_offset=8, k_offset=24,
+                    carry=True)
+    rag = dict(q_offset=r["q_offset"], k_offset=r["k_offset"], causal=True,
+               scale=r["scale"])
+    got_r = pk.flash_block_update(r["q"], r["k"], r["v"], *r["carry"], **rag)
+    want_r = pk._flash_fwd_plain(r["q"], r["k"], r["v"], r["carry"],
+                                 r["q_offset"], r["k_offset"], causal=True,
+                                 scale=r["scale"], block_q=1000,
+                                 block_k=1000, finish=False)
+    ragged = [closeness(gt, w, BF16_ULP) for gt, w in zip(got_r, want_r)]
+    unseen = all(torch.equal(gt[:, :16] if gt.dim() == 4 else gt[:, :, :16],
+                             c[:, :16] if c.dim() == 4 else c[:, :, :16])
+                 for gt, c in zip(got_r, r["carry"]))
     emit({"phase": "flash_kernel", "gqa": {"shape": [4, l, h, 4, d],
                                            "outputs": gqa},
           "block_update": {"shape": [4, 2048, h, h, d], "q_offset": 2048,
-                           "k_offset": 1024, "outputs": upd}})
+                           "k_offset": 1024, "outputs": upd},
+          "ragged": {"shape": [4, 1000, h, 4, d], "q_offset": 8,
+                     "k_offset": 24, "outputs": ragged,
+                     "unseen_rows_pass_through": unseen}})
     assert all(o["err_over_tol"] <= 1.0 for o in upd), upd
-    del g, o, got, want
+    assert all(o["err_over_tol"] <= 1.0 for o in ragged), ragged
+    assert unseen, "rows that see no key changed their carry"
+    del g, o, got, want, r, got_r, want_r
     return rows
 
 
@@ -751,7 +817,9 @@ def phase_smallseq_kernels(gen, smi):
                       "max_abs_err": max(o["max_abs_err"] for o in outs)}
         emit({"phase": "smallseq_kernel", "name": name,
               "shape": [b, l, h, h, d], "dtype": "bf16", "causal": True,
-              "outputs": outs, "card": smi, **rows[name]})
+              "outputs": outs, "card": smi, **rows[name],
+              "fraction_of_bound": b_ms / rows[name]["kernel_ms"],
+              "ptxas": kernel_ptxas(name)})
     del c, calls, qt, kt, vt, dot, qg, kg, vg, og
 
     # (B, L, H, Hkv, D, dtype, causal) of the smaller cases.

@@ -23,49 +23,73 @@
 // FLOP against about 0.27 GB of compulsory bytes: 0.56 ms of bf16 tensor
 // work at 989 TFLOP/s against 0.08 ms of memory traffic at 3.35 TB/s, so
 // all three kernels are bound by operations (dq does three products, dkv
-// four).  The design keeps every score tile on chip: S = QK^T lives in the
-// registers of the mma.sync accumulators, is turned into P (or dS) there
-// and fed straight back as the A operand of the next product, so device
-// memory sees only Q, K, V, dO once per CTA and the outputs once.  Causal
-// blocks above the diagonal are never loaded or multiplied (the loop ends
-// at the last visible block, as the TPU kernel's pl.when pruning does);
-// only the blocks that straddle the diagonal evaluate the mask.
+// four).  Every score tile stays on chip: S = QK^T lives in the registers
+// of the tensor-core accumulators, is turned into P (or dS) there and fed
+// straight back as the A operand of the next product, so device memory
+// sees only Q, K, V, dO once per CTA and the outputs once.  Causal blocks
+// above the diagonal are never loaded or multiplied (the loop ends at the
+// last visible block, as the TPU kernel's pl.when pruning does).
 //
-// Design (simple and correct first; wgmma/TMA are later work):
+// #9, the forward, runs on the Hopper core of flash_sm90.cuh, which it
+// shares with #12.  Against its operations bound:
+//   * products are wgmma (the only way to the tensor cores' full rate):
+//     S = QK^T from 128-byte-swizzled shared memory, O += PV with P from
+//     registers and V through the transposed descriptor;
+//   * one CTA owns 192 q rows (three consumer warpgroups of 64) at D 64
+//     and at D 128, so each K/V tile pulled through L2 feeds 192 rows: at
+//     64 rows a CTA the forward moved 8.7 GB through L2 a call, at 192
+//     2.9 GB.  A producer warpgroup keeps TMA loads of 128 (D 64) or 64
+//     (D 128) K/V rows in a 3-slot ring and gives its registers to the
+//     consumers (setmaxnreg: 160 each);
+//   * inside a warpgroup, tile j+1's QK^T and tile j's PV are issued before
+//     tile j+1's softmax, which runs while the tensor cores work; the
+//     warpgroups take turns to issue (ping-pong), so one's softmax
+//     overlaps the others' products;
+//   * only tiles that straddle the causal diagonal or the ragged end are
+//     masked; p = 2^(s * scale * log2e - m * log2e), one FFMA and one ex2;
+//   * the tiles (FwdCfg below) were chosen by timing other BK, ring
+//     slots, warpgroups and CTAs an SM on the card (PERF.md).
+//
+// #10 and #11, the backward (simple and correct first; wgmma/TMA are
+// later work):
 //   * the TPU kernels' sequential grid dimension (ik, or iq for dkv), whose
 //     accumulators sit in VMEM scratch between grid steps, becomes a loop
 //     inside one CTA; nothing is carried between CTAs;
 //   * one 128-thread CTA (4 warps) per (q block of 64 rows, head, batch)
-//     for the forward and dq, walking 64-row K/V blocks; one per (k block
-//     of 64 rows, head, batch) for dkv, walking Q/dO blocks (64 rows at
-//     D 64, 32 at D 128 to bound registers); each warp owns 16 rows;
+//     for dq, walking 64-row K/V blocks; one per (k block of 64 rows,
+//     head, batch) for dkv, walking Q/dO blocks (64 rows at D 64, 32 at
+//     D 128 to bound registers); each warp owns 16 rows;
 //   * the streamed tiles come through shared memory with a cp.async
 //     double buffer (rows padded by 8 elements against bank conflicts,
 //     the ragged edge zero-filled); the resident tile is loaded once;
 //   * products are mma.sync.m16n8k16 bf16/fp16 tensor-core tiles with f32
 //     accumulators in registers; A/B fragments are read from shared memory
 //     with 32-bit loads, or as 16-bit pairs where the operand's reduction
-//     dimension is the tile's row dimension;
-//   * numerics follow the TPU kernels: masked scores are -1e30 (not -inf),
-//     p = exp(s - m_new) is zeroed where masked, P is rounded to V's type
-//     before PV, l is the f32 sum of the unrounded p and is clamped at
-//     1e-30 before o = acc / l; dq rounds dS to K's type, dkv rounds P to
-//     dO's and dS to Q's type; expf/logf are the accurate forms.  A key
-//     past the end of a ragged sequence counts as absent (-inf, p = 0).
+//     dimension is the tile's row dimension.
+//
+// Numerics follow the TPU kernels: masked scores are -1e30 (not -inf),
+// p = exp(s - m_new) is zeroed where masked, P is rounded to V's type
+// before PV, l is the f32 sum of the unrounded p and is clamped at 1e-30
+// before o = acc / l; dq rounds dS to K's type, dkv rounds P to dO's and
+// dS to Q's type.  A key past the end of a ragged sequence counts as
+// absent (-inf, p = 0).  In the forward a q row that sees no key passes
+// its carry (acc, m, l) through bit for bit.
 //
 // Requirements checked by the Python wrapper: D in {64, 128}, bf16 or fp16
 // operands of one type, contiguous, 16-byte aligned.  Each entry returns
-// cudaGetLastError() after its launch.  The mma, cp.async and fragment
-// helpers are shared with flash_smallseq.cu through flash_common.cuh.
+// cudaGetLastError() after its launch (the forward also fails if a tensor
+// map cannot be built).  The mma, cp.async and fragment helpers are shared
+// with flash_smallseq.cu through flash_common.cuh.
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per CTA (fwd, dq): 4 warps x 16
-constexpr int BK = 64;         // k rows per step (fwd, dq) / per CTA (dkv)
+constexpr int BQ = 64;         // q rows per CTA (dq): 4 warps x 16
+constexpr int BK = 64;         // k rows per step (dq) / per CTA (dkv)
 constexpr float NEG = -1e30f;  // the TPU kernels' mask value
 
 struct Args {
@@ -101,173 +125,131 @@ __device__ __forceinline__ int k_blocks(const Args& a, int q0) {
   return nk;
 }
 
-// ---- #9: forward ----------------------------------------------------------
+// ---- #9: forward, on the Hopper core (flash_sm90.cuh) ---------------------
+
+// The tiles: 192 q rows a CTA (three consumer warpgroups, ping-pong), 128
+// K/V rows a step at D 64 and 64 at D 128, three ring slots, one CTA an SM.
+template <int D>
+using FwdCfg = sm90::Cfg<D, D == 64 ? 128 : 64, 3, 3, 1>;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_kernel(Args a) {
-  constexpr int LDS = D + 8;
-  constexpr int NS = BK / 8;  // score n-tiles
-  constexpr int NO = D / 8;   // output n-tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BQ * LDS;      // two stages
-  T* sV = sK + 2 * BK * LDS;  // two stages
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
+    flash_fwd_kernel(const __grid_constant__ sm90::FwdParams<Args> p) {
+  using C = FwdCfg<D>;
+  extern __shared__ unsigned char sm90_smem[];
+  __shared__ uint64_t bars[C::BARS];
+  const Args& a = p.a;
+  const sm90::Ring<C> ring(sm90_smem, bars);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const long long qs = (long long)a.H * D, ks = (long long)a.Hkv * D;
-  const T* qp = static_cast<const T*>(a.q) + b * a.Lq * qs + h * D;
-  const T* kp = static_cast<const T*>(a.k) + b * a.Lk * ks + hk * D;
-  const T* vp = static_cast<const T*>(a.v) + b * a.Lk * ks + hk * D;
-  const int nk = k_blocks(a, q0);
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const int shift = a.q_offset - a.k_offset;
+  const int nk =
+      sm90::visible_tiles<C>(q0, C::BQ, a.Lq, a.Lk, a.causal, shift);
+  ring.init();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= C::CONSUMER_WARPS) {
+    sm90::producer_regs<C>();
+    if (threadIdx.x == 32 * C::CONSUMER_WARPS && nk > 0)
+      sm90::produce(ring, &p.q, &p.k, &p.v, h, h / (a.H / a.Hkv), b, q0, nk,
+                    nk, 0);
+    return;
+  }
+  sm90::consumer_regs<C>();
+  sm90::start_turns<C>(warp >> 2);
 
-  float o[NO][4];
+  // Warpgroup wg owns rows [r0, r0 + 64); each thread rows g and g + 8 of
+  // its warp's 16, as wgmma's accumulators lay them out.
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int row[2] = {r0 + 16 * (warp & 3) + g, r0 + 16 * (warp & 3) + g + 8};
+  const int nk_wg =
+      sm90::visible_tiles<C>(r0, 64, a.Lq, a.Lk, a.causal, shift);
+
+  // The carry: o in the accumulators' layout, m per row, and l as this
+  // thread's share of the row sum (the quad adds its four at the end).
+  float o[C::NO];
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int i = 0; i < C::NO; ++i) o[i] = 0.f;
   if (a.acc_in != nullptr) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= a.Lq) continue;
-      const float* ap = a.acc_in + ((long long)(b * a.Lq + row[r]) * a.H + h) * D;
+      const float* ap =
+          a.acc_in + ((long long)(b * a.Lq + row[r]) * a.H + h) * D;
 #pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        float2 x = *reinterpret_cast<const float2*>(ap + 8 * j + 2 * t);
-        o[j][2 * r] = x.x;
-        o[j][2 * r + 1] = x.y;
+      for (int j = 0; j < D / 8; ++j) {
+        const float2 x = *reinterpret_cast<const float2*>(ap + 8 * j + 2 * t);
+        o[4 * j + 2 * r] = x.x;
+        o[4 * j + 2 * r + 1] = x.y;
       }
-      m[r] = a.m_in[(long long)(b * a.H + h) * a.Lq + row[r]];
-      l[r] = a.l_in[(long long)(b * a.H + h) * a.Lq + row[r]];
+      const long long moff = (long long)(b * a.H + h) * a.Lq + row[r];
+      m[r] = a.m_in[moff];
+      if (t == 0) l[r] = a.l_in[moff];
     }
   }
 
-  load_tile<T, D, BQ>(sQ, qp, qs, q0, a.Lq);
-  if (nk > 0) {
-    load_tile<T, D, BK>(sK, kp, ks, 0, a.Lk);
-    load_tile<T, D, BK>(sV, vp, ks, 0, a.Lk);
-  }
-  cp_async_commit();
-
-  for (int kb = 0; kb < nk; ++kb) {
-    const int st = kb & 1;
-    if (kb + 1 < nk) {
-      load_tile<T, D, BK>(sK + (st ^ 1) * BK * LDS, kp, ks, (kb + 1) * BK, a.Lk);
-      load_tile<T, D, BK>(sV + (st ^ 1) * BK * LDS, vp, ks, (kb + 1) * BK, a.Lk);
-    }
-    cp_async_commit();   // possibly empty: keeps the group count uniform
-    cp_async_wait<1>();  // every group but the newest has landed
-    __syncthreads();
-    const T* cK = sK + st * BK * LDS;
-    const T* cV = sV + st * BK * LDS;
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t fa[4];
-      frag_a<T, LDS>(fa, sQ, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t fb[2];
-        frag_b_rows<T, LDS>(fb, cK, j * 8, kk * 16, g, t);
-        Mma<T>::run(s[j], fa, fb);
-      }
-    }
-
-    // Scale and mask, then the online-softmax update of (m, l, o).
-    const int k0 = kb * BK;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        float x = s[j][e] * a.scale;
-        if (col >= a.Lk)
-          x = -INFINITY;
-        else if (a.causal && a.q_offset + row[e >> 1] < a.k_offset + col)
-          x = NEG;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float mn[2], corr[2], sum[2] = {0.f, 0.f};
+  // Online softmax of a tile: masks only where the tile straddles the
+  // diagonal or the ragged end; masked scores are -1e30 (the TPU kernel's
+  // value) in the max and give p = 0; p = 2^(s scale log2e - m log2e).
+  const float sl2 = a.scale * sm90::LOG2E;
+  auto soft = [&](float(&s)[C::NS], int kb, float(&corr)[2]) {
+    const int k0 = kb * C::BK;
+    if (k0 + C::BK > a.Lk || (a.causal && r0 + shift < k0 + C::BK - 1))
+      sm90::mask(s, row, k0, a.Lk, a.causal, shift, t);
+    float mx[2] = {-INFINITY, -INFINITY}, nl2[2];
+    sm90::row_max(s, mx);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mn[r] = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = expf(m[r] - mn[r]);
+      const float mn = fmaxf(m[r], fmaxf(mx[r] * a.scale, NEG));
+      corr[r] = sm90::ex2((m[r] - mn) * sm90::LOG2E);
+      nl2[r] = -mn * sm90::LOG2E;
+      m[r] = mn;
+      l[r] *= corr[r];
     }
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const float p =
-            visible(a, row[e >> 1], col) ? expf(s[j][e] - mn[e >> 1]) : 0.f;
-        s[j][e] = p;
-        sum[e >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * corr[r] + quad_sum(sum[r]);
-      m[r] = mn[r];
+    for (int i = 0; i < C::NS; ++i) {
+      s[i] = sm90::ex2(fmaf(s[i], sl2, nl2[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += s[i];
     }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][0] *= corr[0];
-      o[j][1] *= corr[0];
-      o[j][2] *= corr[1];
-      o[j][3] *= corr[1];
-    }
-    // o += P V, P rounded to V's type.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t fa[4];
-      acc_to_a<T>(fa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        uint32_t fb[2];
-        frag_b_cols<T, LDS>(fb, cV, kk * 16, j * 8, g, t);
-        Mma<T>::run(o[j], fa, fb);
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage
-  }
-  cp_async_wait<0>();
+  };
+  if (nk > 0) sm90::bar_wait(ring.full_q(), 0);
+  sm90::attend<T, C, true>(o, ring, wg, 0, 0, nk_wg, soft);
+  sm90::skip(ring, wg, nk_wg, nk, true);
 
+  const float lsum[2] = {quad_sum(l[0]), quad_sum(l[1])};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.Lq) continue;
     const long long off = ((long long)(b * a.Lq + row[r]) * a.H + h) * D;
     const long long moff = (long long)(b * a.H + h) * a.Lq + row[r];
     if (a.o != nullptr) {
-      const float lc = fmaxf(l[r], 1e-30f);
+      const float lc = fmaxf(lsum[r], 1e-30f);
       T* op = static_cast<T*>(a.o) + off;
 #pragma unroll
-      for (int j = 0; j < NO; ++j)
-        *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) =
-            Mma<T>::pack(o[j][2 * r] / lc, o[j][2 * r + 1] / lc);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) = Mma<T>::pack(
+            o[4 * j + 2 * r] / lc, o[4 * j + 2 * r + 1] / lc);
       if (t == 0) a.lse_out[moff] = m[r] + logf(lc);
     } else {
       float* ap = a.acc_out + off;
 #pragma unroll
-      for (int j = 0; j < NO; ++j)
+      for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(ap + 8 * j + 2 * t) =
-            make_float2(o[j][2 * r], o[j][2 * r + 1]);
+            make_float2(o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
       if (t == 0) {
         a.m_out[moff] = m[r];
-        a.l_out[moff] = l[r];
+        a.l_out[moff] = lsum[r];
       }
     }
   }
+}
+
+template <typename T, int D>
+cudaError_t fwd(const Args& a, cudaStream_t stream) {
+  return sm90::launch_fwd<T, FwdCfg<D>>(flash_fwd_kernel<T, D>, a, a.q, a.k,
+                                        a.v, a.B, a.H, a.Hkv, a.Lq, a.Lk,
+                                        stream);
 }
 
 // ---- #10: dQ --------------------------------------------------------------
@@ -535,10 +517,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
 }
 
 template <typename T, int D>
-constexpr size_t fwd_smem() {
-  return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(T);
-}
-template <typename T, int D>
 constexpr size_t dq_smem() {
   return (size_t)(2 * BQ + 4 * BK) * (D + 8) * sizeof(T);
 }
@@ -551,9 +529,7 @@ constexpr size_t dkv_smem() {
 // kind: 0 forward, 1 dq, 2 dkv.
 template <typename T, int D>
 cudaError_t dispatch(int kind, const Args& a, cudaStream_t stream) {
-  if (kind == 0)
-    return launch(flash_fwd_kernel<T, D>, fwd_smem<T, D>(),
-                  dim3((a.Lq + BQ - 1) / BQ, a.H, a.B), a, stream);
+  if (kind == 0) return fwd<T, D>(a, stream);
   if (kind == 1)
     return launch(flash_dq_kernel<T, D>, dq_smem<T, D>(),
                   dim3((a.Lq + BQ - 1) / BQ, a.H, a.B), a, stream);

@@ -26,24 +26,35 @@
 // grid, so the tiles each of them streams come from L2 after the first
 // reader, and scores, probabilities and dS never leave the registers.
 //
-// Forward design (#12):
-//   * one 4-warp CTA per (64-row q tile, head, batch), each warp owning 16
-//     rows.  The TPU kernel batches heads_per_block heads in one program to
-//     save per-grid-step cost, which the card does not pay; heads_per_block
-//     shapes nothing here (it shapes the plain version's loop);
-//   * two passes over the visible K tiles through a cp.async double buffer:
-//     the first finds each row's exact max of s = q k^T * scale (-1e30
-//     where masked), the second forms p = exp(s - max) against that final
-//     max, sums the unrounded p in f32 and accumulates p rounded to V's type
-//     times V.  An online softmax would round p against a running max, at
-//     other points than the TPU kernel; the second q k^T is cheap at a
-//     bytes-bound shape;
+// Forward design (#12), on the Hopper core of flash_sm90.cuh that it
+// shares with #9.  Against its bytes bound, the kernel is held back less by
+// bandwidth than by the latency of each CTA's short chain of steps (at
+// L 512 a q tile sees at most 8 K tiles), so the design keeps many CTAs in
+// flight:
+//   * one CTA per (64-row q tile, head, batch): one consumer warpgroup and
+//     one producer warp (160 threads), three CTAs an SM at D 64 and two at
+//     D 128, each with a 2-slot TMA ring of 64 K/V rows; one CTA's waits
+//     overlap the others' products.  The TPU kernel batches
+//     heads_per_block heads in one program to save per-grid-step cost,
+//     which the card does not pay; heads_per_block shapes nothing here (it
+//     shapes the plain version's loop).  These tiles beat 128- and
+//     192-row CTAs, BK 128 and 3 slots on the card (PERF.md);
+//   * two passes over the visible K tiles: the first finds each row's exact
+//     max of s = q k^T * scale (-1e30 where masked), the second forms
+//     p = exp(s - max) against that final max, sums the unrounded p in f32
+//     and accumulates p rounded to V's type times V (wgmma, P from
+//     registers, pipelined as in #9).  An online softmax would round p
+//     against a running max, at other points than the TPU kernel; the
+//     second q k^T is cheap at a bytes-bound shape, and its K tiles come
+//     from L2;
 //   * tiles above the causal diagonal are neither loaded nor multiplied.
 //     The TPU kernel multiplies and masks them; a masked p is exactly 0, so
-//     skipping them changes no number;
+//     skipping them changes no number; only tiles that straddle the
+//     diagonal or the ragged end evaluate the mask;
 //   * o = acc / sum with no clamp and lse = max + log(sum), as the TPU
 //     kernel does; s * scale is rounded before the subtraction
-//     (__fmul_rn), at the TPU kernel's rounding point.
+//     (__fmul_rn), at the TPU kernel's rounding point, then
+//     p = 2^(x * log2e - max * log2e) (one FFMA and one ex2).
 //
 // Backward design (#13): one launch, two CTA roles by blockIdx.x, no atomics
 // (a run repeats to the last bit):
@@ -63,9 +74,9 @@
 //     the same f32 value once, and writing 16 bits saves 0.4 GB of traffic
 //     at the path's shape.
 //
-// Any L >= 1 works: rows past the end are zero-filled when staged, a key
-// past the end counts as absent (p = 0) and rows past the end are not
-// written.  Requirements checked by the Python wrapper: D in {64, 128},
+// Any L >= 1 works: rows past the end are zero-filled when staged (by the
+// TMA in the forward), a key past the end counts as absent (p = 0) and
+// rows past the end are not written.  Requirements checked by the Python wrapper: D in {64, 128},
 // bf16 or fp16 operands of one type, contiguous, 16-byte aligned.  Each
 // entry returns cudaGetLastError() after its launch.
 
@@ -73,11 +84,12 @@
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per CTA (forward, role B)
-constexpr int BK = 64;         // k rows per step (forward, role B) / CTA (A)
+constexpr int BQ = 64;         // q rows per CTA (role B)
+constexpr int BK = 64;         // k rows per step (role B) / CTA (role A)
 constexpr float NEG = -1e30f;  // the TPU kernels' mask value
 
 template <int D>
@@ -134,138 +146,112 @@ __device__ __forceinline__ void row_delta(float* sD, const T* sdO,
   if (part == 0) sD[r] = acc;
 }
 
-// ---- #12: forward ---------------------------------------------------------
+// ---- #12: forward, on the Hopper core (flash_sm90.cuh) --------------------
+
+// The tiles: 64 q rows a CTA (one consumer warpgroup), 64 K/V rows a
+// step, two ring slots, three CTAs an SM at D 64 and two at D 128.
+template <int D>
+using FwdCfg = sm90::Cfg<D, 64, 2, 1, D == 64 ? 3 : 2>;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) smallseq_fwd_kernel(Args a) {
-  constexpr int LDS = D + 8;
-  constexpr int NS = BK / 8;  // score n-tiles
-  constexpr int NO = D / 8;   // output n-tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BQ * LDS;      // two stages
-  T* sV = sK + 2 * BK * LDS;  // two stages (second pass)
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
+    smallseq_fwd_kernel(const __grid_constant__ sm90::FwdParams<Args> p) {
+  using C = FwdCfg<D>;
+  extern __shared__ unsigned char sm90_smem[];
+  __shared__ uint64_t bars[C::BARS];
+  const Args& a = p.a;
+  const sm90::Ring<C> ring(sm90_smem, bars);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const long long qs = (long long)a.H * D, ks = (long long)a.Hkv * D;
-  const long long bl = (long long)b * a.L;
-  const T* qp = static_cast<const T*>(a.q) + bl * qs + h * D;
-  const T* kp = static_cast<const T*>(a.k) + bl * ks + hk * D;
-  const T* vp = static_cast<const T*>(a.v) + bl * ks + hk * D;
-  const int nk = k_tiles(a, q0);
-  const int steps = 2 * nk;  // 0 .. nk-1: the max; nk .. 2nk-1: sum and PV
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-
-  load_tile<T, D, BQ>(sQ, qp, qs, q0, a.L);
-  if (nk > 0) load_tile<T, D, BK>(sK, kp, ks, 0, a.L);
-  cp_async_commit();
-
-  for (int it = 0; it < steps; ++it) {
-    const int st = it & 1;
-    const bool second = it >= nk;
-    const int kb = second ? it - nk : it;
-    if (it + 1 < steps) {
-      const int nb = it + 1 < nk ? it + 1 : it + 1 - nk;
-      load_tile<T, D, BK>(sK + (st ^ 1) * BK * LDS, kp, ks, nb * BK, a.L);
-      if (it + 1 >= nk)
-        load_tile<T, D, BK>(sV + (st ^ 1) * BK * LDS, vp, ks, nb * BK, a.L);
-    }
-    cp_async_commit();   // possibly empty: keeps the group count uniform
-    cp_async_wait<1>();  // every group but the newest has landed
-    __syncthreads();
-    const T* cK = sK + st * BK * LDS;
-    const T* cV = sV + st * BK * LDS;
-
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t fa[4];
-      frag_a<T, LDS>(fa, sQ, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t fb[2];
-        frag_b_rows<T, LDS>(fb, cK, j * 8, kk * 16, g, t);
-        Mma<T>::run(s[j], fa, fb);
-      }
-    }
-
-    const int k0 = kb * BK;
-    if (!second) {
-      // First pass: the row max of the scaled, masked scores.
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + 8 * j + 2 * t + (e & 1);
-          float x = __fmul_rn(s[j][e], a.scale);
-          if (col >= a.L)
-            x = -INFINITY;
-          else if (a.causal && row[e >> 1] < col)
-            x = NEG;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-    } else {
-      if (kb == 0) {  // the four threads of a row agree on its max
-        mx[0] = quad_max(mx[0]);
-        mx[1] = quad_max(mx[1]);
-      }
-      // Second pass: p against the final max, its f32 sum, and P V with
-      // P rounded to V's type.
-#pragma unroll
-      for (int j = 0; j < NS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int col = k0 + 8 * j + 2 * t + (e & 1);
-          const float p = visible(a, row[r], col)
-                              ? expf(__fmul_rn(s[j][e], a.scale) - mx[r])
-                              : 0.f;
-          s[j][e] = p;
-          sum[r] += p;
-        }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t fa[4];
-        acc_to_a<T>(fa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int j = 0; j < NO; ++j) {
-          uint32_t fb[2];
-          frag_b_cols<T, LDS>(fb, cV, kk * 16, j * 8, g, t);
-          Mma<T>::run(o[j], fa, fb);
-        }
-      }
-    }
-    __syncthreads();  // the next step refills this stage
+  const int nk = sm90::visible_tiles<C>(q0, C::BQ, a.L, a.L, a.causal, 0);
+  ring.init();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= C::CONSUMER_WARPS) {
+    sm90::producer_regs<C>();
+    // Steps 0 .. nk-1 bring K for the max, nk .. 2nk-1 K and V again.
+    if (threadIdx.x == 32 * C::CONSUMER_WARPS && nk > 0)
+      sm90::produce(ring, &p.q, &p.k, &p.v, h, h / (a.H / a.Hkv), b, q0, nk,
+                    2 * nk, nk);
+    return;
   }
-  cp_async_wait<0>();
+  sm90::consumer_regs<C>();
+  sm90::start_turns<C>(warp >> 2);
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int row[2] = {r0 + 16 * (warp & 3) + g, r0 + 16 * (warp & 3) + g + 8};
+  const int nk_wg = sm90::visible_tiles<C>(r0, 64, a.L, a.L, a.causal, 0);
+
+  float o[C::NO];
+#pragma unroll
+  for (int i = 0; i < C::NO; ++i) o[i] = 0.f;
+  float mx[2] = {-INFINITY, -INFINITY}, nl2[2], sum[2] = {0.f, 0.f};
+  auto masked = [&](float(&s)[C::NS], int kb) {
+    const int k0 = kb * C::BK;
+    if (k0 + C::BK > a.L || (a.causal && r0 < k0 + C::BK - 1))
+      sm90::mask(s, row, k0, a.L, a.causal, 0, t);
+  };
+  if (nk > 0) sm90::bar_wait(ring.full_q(), 0);
+
+  // First pass, steps 0 .. nk-1: each row's max of the raw scores.
+  for (int it = 0; it < nk_wg; ++it) {
+    const int slot = sm90::slot_of<C>(it);
+    float s[C::NS];
+    sm90::bar_wait(ring.full_k(slot), sm90::parity_of<C>(it));
+    sm90::fence_regs(s);
+    sm90::wgmma_fence();
+    sm90::qk_issue<T, C>(s, ring, slot, wg);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+    sm90::release(ring, slot);
+    masked(s, it);
+    sm90::row_max(s, mx);
+  }
+  sm90::skip(ring, wg, nk_wg, nk, false);
+
+  // The exact final max of s * scale, rounded as the TPU kernel rounds it
+  // (rounding is monotonic, so the max of the rounded scores is the
+  // rounded max); -1e30 where a row sees nothing.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(__fmul_rn(mx[r], a.scale), NEG);
+    nl2[r] = -mx[r] * sm90::LOG2E;
+  }
+
+  // Second pass, steps nk .. 2nk-1: p = exp(s * scale - max) against the
+  // final max, its f32 sum, and P V with P rounded to V's type.
+  auto soft = [&](float(&s)[C::NS], int kb, float(&)[2]) {
+    masked(s, kb);
+#pragma unroll
+    for (int i = 0; i < C::NS; ++i) {
+      s[i] = sm90::ex2(
+          fmaf(__fmul_rn(s[i], a.scale), sm90::LOG2E, nl2[(i >> 1) & 1]));
+      sum[(i >> 1) & 1] += s[i];
+    }
+  };
+  sm90::attend<T, C, false>(o, ring, wg, nk, 0, nk_wg, soft);
+  sm90::skip(ring, wg, nk + nk_wg, 2 * nk, true);
 
   const float l[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
+  const long long bl = (long long)b * a.L;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.L) continue;
     T* op = static_cast<T*>(a.o) + ((bl + row[r]) * a.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) =
-          Mma<T>::pack(o[j][2 * r] / l[r], o[j][2 * r + 1] / l[r]);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) = Mma<T>::pack(
+          o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
     if (t == 0)
       a.lse[(long long)(b * a.H + h) * a.L + row[r]] = mx[r] + logf(l[r]);
   }
+}
+
+template <typename T, int D>
+cudaError_t fwd(const Args& a, cudaStream_t stream) {
+  return sm90::launch_fwd<T, FwdCfg<D>>(smallseq_fwd_kernel<T, D>, a, a.q,
+                                        a.k, a.v, a.B, a.H, a.Hkv, a.L, a.L,
+                                        stream);
 }
 
 // ---- #13, role A: dK and dV of one k tile over a GQA group ---------------
@@ -557,10 +543,6 @@ __global__ void __launch_bounds__(NTHREADS) smallseq_bwd_kernel(Args a) {
 }
 
 template <typename T, int D>
-constexpr size_t fwd_smem() {
-  return (size_t)(BQ + 4 * BK) * (D + 8) * sizeof(T);
-}
-template <typename T, int D>
 constexpr size_t bwd_smem() {
   constexpr int BQ2 = BwdTile<D>::BQ2;
   constexpr size_t dkv =
@@ -572,9 +554,7 @@ constexpr size_t bwd_smem() {
 
 template <typename T, int D>
 cudaError_t dispatch(int bwd, const Args& a, cudaStream_t stream) {
-  if (!bwd)
-    return launch(smallseq_fwd_kernel<T, D>, fwd_smem<T, D>(),
-                  dim3((a.L + BQ - 1) / BQ, a.H, a.B), a, stream);
+  if (!bwd) return fwd<T, D>(a, stream);
   const long long ctas = (long long)((a.L + BK - 1) / BK) * a.Hkv * a.B +
                          (long long)((a.L + BQ - 1) / BQ) * a.H * a.B;
   if (ctas > INT_MAX) return cudaErrorInvalidValue;

@@ -68,10 +68,13 @@ def broadcast_parameters(params: Params, root_rank: int = 0,
 def broadcast_optimizer_state(optimizer, root_rank: int = 0,
                               process_set: Optional[ProcessSet] = None):
     """Broadcast an optimizer's state from ``root_rank``: its state
-    tensors in place, and the hyperparameters of its param groups (and
-    any non-tensor state) as objects.  The state must have the same
-    structure on every rank (the fused optimizers create theirs at
-    construction)."""
+    tensors in place, and the hyperparameters of its param groups (the
+    step ``count`` among them) and any non-tensor state as objects.  A
+    callable hyperparameter (a learning-rate schedule) is not sent: each
+    rank keeps its own, as the JAX package keeps the schedule in the
+    update closure and broadcasts only the state.  The state must have
+    the same structure on every rank (the fused optimizers create theirs
+    with each param group)."""
     ps = process_set or global_process_set()
     tensors = []
     others = []
@@ -86,7 +89,8 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0,
                     others.append((st, key))
     broadcast_parameters(tensors, root_rank, ps)
     meta = broadcast_object(
-        ([{k: v for k, v in g.items() if k != "params"}
+        ([{k: v for k, v in g.items()
+           if k != "params" and not callable(v)}
           for g in optimizer.param_groups],
          [st[key] for st, key in others]), root_rank, ps)
     for group, hyper in zip(optimizer.param_groups, meta[0]):

@@ -339,14 +339,30 @@ class _MultiTensorOptimizer(torch.optim.Optimizer):
         missing = tuple(i for i, g in enumerate(grads) if g is None)
         return grads, (self.use_kernels, missing)
 
+    def _init_state(self, group: dict) -> None:
+        """Zero moments for every parameter of ``group``."""
+        raise NotImplementedError
+
     def add_param_group(self, param_group: dict) -> None:
+        """Add a group and create its state (also for the groups given at
+        construction, which ``torch.optim.Optimizer.__init__`` adds
+        through here)."""
         super().add_param_group(param_group)
+        self._init_state(self.param_groups[-1])
         self._leaves = [(gi, p) for gi, group in enumerate(self.param_groups)
                         for p in group["params"]]
         self._plans: Dict[tuple, Tuple[_Plan, List[int]]] = {}
 
     def load_state_dict(self, state_dict: dict) -> None:
+        """Load as ``torch.optim.Optimizer`` does, but keep each state
+        tensor in its saved dtype (the base class casts it to its
+        parameter's, which would turn a bf16 ``mu`` into f32)."""
+        ids = [i for g in state_dict["param_groups"] for i in g["params"]]
         super().load_state_dict(state_dict)
+        for i, (_, p) in zip(ids, self._leaves):
+            for key, v in state_dict["state"].get(i, {}).items():
+                if isinstance(v, torch.Tensor):
+                    self.state[p][key] = v.detach().to(p.device, copy=True)
         self._plans = {}
 
 
@@ -389,8 +405,8 @@ class FusedSGD(_MultiTensorOptimizer):
     ``momentum`` one ``hvdt_sgd_multi`` launch a step updates every CUDA
     leaf (trace update and apply); without it there is no state and the
     step is one plain scale-and-add per leaf, as in the JAX package.
-    State per parameter: ``{"trace": m}``, zeros from construction
-    (optax's ``TraceState``)."""
+    State per parameter: ``{"trace": m}``, zeros from construction or
+    from ``add_param_group`` (optax's ``TraceState``)."""
 
     def __init__(self, params, learning_rate: float, momentum: float = 0.0,
                  nesterov: bool = False, *, use_kernels: bool = True):
@@ -399,14 +415,15 @@ class FusedSGD(_MultiTensorOptimizer):
                 "fused_sgd takes a float learning_rate (its state carries "
                 "no step count for a schedule); use fused_adam for "
                 "schedule support")
+        self.use_kernels = use_kernels
         super().__init__(params, dict(lr=float(learning_rate),
                                       momentum=float(momentum),
                                       nesterov=bool(nesterov)))
-        self.use_kernels = use_kernels
-        for group in self.param_groups:
-            if group["momentum"]:
-                for p in group["params"]:
-                    self.state[p]["trace"] = torch.zeros_like(p)
+
+    def _init_state(self, group):
+        if group["momentum"]:
+            for p in group["params"]:
+                self.state[p]["trace"] = torch.zeros_like(p)
 
     def _moments(self, gi, p):
         if not self.param_groups[gi]["momentum"]:
@@ -509,8 +526,11 @@ class FusedAdam(_MultiTensorOptimizer):
     (moments, bias correction, decay and apply).  ``learning_rate`` may
     be a float or a schedule ``count -> lr``, evaluated at the
     pre-increment count.  State per parameter: ``{"mu", "nu"}``, zeros
-    from construction; the step count (optax's
-    ``ScaleByAdamState.count``) is ``group["count"]``.
+    (``mu`` in ``mu_dtype``) from construction or from
+    ``add_param_group``, kept in their dtypes through
+    ``load_state_dict``; the step count (optax's
+    ``ScaleByAdamState.count``) is ``group["count"]``, and a group added
+    later starts at 0.
     """
 
     def __init__(self, params, learning_rate: Union[float, Callable],
@@ -518,16 +538,18 @@ class FusedAdam(_MultiTensorOptimizer):
                  eps_root: float = 0.0, *, weight_decay: float = 0.0,
                  mu_dtype: Optional[torch.dtype] = None,
                  use_kernels: bool = True):
+        self.use_kernels = use_kernels
+        self.mu_dtype = mu_dtype
         super().__init__(params, dict(
             learning_rate=learning_rate, b1=float(b1), b2=float(b2),
             eps=float(eps), eps_root=float(eps_root),
             weight_decay=float(weight_decay), count=0))
-        self.use_kernels = use_kernels
-        for group in self.param_groups:
-            for p in group["params"]:
-                self.state[p]["mu"] = torch.zeros_like(
-                    p, dtype=mu_dtype or p.dtype)
-                self.state[p]["nu"] = torch.zeros_like(p)
+
+    def _init_state(self, group):
+        for p in group["params"]:
+            self.state[p]["mu"] = torch.zeros_like(
+                p, dtype=self.mu_dtype or p.dtype)
+            self.state[p]["nu"] = torch.zeros_like(p)
 
     def _moments(self, gi, p):
         st = self.state[p]

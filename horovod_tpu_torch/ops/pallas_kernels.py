@@ -50,7 +50,9 @@ CPU; on a CUDA tensor it launches the kernel or raises (``ValueError``
 for a dtype other than bf16/fp16 or a head dim other than 64/128).
 ``block_q``/``block_k`` (and ``heads_per_block`` for #12/#13) shape the
 plain versions' loops, which follow the TPU kernels' block order and
-pruning; the CUDA kernels tile at 64 rows.  ``launches`` on each wrapper
+pruning; the CUDA kernels tile at their own sizes (the forwards #9 and
+#12 on the wgmma + TMA core of ``csrc/flash_sm90.cuh``: 192 q rows a CTA
+for #9, 64 for #12; the backwards at 64).  ``launches`` on each wrapper
 counts kernel launches.
 """
 

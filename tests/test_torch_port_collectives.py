@@ -11,6 +11,10 @@ DistributedOptimizer over a 2-process gloo world, and import isolation.
   3e-2 per tensor and 1.5e-2 over all of them, as in
   tests/test_torch_port_resnet.py and for the same reason (the early
   layers' gradients are ill-conditioned in f32).
+* broadcast_optimizer_state, in a 1- and a 2-process gloo world, gives
+  every rank rank 0's moments and step count and leaves a learning-rate
+  schedule local; the next step is the JAX fused_adam's (f32 tolerance
+  of tests/test_torch_port_optim.py: rtol 1e-6, atol 1e-7).
 * ``import horovod_tpu_torch`` loads nothing of JAX or horovod_tpu.
 """
 
@@ -30,6 +34,7 @@ import torch
 
 from horovod_tpu.models import resnet as jrn
 from horovod_tpu.ops import device as jdev
+from horovod_tpu.ops.optim_kernels import fused_adam as jax_fused_adam
 from horovod_tpu.ops.optim_kernels import fused_sgd as jax_fused_sgd
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.convert import _param_tensors, resnet_params_from_jax
@@ -260,6 +265,130 @@ def test_two_process_gloo_world(tmp_path, monkeypatch):
         np.testing.assert_allclose(res[r]["bcast1"], [2.0] * 3)
         assert int(res[r]["obj"]) == 11
         np.testing.assert_allclose(res[r]["ps_sum"], [3.0] * 3)
+
+
+# ---- broadcast_optimizer_state with a schedule ---------------------------
+
+_BCAST_SHAPE = (8, 128)
+
+
+def _schedule(count):
+    return 1e-2 * 0.5 ** count
+
+
+def _bcast_np():
+    """The param's init and four grads: steps 0-1 are rank 0's history,
+    step 2 rank 1's own, step 3 the step both take after the call."""
+    rng = np.random.default_rng(21)
+    p0 = rng.standard_normal(_BCAST_SHAPE).astype(np.float32)
+    return p0, [(rng.standard_normal(_BCAST_SHAPE) * 0.1).astype(np.float32)
+                for _ in range(4)]
+
+
+def _jax_adam_steps(lr, p0, grads):
+    """(param, state) after the JAX fused_adam's steps over ``grads``."""
+    tx = jax_fused_adam(lr)
+    params = {"x": jnp.asarray(p0)}
+    state = tx.init(params)
+    for g in grads:
+        updates, state = tx.update({"x": jnp.asarray(g)}, state, params)
+        params = optax.apply_updates(params, updates)
+    return np.asarray(params["x"]), state
+
+
+def _close_f32(got, want):
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("schedule", [True, False],
+                         ids=["schedule", "float"])
+def test_broadcast_optimizer_state_one_process(world1, schedule):
+    """Returns with a schedule (a lambda, which cannot be pickled) as
+    with a float learning rate, keeps the local schedule and count, and
+    the next step is the JAX step."""
+    lr = (lambda c: _schedule(c)) if schedule else 1e-2
+    p0, grads = _bcast_np()
+    p = torch.from_numpy(p0.copy())
+    opt = tok.fused_adam([p], lr)
+    for g in grads[:2]:
+        p.grad = torch.from_numpy(g)
+        opt.step()
+    assert hvd.broadcast_optimizer_state(opt, root_rank=0) is opt
+    assert opt.param_groups[0]["learning_rate"] is lr
+    assert opt.param_groups[0]["count"] == 2
+    p.grad = torch.from_numpy(grads[3])
+    opt.step()
+    want_p, want_s = _jax_adam_steps(lr, p0, [grads[0], grads[1], grads[3]])
+    _close_f32(p.numpy(), want_p)
+    _close_f32(opt.state[p]["mu"].numpy(), want_s.mu["x"])
+    _close_f32(opt.state[p]["nu"].numpy(), want_s.nu["x"])
+
+
+_BCAST_WORKER = r"""
+import sys
+import numpy as np
+import torch
+import horovod_tpu_torch as hvd
+
+data = np.load(sys.argv[1])
+hvd.init(device="cpu")
+r = hvd.rank()
+grads = [torch.from_numpy(data["g%d" % i]) for i in range(4)]
+p = torch.from_numpy(data["p0"].copy())
+opt = hvd.fused_adam([p], lambda c: 1e-2 * 0.5 ** c)
+flat = hvd.fused_adam([torch.zeros(3)], 1e-3 * (r + 1))
+# Rank 0 takes two steps, rank 1 one step of its own.
+for g in (grads[:2] if r == 0 else grads[2:3]):
+    p.grad = g
+    opt.step()
+hvd.broadcast_parameters([p], root_rank=0)
+hvd.broadcast_optimizer_state(opt, root_rank=0)
+hvd.broadcast_optimizer_state(flat, root_rank=0)
+res = {"mu": opt.state[p]["mu"].numpy().copy(),
+       "nu": opt.state[p]["nu"].numpy().copy(),
+       "count": np.array(opt.param_groups[0]["count"]),
+       "lr_callable": np.array(callable(opt.param_groups[0]["learning_rate"])),
+       "flat_lr": np.array(flat.param_groups[0]["learning_rate"])}
+p.grad = grads[3]
+opt.step()
+res["p"] = p.numpy().copy()
+np.savez(sys.argv[2], **res)
+hvd.shutdown()
+"""
+
+
+def test_broadcast_optimizer_state_two_processes(tmp_path):
+    """Rank 1 starts from other moments and another count; after the
+    call it holds rank 0's, keeps its own schedule, and its next step is
+    the JAX fused_adam's third step from rank 0's history.  A float
+    learning rate is rank 0's on every rank, as before."""
+    p0, grads = _bcast_np()
+    np.savez(tmp_path / "in.npz", p0=p0,
+             **{f"g{i}": g for i, g in enumerate(grads)})
+    env = dict(os.environ, HVDT_SIZE="2",
+               HVDT_COORDINATOR_ADDR=f"127.0.0.1:{_free_port()}",
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _BCAST_WORKER, str(tmp_path / "in.npz"),
+         str(tmp_path / f"out{r}.npz")], env=dict(env, HVDT_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    _, root_state = _jax_adam_steps(_schedule, p0, grads[:2])
+    want_p, _ = _jax_adam_steps(_schedule, p0,
+                                [grads[0], grads[1], grads[3]])
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out.decode()[-3000:]
+    res = [np.load(tmp_path / f"out{r}.npz") for r in range(2)]
+    for key in ("mu", "nu", "p"):
+        np.testing.assert_array_equal(res[1][key], res[0][key], err_msg=key)
+    for r in range(2):
+        assert int(res[r]["count"]) == 2
+        assert bool(res[r]["lr_callable"])
+        assert float(res[r]["flat_lr"]) == 1e-3
+        _close_f32(res[r]["mu"], root_state.mu["x"])
+        _close_f32(res[r]["nu"], root_state.nu["x"])
+        _close_f32(res[r]["p"], want_p)
 
 
 # ---- (f) import isolation -------------------------------------------------

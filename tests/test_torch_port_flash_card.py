@@ -90,7 +90,7 @@ def test_kernels_match_plain(card, dtype, d, causal):
     (200, 200, 2, 64, True), (200, 136, 1, 128, False),
     (72, 200, 2, 64, False)])
 def test_ragged_lengths_are_masked(card, lq, lk, hkv, d, causal):
-    """Lengths that are not a multiple of the kernels' 64-row tiles."""
+    """Lengths that are not a multiple of the kernels' tiles."""
     _check(card, 1, lq, lk, 2, hkv, d, torch.bfloat16, causal)
 
 
@@ -116,6 +116,69 @@ def test_offsets_and_carry_match_plain(card):
             for g, c in zip(got, carry):
                 assert torch.equal(g, c)
     _check(card, 2, 256, 128, 4, 2, d, torch.bfloat16, True, 128, 64)
+
+
+# The forward #9 tiles 192 q rows a CTA (three warpgroups of 64) and #12 64
+# (one warpgroup), with 64 or 128 K/V rows a step (each source's FwdCfg),
+# loaded by the TMA with the ragged end zero-filled: lengths off those
+# multiples and below one warpgroup, GQA groups of 1 and 4 at L 1000, D 128
+# and fp16.  (lq, lk, hkv, d, dtype,
+# causal); the plain version walks one block of the whole length where the
+# TPU block clamp would give a tiny block.
+_TILING = [(40, 40, 2, 64, torch.bfloat16, True),
+           (300, 300, 2, 128, torch.float16, True),
+           (1000, 1000, 1, 64, torch.bfloat16, True),
+           (1000, 1000, 4, 128, torch.bfloat16, False),
+           (1000, 1000, 4, 64, torch.float16, True),
+           (130, 1000, 4, 64, torch.bfloat16, False)]
+
+
+def _block(n):
+    fit = pk._fit_block(n, 512)
+    return fit if fit >= 64 else n
+
+
+@pytest.mark.parametrize("lq,lk,hkv,d,dtype,causal", _TILING)
+def test_forward_tiling_matches_plain(card, lq, lk, hkv, d, dtype, causal):
+    q = _rand(card, 2, lq, 4, d, dtype=dtype)
+    k, v = (_rand(card, 2, lk, hkv, d, dtype=dtype) for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5, block_q=_block(lq),
+              block_k=_block(lk))
+    before = pk._flash_fwd.launches
+    got = pk._flash_fwd(q, k, v, None, 0, 0, finish=True, **kw)
+    assert pk._flash_fwd.launches == before + 1
+    _assert_close(got, pk._flash_fwd_plain(q, k, v, None, 0, 0, finish=True,
+                                           **kw), dtype, lse=True)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k_offset", [64, 24])
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (128, torch.float16)])
+def test_carry_passes_through_rows_before_every_key(card, d, dtype,
+                                                    k_offset):
+    """flash_block_update with k_offset past q_offset 0: q rows below
+    k_offset see no key, so their carry (acc, m, l) comes back bit for
+    bit; the other rows match the plain version, also past the ragged end
+    of Lk 200.  At k_offset 64 the unseen rows are a whole warpgroup that
+    runs no product; at 24 they share a warpgroup, and its tiles, with
+    rows that see keys, so their rescale must be exactly 1 and their p
+    exactly 0."""
+    b, lq, lk, h = 2, 256, 200, 4
+    q = _rand(card, b, lq, h, d, dtype=dtype)
+    k, v = (_rand(card, b, lk, 2, d, dtype=dtype) for _ in range(2))
+    carry = (torch.randn((b, lq, h, d), generator=card, device="cuda"),
+             torch.randn((b, h, lq), generator=card, device="cuda"),
+             1.0 + torch.rand((b, h, lq), generator=card, device="cuda"))
+    kw = dict(q_offset=0, k_offset=k_offset, causal=True, scale=d ** -0.5)
+    got = pk.flash_block_update(q, k, v, *carry, **kw)
+    want = pk._flash_fwd_plain(q, k, v, carry, 0, k_offset, causal=True,
+                               scale=d ** -0.5, block_q=256, block_k=200,
+                               finish=False)
+    _assert_close(got, want, dtype)
+    assert torch.equal(got[0][:, :k_offset], carry[0][:, :k_offset])
+    assert torch.equal(got[1][:, :, :k_offset], carry[1][:, :, :k_offset])
+    assert torch.equal(got[2][:, :, :k_offset], carry[2][:, :, :k_offset])
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 64),
@@ -167,9 +230,30 @@ def test_smallseq_kernels_match_plain(card, dtype, d, causal):
     (200, 2, 64, True), (200, 1, 128, False), (72, 4, 64, True),
     (65, 2, 64, True)])
 def test_smallseq_ragged_lengths_are_masked(card, l, hkv, d, causal):
-    """Lengths that are not a multiple of the kernels' 64-row tiles, and
-    GQA groups of 1, 2 and 4."""
+    """Lengths that are not a multiple of the kernels' tiles, and GQA
+    groups of 1, 2 and 4."""
     _check_smallseq(card, 2, l, 4, hkv, d, torch.bfloat16, causal)
+
+
+@pytest.mark.parametrize("l,hkv,d,dtype,causal", [
+    (40, 2, 64, torch.bfloat16, True), (300, 2, 128, torch.float16, True),
+    (1000, 1, 64, torch.bfloat16, True), (1000, 4, 128, torch.bfloat16, True),
+    (1000, 4, 64, torch.float16, True), (1024, 4, 64, torch.bfloat16, False)])
+def test_smallseq_forward_tiling_matches_plain(card, l, hkv, d, dtype,
+                                               causal):
+    """#12 off its tiles' multiples (L 40 below one warpgroup, L 300),
+    GQA groups of 1 and 4 at L 1000, D 128, fp16, and non-causal at
+    L 1024."""
+    q = _rand(card, 2, l, 4, d, dtype=dtype)
+    k, v = (_rand(card, 2, l, hkv, d, dtype=dtype) for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5,
+              hb=pk._fit_heads_per_block(4, 4 // hkv, 8))
+    before = pk._smallseq_fwd.launches
+    got = pk._smallseq_fwd(q, k, v, **kw)
+    assert pk._smallseq_fwd.launches == before + 1
+    _assert_close(got, pk._smallseq_fwd_plain(q, k, v, **kw), dtype,
+                  lse=True)
+    torch.cuda.synchronize()
 
 
 def test_smallseq_autograd_runs_the_kernels(card):

@@ -491,3 +491,120 @@ def test_table_builder_groups_splits_and_covers():
     assert [t.nchunks for t in split] == [cap, cap, 5]
     assert np.concatenate([t.index for t in split]).tolist() == list(
         range(many))
+
+
+# ---- state kept through a checkpoint and created for added groups ---------
+
+
+def _fresh_leaf_jax(tx, p0, grads):
+    """``tx`` over the one leaf ``p0`` from a fresh state, one step per
+    grad: the (param, state) after each."""
+    params, hist = {"x": jnp.asarray(p0)}, []
+    state = tx.init(params)
+    for g in grads:
+        updates, state = tx.update({"x": jnp.asarray(g)}, state, params)
+        params = optax.apply_updates(params, updates)
+        hist.append((params["x"], state))
+    return hist
+
+
+@pytest.mark.parametrize("fresh_mu_dtype", [torch.bfloat16, None])
+@pytest.mark.parametrize("route", ["plain", "table"])
+def test_fused_adam_mu_dtype_survives_checkpoint(fresh_mu_dtype, route,
+                                                 request):
+    """A bf16 ``mu`` beside an f32 param comes back from
+    ``state_dict()`` / ``load_state_dict()`` as bf16, whatever the fresh
+    optimizer's own ``mu_dtype``, and the step after the round trip is,
+    bit for bit, the step of an optimizer that never went through it;
+    both agree with the JAX fused_adam at the file's f32 / bf16
+    tolerances."""
+    if route == "table":
+        request.getfixturevalue("table_route")
+    rng = np.random.default_rng(11)
+    p0 = rng.standard_normal((16, 128)).astype(np.float32)
+    grads = [(rng.standard_normal((16, 128)) * 0.1).astype(np.float32)
+             for _ in range(2)]
+    want = _fresh_leaf_jax(jok.fused_adam(1e-3, mu_dtype=jnp.bfloat16), p0,
+                           grads)
+
+    def opt_of(p, mu_dtype=torch.bfloat16):
+        return tok.fused_adam([p], 1e-3, mu_dtype=mu_dtype)
+
+    p, q = (torch.from_numpy(p0.copy()) for _ in range(2))
+    a, b = opt_of(p), opt_of(q)
+    for t, opt in ((p, a), (q, b)):
+        t.grad = torch.from_numpy(grads[0])
+        opt.step()
+    a2 = opt_of(p, fresh_mu_dtype)
+    a2.load_state_dict(a.state_dict())
+    assert a2.state[p]["mu"].dtype == torch.bfloat16
+    assert a2.state[p]["nu"].dtype == torch.float32
+    assert a2.param_groups[0]["count"] == 1
+    for t, opt in ((p, a2), (q, b)):
+        t.grad = torch.from_numpy(grads[1])
+        opt.step()
+    torch.testing.assert_close(p, q, rtol=0, atol=0)
+    for key in ("mu", "nu"):
+        torch.testing.assert_close(a2.state[p][key], b.state[q][key],
+                                   rtol=0, atol=0)
+    jp, js = want[-1]
+    np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=1e-6,
+                               atol=1e-7)
+    assert js.mu["x"].dtype == jnp.bfloat16
+    mu_want = np.asarray(js.mu["x"], np.float32)
+    np.testing.assert_allclose(a2.state[p]["mu"].float().numpy(), mu_want,
+                               rtol=8e-3, atol=np.abs(mu_want).max() / 256)
+    np.testing.assert_allclose(a2.state[p]["nu"].numpy(),
+                               np.asarray(js.nu["x"]), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("route", ["plain", "table"])
+@pytest.mark.parametrize("kind", ["sgd", "sgd_nesterov", "adam",
+                                  "adam_bf16_mu"])
+def test_added_param_group_gets_state(kind, route, request):
+    """A param group added after construction gets zero moments (``mu``
+    in ``mu_dtype``) and its own step count, so its leaf updates as the
+    JAX transform updates a fresh leaf, step for step, beside the leaf
+    of the first group."""
+    if route == "table":
+        request.getfixturevalue("table_route")
+    rng = np.random.default_rng(5)
+    p0, q0 = (rng.standard_normal(s).astype(np.float32)
+              for s in ((8, 128), (130,)))
+    gp, gq = ([(rng.standard_normal(x.shape) * 0.1).astype(np.float32)
+               for _ in range(_STEPS)] for x in (p0, q0))
+    if kind.startswith("sgd"):
+        nesterov = kind == "sgd_nesterov"
+        make_jax = lambda lr: jok.fused_sgd(lr, momentum=0.9,  # noqa: E731
+                                            nesterov=nesterov)
+        make_port = lambda ps: tok.fused_sgd(  # noqa: E731
+            ps, 0.05, momentum=0.9, nesterov=nesterov)
+        keys, lr_key = ("trace",), "lr"
+    else:
+        mu = kind == "adam_bf16_mu"
+        make_jax = lambda lr: jok.fused_adam(  # noqa: E731
+            lr, weight_decay=0.01, mu_dtype=jnp.bfloat16 if mu else None)
+        make_port = lambda ps: tok.fused_adam(  # noqa: E731
+            ps, 0.05, weight_decay=0.01,
+            mu_dtype=torch.bfloat16 if mu else None)
+        keys, lr_key = ("mu", "nu"), "learning_rate"
+    want_p = _fresh_leaf_jax(make_jax(0.05), p0, gp)
+    want_q = _fresh_leaf_jax(make_jax(0.01), q0, gq)
+    p, q = torch.from_numpy(p0.copy()), torch.from_numpy(q0.copy())
+    opt = make_port([p])
+    opt.add_param_group({"params": [q], lr_key: 0.01})
+    for step in range(_STEPS):
+        p.grad, q.grad = torch.from_numpy(gp[step]), torch.from_numpy(gq[step])
+        opt.step()
+        for t, (jt, js) in ((p, want_p[step]), (q, want_q[step])):
+            np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-6,
+                                       atol=1e-7)
+            for key in keys:
+                got = opt.state[t][key]
+                ref = getattr(js, key)["x"]
+                assert got.dtype == getattr(torch, str(ref.dtype))
+                ref = np.asarray(ref, np.float32)
+                tol = ((8e-3, np.abs(ref).max() / 256)
+                       if got.dtype == torch.bfloat16 else (1e-6, 1e-7))
+                np.testing.assert_allclose(got.float().numpy(), ref,
+                                           rtol=tol[0], atol=tol[1])
