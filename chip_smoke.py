@@ -42,10 +42,12 @@ Phases, one JSON line each:
    (B 16, H 16, L 4096, D 64, bf16, causal), with
    scaled_dot_product_attention's forward and backward as the library
    yardstick, each line with its fraction of the bound and the kernel's
-   registers and spills from the build log; then one GQA case (Hkv 4),
-   one offset case of flash_block_update, and a ragged one (L 1000, Hkv
-   4, offsets and a carry, the rows that see no key passed through bit
-   for bit);
+   registers and spills from the build log (#11's line adds pair_ms,
+   #10 + #11, and pair_over_library, the pair over SDPA's backward);
+   then one GQA case (Hkv 4), one offset case of flash_block_update, and
+   a ragged one (L 1000, Hkv 4, offsets and a carry, the rows that see no
+   key passed through bit for bit; then flash_grad_block at the same
+   offsets against the plain versions of #10 and #11);
 11. lm_train — the bert-large transformer LM preset at full width and
    depth (24 x 1024, 16 heads, d_ff 4096, vocab 30528, bf16 compute, f32
    params, remat full, loss_chunk 8192) at seq 4096, batch 16, through
@@ -652,6 +654,29 @@ def _compare(name, got, want, ulp=BF16_ULP):
     return outs
 
 
+def _ragged_grads(pk, r):
+    """:func:`closeness` of flash_grad_block's (dq, dk, dv) on case ``r``
+    against the plain versions of #10 and #11 (one block of the whole
+    length) and the same GQA group sum; the kernel forward gives (out,
+    lse)."""
+    q, k, v, do = r["q"], r["k"], r["v"], r["do"]
+    offs = dict(q_offset=r["q_offset"], k_offset=r["k_offset"])
+    b, lq, h, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    out, lse = pk._flash_fwd(q, k, v, None, *offs.values(), causal=True,
+                             scale=r["scale"], block_q=lq, block_k=lk,
+                             finish=True)
+    got = pk.flash_grad_block(q, k, v, do, out, lse, causal=True,
+                              scale=r["scale"], **offs)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    args = (q, k, v, do, lse, delta, *offs.values())
+    kw = dict(causal=True, scale=r["scale"], block_q=lq, block_k=lk)
+    dq = pk._flash_dq_plain(*args, **kw)
+    dk, dv = (x.reshape(b, lk, hkv, h // hkv, d).sum(3)
+              for x in pk._flash_dkv_plain(*args, **kw))
+    return [closeness(g, w, BF16_ULP) for g, w in zip(got, (dq, dk, dv))]
+
+
 def phase_flash_kernels(gen, smi):
     """#9-#11 against their plain versions at the LM path's shape, timed
     beside their bounds and scaled_dot_product_attention (forward, and its
@@ -682,11 +707,17 @@ def phase_flash_kernels(gen, smi):
                       "library_ms": library[name], "bound_ms": b_ms,
                       "bound_by": b_by,
                       "max_abs_err": max(o["max_abs_err"] for o in outs)}
+        extra = {}
+        if name == "_dkv_kernel":  # #10 + #11 against SDPA's whole backward
+            pair = rows["_dq_kernel"]["kernel_ms"] + rows[name]["kernel_ms"]
+            extra = {"pair_ms": pair, "pair_over_library": pair / lib_bwd}
+        ptxas = kernel_ptxas(name)
+        assert "registers" in ptxas, (name, KERNEL_ENTRY[name], ptxas)
         emit({"phase": "flash_kernel", "name": name,
               "shape": [b, l, h, h, d], "dtype": "bf16", "causal": True,
-              "outputs": outs, "card": smi, **rows[name],
+              "outputs": outs, "card": smi, **rows[name], **extra,
               "fraction_of_bound": b_ms / rows[name]["kernel_ms"],
-              "ptxas": kernel_ptxas(name)})
+              "ptxas": ptxas})
     del c, calls, qt, kt, vt, dot, qg, kg, vg, og
 
     # GQA (Hkv 4), and flash_block_update's offset form with a carry.
@@ -721,15 +752,20 @@ def phase_flash_kernels(gen, smi):
     unseen = all(torch.equal(gt[:, :16] if gt.dim() == 4 else gt[:, :, :16],
                              c[:, :16] if c.dim() == 4 else c[:, :, :16])
                  for gt, c in zip(got_r, r["carry"]))
+    # The backward of the same ragged case through flash_grad_block (#10,
+    # #11 and the GQA group sum): rows 0-15 see no key (lse about -1e30).
+    grads = _ragged_grads(pk, r)
     emit({"phase": "flash_kernel", "gqa": {"shape": [4, l, h, 4, d],
                                            "outputs": gqa},
           "block_update": {"shape": [4, 2048, h, h, d], "q_offset": 2048,
                            "k_offset": 1024, "outputs": upd},
           "ragged": {"shape": [4, 1000, h, 4, d], "q_offset": 8,
                      "k_offset": 24, "outputs": ragged,
-                     "unseen_rows_pass_through": unseen}})
+                     "unseen_rows_pass_through": unseen,
+                     "grad_block": grads}})
     assert all(o["err_over_tol"] <= 1.0 for o in upd), upd
     assert all(o["err_over_tol"] <= 1.0 for o in ragged), ragged
+    assert all(o["err_over_tol"] <= 1.0 for o in grads), grads
     assert unseen, "rows that see no key changed their carry"
     del g, o, got, want, r, got_r, want_r
     return rows

@@ -19,111 +19,107 @@
 // GQA reads kv head h / (H / Hkv), no K/V copy is made.
 //
 // What bounds them on this card.  At the LM path's shape (B 16, H 16,
-// L 4096, D 64, causal) a forward does 2 * B*H*D * L(L+1)/2 * 2 = 5.5e11
-// FLOP against about 0.27 GB of compulsory bytes: 0.56 ms of bf16 tensor
-// work at 989 TFLOP/s against 0.08 ms of memory traffic at 3.35 TB/s, so
-// all three kernels are bound by operations (dq does three products, dkv
-// four).  Every score tile stays on chip: S = QK^T lives in the registers
-// of the tensor-core accumulators, is turned into P (or dS) there and fed
-// straight back as the A operand of the next product, so device memory
-// sees only Q, K, V, dO once per CTA and the outputs once.  Causal blocks
-// above the diagonal are never loaded or multiplied (the loop ends at the
-// last visible block, as the TPU kernel's pl.when pruning does).
+// L 4096, D 64, causal) one product over the visible (q, k) pairs is
+// 2 * B*H*D * L(L+1)/2 = 2.75e11 FLOP: the forward does two (0.56 ms of
+// bf16 tensor work at 989 TFLOP/s), dQ three (0.83 ms) and dK/dV four
+// (1.11 ms), against 0.08-0.33 ms of compulsory bytes at 3.35 TB/s, so all
+// three are bound by operations.  Every score tile stays on chip: it lives
+// in the registers of the tensor-core accumulators, is turned into P or dS
+// there and fed straight back as the A operand of the next product, so
+// device memory sees only the operands once per CTA and the outputs once.
+// Causal tiles above the diagonal are never loaded or multiplied (the loop
+// ends at the last visible tile, as the TPU kernels' pl.when pruning does).
 //
-// #9, the forward, runs on the Hopper core of flash_sm90.cuh, which it
-// shares with #12.  Against its operations bound:
-//   * products are wgmma (the only way to the tensor cores' full rate):
-//     S = QK^T from 128-byte-swizzled shared memory, O += PV with P from
-//     registers and V through the transposed descriptor;
-//   * one CTA owns 192 q rows (three consumer warpgroups of 64) at D 64
-//     and at D 128, so each K/V tile pulled through L2 feeds 192 rows: at
-//     64 rows a CTA the forward moved 8.7 GB through L2 a call, at 192
-//     2.9 GB.  A producer warpgroup keeps TMA loads of 128 (D 64) or 64
-//     (D 128) K/V rows in a 3-slot ring and gives its registers to the
-//     consumers (setmaxnreg: 160 each);
-//   * inside a warpgroup, tile j+1's QK^T and tile j's PV are issued before
-//     tile j+1's softmax, which runs while the tensor cores work; the
-//     warpgroups take turns to issue (ping-pong), so one's softmax
-//     overlaps the others' products;
-//   * only tiles that straddle the causal diagonal or the ragged end are
-//     masked; p = 2^(s * scale * log2e - m * log2e), one FFMA and one ex2;
-//   * the tiles (FwdCfg below) were chosen by timing other BK, ring
-//     slots, warpgroups and CTAs an SM on the card (PERF.md).
+// All three run on the Hopper core of flash_sm90.cuh (#12 shares it).
+// Against the operations bound:
+//   * products are wgmma, the only way to the tensor cores' full rate:
+//     scores from 128-byte-swizzled shared memory, both operands K-major;
+//     accumulations with the score tile from registers and the streamed
+//     tile through the transposed descriptor;
+//   * a CTA owns several warpgroups of 64 rows, so each tile pulled
+//     through L2 feeds them all (at 64 rows a CTA the three kernels each
+//     moved 8.7 GB through L2 a call): #9 192 q rows, #10 192 q rows at
+//     D 64 (128 at D 128), #11 128 k rows.  A producer warpgroup keeps TMA
+//     loads of the streamed tiles in a 3-slot ring and gives its registers
+//     to the consumers (setmaxnreg);
+//   * inside a warpgroup, tile j+1's score products are issued beside
+//     tile j's accumulations, before tile j+1's elementwise pass, which
+//     runs while the tensor cores work; the warpgroups take turns to issue
+//     (ping-pong), so one's elementwise pass overlaps the others' products;
+//   * only tiles that straddle the causal diagonal or a ragged end are
+//     masked; p = 2^(s * scale * log2e - lse * log2e) (or - m * log2e in
+//     the forward), one FFMA and one ex2;
+//   * the tiles (FwdCfg, DqCfg, DkvCfg below) were chosen by timing other
+//     tiles on the card (PERF.md).
 //
-// #10 and #11, the backward (simple and correct first; wgmma/TMA are
-// later work):
-//   * the TPU kernels' sequential grid dimension (ik, or iq for dkv), whose
-//     accumulators sit in VMEM scratch between grid steps, becomes a loop
-//     inside one CTA; nothing is carried between CTAs;
-//   * one 128-thread CTA (4 warps) per (q block of 64 rows, head, batch)
-//     for dq, walking 64-row K/V blocks; one per (k block of 64 rows,
-//     head, batch) for dkv, walking Q/dO blocks (64 rows at D 64, 32 at
-//     D 128 to bound registers); each warp owns 16 rows;
-//   * the streamed tiles come through shared memory with a cp.async
-//     double buffer (rows padded by 8 elements against bank conflicts,
-//     the ragged edge zero-filled); the resident tile is loaded once;
-//   * products are mma.sync.m16n8k16 bf16/fp16 tensor-core tiles with f32
-//     accumulators in registers; A/B fragments are read from shared memory
-//     with 32-bit loads, or as 16-bit pairs where the operand's reduction
-//     dimension is the tile's row dimension.
+// #10 (dQ) is almost the forward: the CTA's Q and dO are resident, K and V
+// stream; S = Q K^T and dP = dO V^T are the score products, dS = p (dP -
+// delta) scale is rounded to K's type in its A fragments, and dQ += dS K
+// reads K through the transposed descriptor as the forward reads V.  Each
+// thread keeps its two rows' lse and delta in registers.  Registers a
+// thread: S and dP BK/2 each, dQ D/2, dS's fragments BK/4: 112 at BK 64,
+// D 64, inside the 160 of three consumer warpgroups.
 //
-// Numerics follow the TPU kernels: masked scores are -1e30 (not -inf),
-// p = exp(s - m_new) is zeroed where masked, P is rounded to V's type
-// before PV, l is the f32 sum of the unrounded p and is clamped at 1e-30
-// before o = acc / l; dq rounds dS to K's type, dkv rounds P to dO's and
-// dS to Q's type.  A key past the end of a ragged sequence counts as
-// absent (-inf, p = 0).  In the forward a q row that sees no key passes
-// its carry (acc, m, l) through bit for bit.
+// #11 (dK/dV) is the transposed formulation, so that everything stays in
+// registers: the CTA's K and V are resident, Q and dO stream with their
+// rows' lse and delta; S^T = K Q^T and dP^T = V dO^T are the score
+// products, P^T and dS^T are formed in place with lse and delta taken per
+// column, and dV += P^T dO, dK += dS^T Q read dO and Q through the
+// transposed descriptor.  lse and delta reach shared memory through the
+// TMA as one 1-D run (see flash_sm90.cuh), so any Lq works.  Registers a
+// thread: S^T and dP^T BK/2 each, dK and dV D/2 each, two sets of
+// fragments BK/4 each: 160 at D 64 and BK 64, and 176 at D 128 with BK
+// 32 (224 at BK 64), against the 240 of two consumer warpgroups.  A warpgroup whose first visible q tile comes
+// later than its CTA's skips the earlier ring steps (`skip`), so the
+// ring's phases and the ping-pong turns stay in step.
+//
+// Numerics follow the TPU kernels: masked scores are -1e30 (not -inf) in
+// the forward, p = exp(s - m_new) is zeroed where masked, P is rounded to
+// V's type before PV, l is the f32 sum of the unrounded p and is clamped
+// at 1e-30 before o = acc / l; in the backward p = exp(s * scale - lse)
+// and exactly 0 where a pair is not visible, dS = p (dP - delta) scale,
+// dq rounds dS to K's type, dkv rounds P to dO's and dS to Q's type.  A
+// key past the end of a ragged sequence, and in dK/dV a q row past it,
+// counts as absent: the TMA zero-fills those rows and the mask sets their
+// scores to -inf before the exponential (a zero row is not absent:
+// p = exp(0 - lse)), so a row that sees no key (lse near -1e30) never
+// overflows into a product.  In the forward a q row that sees no key
+// passes its carry (acc, m, l) through bit for bit.
 //
 // Requirements checked by the Python wrapper: D in {64, 128}, bf16 or fp16
-// operands of one type, contiguous, 16-byte aligned.  Each entry returns
-// cudaGetLastError() after its launch (the forward also fails if a tensor
-// map cannot be built).  The mma, cp.async and fragment helpers are shared
-// with flash_smallseq.cu through flash_common.cuh.
+// operands of one type, contiguous, 16-byte aligned (lse and delta too).
+// Each entry returns cudaGetLastError() after its launch, or an error if a
+// tensor map cannot be built.
 
 #include <math.h>
 
-#include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per CTA (dq): 4 warps x 16
-constexpr int BK = 64;         // k rows per step (dq) / per CTA (dkv)
 constexpr float NEG = -1e30f;  // the TPU kernels' mask value
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const void* dout;     // bwd: dO
-  const float* lse;     // bwd
-  const float* delta;   // bwd
-  const float* acc_in;  // fwd carry in (null: zeros / -1e30 / zeros)
+  const void* dout;     // backward: dO
+  const float* lse;     // backward (dkv reads lse and delta by TMA maps)
+  const float* delta;
+  const float* acc_in;  // forward carry in (null: zeros / -1e30 / zeros)
   const float* m_in;
   const float* l_in;
-  float* acc_out;       // fwd carry out (when o is null) / dq / dk
+  float* acc_out;       // forward carry out (when o is null)
   float* m_out;
-  float* l_out;         // dv in dkv
-  void* o;              // fwd: finished output (null: carry mode)
+  float* l_out;
+  void* o;              // forward: finished output (null: carry mode)
   float* lse_out;
+  float* dq;            // backward outputs, f32, dk/dv per q head
+  float* dk;
+  float* dv;
   int B, H, Hkv, Lq, Lk, q_offset, k_offset, causal;
   float scale;
 };
-
-__device__ __forceinline__ bool visible(const Args& a, int qrow, int krow) {
-  return krow < a.Lk && (!a.causal || a.q_offset + qrow >= a.k_offset + krow);
-}
-
-// Number of K blocks a q block [q0, q0 + BQ) can see.
-__device__ __forceinline__ int k_blocks(const Args& a, int q0) {
-  int nk = (a.Lk + BK - 1) / BK;
-  if (a.causal) {
-    int lim = a.q_offset + min(q0 + BQ, a.Lq) - 1 - a.k_offset;
-    nk = lim < 0 ? 0 : min(nk, lim / BK + 1);
-  }
-  return nk;
-}
 
 // ---- #9: forward, on the Hopper core (flash_sm90.cuh) ---------------------
 
@@ -134,24 +130,23 @@ using FwdCfg = sm90::Cfg<D, D == 64 ? 128 : 64, 3, 3, 1>;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
-    flash_fwd_kernel(const __grid_constant__ sm90::FwdParams<Args> p) {
+    flash_fwd_kernel(const __grid_constant__ sm90::Params<Args> p) {
   using C = FwdCfg<D>;
   extern __shared__ unsigned char sm90_smem[];
   __shared__ uint64_t bars[C::BARS];
   const Args& a = p.a;
   const sm90::Ring<C> ring(sm90_smem, bars);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;  // longest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::ROWS;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int shift = a.q_offset - a.k_offset;
   const int nk =
-      sm90::visible_tiles<C>(q0, C::BQ, a.Lq, a.Lk, a.causal, shift);
+      sm90::visible_tiles<C>(q0, C::ROWS, a.Lq, a.Lk, a.causal, shift);
   ring.init();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= C::CONSUMER_WARPS) {
     sm90::producer_regs<C>();
     if (threadIdx.x == 32 * C::CONSUMER_WARPS && nk > 0)
-      sm90::produce(ring, &p.q, &p.k, &p.v, h, h / (a.H / a.Hkv), b, q0, nk,
-                    nk, 0);
+      sm90::produce(ring, p, h, q0, h / (a.H / a.Hkv), b, 0, nk, nk, 0, 0);
     return;
   }
   sm90::consumer_regs<C>();
@@ -213,7 +208,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
       l[(i >> 1) & 1] += s[i];
     }
   };
-  if (nk > 0) sm90::bar_wait(ring.full_q(), 0);
+  if (nk > 0) sm90::bar_wait(ring.full_own(), 0);
   sm90::attend<T, C, true>(o, ring, wg, 0, 0, nk_wg, soft);
   sm90::skip(ring, wg, nk_wg, nk, true);
 
@@ -247,294 +242,203 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
 
 template <typename T, int D>
 cudaError_t fwd(const Args& a, cudaStream_t stream) {
-  return sm90::launch_fwd<T, FwdCfg<D>>(flash_fwd_kernel<T, D>, a, a.q, a.k,
-                                        a.v, a.B, a.H, a.Hkv, a.Lq, a.Lk,
-                                        stream);
+  return sm90::launch<T, FwdCfg<D>>(
+      flash_fwd_kernel<T, D>, a, a.B, a.H, {a.q, a.H, a.Lq}, {}, {a.k, a.Hkv, a.Lk},
+      {a.v, a.Hkv, a.Lk}, {}, stream);
 }
 
-// ---- #10: dQ --------------------------------------------------------------
+// ---- #10: dQ, on the Hopper core ------------------------------------------
+
+// The tiles: 192 q rows a CTA at D 64 (three consumer warpgroups) and 128
+// at D 128 (two), 64 K/V rows a step, three ring slots, one CTA an SM.
+template <int D>
+using DqCfg = sm90::Cfg<D, 64, 3, D == 64 ? 3 : 2, 1, 2>;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_dq_kernel(Args a) {
-  constexpr int LDS = D + 8;
-  constexpr int NS = BK / 8;
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sO = sQ + BQ * LDS;      // dO
-  T* sK = sO + BQ * LDS;      // two stages
-  T* sV = sK + 2 * BK * LDS;  // two stages
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, DqCfg<D>::CTAS)
+    flash_dq_kernel(const __grid_constant__ sm90::Params<Args> p) {
+  using C = DqCfg<D>;
+  extern __shared__ unsigned char sm90_smem[];
+  __shared__ uint64_t bars[C::BARS];
+  const Args& a = p.a;
+  const sm90::Ring<C> ring(sm90_smem, bars);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::ROWS;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const long long qs = (long long)a.H * D, ks = (long long)a.Hkv * D;
-  const T* qp = static_cast<const T*>(a.q) + b * a.Lq * qs + h * D;
-  const T* dp = static_cast<const T*>(a.dout) + b * a.Lq * qs + h * D;
-  const T* kp = static_cast<const T*>(a.k) + b * a.Lk * ks + hk * D;
-  const T* vp = static_cast<const T*>(a.v) + b * a.Lk * ks + hk * D;
-  const int nk = k_blocks(a, q0);
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse[2], dl[2];
+  const int shift = a.q_offset - a.k_offset;
+  const int nk =
+      sm90::visible_tiles<C>(q0, C::ROWS, a.Lq, a.Lk, a.causal, shift);
+  ring.init();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= C::CONSUMER_WARPS) {
+    sm90::producer_regs<C>();
+    // Q and dO resident; K and V tiles 0 .. nk-1.
+    if (threadIdx.x == 32 * C::CONSUMER_WARPS && nk > 0)
+      sm90::produce(ring, p, h, q0, h / (a.H / a.Hkv), b, 0, nk, nk, 0, 0);
+    return;
+  }
+  sm90::consumer_regs<C>();
+  sm90::start_turns<C>(warp >> 2);
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;
+  const int row[2] = {r0 + 16 * (warp & 3) + g, r0 + 16 * (warp & 3) + g + 8};
+  const int nk_wg =
+      sm90::visible_tiles<C>(r0, 64, a.Lq, a.Lk, a.causal, shift);
+  // Each row's -lse log2e and delta (0 past Lq: those rows are not written).
+  float nl[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const long long moff = (long long)(b * a.H + h) * a.Lq + row[r];
-    lse[r] = row[r] < a.Lq ? a.lse[moff] : 0.f;
+    nl[r] = row[r] < a.Lq ? -a.lse[moff] * sm90::LOG2E : 0.f;
     dl[r] = row[r] < a.Lq ? a.delta[moff] : 0.f;
   }
-
-  float dq[NO][4];
+  float dq[1][C::NO];
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
+  for (int i = 0; i < C::NO; ++i) dq[0][i] = 0.f;
+
+  // S and dP of K/V tile j into dS = p (dP - delta) scale, in place in S;
+  // p = 2^(s scale log2e - lse log2e), and exactly 0 where masked.
+  const float sl2 = a.scale * sm90::LOG2E;
+  auto grad = [&](float(&s)[C::NS], float(&dp)[C::NS], int j, int) {
+    const int k0 = j * C::BK;
+    if (k0 + C::BK > a.Lk || (a.causal && r0 + shift < k0 + C::BK - 1))
+      sm90::mask(s, row, k0, a.Lk, a.causal, shift, t);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-
-  load_tile<T, D, BQ>(sQ, qp, qs, q0, a.Lq);
-  load_tile<T, D, BQ>(sO, dp, qs, q0, a.Lq);
-  if (nk > 0) {
-    load_tile<T, D, BK>(sK, kp, ks, 0, a.Lk);
-    load_tile<T, D, BK>(sV, vp, ks, 0, a.Lk);
-  }
-  cp_async_commit();
-
-  for (int kb = 0; kb < nk; ++kb) {
-    const int st = kb & 1;
-    if (kb + 1 < nk) {
-      load_tile<T, D, BK>(sK + (st ^ 1) * BK * LDS, kp, ks, (kb + 1) * BK, a.Lk);
-      load_tile<T, D, BK>(sV + (st ^ 1) * BK * LDS, vp, ks, (kb + 1) * BK, a.Lk);
+    for (int i = 0; i < C::NS; ++i) {
+      const int r = (i >> 1) & 1;
+      const float pr = sm90::ex2(fmaf(s[i], sl2, nl[r]));
+      s[i] = pr * (dp[i] - dl[r]) * a.scale;
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* cK = sK + st * BK * LDS;
-    const T* cV = sV + st * BK * LDS;
-
-    float s[NS][4], pd[NS][4];  // scores, then dP
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = pd[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t fq[4], fo[4];
-      frag_a<T, LDS>(fq, sQ, warp * 16, kk * 16, g, t);
-      frag_a<T, LDS>(fo, sO, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t fb[2];
-        frag_b_rows<T, LDS>(fb, cK, j * 8, kk * 16, g, t);
-        Mma<T>::run(s[j], fq, fb);
-        frag_b_rows<T, LDS>(fb, cV, j * 8, kk * 16, g, t);
-        Mma<T>::run(pd[j], fo, fb);
-      }
-    }
-    // p = exp(s * scale - lse) where visible; dS = p * (dP - delta) * scale
-    const int k0 = kb * BK;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const float p =
-            visible(a, row[r], col) ? expf(s[j][e] * a.scale - lse[r]) : 0.f;
-        s[j][e] = p * (pd[j][e] - dl[r]) * a.scale;
-      }
-    // dq += dS K, dS rounded to K's type.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t fa[4];
-      acc_to_a<T>(fa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        uint32_t fb[2];
-        frag_b_cols<T, LDS>(fb, cK, kk * 16, j * 8, g, t);
-        Mma<T>::run(dq[j], fa, fb);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+  };
+  if (nk > 0) sm90::bar_wait(ring.full_own(), 0);
+  sm90::backward<T, C, 1>(dq, ring, wg, 0, nk_wg, grad);
+  sm90::skip(ring, wg, nk_wg, nk, true);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.Lq) continue;
-    float* out = a.acc_out + ((long long)(b * a.Lq + row[r]) * a.H + h) * D;
+    float* out = a.dq + ((long long)(b * a.Lq + row[r]) * a.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<float2*>(out + 8 * j + 2 * t) =
-          make_float2(dq[j][2 * r], dq[j][2 * r + 1]);
+          make_float2(dq[0][4 * j + 2 * r], dq[0][4 * j + 2 * r + 1]);
   }
 }
 
-// ---- #11: dK, dV ----------------------------------------------------------
+template <typename T, int D>
+cudaError_t dq(const Args& a, cudaStream_t stream) {
+  return sm90::launch<T, DqCfg<D>>(
+      flash_dq_kernel<T, D>, a, a.B, a.H, {a.q, a.H, a.Lq},
+      {a.dout, a.H, a.Lq}, {a.k, a.Hkv, a.Lk}, {a.v, a.Hkv, a.Lk}, {},
+      stream);
+}
 
+// ---- #11: dK, dV, on the Hopper core --------------------------------------
+
+// The tiles: 128 k rows a CTA (two consumer warpgroups), 64 Q/dO rows a
+// step at D 64 and 32 at D 128 (at 64 the scores, dK, dV and both sets of
+// fragments would need 224 of the 240 registers a thread, and ptxas spills
+// and serializes the wgmma), three ring slots, one CTA an SM.
 template <int D>
-struct DkvTile {
-  static constexpr int BQ2 = D == 64 ? 64 : 32;  // q rows per step
-};
+using DkvCfg = sm90::Cfg<D, D == 64 ? 64 : 32, 3, 2, 1, 2, true>;
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) flash_dkv_kernel(Args a) {
-  constexpr int LDS = D + 8;
-  constexpr int BQ2 = DkvTile<D>::BQ2;
-  constexpr int NS = BQ2 / 8;
-  constexpr int NO = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + BK * LDS;
-  T* sQ = sV + BK * LDS;        // two stages
-  T* sO = sQ + 2 * BQ2 * LDS;   // dO, two stages
-  float* sL = reinterpret_cast<float*>(sO + 2 * BQ2 * LDS);  // lse, 2 stages
-  float* sD = sL + 2 * BQ2;                                  // delta
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK;  // longest (earliest) rows first
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS, DkvCfg<D>::CTAS)
+    flash_dkv_kernel(const __grid_constant__ sm90::Params<Args> p) {
+  using C = DkvCfg<D>;
+  extern __shared__ unsigned char sm90_smem[];
+  __shared__ uint64_t bars[C::BARS];
+  const Args& a = p.a;
+  const sm90::Ring<C> ring(sm90_smem, bars);
+  const int k0 = blockIdx.x * C::ROWS;  // earliest keys (the most q) first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.H / a.Hkv);
-  const long long qs = (long long)a.H * D, ks = (long long)a.Hkv * D;
-  const T* qp = static_cast<const T*>(a.q) + b * a.Lq * qs + h * D;
-  const T* dp = static_cast<const T*>(a.dout) + b * a.Lq * qs + h * D;
-  const T* kp = static_cast<const T*>(a.k) + b * a.Lk * ks + hk * D;
-  const T* vp = static_cast<const T*>(a.v) + b * a.Lk * ks + hk * D;
-  const float* lp = a.lse + (long long)(b * a.H + h) * a.Lq;
-  const float* delp = a.delta + (long long)(b * a.H + h) * a.Lq;
-  const int nq = (a.Lq + BQ2 - 1) / BQ2;
-  int iq0 = 0;
-  if (a.causal) {  // first q block whose last row reaches this k block
-    const int need = a.k_offset + k0 - a.q_offset - (BQ2 - 1);
-    iq0 = need <= 0 ? 0 : (need + BQ2 - 1) / BQ2;
+  const int shift = a.q_offset - a.k_offset;
+  const int nq = (a.Lq + C::BK - 1) / C::BK;
+  const int iq0 = sm90::first_q_tile<C>(k0, a.causal, shift);
+  const int steps = max(nq - iq0, 0);
+  const int stats0 = (b * a.H + h) * a.Lq;  // lse/delta of row 0, 1-D
+  ring.init();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= C::CONSUMER_WARPS) {
+    sm90::producer_regs<C>();
+    // K and V resident; Q and dO tiles iq0 .. nq-1 with their lse, delta.
+    if (threadIdx.x == 32 * C::CONSUMER_WARPS && steps > 0)
+      sm90::produce(ring, p, h / (a.H / a.Hkv), k0, h, b, iq0, steps, steps,
+                    0, stats0);
+    return;
   }
-  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  sm90::consumer_regs<C>();
+  sm90::start_turns<C>(warp >> 2);
 
-  float dk[NO][4], dv[NO][4];
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = k0 + 64 * wg;
+  const int key[2] = {r0 + 16 * (warp & 3) + g, r0 + 16 * (warp & 3) + g + 8};
+  // This warpgroup's q tiles: from its own first visible one (no later
+  // than the CTA's end), none if all its keys are past Lk.
+  const int skipped =
+      r0 < a.Lk
+          ? min(max(sm90::first_q_tile<C>(r0, a.causal, shift), iq0) - iq0,
+                steps)
+          : steps;
+  float acc[2][C::NO];  // dK, dV
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
+  for (int i = 0; i < C::NO; ++i) acc[0][i] = acc[1][i] = 0.f;
+
+  // S^T and dP^T of Q/dO tile iq0 + skipped + j into dS^T (in S^T's
+  // registers) and P^T (in dP^T's): p = 2^(s scale log2e - lse log2e) per
+  // column, exactly 0 where masked; dS = p (dP - delta) scale.
+  const float sl2 = a.scale * sm90::LOG2E;
+  auto grad = [&](float(&s)[C::NS], float(&dp)[C::NS], int j, int slot) {
+    const int q0 = (iq0 + skipped + j) * C::BK;
+    if (q0 + C::BK > a.Lq || (a.causal && q0 + shift < r0 + 63))
+      sm90::mask_t(s, key, q0, a.Lq, a.causal, shift, t);
+    const uint32_t st = sm90::stats_of(ring, slot, stats0 + q0);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  load_tile<T, D, BK>(sK, kp, ks, k0, a.Lk);
-  load_tile<T, D, BK>(sV, vp, ks, k0, a.Lk);
-  if (iq0 < nq) {
-    load_tile<T, D, BQ2>(sQ, qp, qs, iq0 * BQ2, a.Lq);
-    load_tile<T, D, BQ2>(sO, dp, qs, iq0 * BQ2, a.Lq);
-    if (threadIdx.x < BQ2) {
-      const int r = iq0 * BQ2 + threadIdx.x;
-      sL[threadIdx.x] = r < a.Lq ? lp[r] : 0.f;
-      sD[threadIdx.x] = r < a.Lq ? delp[r] : 0.f;
-    }
-  }
-  cp_async_commit();
-
-  for (int iq = iq0; iq < nq; ++iq) {
-    const int st = (iq - iq0) & 1;
-    if (iq + 1 < nq) {
-      const int n = st ^ 1;
-      load_tile<T, D, BQ2>(sQ + n * BQ2 * LDS, qp, qs, (iq + 1) * BQ2, a.Lq);
-      load_tile<T, D, BQ2>(sO + n * BQ2 * LDS, dp, qs, (iq + 1) * BQ2, a.Lq);
-      if (threadIdx.x < BQ2) {
-        const int r = (iq + 1) * BQ2 + threadIdx.x;
-        sL[n * BQ2 + threadIdx.x] = r < a.Lq ? lp[r] : 0.f;
-        sD[n * BQ2 + threadIdx.x] = r < a.Lq ? delp[r] : 0.f;
+    for (int i = 0; i < C::NS; ++i) {
+      if (i & 2) continue;  // accumulators i and i + 2 share a column
+      const uint32_t at = st + 4 * sm90::acc_col(i, t);
+      const float nl = -sm90::lds(at) * sm90::LOG2E;
+      const float dl = sm90::lds(at + C::STATS_STRIDE);
+#pragma unroll
+      for (int j = i; j <= i + 2; j += 2) {
+        const float pr = sm90::ex2(fmaf(s[j], sl2, nl));
+        s[j] = pr * (dp[j] - dl) * a.scale;
+        dp[j] = pr;
       }
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* cQ = sQ + st * BQ2 * LDS;
-    const T* cO = sO + st * BQ2 * LDS;
-    const float* cL = sL + st * BQ2;
-    const float* cD = sD + st * BQ2;
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 k rows x BQ2 q columns.
-    float s[NS][4], pd[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = pd[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t fk[4], fv[4];
-      frag_a<T, LDS>(fk, sK, warp * 16, kk * 16, g, t);
-      frag_a<T, LDS>(fv, sV, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t fb[2];
-        frag_b_rows<T, LDS>(fb, cQ, j * 8, kk * 16, g, t);
-        Mma<T>::run(s[j], fk, fb);
-        frag_b_rows<T, LDS>(fb, cO, j * 8, kk * 16, g, t);
-        Mma<T>::run(pd[j], fv, fb);
-      }
-    }
-    // P^T and dS^T; a q row past the end of a ragged sequence counts as
-    // absent.
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1);
-        const int qrow = iq * BQ2 + c;
-        const float p = (qrow < a.Lq && visible(a, qrow, krow[e >> 1]))
-                            ? expf(s[j][e] * a.scale - cL[c])
-                            : 0.f;
-        s[j][e] = p;
-        pd[j][e] = p * (pd[j][e] - cD[c]) * a.scale;
-      }
-    // dV += P^T dO (P rounded to dO's type); dK += dS^T Q (dS to Q's).
-#pragma unroll
-    for (int kk = 0; kk < BQ2 / 16; ++kk) {
-      uint32_t fp[4], fs[4];
-      acc_to_a<T>(fp, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a<T>(fs, pd[2 * kk], pd[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        uint32_t fb[2];
-        frag_b_cols<T, LDS>(fb, cO, kk * 16, j * 8, g, t);
-        Mma<T>::run(dv[j], fp, fb);
-        frag_b_cols<T, LDS>(fb, cQ, kk * 16, j * 8, g, t);
-        Mma<T>::run(dk[j], fs, fb);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
+  };
+  if (steps > 0) sm90::bar_wait(ring.full_own(), 0);
+  sm90::skip(ring, wg, 0, skipped, true);
+  sm90::backward<T, C, 2>(acc, ring, wg, skipped, steps - skipped, grad);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (krow[r] >= a.Lk) continue;
-    const long long off = ((long long)(b * a.Lk + krow[r]) * a.H + h) * D;
+    if (key[r] >= a.Lk) continue;
+    const long long off = ((long long)(b * a.Lk + key[r]) * a.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      *reinterpret_cast<float2*>(a.acc_out + off + 8 * j + 2 * t) =
-          make_float2(dk[j][2 * r], dk[j][2 * r + 1]);
-      *reinterpret_cast<float2*>(a.l_out + off + 8 * j + 2 * t) =
-          make_float2(dv[j][2 * r], dv[j][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(a.dk + off + 8 * j + 2 * t) =
+          make_float2(acc[0][4 * j + 2 * r], acc[0][4 * j + 2 * r + 1]);
+      *reinterpret_cast<float2*>(a.dv + off + 8 * j + 2 * t) =
+          make_float2(acc[1][4 * j + 2 * r], acc[1][4 * j + 2 * r + 1]);
     }
   }
 }
 
 template <typename T, int D>
-constexpr size_t dq_smem() {
-  return (size_t)(2 * BQ + 4 * BK) * (D + 8) * sizeof(T);
-}
-template <typename T, int D>
-constexpr size_t dkv_smem() {
-  return (size_t)(2 * BK + 4 * DkvTile<D>::BQ2) * (D + 8) * sizeof(T) +
-         4 * DkvTile<D>::BQ2 * sizeof(float);
+cudaError_t dkv(const Args& a, cudaStream_t stream) {
+  return sm90::launch<T, DkvCfg<D>>(
+      flash_dkv_kernel<T, D>, a, a.B, a.H, {a.k, a.Hkv, a.Lk},
+      {a.v, a.Hkv, a.Lk}, {a.q, a.H, a.Lq}, {a.dout, a.H, a.Lq},
+      {a.lse, a.delta, (long long)a.B * a.H * a.Lq}, stream);
 }
 
 // kind: 0 forward, 1 dq, 2 dkv.
 template <typename T, int D>
 cudaError_t dispatch(int kind, const Args& a, cudaStream_t stream) {
   if (kind == 0) return fwd<T, D>(a, stream);
-  if (kind == 1)
-    return launch(flash_dq_kernel<T, D>, dq_smem<T, D>(),
-                  dim3((a.Lq + BQ - 1) / BQ, a.H, a.B), a, stream);
-  return launch(flash_dkv_kernel<T, D>, dkv_smem<T, D>(),
-                dim3((a.Lk + BK - 1) / BK, a.H, a.B), a, stream);
+  if (kind == 1) return dq<T, D>(a, stream);
+  return dkv<T, D>(a, stream);
 }
 
 int run(int kind, const Args& a, int D, int fp16, void* stream) {
@@ -606,7 +510,7 @@ int hvdt_flash_dq(const void* q, const void* k, const void* v,
   a.dout = dout;
   a.lse = (const float*)lse;
   a.delta = (const float*)delta;
-  a.acc_out = (float*)dq;
+  a.dq = (float*)dq;
   return run(1, a, D, fp16, stream);
 }
 
@@ -621,8 +525,8 @@ int hvdt_flash_dkv(const void* q, const void* k, const void* v,
   a.dout = dout;
   a.lse = (const float*)lse;
   a.delta = (const float*)delta;
-  a.acc_out = (float*)dk;
-  a.l_out = (float*)dv;
+  a.dk = (float*)dk;
+  a.dv = (float*)dv;
   return run(2, a, D, fp16, stream);
 }
 

@@ -1,8 +1,9 @@
-// Device helpers shared by the attention kernels (flash_attn.cu,
-// flash_smallseq.cu): mma.sync m16n8k16 bf16/fp16 tiles with f32
-// accumulators, cp.async staging of [rows, D] tiles into padded shared
-// memory, fragment loads, and the quad reductions of a row held by the
-// four threads of an mma C fragment.
+// Device helpers of the attention kernels: mma.sync m16n8k16 bf16/fp16
+// tiles with f32 accumulators, cp.async staging of [rows, D] tiles into
+// padded shared memory and fragment loads (the smallseq backward #13 in
+// flash_smallseq.cu), and the 16-bit pack and quad reductions of a row
+// held by the four threads of an accumulator fragment (also the Hopper
+// core, flash_sm90.cuh).
 //
 // Each .cu source is compiled into a library of its own, so the helpers
 // live in an anonymous namespace.  _build.py hashes this header into the

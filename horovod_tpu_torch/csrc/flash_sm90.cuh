@@ -1,34 +1,46 @@
-// The Hopper (sm_90a) forward core shared by the attention forwards
-// #9 (flash_attn.cu) and #12 (flash_smallseq.cu): TMA loads into
-// 128-byte-swizzled shared memory, wgmma products, and the register
-// layouts that let P go from S's accumulators straight into the PV product.
+// The Hopper (sm_90a) core shared by the attention kernels #9, #10 and #11
+// (flash_attn.cu) and #12 (flash_smallseq.cu): TMA loads into 128-byte-
+// swizzled shared memory, wgmma products, and the register layouts that
+// let a score tile go from its accumulators straight into the next product.
 //
 // A CTA has Cfg::WGS consumer warpgroups and a producer:
-//   * warps 0 .. 4 WGS - 1 are the consumer warpgroups of 64 q rows each.
-//     All read every K/V tile, so a tile staged once feeds them all;
+//   * warps 0 .. 4 WGS - 1 are the consumer warpgroups of 64 rows each:
+//     q rows in the forwards and in dQ, k rows in dK/dV.  All read every
+//     streamed tile, so a tile staged once feeds them all;
 //   * the last warp (or warpgroup) is the producer.  One thread issues the
-//     TMA loads: Q once, and K/V tiles of BK rows into a ring of STAGES
-//     slots.  Each slot has a full barrier for K and one for V (the
+//     TMA loads: the CTA's resident ("own") tiles once (Q; Q and dO; or K
+//     and V), then the streamed pairs of BK rows (K and V, or Q and dO,
+//     with the rows' lse and delta for dK/dV) into a ring of STAGES slots.
+//     Each slot has a full barrier for each tile of the pair (the
 //     producer's expect_tx, completed by the TMA's bytes) and an empty
 //     barrier (one arrival from each consumer warp when it is done with
 //     the slot).
 //
 // Products:
-//   * S = Q K^T: wgmma m64nBKk16, both operands from shared memory in the
-//     canonical K-major 128-byte-swizzled layout (a 64-column bf16 row is
-//     exactly 128 bytes; D 128 is two such column halves).  The k-steps of
-//     16 columns advance the descriptors' start address by 32 bytes inside
-//     the swizzle atom;
-//   * O += P V: wgmma m64nDk16 with A = P from registers (S's accumulator
-//     layout is the A-fragment layout, two 8-column groups a k-step) and
-//     B = V through the transposed (MN-major) descriptor form: V's rows are
-//     the reduction dimension, so no transpose and no fragment shuffling.
+//   * scores, S = Q K^T (and dP = dO V^T, S^T = K Q^T, dP^T = V dO^T):
+//     wgmma m64nBKk16, both operands from shared memory in the canonical
+//     K-major 128-byte-swizzled layout (a 64-column bf16 row is exactly 128
+//     bytes; D 128 is two such column halves).  The k-steps of 16 columns
+//     advance the descriptors' start address by 32 bytes inside the
+//     swizzle atom;
+//   * accumulations, O += P V (and dQ += dS K, dV += P^T dO, dK += dS^T Q):
+//     wgmma m64nDk16 with A from registers (a score tile's accumulator
+//     layout is the A-fragment layout, two 8-column groups a k-step) and B
+//     a streamed tile through the transposed (MN-major) descriptor form:
+//     its rows are the reduction dimension, so no transpose and no fragment
+//     shuffling.
 //
 // Tensor maps are built per call on the host for the [B, L, H, D]
 // operands, as 4-D maps (D, H, L, B) with a box of (64, 1, rows, 1): rows
 // past L are zero-filled by the TMA, so a ragged edge never reads into the
-// next batch.  cuTensorMapEncodeTiled is looked up at run time
-// (cudaGetDriverEntryPoint), so nothing links against libcuda.
+// next batch.  The row statistics [B, H, Lq] f32 are one 1-D run of
+// B H Lq values (a 2-D map would need Lq * 4 bytes to be a multiple of 16).
+// A TMA box must start 16-byte aligned, so a tile's statistics are loaded
+// from the aligned position at or below its first row, BK + 4 values; the
+// box may run into the next head's row or, at the end, be zero-filled, and
+// the kernel masks those columns.
+// cuTensorMapEncodeTiled is looked up at run time (cudaGetDriverEntryPoint),
+// so nothing links against libcuda.
 //
 // _build.py hashes this header (and flash_common.cuh, whose 16-bit pack and
 // quad reductions it uses) into each library that includes it.
@@ -36,6 +48,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <limits.h>
 #include <math.h>
 
 #include <type_traits>
@@ -48,21 +61,25 @@ namespace sm90 {
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t ROW_BYTES = 128;     // one swizzled 64-column row
 
-// Tile configuration: head dim D, K/V rows a step BK, ring slots STAGES,
-// consumer warpgroups WGS (64 q rows each; the CTA's q rows are BQ) and
-// CTAs an SM.  At one CTA an SM the producer is a whole warpgroup that
-// hands its registers to the consumers (setmaxnreg: it keeps 24, they
-// take what is left of the SM's 65,536, at most 240); with more CTAs it
-// is a single warp and the launch bound shares the registers out.
-template <int D_, int BK_, int STAGES_, int WGS_, int CTAS_>
+// Tile configuration: head dim D, rows of a streamed tile BK, ring slots
+// STAGES, consumer warpgroups WGS (64 rows each; the CTA's own rows are
+// ROWS), CTAs an SM, resident tiles RES (1: Q; 2: Q and dO, or K and V)
+// and STATS (the streamed rows' lse and delta come with them).  At one CTA
+// an SM the producer is a whole warpgroup that hands its registers to the
+// consumers (setmaxnreg: it keeps 24, they take what is left of the SM's
+// 65,536, at most 240); with more CTAs it is a single warp and the launch
+// bound shares the registers out.
+template <int D_, int BK_, int STAGES_, int WGS_, int CTAS_, int RES_ = 1,
+          bool STATS_ = false>
 struct Cfg {
   static constexpr int D = D_, BK = BK_, STAGES = STAGES_, WGS = WGS_;
-  static constexpr int CTAS = CTAS_;
+  static constexpr int CTAS = CTAS_, RES = RES_;
+  static constexpr bool STATS = STATS_;
   // Two or more consumer warpgroups take turns to issue their products (a
-  // token passed round them on named barriers 1 .. WGS), so one's softmax
-  // overlaps the others' products.
+  // token passed round them on named barriers 1 .. WGS), so one's
+  // elementwise pass overlaps the others' products.
   static constexpr bool PINGPONG = WGS > 1;
-  static constexpr int BQ = 64 * WGS;
+  static constexpr int ROWS = 64 * WGS;
   static constexpr int CONSUMER_WARPS = 4 * WGS;
   static constexpr bool REG_SPLIT = CTAS == 1;
   static constexpr int THREADS =
@@ -75,9 +92,17 @@ struct Cfg {
   static constexpr int HALVES = D / 64;  // 128-byte column halves of a row
   static constexpr int NS = BK / 2;      // score accumulators a thread
   static constexpr int NO = D / 2;       // output accumulators a thread
-  static constexpr uint32_t Q_BYTES = BQ * D * 2;
-  static constexpr uint32_t KV_BYTES = BK * D * 2;
-  static constexpr uint32_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr uint32_t OWN_BYTES = ROWS * D * 2;
+  static constexpr uint32_t TILE_BYTES = BK * D * 2;
+  // A slot's lse and delta: STATS_BOX values each, STATS_STRIDE bytes
+  // apart (a TMA destination is 128-byte aligned).
+  static constexpr int STATS_BOX = BK + 4;
+  static constexpr uint32_t STATS_STRIDE = (STATS_BOX * 4 + 127) / 128 * 128;
+  static constexpr uint32_t STATS_BYTES = STATS ? 2 * STATS_STRIDE : 0;
+  static constexpr uint32_t STATS_TX = STATS ? 2 * STATS_BOX * 4 : 0;
+  static constexpr uint32_t SMEM = 1024 + RES * OWN_BYTES +
+                                   2 * STAGES * TILE_BYTES +
+                                   STAGES * STATS_BYTES;
   static constexpr int BARS = 1 + 3 * STAGES;
 };
 
@@ -269,6 +294,39 @@ struct Wgmma<__half, 128> {
   }
 };
 
+// m64n32k16, the score products of 32-row streamed tiles (dK/dV at D 128).
+template <>
+struct Wgmma<bf16, 32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<__half, 32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -289,7 +347,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 
 // Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands
 // ignore the leading offset; their 8-row groups are 1024 bytes apart.  An
-// MN-major operand (V) steps between its 64-column halves by `lbo` and
+// MN-major operand steps between its 64-column halves by `lbo` and
 // between its 8-row groups by 1024 bytes.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
@@ -353,6 +411,21 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "r"(c3), "r"(bar)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
+      : "memory");
+}
+// An f32 of shared memory (read after the barrier that filled it).
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -362,22 +435,29 @@ __device__ __forceinline__ float ex2(float x) {
 
 // ---- the ring --------------------------------------------------------------
 
-// Shared-memory addresses of one CTA: Q, the K and V slots (each tile a
-// run of 128-byte rows per column half, 1024-byte aligned for the
-// swizzle), and the barriers.
+// Shared-memory addresses of one CTA: the resident tiles, the slots of the
+// streamed pairs (each tile a run of 128-byte rows per column half,
+// 1024-byte aligned for the swizzle), the slots' row statistics (lse then
+// delta, C::STATS_BOX f32 each), and the barriers.
 template <class C>
 struct Ring {
   uint32_t base, bars;
   __device__ Ring(unsigned char* raw, uint64_t* bar_array)
       : base((smem_addr(raw) + 1023u) & ~1023u), bars(smem_addr(bar_array)) {}
-  __device__ uint32_t q() const { return base; }
-  __device__ uint32_t k(int s) const { return base + C::Q_BYTES + s * C::KV_BYTES; }
-  __device__ uint32_t v(int s) const {
-    return base + C::Q_BYTES + (C::STAGES + s) * C::KV_BYTES;
+  __device__ uint32_t own(int i) const { return base + i * C::OWN_BYTES; }
+  __device__ uint32_t first(int s) const {
+    return base + C::RES * C::OWN_BYTES + s * C::TILE_BYTES;
   }
-  __device__ uint32_t full_q() const { return bars; }
-  __device__ uint32_t full_k(int s) const { return bars + 8 * (1 + s); }
-  __device__ uint32_t full_v(int s) const {
+  __device__ uint32_t second(int s) const {
+    return base + C::RES * C::OWN_BYTES + (C::STAGES + s) * C::TILE_BYTES;
+  }
+  __device__ uint32_t stats(int s) const {
+    return base + C::RES * C::OWN_BYTES + 2 * C::STAGES * C::TILE_BYTES +
+           s * C::STATS_BYTES;
+  }
+  __device__ uint32_t full_own() const { return bars; }
+  __device__ uint32_t full_first(int s) const { return bars + 8 * (1 + s); }
+  __device__ uint32_t full_second(int s) const {
     return bars + 8 * (1 + C::STAGES + s);
   }
   __device__ uint32_t empty(int s) const {
@@ -386,10 +466,10 @@ struct Ring {
   // Thread 0 sets up the barriers; every thread of the CTA calls this.
   __device__ void init() const {
     if (threadIdx.x == 0) {
-      bar_init(full_q(), 1);
+      bar_init(full_own(), 1);
       for (int s = 0; s < C::STAGES; ++s) {
-        bar_init(full_k(s), 1);
-        bar_init(full_v(s), 1);
+        bar_init(full_first(s), 1);
+        bar_init(full_second(s), 1);
         bar_init(empty(s), C::CONSUMER_WARPS);
       }
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -408,39 +488,67 @@ __device__ __forceinline__ uint32_t parity_of(int it) {
   return (it / C::STAGES) & 1;
 }
 
-// The producer thread: Q rows [q0, q0 + C::BQ) of head h, then `steps` K/V
-// tiles.  Step `it` loads K tile `it` (or, past `nk` in a two-pass walk,
-// tile `it - nk`); its V tile only where `v_from <= it`, and otherwise
-// arrives on the V barrier without bytes, so the slot's phases stay in
-// step for the consumers.
-template <class C>
-__device__ void produce(const Ring<C>& r, const CUtensorMap* mq,
-                        const CUtensorMap* mk, const CUtensorMap* mv, int h,
-                        int hk, int b, int q0, int nk, int steps,
-                        int v_from) {
-  bar_expect(r.full_q(), C::Q_BYTES);
+// A kernel's parameters: the tensor maps of its resident tiles, of its
+// streamed tiles and of the row statistics (lse, delta), and the caller's
+// arguments.  Maps a kernel does not use stay zero.
+template <class A>
+struct Params {
+  CUtensorMap own[2], tile[2], stats[2];
+  A a;
+};
+
+// The producer thread: rows [own_row, own_row + C::ROWS) of head
+// `own_head` of each resident tile, then `steps` streamed steps.  Step
+// `it` loads streamed tile tile0 + it of head `head` (or tile0 + it - wrap
+// past `wrap`, in a two-pass walk); its second tile, and the row
+// statistics from 1-D position stats0 + the tile's first row (rounded
+// down to 16 bytes: `stats_of`), only where `second_from <= it`; otherwise
+// it arrives on the second barrier without bytes, so the slot's phases
+// stay in step for the consumers.
+template <class C, class A>
+__device__ void produce(const Ring<C>& r, const Params<A>& p, int own_head,
+                        int own_row, int head, int b, int tile0, int wrap,
+                        int steps, int second_from, int stats0) {
+  bar_expect(r.full_own(), C::RES * C::OWN_BYTES);
 #pragma unroll
-  for (int hf = 0; hf < C::HALVES; ++hf)
-    tma_load(r.q() + hf * C::BQ * ROW_BYTES, mq, r.full_q(), 64 * hf, h, q0, b);
+  for (int i = 0; i < C::RES; ++i)
+#pragma unroll
+    for (int hf = 0; hf < C::HALVES; ++hf)
+      tma_load(r.own(i) + hf * C::ROWS * ROW_BYTES, &p.own[i], r.full_own(),
+               64 * hf, own_head, own_row, b);
   for (int it = 0; it < steps; ++it) {
     const int s = slot_of<C>(it);
     bar_wait(r.empty(s), parity_of<C>(it) ^ 1);  // a fresh slot passes
-    const int row = (it < nk ? it : it - nk) * C::BK;
-    bar_expect(r.full_k(s), C::KV_BYTES);
+    const int row = (tile0 + (it < wrap ? it : it - wrap)) * C::BK;
+    bar_expect(r.full_first(s), C::TILE_BYTES);
 #pragma unroll
     for (int hf = 0; hf < C::HALVES; ++hf)
-      tma_load(r.k(s) + hf * C::BK * ROW_BYTES, mk, r.full_k(s), 64 * hf, hk,
-               row, b);
-    if (it >= v_from) {
-      bar_expect(r.full_v(s), C::KV_BYTES);
+      tma_load(r.first(s) + hf * C::BK * ROW_BYTES, &p.tile[0],
+               r.full_first(s), 64 * hf, head, row, b);
+    if (it >= second_from) {
+      bar_expect(r.full_second(s), C::TILE_BYTES + C::STATS_TX);
 #pragma unroll
       for (int hf = 0; hf < C::HALVES; ++hf)
-        tma_load(r.v(s) + hf * C::BK * ROW_BYTES, mv, r.full_v(s), 64 * hf,
-                 hk, row, b);
+        tma_load(r.second(s) + hf * C::BK * ROW_BYTES, &p.tile[1],
+                 r.full_second(s), 64 * hf, head, row, b);
+      if constexpr (C::STATS) {
+        const int at = (stats0 + row) & ~3;
+        tma_load_1d(r.stats(s), &p.stats[0], r.full_second(s), at);
+        tma_load_1d(r.stats(s) + C::STATS_STRIDE, &p.stats[1],
+                    r.full_second(s), at);
+      }
     } else {
-      bar_arrive(r.full_v(s));
+      bar_arrive(r.full_second(s));
     }
   }
+}
+
+// The shared-memory address of the lse of the first row of the streamed
+// tile in slot s, at 1-D position `at` (its delta is C::STATS_STRIDE bytes
+// further): the box starts at `at` rounded down to 16 bytes.
+template <class C>
+__device__ __forceinline__ uint32_t stats_of(const Ring<C>& r, int s, int at) {
+  return r.stats(s) + 4 * (at & 3);
 }
 
 // The consumer warps' release of slot s: one arrival a warp, after the
@@ -474,20 +582,41 @@ __device__ __forceinline__ void pass_turn(int wg) {
                  : "memory");
 }
 
+// Issues acc = A B^T for warpgroup wg's 64 rows of the resident tile at
+// `own` against the streamed tile at `tile`, both K-major over D; not
+// committed.
+template <typename T, class C>
+__device__ __forceinline__ void ss_products(float (&acc)[C::NS], uint32_t own,
+                                            uint32_t tile, int wg) {
+#pragma unroll
+  for (int kk = 0; kk < C::D / 16; ++kk) {
+    const uint32_t col = (kk & 3) * 32;
+    const uint64_t da = desc(own + (kk >> 2) * C::ROWS * ROW_BYTES +
+                             wg * 64 * ROW_BYTES + col, 16);
+    const uint64_t db = desc(tile + (kk >> 2) * C::BK * ROW_BYTES + col, 16);
+    Wgmma<T, C::BK>::ss(acc, da, db, kk > 0);
+  }
+}
+
+// Issues acc += A B, A in registers (the A fragments of a score tile) and
+// B the streamed tile at `tile`, whose rows are the reduction dimension;
+// not committed.
+template <typename T, class C>
+__device__ __forceinline__ void rs_products(float (&acc)[C::NO],
+                                            const uint32_t (&a)[C::BK / 16][4],
+                                            uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk)
+    Wgmma<T, C::D>::rs(acc, a[kk],
+                       desc(tile + kk * 16 * ROW_BYTES, C::BK * ROW_BYTES), 1);
+}
+
 // Issues S = Q K^T for warpgroup wg's 64 rows against slot `slot`, as
 // one committed group (the caller waits).
 template <typename T, class C>
 __device__ __forceinline__ void qk_issue(float (&s)[C::NS], const Ring<C>& r,
                                          int slot, int wg) {
-#pragma unroll
-  for (int kk = 0; kk < C::D / 16; ++kk) {
-    const uint32_t col = (kk & 3) * 32;
-    const uint64_t da = desc(r.q() + (kk >> 2) * C::BQ * ROW_BYTES +
-                             wg * 64 * ROW_BYTES + col, 16);
-    const uint64_t db = desc(r.k(slot) + (kk >> 2) * C::BK * ROW_BYTES + col,
-                             16);
-    Wgmma<T, C::BK>::ss(s, da, db, kk > 0);
-  }
+  ss_products<T, C>(s, r.own(0), r.first(slot), wg);
   wgmma_commit();
 }
 
@@ -497,17 +626,12 @@ template <typename T, class C>
 __device__ __forceinline__ void pv_issue(float (&o)[C::NO],
                                          const uint32_t (&a)[C::BK / 16][4],
                                          const Ring<C>& r, int slot) {
-#pragma unroll
-  for (int kk = 0; kk < C::BK / 16; ++kk)
-    Wgmma<T, C::D>::rs(o, a[kk],
-                       desc(r.v(slot) + kk * 16 * ROW_BYTES,
-                            C::BK * ROW_BYTES),
-                       1);
+  rs_products<T, C>(o, a, r.second(slot));
   wgmma_commit();
 }
 
-// P (S's accumulators after the softmax) rounded to V's type, in the A
-// fragments of the PV product: two 8-column groups a k-step.
+// A score tile (P or dS, after the elementwise pass) rounded to the
+// accumulation's type, in its A fragments: two 8-column groups a k-step.
 template <typename T, int NS>
 __device__ __forceinline__ void to_a(uint32_t (&a)[NS / 8][4],
                                      const float (&p)[NS]) {
@@ -538,7 +662,7 @@ __device__ __forceinline__ void attend(float (&o)[C::NO], const Ring<C>& r,
   float s[C::NS];
   uint32_t a[C::BK / 16][4];
   float corr[2];
-  bar_wait(r.full_k(slot_of<C>(step0)), parity_of<C>(step0));
+  bar_wait(r.full_first(slot_of<C>(step0)), parity_of<C>(step0));
   take_turn<C>(wg);
   wgmma_fence();
   qk_issue<T, C>(s, r, slot_of<C>(step0), wg);
@@ -553,8 +677,8 @@ __device__ __forceinline__ void attend(float (&o)[C::NO], const Ring<C>& r,
   }
   for (int j = 1; j < n; ++j) {
     const int it = step0 + j, prev = it - 1;
-    bar_wait(r.full_k(slot_of<C>(it)), parity_of<C>(it));
-    bar_wait(r.full_v(slot_of<C>(prev)), parity_of<C>(prev));
+    bar_wait(r.full_first(slot_of<C>(it)), parity_of<C>(it));
+    bar_wait(r.full_second(slot_of<C>(prev)), parity_of<C>(prev));
     fence_regs(o);
     take_turn<C>(wg);
     wgmma_fence();
@@ -574,7 +698,7 @@ __device__ __forceinline__ void attend(float (&o)[C::NO], const Ring<C>& r,
     to_a<T>(a, s);
   }
   const int last = step0 + n - 1;
-  bar_wait(r.full_v(slot_of<C>(last)), parity_of<C>(last));
+  bar_wait(r.full_second(slot_of<C>(last)), parity_of<C>(last));
   fence_regs(o);
   take_turn<C>(wg);
   wgmma_fence();
@@ -585,16 +709,101 @@ __device__ __forceinline__ void attend(float (&o)[C::NO], const Ring<C>& r,
   release(r, slot_of<C>(last));
 }
 
+// The backward's products of warpgroup wg over n streamed tiles, ring
+// steps step0 .. step0 + n - 1.  Per tile the two score products x =
+// own(0) first^T and y = own(1) second^T (S and dP in dQ, S^T and dP^T in
+// dK/dV), then `grad(x, y, j, slot)` turns them in place into the A
+// operands of the accumulations, acc[0] += x first and, when ACCS is 2,
+// acc[1] += y second (dQ += dS K; dK += dS^T Q and dV += P^T dO).
+// Pipelined as `attend` is: tile j + 1's scores are issued beside tile
+// j's accumulations, before tile j + 1's elementwise pass.  Takes n + 1
+// ping-pong turns (1 when n is 0), as `attend` does.
+template <typename T, class C, int ACCS, class Grad>
+__device__ __forceinline__ void backward(float (&acc)[ACCS][C::NO],
+                                         const Ring<C>& r, int wg, int step0,
+                                         int n, Grad&& grad) {
+  if (n <= 0) {
+    take_turn<C>(wg);
+    pass_turn<C>(wg);
+    return;
+  }
+  float x[C::NS], y[C::NS];
+  uint32_t ax[C::BK / 16][4], ay[C::BK / 16][4];
+  auto arrive = [&](int it) {
+    bar_wait(r.full_first(slot_of<C>(it)), parity_of<C>(it));
+    bar_wait(r.full_second(slot_of<C>(it)), parity_of<C>(it));
+  };
+  auto scores = [&](int slot) {
+    ss_products<T, C>(x, r.own(0), r.first(slot), wg);
+    ss_products<T, C>(y, r.own(1), r.second(slot), wg);
+    wgmma_commit();
+  };
+  auto accumulate = [&](int slot) {
+    rs_products<T, C>(acc[0], ax, r.first(slot));
+    if constexpr (ACCS == 2) rs_products<T, C>(acc[1], ay, r.second(slot));
+    wgmma_commit();
+  };
+  auto fence_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < ACCS; ++i) fence_regs(acc[i]);
+  };
+  auto operands = [&](int j, int slot) {
+    fence_regs(x);
+    fence_regs(y);
+    grad(x, y, j, slot);
+  };
+  auto frags = [&]() {
+    to_a<T>(ax, x);
+    if constexpr (ACCS == 2) to_a<T>(ay, y);
+  };
+  arrive(step0);
+  take_turn<C>(wg);
+  wgmma_fence();
+  scores(slot_of<C>(step0));
+  pass_turn<C>(wg);
+  wgmma_wait<0>();
+  operands(0, slot_of<C>(step0));
+  frags();
+  for (int j = 1; j < n; ++j) {
+    const int it = step0 + j, prev = it - 1;
+    arrive(it);
+    fence_acc();
+    take_turn<C>(wg);
+    wgmma_fence();
+    scores(slot_of<C>(it));
+    accumulate(slot_of<C>(prev));
+    pass_turn<C>(wg);
+    wgmma_wait<1>();  // the scores are in; the accumulations may still run
+    operands(j, slot_of<C>(it));
+    wgmma_wait<0>();
+    fence_acc();
+    release(r, slot_of<C>(prev));
+    frags();
+  }
+  const int last = step0 + n - 1;
+  fence_acc();
+  take_turn<C>(wg);
+  wgmma_fence();
+  accumulate(slot_of<C>(last));
+  pass_turn<C>(wg);
+  wgmma_wait<0>();
+  fence_acc();
+  release(r, slot_of<C>(last));
+}
+
 // The ring steps [from, to) of tiles a warpgroup does not need: wait
-// for them (so the slots' phases stay in step) and release them.
+// for them (so the slots' phases stay in step) and release them.  Each
+// stands in for one step of `attend` or `backward` (one turn) when
+// `with_second`; without, for a step that loads only the first tile.
 template <class C>
 __device__ __forceinline__ void skip(const Ring<C>& r, int wg, int from,
-                                     int to, bool with_v) {
+                                     int to, bool with_second) {
   for (int it = from; it < to; ++it) {
-    bar_wait(r.full_k(slot_of<C>(it)), parity_of<C>(it));
-    if (with_v) bar_wait(r.full_v(slot_of<C>(it)), parity_of<C>(it));
+    bar_wait(r.full_first(slot_of<C>(it)), parity_of<C>(it));
+    if (with_second)
+      bar_wait(r.full_second(slot_of<C>(it)), parity_of<C>(it));
     release(r, slot_of<C>(it));
-    if (with_v) {  // a step of `attend` it stands in for: one turn
+    if (with_second) {
       take_turn<C>(wg);
       pass_turn<C>(wg);
     }
@@ -622,6 +831,21 @@ __device__ __forceinline__ void mask(float (&s)[NS], const int (&row)[2],
   }
 }
 
+// The same for a transposed tile (S^T: rows are keys, columns queries
+// q0 ..): columns at or past lq, and under `causal` queries that do not
+// see the row's key (q + shift < key).
+template <int NS>
+__device__ __forceinline__ void mask_t(float (&s)[NS], const int (&key)[2],
+                                       int q0, int lq, bool causal, int shift,
+                                       int t) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const int q = q0 + acc_col(i, t);
+    if (q >= lq || (causal && q + shift < key[(i >> 1) & 1]))
+      s[i] = -INFINITY;
+  }
+}
+
 // Each row's max over a tile of scores, agreed by the quad that holds it.
 template <int NS>
 __device__ __forceinline__ void row_max(const float (&s)[NS], float (&mx)[2]) {
@@ -644,6 +868,15 @@ __device__ __forceinline__ int visible_tiles(int r0, int rows, int Lq, int Lk,
     nk = lim < 0 ? 0 : min(nk, lim / C::BK + 1);
   }
   return nk;
+}
+
+// The first Q tile of C::BK rows whose last row sees key k0: under
+// `causal` q row i sees key j when i + shift >= j.
+template <class C>
+__device__ __forceinline__ int first_q_tile(int k0, bool causal, int shift) {
+  if (!causal) return 0;
+  const int need = k0 - shift - (C::BK - 1);
+  return need <= 0 ? 0 : (need + C::BK - 1) / C::BK;
 }
 
 // ---- the host side ---------------------------------------------------------
@@ -693,30 +926,59 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int fp16, int D,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A forward kernel's parameters: the tensor maps of Q, K and V, and the
-// caller's arguments.
-template <class A>
-struct FwdParams {
-  CUtensorMap q, k, v;
-  A a;
+// The tensor map of n f32 values read as one 1-D run, boxes of `rows`.
+inline bool make_row_map(CUtensorMap* map, const float* ptr, long long n,
+                         int rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr || n <= 0 || n > INT_MAX) return false;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {0};  // rank 1: none is read
+  const cuuint32_t box[1] = {(cuuint32_t)rows};
+  const cuuint32_t step[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(ptr),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One [B, L, heads, D] operand of a launch (ptr null: none), and the row
+// statistics lse and delta [B, H, Lq] (n = B H Lq values; null: none).
+struct Operand {
+  const void* ptr;
+  int heads, L;
+};
+struct Stats {
+  const float* lse;
+  const float* delta;
+  long long n;
 };
 
-// Launches a forward kernel of configuration C on T operands q [B, Lq, H,
-// D] and k, v [B, Lk, Hkv, D]: one CTA per (C::BQ q rows, head, batch),
-// with the tensor maps built here.  Fails if a map cannot be built.
+// Launches a kernel of configuration C on T operands: one CTA per (C::ROWS
+// rows of own0, head of H, batch), with the tensor maps built here (a
+// streamed operand of no rows, whose tiles are never loaded, gets none).
+// Fails if a map cannot be built.
 template <typename T, class C, class A, typename Kernel>
-cudaError_t launch_fwd(Kernel kernel, const A& a, const void* q,
-                       const void* k, const void* v, int B, int H, int Hkv,
-                       int Lq, int Lk, cudaStream_t stream) {
-  const dim3 grid((Lq + C::BQ - 1) / C::BQ, H, B);
+cudaError_t launch(Kernel kernel, const A& a, int B, int H, Operand own0,
+                   Operand own1, Operand tile0, Operand tile1, Stats stats,
+                   cudaStream_t stream) {
+  const dim3 grid((own0.L + C::ROWS - 1) / C::ROWS, H, B);
   if (grid.x == 0 || grid.z == 0) return cudaSuccess;
   const int fp16 = std::is_same<T, __half>::value;
-  FwdParams<A> p = {};
+  Params<A> p = {};
   p.a = a;
-  bool ok = make_map(&p.q, q, fp16, C::D, H, Lq, B, C::BQ);
-  if (Lk > 0)  // no key: no K/V tile is ever loaded
-    ok = ok && make_map(&p.k, k, fp16, C::D, Hkv, Lk, B, C::BK) &&
-         make_map(&p.v, v, fp16, C::D, Hkv, Lk, B, C::BK);
+  const Operand own[2] = {own0, own1}, tile[2] = {tile0, tile1};
+  bool ok = true;
+  for (int i = 0; i < 2; ++i) {
+    if (own[i].ptr != nullptr)
+      ok = ok && make_map(&p.own[i], own[i].ptr, fp16, C::D, own[i].heads,
+                          own[i].L, B, C::ROWS);
+    if (tile[i].ptr != nullptr && tile[i].L > 0)
+      ok = ok && make_map(&p.tile[i], tile[i].ptr, fp16, C::D, tile[i].heads,
+                          tile[i].L, B, C::BK);
+  }
+  if (stats.lse != nullptr && stats.n > 0)
+    ok = ok && make_row_map(&p.stats[0], stats.lse, stats.n, C::STATS_BOX) &&
+         make_row_map(&p.stats[1], stats.delta, stats.n, C::STATS_BOX);
   if (!ok) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);

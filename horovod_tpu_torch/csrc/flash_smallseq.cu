@@ -155,23 +155,23 @@ using FwdCfg = sm90::Cfg<D, 64, 2, 1, D == 64 ? 3 : 2>;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
-    smallseq_fwd_kernel(const __grid_constant__ sm90::FwdParams<Args> p) {
+    smallseq_fwd_kernel(const __grid_constant__ sm90::Params<Args> p) {
   using C = FwdCfg<D>;
   extern __shared__ unsigned char sm90_smem[];
   __shared__ uint64_t bars[C::BARS];
   const Args& a = p.a;
   const sm90::Ring<C> ring(sm90_smem, bars);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;  // longest first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::ROWS;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int nk = sm90::visible_tiles<C>(q0, C::BQ, a.L, a.L, a.causal, 0);
+  const int nk = sm90::visible_tiles<C>(q0, C::ROWS, a.L, a.L, a.causal, 0);
   ring.init();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= C::CONSUMER_WARPS) {
     sm90::producer_regs<C>();
     // Steps 0 .. nk-1 bring K for the max, nk .. 2nk-1 K and V again.
     if (threadIdx.x == 32 * C::CONSUMER_WARPS && nk > 0)
-      sm90::produce(ring, &p.q, &p.k, &p.v, h, h / (a.H / a.Hkv), b, q0, nk,
-                    2 * nk, nk);
+      sm90::produce(ring, p, h, q0, h / (a.H / a.Hkv), b, 0, nk, 2 * nk, nk,
+                    0);
     return;
   }
   sm90::consumer_regs<C>();
@@ -191,13 +191,13 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
     if (k0 + C::BK > a.L || (a.causal && r0 < k0 + C::BK - 1))
       sm90::mask(s, row, k0, a.L, a.causal, 0, t);
   };
-  if (nk > 0) sm90::bar_wait(ring.full_q(), 0);
+  if (nk > 0) sm90::bar_wait(ring.full_own(), 0);
 
   // First pass, steps 0 .. nk-1: each row's max of the raw scores.
   for (int it = 0; it < nk_wg; ++it) {
     const int slot = sm90::slot_of<C>(it);
     float s[C::NS];
-    sm90::bar_wait(ring.full_k(slot), sm90::parity_of<C>(it));
+    sm90::bar_wait(ring.full_first(slot), sm90::parity_of<C>(it));
     sm90::fence_regs(s);
     sm90::wgmma_fence();
     sm90::qk_issue<T, C>(s, ring, slot, wg);
@@ -249,9 +249,9 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
 
 template <typename T, int D>
 cudaError_t fwd(const Args& a, cudaStream_t stream) {
-  return sm90::launch_fwd<T, FwdCfg<D>>(smallseq_fwd_kernel<T, D>, a, a.q,
-                                        a.k, a.v, a.B, a.H, a.Hkv, a.L, a.L,
-                                        stream);
+  return sm90::launch<T, FwdCfg<D>>(
+      smallseq_fwd_kernel<T, D>, a, a.B, a.H, {a.q, a.H, a.L}, {},
+      {a.k, a.Hkv, a.L}, {a.v, a.Hkv, a.L}, {}, stream);
 }
 
 // ---- #13, role A: dK and dV of one k tile over a GQA group ---------------

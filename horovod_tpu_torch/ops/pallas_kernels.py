@@ -50,9 +50,9 @@ CPU; on a CUDA tensor it launches the kernel or raises (``ValueError``
 for a dtype other than bf16/fp16 or a head dim other than 64/128).
 ``block_q``/``block_k`` (and ``heads_per_block`` for #12/#13) shape the
 plain versions' loops, which follow the TPU kernels' block order and
-pruning; the CUDA kernels tile at their own sizes (the forwards #9 and
-#12 on the wgmma + TMA core of ``csrc/flash_sm90.cuh``: 192 q rows a CTA
-for #9, 64 for #12; the backwards at 64).  ``launches`` on each wrapper
+pruning; the CUDA kernels tile at their own sizes (#9-#12 on the wgmma +
+TMA core of ``csrc/flash_sm90.cuh``: 192 q rows a CTA for #9 and for #10
+at D 64, 128 k rows for #11, 64 q rows for #12; #13 at 64).  ``launches`` on each wrapper
 counts kernel launches.
 """
 
@@ -296,6 +296,20 @@ def _grad_tile(qt, kt, vt, dot, lse, delta, iq, ik, bq, bk, q_offset,
     return qb, kb, dob, p, ds
 
 
+def _row_stats(lse, delta, shape):
+    """lse and delta for the backward kernels: [B, H, Lq] f32, contiguous
+    and 16-byte aligned (#11 reads them through a TMA tensor map, whose
+    base must be)."""
+    out = []
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be [B, H, Lq] = {shape}, got "
+                             f"{tuple(t.shape)}")
+        t = t.float().contiguous()
+        out.append(t if t.data_ptr() % 16 == 0 else t.clone())
+    return out
+
+
 def _bwd_layout(q, k, v, do):
     h, hkv = q.shape[2], k.shape[2]
     return (q.transpose(1, 2), _heads(k, h // hkv), _heads(v, h // hkv),
@@ -332,7 +346,7 @@ def _flash_dq(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
                                block_k=block_k)
     q, k, v, do = _cuda_operands(q, k, v, do)
     b, lq, h, d = q.shape
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    lse, delta = _row_stats(lse, delta, (b, h, lq))
     dq = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _lib().hvdt_flash_dq(
@@ -385,7 +399,7 @@ def _flash_dkv(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
     q, k, v, do = _cuda_operands(q, k, v, do)
     b, lq, h, d = q.shape
     lk = k.shape[1]
-    lse, delta = lse.float().contiguous(), delta.float().contiguous()
+    lse, delta = _row_stats(lse, delta, (b, h, lq))
     dk = torch.empty((b, lk, h, d), dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
     with torch.cuda.device(q.device):

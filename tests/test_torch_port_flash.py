@@ -192,6 +192,40 @@ def test_flash_grad_block_matches_jax(causal, q_offset, k_offset, h, hkv):
         _close(g, w, atol=_GRAD_ATOL)
 
 
+@pytest.mark.parametrize("causal,q_offset,k_offset,h,hkv", [
+    (True, 0, 0, 4, 4), (True, 40, 8, 4, 2), (False, 0, 0, 4, 2)])
+def test_flash_grad_block_bf16_matches_jax(causal, q_offset, k_offset, h,
+                                           hkv):
+    """bf16 operands: the plain versions of #10 and #11 round P to dO's
+    dtype and dS to Q's and K's where the reference's Pallas kernels do
+    (and the card holds the CUDA kernels to these plain versions).  The
+    offsets (40, 8) are off the 32-row blocks.  Tolerance: one bf16 ulp
+    (2^-7) of each output row's L2 norm, a row being one [D] vector of
+    dq, dk or dv — the two sides round the same f32 values to bf16, and
+    f32 sums in another order (delta, the products) can move one across a
+    rounding boundary."""
+    bf16 = dict(dtype=jnp.bfloat16), dict(dtype=torch.bfloat16)
+    q, k, v = _qkv(15, l=64, h=h, hkv=hkv)
+    do = np.random.default_rng(16).standard_normal(q.shape).astype(
+        np.float32)
+    out, lse = tpk._flash_fwd(*_t(q, k, v, **bf16[1]), None, q_offset,
+                              k_offset, causal=causal, scale=32 ** -0.5,
+                              block_q=32, block_k=32, finish=True)
+    out, lse = out.float().numpy(), lse.numpy()
+    kw = dict(q_offset=q_offset, k_offset=k_offset, causal=causal,
+              block_q=32, block_k=32)
+    want = jpk.flash_grad_block(*_j(q, k, v, do, out, **bf16[0]),
+                                jnp.asarray(lse), **kw)
+    got = tpk.flash_grad_block(*_t(q, k, v, do, out, **bf16[1]),
+                               torch.from_numpy(lse), **kw)
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        err = np.linalg.norm(g.numpy() - w, axis=-1)
+        assert (err <= 2.0 ** -7 * np.linalg.norm(w, axis=-1)).all(), (
+            err.max(), np.linalg.norm(w, axis=-1).min())
+
+
 @pytest.mark.parametrize("bwd", ["kernel", "xla"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_autograd_matches_jax_grad(bwd, causal, monkeypatch):

@@ -1,6 +1,7 @@
 """PyTorch port, the attention CUDA kernels (csrc/flash_attn.cu, #9-#11,
-and csrc/flash_smallseq.cu, #12-#13) held against their plain PyTorch
-versions on the card.
+and csrc/flash_smallseq.cu, #12-#13; #9-#12 on the core of
+csrc/flash_sm90.cuh) held against their plain PyTorch versions on the
+card.
 
 Every test is marked ``cuda`` and skips without a card.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch
@@ -116,6 +117,60 @@ def test_offsets_and_carry_match_plain(card):
             for g, c in zip(got, carry):
                 assert torch.equal(g, c)
     _check(card, 2, 256, 128, 4, 2, d, torch.bfloat16, True, 128, 64)
+
+
+# The backward kernels tile 192 (#10, D 64) or 128 (#10 at D 128, #11) own
+# rows a CTA in warpgroups of 64, and stream 64-row tiles through the TMA,
+# which zero-fills rows past the end; lse and delta reach #11 as one 1-D
+# run.  (b, lq, lk, h, hkv, d, dtype, causal, q_offset, k_offset): offsets
+# off every tile (q rows 0-15 see no key, so their lse is about -1e30);
+# Lq != Lk, both off the tiles; Lq 102, not a multiple of 4 (the plain
+# versions' blocks are then 2 and 8); GQA 4; D 128 fp16; non-causal with
+# Lq below one warpgroup.
+_BACKWARD_EDGES = [
+    (2, 200, 200, 4, 2, 64, torch.bfloat16, True, 8, 24),
+    (1, 1000, 744, 4, 2, 64, torch.bfloat16, True, 0, 0),
+    (2, 102, 72, 4, 2, 64, torch.bfloat16, True, 0, 0),
+    (2, 256, 256, 8, 2, 64, torch.bfloat16, True, 0, 0),
+    (2, 300, 300, 4, 2, 128, torch.float16, True, 0, 0),
+    (2, 40, 136, 4, 2, 64, torch.bfloat16, False, 0, 0)]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,hkv,d,dtype,causal,q_offset,k_offset",
+                         _BACKWARD_EDGES)
+def test_backward_edges_match_plain(card, b, lq, lk, h, hkv, d, dtype, causal,
+                                    q_offset, k_offset):
+    before = (pk._flash_dq.launches, pk._flash_dkv.launches)
+    _check(card, b, lq, lk, h, hkv, d, dtype, causal, q_offset, k_offset)
+    assert (pk._flash_dq.launches, pk._flash_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_backward_row_stats_are_checked(card):
+    """#11 reads lse and delta through a TMA tensor map, whose base must be
+    16-byte aligned: a view that is not is copied (and gives the same
+    gradients); lse or delta of the wrong shape raises."""
+    b, lq, lk, h, d = 2, 102, 72, 4, 64
+    q, do = _rand(card, b, lq, h, d), _rand(card, b, lq, h, d)
+    k, v = (_rand(card, b, lk, 2, d) for _ in range(2))
+    kw = dict(causal=True, scale=d ** -0.5, block_q=pk._fit_block(lq, 512),
+              block_k=pk._fit_block(lk, 512))
+    out, lse = pk._flash_fwd(q, k, v, None, 0, 0, finish=True, **kw)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    shifted = []
+    for t in (lse, delta):
+        buf = torch.empty(t.numel() + 1, device="cuda")
+        shifted.append(buf[1:].view(t.shape))
+        shifted[-1].copy_(t)
+        assert shifted[-1].data_ptr() % 16
+    want = pk._flash_dkv_plain(q, k, v, do, lse, delta, 0, 0, **kw)
+    _assert_close(pk._flash_dkv(q, k, v, do, *shifted, 0, 0, **kw), want,
+                  torch.bfloat16)
+    for bad in ((lse[:, :, 1:], delta), (lse, delta[:1])):
+        with pytest.raises(ValueError):
+            pk._flash_dkv(q, k, v, do, *bad, 0, 0, **kw)
+        with pytest.raises(ValueError):
+            pk._flash_dq(q, k, v, do, *bad, 0, 0, **kw)
 
 
 # The forward #9 tiles 192 q rows a CTA (three warpgroups of 64) and #12 64
