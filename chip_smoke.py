@@ -12,7 +12,11 @@ Phases, one JSON line each:
    on the card, at the shapes ResNet-50 at batch 64 gives it, with its
    time, the plain version's, the least time the card could take
    (bound) and one PyTorch library call's (timed only, never used by
-   the port); the optimizer kernels (#1, #2) as the train step calls
+   the port): the conv kernels (#3, #4) at the 9 shapes of the 26 fused
+   convs, timed on the device alone beside torch.matmul timed the same
+   way, with the host's enqueue, s1/s2 bit-identical across calls
+   (kernel_total lines: sums over the 26 convs, with registers and
+   spills); the optimizer kernels (#1, #2) as the train step calls
    them, one FusedAdam / FusedSGD step over the 161 leaves, held
    bit-identical to use_kernels=False, with the step's device and host
    times;
@@ -247,8 +251,8 @@ def ptxas_of(log: str, entry: str) -> dict:
 
 
 def kernel_ptxas(name: str) -> dict:
-    """:func:`ptxas_of` the bf16, D 64 attention kernel ``name`` (the LM
-    paths') in its library's last build log."""
+    """:func:`ptxas_of` the bf16 kernel ``name`` (D 64 for the attention
+    kernels, the LM paths') in its library's last build log."""
     from horovod_tpu_torch import _build
 
     lib, entry = KERNEL_ENTRY[name]
@@ -256,6 +260,8 @@ def kernel_ptxas(name: str) -> dict:
 
 
 KERNEL_ENTRY = {
+    "_mm_kernel": ("conv_fused", "mm_bn_relu_kernelI13__nv_bfloat16"),
+    "_mm_stats_kernel": ("conv_fused", "mm_stats_kernelI13__nv_bfloat16"),
     "_kernel": ("flash_attn", "flash_fwd_kernelI13__nv_bfloat16Li64E"),
     "_dq_kernel": ("flash_attn", "flash_dq_kernelI13__nv_bfloat16Li64E"),
     "_dkv_kernel": ("flash_attn", "flash_dkv_kernelI13__nv_bfloat16Li64E"),
@@ -284,14 +290,38 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def phase_conv_kernels(gen):
+def conv_times(kernel, plain, library) -> dict:
+    """One conv kernel's times at one shape: the device alone (CUDA events
+    behind a device sleep; median, min, max) beside ``library`` timed the
+    same way, the host's enqueue of one call, the back-to-back figure
+    (CUDA events over calls queued as the host makes them, which the host
+    bounds when its enqueue is the longer) and the plain version's."""
+    dev = device_ms_stats(kernel, iters=20)
+    lib = device_ms_stats(library, iters=20)
+    host = enqueue_ms_stats(kernel)
+    return {"kernel_ms": dev["median"], "kernel_ms_min": dev["min"],
+            "kernel_ms_max": dev["max"], "library_ms": lib["median"],
+            "library_ms_min": lib["min"], "library_ms_max": lib["max"],
+            "enqueue_ms": host["median"], "back_to_back_ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain)}
+
+
+def phase_conv_kernels(gen, smi):
+    """#3 and #4 against their plain versions at the 9 shapes of the 26
+    fused convs of a bs-64 ResNet-50 forward, each timed by
+    :func:`conv_times` beside ``torch.matmul`` of the bare product; s1/s2
+    (and z) must be bit-identical across calls.  Totals are summed over
+    the 26 convs."""
     from horovod_tpu_torch.ops import conv_fused as cf
 
-    totals = {name: dict(kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                         library_ms=0.0, max_abs_err=0.0, bound_by={})
+    summed = ("kernel_ms", "library_ms", "enqueue_ms", "back_to_back_ms",
+              "plain_ms", "bound_ms")
+    totals = {name: dict({key: 0.0 for key in summed}, max_abs_err=0.0,
+                         bound_by={}, ptxas=kernel_ptxas(name))
               for name in ("_mm_kernel", "_mm_stats_kernel")}
     dev = torch.device("cuda")
-    for (m, k, n), count in sorted(fused_conv_shapes(BATCH, IMAGE).items()):
+    shapes = fused_conv_shapes(BATCH, IMAGE)
+    for (m, k, n), count in sorted(shapes.items()):
         a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         # The model hands the kernels w = (OIHW weight viewed [N, K]).t().
         w = (torch.randn((n, k), generator=gen, device=dev)
@@ -300,6 +330,7 @@ def phase_conv_kernels(gen):
         bias = 0.1 * torch.randn(n, generator=gen, device=dev)
         flops = 2.0 * m * n * k
         io = 2.0 * (m * k + k * n + m * n)
+        shape = {"shape": [m, k, n], "per_forward": count}
 
         # #3: relu((a @ w) * scale + bias)
         y = cf._mm_forward(a, w, scale, bias, True)
@@ -311,25 +342,27 @@ def phase_conv_kernels(gen):
         tol = y_ref.float().abs().max().item() * 2.0 ** -7
         assert err <= tol, ("_mm_kernel", (m, k, n), err, tol)
         b_ms, b_by = bound(io + 8.0 * n, flops, PEAK_BF16_FLOPS)
-        row = {"kernel_ms": cuda_ms(
-                   lambda: cf._mm_forward(a, w, scale, bias, True)),
-               "plain_ms": cuda_ms(
-                   lambda: cf._mm_forward_plain(a, w, scale, bias, True)),
-               "library_ms": cuda_ms(lambda: torch.matmul(a, w)),
-               "bound_ms": b_ms}
-        emit({"phase": "kernel", "name": "_mm_kernel", "shape": [m, k, n],
-              "per_forward": count, "max_abs_err": err, "tolerance": tol,
-              "bound_by": b_by, **row})
+        row = dict(conv_times(lambda: cf._mm_forward(a, w, scale, bias, True),
+                              lambda: cf._mm_forward_plain(a, w, scale, bias,
+                                                           True),
+                              lambda: torch.matmul(a, w)), bound_ms=b_ms)
+        emit({"phase": "kernel", "name": "_mm_kernel", **shape,
+              "max_abs_err": err, "tolerance": tol, "bound_by": b_by,
+              "fraction_of_bound": b_ms / row["kernel_ms"], **row})
         tot = totals["_mm_kernel"]
-        for key, val in row.items():
-            tot[key] += count * val
+        for key in summed:
+            tot[key] += count * row[key]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         tot["bound_by"][b_by] = tot["bound_by"].get(b_by, 0) + count
+        del y, y_ref
 
-        # #4: z = a @ w, per-128-row partial sums of z and z^2
+        # #4: z = a @ w, per-BLOCK_M-row partial sums of z and z^2
         z, s1, s2 = cf.matmul_batch_stats(a, w)
         z_ref, s1_ref, s2_ref = cf._mm_stats_plain(a, w)
+        again = cf.matmul_batch_stats(a, w)
         torch.cuda.synchronize()
+        assert all(_bit_err(x, y) == 0.0
+                   for x, y in zip((z, s1, s2), again)), (m, k, n)
         err = (z.float() - z_ref.float()).abs().max().item()
         tol = z_ref.float().abs().max().item() * 2.0 ** -7
         assert err <= tol, ("_mm_stats_kernel", (m, k, n), err, tol)
@@ -340,18 +373,25 @@ def phase_conv_kernels(gen):
             assert serr <= stol, ("_mm_stats_kernel sums", serr, stol)
         nb = -(-m // cf.BLOCK_M)
         b_ms, b_by = bound(io + 8.0 * nb * n, flops, PEAK_BF16_FLOPS)
-        row = {"kernel_ms": cuda_ms(lambda: cf.matmul_batch_stats(a, w)),
-               "plain_ms": cuda_ms(lambda: cf._mm_stats_plain(a, w)),
-               "library_ms": cuda_ms(lambda: torch.matmul(a, w)),
-               "bound_ms": b_ms}
-        emit({"phase": "kernel", "name": "_mm_stats_kernel",
-              "shape": [m, k, n], "per_forward": count, "max_abs_err": err,
-              "tolerance": tol, "bound_by": b_by, **row})
+        row = dict(conv_times(lambda: cf.matmul_batch_stats(a, w),
+                              lambda: cf._mm_stats_plain(a, w),
+                              lambda: torch.matmul(a, w)), bound_ms=b_ms)
+        emit({"phase": "kernel", "name": "_mm_stats_kernel", **shape,
+              "max_abs_err": err, "tolerance": tol, "bound_by": b_by,
+              "fraction_of_bound": b_ms / row["kernel_ms"], **row})
         tot = totals["_mm_stats_kernel"]
-        for key, val in row.items():
-            tot[key] += count * val
+        for key in summed:
+            tot[key] += count * row[key]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         tot["bound_by"][b_by] = tot["bound_by"].get(b_by, 0) + count
+        del z, s1, s2, z_ref, s1_ref, s2_ref, again, a, w
+        torch.cuda.empty_cache()
+    for name, tot in totals.items():
+        emit({"phase": "kernel_total", "name": name,
+              "convs": sum(shapes.values()),
+              "fraction_of_bound": tot["bound_ms"] / tot["kernel_ms"],
+              "over_library": tot["kernel_ms"] / tot["library_ms"],
+              "card": smi, **tot})
     return totals
 
 
@@ -1160,7 +1200,7 @@ def main() -> int:
     phase_build()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    conv = phase_conv_kernels(gen)
+    conv = phase_conv_kernels(gen, smi)
 
     os.environ["HVDT_FUSED_CONV1X1"] = "1"
     hvd.init()

@@ -2,6 +2,9 @@
 // (flash_attn.cu) and #12 (flash_smallseq.cu): TMA loads into 128-byte-
 // swizzled shared memory, wgmma products, and the register layouts that
 // let a score tile go from its accumulators straight into the next product.
+// The conv GEMM (#3, #4 in conv_fused.cu) takes its wgmma, descriptors,
+// barriers, register split and tensor maps from here too, with the 2-D
+// TMA loads and stores below.
 //
 // A CTA has Cfg::WGS consumer warpgroups and a producer:
 //   * warps 0 .. 4 WGS - 1 are the consumer warpgroups of 64 rows each:
@@ -419,6 +422,43 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst,
       "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
       : "memory");
+}
+// 2-D boxes of a row-major matrix (the GEMM of conv_fused.cu): a load that
+// completes on `bar`, and a store from shared memory that joins the issuing
+// thread's bulk group (bulk_commit; bulk_wait_read<N> returns once all but
+// the newest N groups have read their shared memory, bulk_wait<N> once
+// they have written).  Coordinates are (column, row).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's shared-memory writes visible to a later TMA store.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // An f32 of shared memory (read after the barrier that filled it).
 __device__ __forceinline__ float lds(uint32_t addr) {
@@ -921,6 +961,26 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int fp16, int D,
             fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
             4, const_cast<void*>(ptr), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a [rows, cols] row-major 16-bit matrix, read or written
+// as boxes of 64 columns (128 bytes, the swizzle atom) and `box_rows` rows;
+// the TMA zero-fills a load past either edge and clips a store there.
+inline bool make_map_2d(CUtensorMap* map, const void* ptr, int fp16, int rows,
+                        int cols, int box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map,
+            fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(ptr), dims, strides, box, step,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

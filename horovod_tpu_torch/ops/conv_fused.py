@@ -10,12 +10,14 @@ what bounds them and how the design answers it):
   bias)`` with f32 accumulation and one write in ``a``'s dtype — the
   eval-mode conv + folded BN affine;
 * ``matmul_batch_stats`` (replaces ``_mm_stats_kernel``): ``z = a @ w``
-  written once, plus per-128-row partial sums of z and z² from the f32
-  accumulator — the train-mode conv + batch statistics.
+  written once, plus per-``BLOCK_M``-row partial sums of z and z² from
+  the f32 accumulator — the train-mode conv + batch statistics.
 
-Each wrapper takes its kernel's plain PyTorch version only for a tensor
-on the CPU; on a CUDA tensor it launches the kernel (bf16 operands) or
-raises.  ``launches`` on each wrapper counts kernel launches.
+Both are one persistent wgmma + TMA GEMM with two epilogues.  Each
+wrapper takes its kernel's plain PyTorch version only for a tensor on
+the CPU; on a CUDA tensor it launches the kernel (bf16 or fp16 operands
+of one type) or raises.  ``launches`` on each wrapper counts kernel
+launches.
 
 The differentiable entries are ``torch.autograd.Function``s whose
 backward is the JAX package's formula in plain PyTorch (the reference's
@@ -37,6 +39,7 @@ __all__ = ["matmul_bn_relu", "conv1x1_bn_relu", "conv1x1_bn_relu_reference",
 
 # Row height of one s1/s2 partial: the CUDA kernel's output tile height.
 BLOCK_M = 128
+_KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _lib() -> ctypes.CDLL:
@@ -45,9 +48,9 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("conv_fused")
     if not getattr(lib, "_hvdt_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hvdt_mm_bn_relu.argtypes = [p, p, p, p, p, i, i, i, i, p]
+        lib.hvdt_mm_bn_relu.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.hvdt_mm_bn_relu.restype = i
-        lib.hvdt_mm_stats.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.hvdt_mm_stats.argtypes = [p, p, p, p, p, i, i, i, i, p]
         lib.hvdt_mm_stats.restype = i
         lib.hvdt_conv_fused_block_m.argtypes = []
         lib.hvdt_conv_fused_block_m.restype = i
@@ -77,11 +80,11 @@ def _cuda_operands(a: torch.Tensor, w: torch.Tensor, k: int, n: int):
         raise ValueError(f"fused conv kernels run on CUDA, got {a.device}")
     if w.device != a.device:
         raise ValueError(f"a on {a.device} but w on {w.device}")
-    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError("the fused conv kernels take bf16 operands, got "
-                        f"{a.dtype} and {w.dtype}")
-    if k % 8 or n % 8:
-        raise ValueError(f"K={k} and N={n} must be multiples of 8")
+    if a.dtype not in _KERNEL_DTYPES or w.dtype != a.dtype:
+        raise TypeError("the fused conv kernels take bf16 or fp16 operands "
+                        f"of one type, got {a.dtype} and {w.dtype}")
+    if k == 0 or k % 8 or n % 8:
+        raise ValueError(f"K={k} and N={n} must be multiples of 8, K > 0")
     a = a.contiguous()
     wt = w.t().contiguous()
     for t in (a, wt):
@@ -125,6 +128,7 @@ def _mm_forward(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         rc = _lib().hvdt_mm_bn_relu(a.data_ptr(), wt.data_ptr(),
                                     scale.data_ptr(), bias.data_ptr(),
                                     out.data_ptr(), m, n, k, int(relu),
+                                    int(a.dtype == torch.float16),
                                     _stream(a))
     if rc:
         raise RuntimeError(f"hvdt_mm_bn_relu launch failed: CUDA error {rc}")
@@ -207,7 +211,8 @@ def _mm_stats_plain(a, w):
 
 def matmul_batch_stats(a: torch.Tensor, w: torch.Tensor):
     """One fused pass: ``z = a @ w`` (written once, in a's dtype) plus
-    per-128-row partial sums of z and z² (f32 ``[ceil(M/128), N]``).
+    per-``BLOCK_M``-row partial sums of z and z² (f32
+    ``[ceil(M/BLOCK_M), N]``).
     Finish as ``mean = s1.sum(0)/M``, ``var = s2.sum(0)/M - mean²``."""
     m, k, n = _check_shapes(a, w)
     if a.device.type == "cpu":
@@ -220,7 +225,7 @@ def matmul_batch_stats(a: torch.Tensor, w: torch.Tensor):
     with torch.cuda.device(a.device):
         rc = _lib().hvdt_mm_stats(a.data_ptr(), wt.data_ptr(), z.data_ptr(),
                                   s1.data_ptr(), s2.data_ptr(), m, n, k,
-                                  _stream(a))
+                                  int(a.dtype == torch.float16), _stream(a))
     if rc:
         raise RuntimeError(f"hvdt_mm_stats launch failed: CUDA error {rc}")
     matmul_batch_stats.launches += 1

@@ -132,6 +132,61 @@ def test_conv1x1_bn_train_and_grads(case, relu):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
 
 
+_F16_ULP = 2.0 ** -10
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("case", _CASES)
+def test_fp16_matches_jax(case, relu):
+    """fp16 operands, which the kernels take beside bf16: the JAX
+    package's Pallas kernels (interpret mode) and the port's plain
+    versions both round an f32 product, sum and affine to fp16 once, so
+    they differ by at most one fp16 ulp of the largest output (the f32
+    sums are added in another order); the partial sums as in
+    test_matmul_batch_stats."""
+    d = _inputs(case)
+    b, h, w, cin, cout = case
+    a = d["x"].reshape(-1, cin).astype(np.float16)
+    wt = d["w"].astype(np.float16)
+    jy = np.asarray(jcf.matmul_bn_relu(
+        jnp.asarray(a), jnp.asarray(wt), jnp.asarray(d["scale"]),
+        jnp.asarray(d["bias"]), relu=relu)).astype(np.float32)
+    ty = tcf.matmul_bn_relu(_t(a), _t(wt), _t(d["scale"]), _t(d["bias"]),
+                            relu=relu)
+    assert ty.dtype == torch.float16
+    np.testing.assert_allclose(ty.float().numpy(), jy, rtol=0,
+                               atol=_F16_ULP * np.abs(jy).max())
+    jz, js1, js2 = jcf.matmul_batch_stats(jnp.asarray(a), jnp.asarray(wt))
+    tz, ts1, ts2 = tcf.matmul_batch_stats(_t(a), _t(wt))
+    assert tz.dtype == torch.float16 and ts1.dtype == torch.float32
+    jz = np.asarray(jz).astype(np.float32)
+    np.testing.assert_allclose(tz.float().numpy(), jz, rtol=0,
+                               atol=_F16_ULP * np.abs(jz).max())
+    np.testing.assert_allclose(ts1.sum(0).numpy(), np.asarray(js1).sum(0),
+                               **FWD)
+    np.testing.assert_allclose(ts2.sum(0).numpy(), np.asarray(js2).sum(0),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_partials_follow_block_m():
+    """s1/s2 row i sums z over rows [i BLOCK_M, (i+1) BLOCK_M) — the CUDA
+    kernel's tile height, which the library reports and the wrapper
+    checks (``hvdt_conv_fused_block_m``) — and a ragged last block sums
+    only the rows that exist."""
+    assert tcf.BLOCK_M == 128
+    rng = np.random.default_rng(1)
+    m, k, n = 2 * tcf.BLOCK_M + 44, 16, 24
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    z, s1, s2 = tcf.matmul_batch_stats(_t(a), _t(w))
+    assert s1.shape == s2.shape == (3, n)
+    zf = z.double().numpy()
+    for i in range(3):
+        block = zf[i * tcf.BLOCK_M:(i + 1) * tcf.BLOCK_M]
+        np.testing.assert_allclose(s1[i].numpy(), block.sum(0), **FWD)
+        np.testing.assert_allclose(s2[i].numpy(), (block ** 2).sum(0), **FWD)
+
+
 def test_matmul_bn_relu_relu_grad_at_zero_is_zero():
     """relu'(0) = 0 from the y > 0 mask, as the JAX package's kernel
     path: a unit whose pre-activation is exactly 0 passes no gradient."""
