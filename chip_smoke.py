@@ -31,7 +31,9 @@ Phases, one JSON line each:
 7. quant_kernel — the four int8/int4 quantize/dequantize kernels against
    their plain versions on the card at each fused-bucket size of the
    ResNet-50 gradients (64 MiB threshold, padded to whole 256-element
-   blocks): payload, scales and dequantized values bit-identical;
+   blocks): payload, scales and dequantized values bit-identical; each
+   timed on the device alone, by the host's enqueue and back to back
+   (quant_kernel_total lines: sums over the buckets);
 8. int8    — 3 train steps under quant.with_error_feedback(
    DistributedOptimizer(fused_sgd(...), compression=Compression.int8)):
    the int8 quantize/dequantize kernels launch exactly as often as the
@@ -63,11 +65,14 @@ Phases, one JSON line each:
    blockwise backward); the first step's gradients are held against the
    kernel backward's from the same state;
 13. smallseq_kernel — the two whole-sequence kernels (#12 forward, #13
-   backward) against their plain versions at the seq-512 LM path's shape
-   (B 128, H 16, L 512, D 64, bf16, causal), with
-   scaled_dot_product_attention's forward and backward as the library
-   yardstick (fraction of the bound, registers and spills as in 10);
-   then GQA (Hkv 4), D 128, non-causal, fp16 and ragged (L 200) cases;
+   backward, two launches a call) against their plain versions at the
+   seq-512 LM path's shape (B 128, H 16, L 512, D 64, bf16, causal), each
+   timed on the device alone and back to back beside
+   scaled_dot_product_attention's forward and backward timed the same
+   ways (fraction of the bound, registers and spills of each CUDA kernel;
+   #13's line adds its design's byte floor and, from torch.profiler, its
+   launches a call and each one's device time); then GQA (Hkv 4), D 128,
+   non-causal, fp16 and ragged (L 200) cases;
 14. lm_smallseq — the same bert-large preset at seq 512, batch 128, full
    width and depth, HVDT_FLASH_SMALLSEQ=on (HVDT_FLASH_ATTENTION and
    HVDT_FLASH_SMALLSEQ_HB unset), fused_adam(3e-4, weight_decay=1e-4), 3
@@ -250,25 +255,29 @@ def ptxas_of(log: str, entry: str) -> dict:
     return out
 
 
-def kernel_ptxas(name: str) -> dict:
-    """:func:`ptxas_of` the bf16 kernel ``name`` (D 64 for the attention
-    kernels, the LM paths') in its library's last build log."""
+def kernel_ptxas(name: str) -> list:
+    """:func:`ptxas_of` each CUDA kernel of TPU kernel ``name`` (bf16, D 64
+    for the attention kernels, the LM paths') in its library's last build
+    log, one dict a CUDA kernel with its entry under ``kernel``."""
     from horovod_tpu_torch import _build
 
-    lib, entry = KERNEL_ENTRY[name]
-    return ptxas_of(_build.build_log(lib) or "", entry)
+    lib, entries = KERNEL_ENTRY[name]
+    log = _build.build_log(lib) or ""
+    return [dict(kernel=entry, **ptxas_of(log, entry)) for entry in entries]
 
 
+# TPU kernel -> (library, the mangled-name parts of its CUDA kernels).
 KERNEL_ENTRY = {
-    "_mm_kernel": ("conv_fused", "mm_bn_relu_kernelI13__nv_bfloat16"),
-    "_mm_stats_kernel": ("conv_fused", "mm_stats_kernelI13__nv_bfloat16"),
-    "_kernel": ("flash_attn", "flash_fwd_kernelI13__nv_bfloat16Li64E"),
-    "_dq_kernel": ("flash_attn", "flash_dq_kernelI13__nv_bfloat16Li64E"),
-    "_dkv_kernel": ("flash_attn", "flash_dkv_kernelI13__nv_bfloat16Li64E"),
+    "_mm_kernel": ("conv_fused", ["mm_bn_relu_kernelI13__nv_bfloat16"]),
+    "_mm_stats_kernel": ("conv_fused", ["mm_stats_kernelI13__nv_bfloat16"]),
+    "_kernel": ("flash_attn", ["flash_fwd_kernelI13__nv_bfloat16Li64E"]),
+    "_dq_kernel": ("flash_attn", ["flash_dq_kernelI13__nv_bfloat16Li64E"]),
+    "_dkv_kernel": ("flash_attn", ["flash_dkv_kernelI13__nv_bfloat16Li64E"]),
     "_smallseq_fwd_kernel": ("flash_smallseq",
-                             "smallseq_fwd_kernelI13__nv_bfloat16Li64E"),
+                             ["smallseq_fwd_kernelI13__nv_bfloat16Li64E"]),
     "_smallseq_bwd_kernel": ("flash_smallseq",
-                             "smallseq_bwd_kernelI13__nv_bfloat16Li64E"),
+                             ["smallseq_dq_kernelI13__nv_bfloat16Li64E",
+                              "smallseq_dkv_kernelI13__nv_bfloat16Li64E"]),
 }
 
 
@@ -522,14 +531,18 @@ def _bit_err(got, want) -> float:
 def phase_quant_kernels(params, gen):
     """#5-#8 against their plain versions at each fused-bucket size of
     the ResNet-50 gradients.  Tolerance 0: the max is exact and every
-    other step is one IEEE f32 operation on both sides."""
+    other step is one IEEE f32 operation on both sides.  Each is timed on
+    the device alone (``kernel_ms``: CUDA events behind a device sleep),
+    by the host's enqueue of one call and back to back (which the host
+    bounds at these sizes); the totals sum the bucket sizes."""
     from horovod_tpu_torch.ops import device as tdev
     from horovod_tpu_torch.quant import kernels as qk
 
     sizes = [sum(params[i].numel() for i in b)
              for b in tdev.fused_allreduce_buckets(params, None)]
-    totals = {name: dict(kernel_ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                         max_abs_err=0.0)
+    summed = ("kernel_ms", "enqueue_ms", "back_to_back_ms", "plain_ms",
+              "bound_ms")
+    totals = {name: dict({key: 0.0 for key in summed}, max_abs_err=0.0)
               for name in ("_quant_kernel", "_dequant_kernel",
                            "_quant4_kernel", "_dequant4_kernel")}
     for size in sizes:
@@ -562,16 +575,25 @@ def phase_quant_kernels(params, gen):
             err = max(_bit_err(g, w) for g, w in zip(got, want))
             assert err == 0.0, (name, size, err)
             b_ms, b_by = bound(nbytes, ops, PEAK_F32_FLOPS)
-            row = {"kernel_ms": cuda_ms(kern), "plain_ms": cuda_ms(plain),
-                   "bound_ms": b_ms}
+            dev = device_ms_stats(kern, iters=20)
+            row = {"kernel_ms": dev["median"],
+                   "enqueue_ms": enqueue_ms_stats(kern)["median"],
+                   "back_to_back_ms": cuda_ms(kern),
+                   "plain_ms": cuda_ms(plain), "bound_ms": b_ms}
             emit({"phase": "quant_kernel", "name": name, "elements": padded,
                   "block": QUANT_BLOCK, "max_abs_err": err, "tolerance": 0.0,
-                  "bound_by": b_by, "library_ms": None, **row})
+                  "bound_by": b_by, "library_ms": None,
+                  "kernel_ms_min": dev["min"], "kernel_ms_max": dev["max"],
+                  "fraction_of_bound": b_ms / dev["median"], **row})
             tot = totals[name]
-            for key, val in row.items():
-                tot[key] += val
+            for key in summed:
+                tot[key] += row[key]
             tot["bound_by"] = b_by
         del x, q, s, q4, s4
+    for name, tot in totals.items():
+        emit({"phase": "quant_kernel_total", "name": name,
+              "buckets": len(sizes),
+              "fraction_of_bound": tot["bound_ms"] / tot["kernel_ms"], **tot})
     return totals, sizes
 
 
@@ -752,7 +774,7 @@ def phase_flash_kernels(gen, smi):
             pair = rows["_dq_kernel"]["kernel_ms"] + rows[name]["kernel_ms"]
             extra = {"pair_ms": pair, "pair_over_library": pair / lib_bwd}
         ptxas = kernel_ptxas(name)
-        assert "registers" in ptxas, (name, KERNEL_ENTRY[name], ptxas)
+        assert all("registers" in x for x in ptxas), (name, ptxas)
         emit({"phase": "flash_kernel", "name": name,
               "shape": [b, l, h, h, d], "dtype": "bf16", "causal": True,
               "outputs": outs, "card": smi, **rows[name], **extra,
@@ -861,11 +883,48 @@ def _smallseq_bounds(b, l, h, hkv, d, causal):
     }
 
 
+def _smallseq_bwd_floor(b, l, h, hkv, d):
+    """Bytes #13's two launches must move as designed, each input read once
+    a launch: dQ reads q, dO, O, k and v and writes dq and delta; dK/dV
+    reads k, v, q, dO, lse and delta and writes dk and dv."""
+    q_bytes, kv_bytes = 2.0 * b * l * h * d, 2.0 * b * l * hkv * d
+    row = 4.0 * b * h * l
+    return (4 * q_bytes + 2 * kv_bytes + row) + (
+        2 * q_bytes + 4 * kv_bytes + 2 * row)
+
+
+def profiled_launches(fn, match, calls=5):
+    """The CUDA kernels whose name contains ``match`` that one call of
+    ``fn`` launches (torch.profiler over ``calls`` calls): their count a
+    call and each one's mean device time in ms, or None where the
+    profiler records no device activity."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if match in e.key]
+    if not events:
+        return None
+    names = [re.search(r"(\w+)<", e.key) for e in events]
+    return {"launches": sum(e.count for e in events) / calls,
+            "device_ms": {(n.group(1) if n else e.key): e.device_time_total
+                          / e.count / 1e3 for n, e in zip(names, events)}}
+
+
 def phase_smallseq_kernels(gen, smi):
     """#12 and #13 against their plain versions at the seq-512 LM path's
-    shape, timed beside their bounds and scaled_dot_product_attention
-    (forward for #12, its autograd backward for #13); then smaller GQA,
-    D 128, non-causal, fp16 and ragged cases."""
+    shape, each timed on the device alone (CUDA events behind a device
+    sleep) and back to back, beside its bound and
+    scaled_dot_product_attention timed both ways (forward for #12, its
+    autograd backward for #13); #13's line adds its design's byte floor
+    and its launches a call with each one's device time; then smaller
+    GQA, D 128, non-causal, fp16 and ragged cases."""
     from horovod_tpu_torch.ops import pallas_kernels as pk
 
     b, l, h, d = SS_BATCH, SS_SEQ, LM_HEADS, LM_HEAD_DIM
@@ -875,25 +934,38 @@ def phase_smallseq_kernels(gen, smi):
     qt, kt, vt, dot = (x.transpose(1, 2) for x in
                        (c["q"], c["k"], c["v"], c["do"]))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
     og = sdpa(qg, kg, vg, is_causal=True)
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(og, (qg, kg, vg), dot,
-                                                  retain_graph=True))
-    library = {"_smallseq_fwd_kernel": lib_fwd,
-               "_smallseq_bwd_kernel": lib_bwd}
+    library = {"_smallseq_fwd_kernel": lambda: sdpa(qt, kt, vt,
+                                                    is_causal=True),
+               "_smallseq_bwd_kernel": lambda: torch.autograd.grad(
+                   og, (qg, kg, vg), dot, retain_graph=True)}
     rows = {}
     for name, (kern, plain) in calls.items():
         outs = _compare(name, kern(), plain())
         b_ms, b_by = bounds[name]
-        rows[name] = {"kernel_ms": cuda_ms(kern),
+        dev = device_ms_stats(kern, iters=20)
+        lib = device_ms_stats(library[name], iters=20)
+        rows[name] = {"kernel_ms": dev["median"], "kernel_ms_min": dev["min"],
+                      "kernel_ms_max": dev["max"],
+                      "back_to_back_ms": cuda_ms(kern),
                       "plain_ms": cuda_ms(plain, iters=1, reps=3, warmup=1),
-                      "library_ms": library[name], "bound_ms": b_ms,
-                      "bound_by": b_by,
+                      "library_ms": lib["median"],
+                      "library_ms_min": lib["min"],
+                      "library_ms_max": lib["max"],
+                      "library_back_to_back_ms": cuda_ms(library[name]),
+                      "bound_ms": b_ms, "bound_by": b_by,
                       "max_abs_err": max(o["max_abs_err"] for o in outs)}
+        extra = {}
+        if name == "_smallseq_bwd_kernel":
+            floor = _smallseq_bwd_floor(b, l, h, h, d)
+            extra = {"over_library": dev["median"] / lib["median"],
+                     "design_floor_gb": floor / 1e9,
+                     "design_floor_ms": floor / PEAK_BYTES * 1e3,
+                     "per_call": profiled_launches(kern, "smallseq_")}
         emit({"phase": "smallseq_kernel", "name": name,
               "shape": [b, l, h, h, d], "dtype": "bf16", "causal": True,
-              "outputs": outs, "card": smi, **rows[name],
+              "outputs": outs, "card": smi, **rows[name], **extra,
               "fraction_of_bound": b_ms / rows[name]["kernel_ms"],
               "ptxas": kernel_ptxas(name)})
     del c, calls, qt, kt, vt, dot, qg, kg, vg, og

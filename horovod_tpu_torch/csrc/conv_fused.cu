@@ -301,7 +301,7 @@ __device__ __forceinline__ void gemm(const GemmParams& p) {
           sts32(stage + (jc >> 3) * BM * sm90::ROW_BYTES +
                     row * sm90::ROW_BYTES + (((jc & 7) ^ (row & 7)) << 4) +
                     4 * t,
-                Mma<T>::pack(v0, v1));
+                Pair<T>::pack(v0, v1));
         }
       if constexpr (STATS) {
 #pragma unroll
@@ -369,16 +369,18 @@ cudaError_t run(Kernel kernel, bool stats, const void* a, const void* wt,
   const int sms = num_sms();
   if (sms <= 0) return cudaErrorInvalidDevice;
   const int fp16 = std::is_same<T, __half>::value;
+  // The runtime call first: the tensor maps' encoding needs the context it
+  // makes current (see sm90::launch).
+  const int smem = (int)C::smem(stats);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
   GemmParams p = {};
   p.g = g;
   if (!sm90::make_map_2d(&p.a, a, fp16, g.M, g.K, BM) ||
       !sm90::make_map_2d(&p.w, wt, fp16, g.N, g.K, C::BN) ||
       !sm90::make_map_2d(&p.out, out, fp16, g.M, g.N, BM))
     return cudaErrorInvalidValue;
-  const int smem = (int)C::smem(stats);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
   kernel<<<tiles < sms ? tiles : sms, C::THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }

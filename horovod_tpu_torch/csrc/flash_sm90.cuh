@@ -1,10 +1,15 @@
-// The Hopper (sm_90a) core shared by the attention kernels #9, #10 and #11
-// (flash_attn.cu) and #12 (flash_smallseq.cu): TMA loads into 128-byte-
-// swizzled shared memory, wgmma products, and the register layouts that
-// let a score tile go from its accumulators straight into the next product.
-// The conv GEMM (#3, #4 in conv_fused.cu) takes its wgmma, descriptors,
-// barriers, register split and tensor maps from here too, with the 2-D
-// TMA loads and stores below.
+// The Hopper (sm_90a) core of the attention kernels and the conv GEMM:
+// TMA loads into 128-byte-swizzled shared memory, wgmma products, and the
+// register layouts that let a score tile go from its accumulators straight
+// into the next product.  Which kernels share which body:
+//   * the forwards #9 (flash_attn.cu) and #12 (flash_smallseq.cu) each have
+//     their own body on `attend`;
+//   * the backward bodies of flash_bwd_sm90.cuh, on `backward`, serve #10
+//     and #11 (flash_attn.cu, streaming form) and #13 (flash_smallseq.cu,
+//     whole-sequence form: two launches a call);
+//   * the conv GEMM (#3, #4 in conv_fused.cu) takes its wgmma, descriptors,
+//     barriers, register split and tensor maps from here, with the 2-D TMA
+//     loads and stores below.
 //
 // A CTA has Cfg::WGS consumer warpgroups and a producer:
 //   * warps 0 .. 4 WGS - 1 are the consumer warpgroups of 64 rows each:
@@ -13,7 +18,9 @@
 //   * the last warp (or warpgroup) is the producer.  One thread issues the
 //     TMA loads: the CTA's resident ("own") tiles once (Q; Q and dO; or K
 //     and V), then the streamed pairs of BK rows (K and V, or Q and dO,
-//     with the rows' lse and delta for dK/dV) into a ring of STAGES slots.
+//     with the rows' lse and delta for dK/dV) into a ring of STAGES slots,
+//     in passes (the two-pass forward of #12 walks its K/V tiles twice; the
+//     dK/dV of #13 walks the Q/dO tiles of each q head of a GQA group).
 //     Each slot has a full barrier for each tile of the pair (the
 //     producer's expect_tx, completed by the TMA's bytes) and an empty
 //     barrier (one arrival from each consumer warp when it is done with
@@ -538,17 +545,21 @@ struct Params {
 };
 
 // The producer thread: rows [own_row, own_row + C::ROWS) of head
-// `own_head` of each resident tile, then `steps` streamed steps.  Step
-// `it` loads streamed tile tile0 + it of head `head` (or tile0 + it - wrap
-// past `wrap`, in a two-pass walk); its second tile, and the row
-// statistics from 1-D position stats0 + the tile's first row (rounded
-// down to 16 bytes: `stats_of`), only where `second_from <= it`; otherwise
-// it arrives on the second barrier without bytes, so the slot's phases
-// stay in step for the consumers.
+// `own_head` of each resident tile, then `steps` streamed steps in passes
+// of `per_pass`.  Step `it` loads streamed tile tile0 + it % per_pass of
+// head `head` + (it / per_pass) `head_step` (a second pass over the same
+// tiles in the two-pass forward, head_step 0; the next q head of a GQA
+// group in the whole-sequence dK/dV, head_step 1); its second tile, and
+// the row statistics from 1-D position stats0 + (it / per_pass)
+// `stats_step` + the tile's first row (rounded down to 16 bytes:
+// `stats_of`), only where `second_from <= it`; otherwise it arrives on the
+// second barrier without bytes, so the slot's phases stay in step for the
+// consumers.
 template <class C, class A>
 __device__ void produce(const Ring<C>& r, const Params<A>& p, int own_head,
-                        int own_row, int head, int b, int tile0, int wrap,
-                        int steps, int second_from, int stats0) {
+                        int own_row, int head, int b, int tile0, int per_pass,
+                        int steps, int second_from, int stats0,
+                        int head_step = 0, int stats_step = 0) {
   bar_expect(r.full_own(), C::RES * C::OWN_BYTES);
 #pragma unroll
   for (int i = 0; i < C::RES; ++i)
@@ -556,10 +567,10 @@ __device__ void produce(const Ring<C>& r, const Params<A>& p, int own_head,
     for (int hf = 0; hf < C::HALVES; ++hf)
       tma_load(r.own(i) + hf * C::ROWS * ROW_BYTES, &p.own[i], r.full_own(),
                64 * hf, own_head, own_row, b);
-  for (int it = 0; it < steps; ++it) {
+  for (int it = 0, tile = 0; it < steps; ++it) {
     const int s = slot_of<C>(it);
     bar_wait(r.empty(s), parity_of<C>(it) ^ 1);  // a fresh slot passes
-    const int row = (tile0 + (it < wrap ? it : it - wrap)) * C::BK;
+    const int row = (tile0 + tile) * C::BK;
     bar_expect(r.full_first(s), C::TILE_BYTES);
 #pragma unroll
     for (int hf = 0; hf < C::HALVES; ++hf)
@@ -579,6 +590,11 @@ __device__ void produce(const Ring<C>& r, const Params<A>& p, int own_head,
       }
     } else {
       bar_arrive(r.full_second(s));
+    }
+    if (++tile == per_pass) {
+      tile = 0;
+      head += head_step;
+      stats0 += stats_step;
     }
   }
 }
@@ -679,7 +695,7 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[NS / 8][4],
   for (int kk = 0; kk < NS / 8; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[kk][i] = Mma<T>::pack(p[8 * kk + 2 * i], p[8 * kk + 2 * i + 1]);
+      a[kk][i] = Pair<T>::pack(p[8 * kk + 2 * i], p[8 * kk + 2 * i + 1]);
 }
 
 // The products of warpgroup wg over n K/V tiles, ring steps step0 ..
@@ -1023,6 +1039,12 @@ cudaError_t launch(Kernel kernel, const A& a, int B, int H, Operand own0,
                    cudaStream_t stream) {
   const dim3 grid((own0.L + C::ROWS - 1) / C::ROWS, H, B);
   if (grid.x == 0 || grid.z == 0) return cudaSuccess;
+  // A runtime call first: it makes the device's primary context current on
+  // this thread, which cuTensorMapEncodeTiled needs on a thread that has
+  // made no runtime call yet (autograd's backward thread).
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return err;
   const int fp16 = std::is_same<T, __half>::value;
   Params<A> p = {};
   p.a = a;
@@ -1040,9 +1062,6 @@ cudaError_t launch(Kernel kernel, const A& a, int B, int H, Operand own0,
     ok = ok && make_row_map(&p.stats[0], stats.lse, stats.n, C::STATS_BOX) &&
          make_row_map(&p.stats[1], stats.delta, stats.n, C::STATS_BOX);
   if (!ok) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
-  if (err != cudaSuccess) return err;
   kernel<<<grid, C::THREADS, C::SMEM, stream>>>(p);
   return cudaGetLastError();
 }

@@ -7,8 +7,9 @@
 //                    and lse = m + log(sum) over the whole sequence, against
 //                    the row's exact final max (no online carry);
 //   * _smallseq_bwd_kernel -> hvdt_smallseq_bwd: dq, dk, dv from the saved
-//                    lse, with delta = rowsum(dO * O) computed inside and a
-//                    GQA group's dk/dv summed inside; one launch a call.
+//                    lse, with delta = rowsum(dO * O) computed once per q
+//                    row and a GQA group's dk/dv summed inside; two
+//                    launches a call (dQ, then dK/dV).
 //
 // Layout: q, k, v, dO, o, dq, dk, dv are [B, L, H(or Hkv), D] contiguous in
 // bf16 or fp16 (the framework's layout: no transposes); lse is [B, H, L]
@@ -56,95 +57,59 @@
 //     (__fmul_rn), at the TPU kernel's rounding point, then
 //     p = 2^(x * log2e - max * log2e) (one FFMA and one ex2).
 //
-// Backward design (#13): one launch, two CTA roles by blockIdx.x, no atomics
-// (a run repeats to the last bit):
-//   * role A, first in the grid (the longer CTAs start first): one CTA per
-//     (64-row k tile, kv head, batch) walks the visible q tiles of every q
-//     head of its GQA group (64 rows a step at D 64, 32 at D 128 to bound
-//     registers), recomputes p^T = exp(k q^T * scale - lse) and
-//     dP^T = v dO^T in registers and accumulates dV += round(p)^T dO and
-//     dK += round(dS)^T q in f32 registers over the whole group, so the
-//     group sum happens inside the kernel;
-//   * role B: one CTA per (64-row q tile, head, batch) walks the visible k
-//     tiles, dq += round(dS) k;
-//   * each role computes delta = rowsum(dO * O) in f32 for the q rows it
-//     stages, from the O the forward wrote;
+// Backward design (#13): the whole-sequence form of the backward bodies
+// that #10 and #11 run (flash_bwd_sm90.cuh), not a backward of its own.
+// Two launches on the caller's stream, no atomics (a call repeats to the
+// last bit):
+//   * dQ: one CTA per (64-row q tile, head, batch), Q and dO resident, the
+//     visible K/V tiles streamed 32 rows a step; its threads form delta =
+//     rowsum(dO * O) in f32 for their own q rows (16-byte loads, a quad
+//     sum), keep it in registers for dS and write it to a [B, H, L] f32
+//     scratch tensor beside lse;
+//   * dK/dV: one CTA per (64-row k tile, kv head, batch) (128 rows in two
+//     warpgroups at D 128), K and V resident, walks the visible Q/dO tiles
+//     of each q head of its GQA group in turn (the ring's steps run on
+//     across heads), with their rows' lse and delta through the 1-D stats
+//     map; dK and dV stay in f32 registers over the whole group, so the
+//     group sum happens inside the kernel.  The stream orders it after dQ,
+//     which wrote the delta it reads;
 //   * dq, dk and dv are written in the input type straight from the f32
 //     accumulators.  The TPU kernel writes f32 and casts outside; both round
 //     the same f32 value once, and writing 16 bits saves 0.4 GB of traffic
 //     at the path's shape.
+// Against the bytes bound the design moves about 1.62 GB at the path's
+// shape (each launch reads its operands once: 0.81 GB each, 0.48 ms), and,
+// as in #12, is held back by the latency of short chains (1-16 steps of 32
+// rows); the tiles (DqCfg, DkvCfg below: 64-row CTAs, 2-3 an SM) beat
+// 128- and 192-row CTAs, 64-row steps and fewer slots on the card
+// (PERF.md).
 //
-// Any L >= 1 works: rows past the end are zero-filled when staged (by the
-// TMA in the forward), a key past the end counts as absent (p = 0) and
-// rows past the end are not written.  Requirements checked by the Python wrapper: D in {64, 128},
-// bf16 or fp16 operands of one type, contiguous, 16-byte aligned.  Each
-// entry returns cudaGetLastError() after its launch.
+// Any L >= 1 works: rows past the end are zero-filled by the TMA, a key
+// past the end counts as absent (p = 0) and rows past the end are not
+// written.  Requirements checked by the Python wrapper: D in {64, 128},
+// bf16 or fp16 operands of one type, contiguous, 16-byte aligned (lse
+// too).  Each entry returns cudaGetLastError() after its launches, or an
+// error if a tensor map cannot be built.
 
-#include <limits.h>
 #include <math.h>
 
-#include "flash_common.cuh"
-#include "flash_sm90.cuh"
+#include "flash_bwd_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // q rows per CTA (role B)
-constexpr int BK = 64;         // k rows per step (role B) / CTA (role A)
 constexpr float NEG = -1e30f;  // the TPU kernels' mask value
 
-template <int D>
-struct BwdTile {
-  static constexpr int BQ2 = D == 64 ? 64 : 32;  // q rows per role-A step
-};
-
+// The forward's arguments (the backward's are sm90::BwdArgs); q, k and v
+// reach every kernel through its tensor maps.
 struct Args {
   const void* q;
   const void* k;
   const void* v;
-  const void* dout;  // backward: dO
-  void* o;           // forward: written; backward: the forward's output
-  float* lse;        // forward: written; backward: read
-  void* dq;
-  void* dk;
-  void* dv;
+  void* o;     // written
+  float* lse;  // written
   int B, H, Hkv, L, causal;
   float scale;
 };
-
-__device__ __forceinline__ bool visible(const Args& a, int qrow, int krow) {
-  return qrow < a.L && krow < a.L && (!a.causal || qrow >= krow);
-}
-
-// Number of K tiles a q tile [q0, q0 + BQ) can see.
-__device__ __forceinline__ int k_tiles(const Args& a, int q0) {
-  const int nk = (a.L + BK - 1) / BK;
-  return a.causal ? min(nk, (min(q0 + BQ, a.L) - 1) / BK + 1) : nk;
-}
-
-// delta[r] = sum_d dO[r][d] * O[r][d] in f32 for the ROWS rows of two
-// staged tiles; NTHREADS / ROWS neighbouring threads share a row.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void row_delta(float* sD, const T* sdO,
-                                          const T* sO) {
-  constexpr int LDS = D + 8;
-  constexpr int TPR = NTHREADS / ROWS;
-  constexpr int PER = D / TPR;
-  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const T* x = sdO + r * LDS + part * PER;
-  const T* y = sO + r * LDS + part * PER;
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < PER; i += 2) {
-    const float2 u = Mma<T>::unpack(ld32(x + i));
-    const float2 w = Mma<T>::unpack(ld32(y + i));
-    acc += __fmul_rn(u.x, w.x);
-    acc += __fmul_rn(u.y, w.y);
-  }
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (part == 0) sD[r] = acc;
-}
 
 // ---- #12: forward, on the Hopper core (flash_sm90.cuh) --------------------
 
@@ -240,7 +205,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::THREADS, FwdCfg<D>::CTAS)
     T* op = static_cast<T*>(a.o) + ((bl + row[r]) * a.H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) = Mma<T>::pack(
+      *reinterpret_cast<uint32_t*>(op + 8 * j + 2 * t) = Pair<T>::pack(
           o[4 * j + 2 * r] / l[r], o[4 * j + 2 * r + 1] / l[r]);
     if (t == 0)
       a.lse[(long long)(b * a.H + h) * a.L + row[r]] = mx[r] + logf(l[r]);
@@ -254,326 +219,68 @@ cudaError_t fwd(const Args& a, cudaStream_t stream) {
       {a.k, a.Hkv, a.L}, {a.v, a.Hkv, a.L}, {}, stream);
 }
 
-// ---- #13, role A: dK and dV of one k tile over a GQA group ---------------
+// ---- #13: dQ and dK/dV, the whole-sequence form of the backward bodies
+// in flash_bwd_sm90.cuh ------------------------------------------------------
+
+// The tiles of dQ: 64 q rows a CTA (one consumer warpgroup and a producer
+// warp), 32 K/V rows a step; at D 64 four ring slots and three CTAs an SM,
+// at D 128 two slots and two CTAs.
+template <int D>
+using DqCfg = sm90::Cfg<D, 32, D == 64 ? 4 : 2, 1, D == 64 ? 3 : 2, 2>;
+
+// The tiles of dK/dV: at D 64, 64 k rows a CTA, 32 Q/dO rows a step, three
+// ring slots, two CTAs an SM; at D 128 those of #11 (128 k rows, two
+// consumer warpgroups, one CTA an SM): with one warpgroup a CTA, dK and dV
+// would not fit the registers of two CTAs an SM.
+template <int D>
+using DkvCfg = sm90::Cfg<D, 32, 3, D == 64 ? 1 : 2, D == 64 ? 2 : 1, 2, true>;
 
 template <typename T, int D>
-__device__ __forceinline__ void bwd_dkv(const Args& a, int k0, int hk, int b,
-                                        unsigned char* smem) {
-  constexpr int LDS = D + 8;
-  constexpr int BQ2 = BwdTile<D>::BQ2;
-  constexpr int NS = BQ2 / 8;
-  constexpr int NO = D / 8;
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + BK * LDS;
-  T* sQ = sV + BK * LDS;         // two stages
-  T* sdO = sQ + 2 * BQ2 * LDS;   // two stages
-  T* sO = sdO + 2 * BQ2 * LDS;   // two stages
-  float* sL = reinterpret_cast<float*>(sO + 2 * BQ2 * LDS);  // lse, 2 stages
-  float* sD = sL + 2 * BQ2;                                  // delta
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int group = a.H / a.Hkv;
-  const long long qs = (long long)a.H * D, ks = (long long)a.Hkv * D;
-  const long long bl = (long long)b * a.L;
-  const T* kp = static_cast<const T*>(a.k) + bl * ks + hk * D;
-  const T* vp = static_cast<const T*>(a.v) + bl * ks + hk * D;
-  const int nq = (a.L + BQ2 - 1) / BQ2;
-  int iq0 = 0;
-  if (a.causal) {  // first q tile whose last row reaches this k tile
-    const int need = k0 - (BQ2 - 1);
-    iq0 = need <= 0 ? 0 : (need + BQ2 - 1) / BQ2;
-  }
-  const int per_head = nq - iq0;   // >= 1: k0 < L
-  const int steps = group * per_head;
-  const int krow[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-
-  // Step n visits q tile iq0 + n % per_head of q head hk * group + n /
-  // per_head: the q, dO and O tiles and the lse of its rows into stage st.
-  auto stage = [&](int n, int st) {
-    const int h = hk * group + n / per_head;
-    const int r0 = (iq0 + n % per_head) * BQ2;
-    const long long off = bl * qs + h * D;
-    load_tile<T, D, BQ2>(sQ + st * BQ2 * LDS, static_cast<const T*>(a.q) + off,
-                         qs, r0, a.L);
-    load_tile<T, D, BQ2>(sdO + st * BQ2 * LDS,
-                         static_cast<const T*>(a.dout) + off, qs, r0, a.L);
-    load_tile<T, D, BQ2>(sO + st * BQ2 * LDS,
-                         static_cast<const T*>(a.o) + off, qs, r0, a.L);
-    if (threadIdx.x < BQ2) {
-      const int r = r0 + threadIdx.x;
-      sL[st * BQ2 + threadIdx.x] =
-          r < a.L ? a.lse[(long long)(b * a.H + h) * a.L + r] : 0.f;
-    }
-  };
-
-  float dk[NO][4], dv[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  load_tile<T, D, BK>(sK, kp, ks, k0, a.L);
-  load_tile<T, D, BK>(sV, vp, ks, k0, a.L);
-  stage(0, 0);
-  cp_async_commit();
-
-  for (int n = 0; n < steps; ++n) {
-    const int st = n & 1;
-    if (n + 1 < steps) stage(n + 1, st ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* cQ = sQ + st * BQ2 * LDS;
-    const T* cdO = sdO + st * BQ2 * LDS;
-    const float* cL = sL + st * BQ2;
-    const float* cD = sD + st * BQ2;
-    row_delta<T, D, BQ2>(sD + st * BQ2, cdO, sO + st * BQ2 * LDS);
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 k rows x BQ2 q columns.
-    float s[NS][4], pd[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = pd[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t fk[4], fv[4];
-      frag_a<T, LDS>(fk, sK, warp * 16, kk * 16, g, t);
-      frag_a<T, LDS>(fv, sV, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t fb[2];
-        frag_b_rows<T, LDS>(fb, cQ, j * 8, kk * 16, g, t);
-        Mma<T>::run(s[j], fk, fb);
-        frag_b_rows<T, LDS>(fb, cdO, j * 8, kk * 16, g, t);
-        Mma<T>::run(pd[j], fv, fb);
-      }
-    }
-    // P^T and dS^T = P^T * (dP^T - delta) * scale.
-    const int q0 = (iq0 + n % per_head) * BQ2;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1);
-        const float p =
-            visible(a, q0 + c, krow[e >> 1])
-                ? expf(__fmul_rn(s[j][e], a.scale) - cL[c])
-                : 0.f;
-        s[j][e] = p;
-        pd[j][e] = p * (pd[j][e] - cD[c]) * a.scale;
-      }
-    // dV += P^T dO (P rounded to dO's type); dK += dS^T Q (dS to Q's).
-#pragma unroll
-    for (int kk = 0; kk < BQ2 / 16; ++kk) {
-      uint32_t fp[4], fs[4];
-      acc_to_a<T>(fp, s[2 * kk], s[2 * kk + 1]);
-      acc_to_a<T>(fs, pd[2 * kk], pd[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        uint32_t fb[2];
-        frag_b_cols<T, LDS>(fb, cdO, kk * 16, j * 8, g, t);
-        Mma<T>::run(dv[j], fp, fb);
-        frag_b_cols<T, LDS>(fb, cQ, kk * 16, j * 8, g, t);
-        Mma<T>::run(dk[j], fs, fb);
-      }
-    }
-    __syncthreads();  // the next step refills this stage
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (krow[r] >= a.L) continue;
-    const long long off = ((bl + krow[r]) * a.Hkv + hk) * D;
-    T* dkp = static_cast<T*>(a.dk) + off;
-    T* dvp = static_cast<T*>(a.dv) + off;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      *reinterpret_cast<uint32_t*>(dkp + 8 * j + 2 * t) =
-          Mma<T>::pack(dk[j][2 * r], dk[j][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvp + 8 * j + 2 * t) =
-          Mma<T>::pack(dv[j][2 * r], dv[j][2 * r + 1]);
-    }
-  }
-}
-
-// ---- #13, role B: dQ of one q tile -----------------------------------------
-
-template <typename T, int D>
-__device__ __forceinline__ void bwd_dq(const Args& a, int q0, int h, int b,
-                                       unsigned char* smem) {
-  constexpr int LDS = D + 8;
-  constexpr int NS = BK / 8;
-  constexpr int NO = D / 8;
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + BQ * LDS;
-  T* sO = sdO + BQ * LDS;
-  T* sK = sO + BQ * LDS;      // two stages
-  T* sV = sK + 2 * BK * LDS;  // two stages
-  float* sD = reinterpret_cast<float*>(sV + 2 * BK * LDS);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int hk = h / (a.H / a.Hkv);
-  const long long qs = (long long)a.H * D, ks = (long long)a.Hkv * D;
-  const long long bl = (long long)b * a.L;
-  const long long qoff = bl * qs + h * D;
-  const T* kp = static_cast<const T*>(a.k) + bl * ks + hk * D;
-  const T* vp = static_cast<const T*>(a.v) + bl * ks + hk * D;
-  const int nk = k_tiles(a, q0);
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    lse[r] = row[r] < a.L ? a.lse[(long long)(b * a.H + h) * a.L + row[r]]
-                          : 0.f;
-
-  load_tile<T, D, BQ>(sQ, static_cast<const T*>(a.q) + qoff, qs, q0, a.L);
-  load_tile<T, D, BQ>(sdO, static_cast<const T*>(a.dout) + qoff, qs, q0, a.L);
-  load_tile<T, D, BQ>(sO, static_cast<const T*>(a.o) + qoff, qs, q0, a.L);
-  cp_async_commit();
-  if (nk > 0) {
-    load_tile<T, D, BK>(sK, kp, ks, 0, a.L);
-    load_tile<T, D, BK>(sV, vp, ks, 0, a.L);
-  }
-  cp_async_commit();
-  cp_async_wait<1>();  // q, dO and O have landed
-  __syncthreads();
-  row_delta<T, D, BQ>(sD, sdO, sO);
-  __syncthreads();
-  const float dl[2] = {sD[warp * 16 + g], sD[warp * 16 + g + 8]};
-
-  float dq[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq[j][e] = 0.f;
-
-  for (int kb = 0; kb < nk; ++kb) {
-    const int st = kb & 1;
-    if (kb + 1 < nk) {
-      load_tile<T, D, BK>(sK + (st ^ 1) * BK * LDS, kp, ks, (kb + 1) * BK, a.L);
-      load_tile<T, D, BK>(sV + (st ^ 1) * BK * LDS, vp, ks, (kb + 1) * BK, a.L);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const T* cK = sK + st * BK * LDS;
-    const T* cV = sV + st * BK * LDS;
-
-    float s[NS][4], pd[NS][4];  // scores, then dP
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = pd[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t fq[4], fo[4];
-      frag_a<T, LDS>(fq, sQ, warp * 16, kk * 16, g, t);
-      frag_a<T, LDS>(fo, sdO, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        uint32_t fb[2];
-        frag_b_rows<T, LDS>(fb, cK, j * 8, kk * 16, g, t);
-        Mma<T>::run(s[j], fq, fb);
-        frag_b_rows<T, LDS>(fb, cV, j * 8, kk * 16, g, t);
-        Mma<T>::run(pd[j], fo, fb);
-      }
-    }
-    // p = exp(s * scale - lse) where visible; dS = p * (dP - delta) * scale
-    const int k0 = kb * BK;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        const float p = visible(a, row[r], col)
-                            ? expf(__fmul_rn(s[j][e], a.scale) - lse[r])
-                            : 0.f;
-        s[j][e] = p * (pd[j][e] - dl[r]) * a.scale;
-      }
-    // dq += dS K, dS rounded to K's type.
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t fa[4];
-      acc_to_a<T>(fa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        uint32_t fb[2];
-        frag_b_cols<T, LDS>(fb, cK, kk * 16, j * 8, g, t);
-        Mma<T>::run(dq[j], fa, fb);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= a.L) continue;
-    T* out = static_cast<T*>(a.dq) + ((bl + row[r]) * a.H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * t) =
-          Mma<T>::pack(dq[j][2 * r], dq[j][2 * r + 1]);
-  }
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, DqCfg<D>::CTAS)
+    smallseq_dq_kernel(const __grid_constant__ sm90::Params<sm90::BwdArgs> p) {
+  sm90::dq_body<T, DqCfg<D>, true>(p);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) smallseq_bwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nkt = (a.L + BK - 1) / BK;
-  const int n_a = nkt * a.Hkv * a.B;
-  int idx = blockIdx.x;
-  if (idx < n_a) {  // role A: (k tile, kv head, batch), earliest k first
-    const int tile = idx % nkt;
-    idx /= nkt;
-    bwd_dkv<T, D>(a, tile * BK, idx % a.Hkv, idx / a.Hkv, smem);
-  } else {          // role B: (q tile, head, batch), latest q first
-    idx -= n_a;
-    const int nqt = (a.L + BQ - 1) / BQ;
-    const int tile = nqt - 1 - idx % nqt;
-    idx /= nqt;
-    bwd_dq<T, D>(a, tile * BQ, idx % a.H, idx / a.H, smem);
-  }
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS, DkvCfg<D>::CTAS)
+    smallseq_dkv_kernel(const __grid_constant__ sm90::Params<sm90::BwdArgs> p) {
+  sm90::dkv_body<T, DkvCfg<D>, true>(p);
+}
+
+// Two launches on one stream: dQ (which writes delta), then dK/dV (which
+// reads it); the stream orders them.
+template <typename T, int D>
+cudaError_t bwd(const Args& f, const sm90::BwdArgs& a, cudaStream_t stream) {
+  cudaError_t err = sm90::launch<T, DqCfg<D>>(
+      smallseq_dq_kernel<T, D>, a, a.B, a.H, {f.q, a.H, a.Lq},
+      {a.dout, a.H, a.Lq}, {f.k, a.Hkv, a.Lk}, {f.v, a.Hkv, a.Lk}, {},
+      stream);
+  if (err != cudaSuccess) return err;
+  return sm90::launch<T, DkvCfg<D>>(
+      smallseq_dkv_kernel<T, D>, a, a.B, a.Hkv, {f.k, a.Hkv, a.Lk},
+      {f.v, a.Hkv, a.Lk}, {f.q, a.H, a.Lq}, {a.dout, a.H, a.Lq},
+      {a.lse, a.delta, (long long)a.B * a.H * a.Lq}, stream);
 }
 
 template <typename T, int D>
-constexpr size_t bwd_smem() {
-  constexpr int BQ2 = BwdTile<D>::BQ2;
-  constexpr size_t dkv =
-      (size_t)(2 * BK + 6 * BQ2) * (D + 8) * sizeof(T) + 4 * BQ2 * sizeof(float);
-  constexpr size_t dq =
-      (size_t)(3 * BQ + 4 * BK) * (D + 8) * sizeof(T) + BQ * sizeof(float);
-  return dkv > dq ? dkv : dq;
+cudaError_t dispatch(int kind, const Args& f, const sm90::BwdArgs& a,
+                     cudaStream_t stream) {
+  return kind == 0 ? fwd<T, D>(f, stream) : bwd<T, D>(f, a, stream);
 }
 
-template <typename T, int D>
-cudaError_t dispatch(int bwd, const Args& a, cudaStream_t stream) {
-  if (!bwd) return fwd<T, D>(a, stream);
-  const long long ctas = (long long)((a.L + BK - 1) / BK) * a.Hkv * a.B +
-                         (long long)((a.L + BQ - 1) / BQ) * a.H * a.B;
-  if (ctas > INT_MAX) return cudaErrorInvalidValue;
-  return launch(smallseq_bwd_kernel<T, D>, bwd_smem<T, D>(),
-                dim3((unsigned)ctas), a, stream);
-}
-
-int run(int bwd, const Args& a, int D, int fp16, void* stream) {
+int run(int kind, const Args& f, const sm90::BwdArgs& a, int D, int fp16,
+        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
-  if (a.H <= 0 || a.Hkv <= 0 || a.H % a.Hkv || a.L < 0)
+  if (f.H <= 0 || f.Hkv <= 0 || f.H % f.Hkv || f.L < 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (fp16)
-    err = D == 64 ? dispatch<__half, 64>(bwd, a, s)
-                  : dispatch<__half, 128>(bwd, a, s);
+    err = D == 64 ? dispatch<__half, 64>(kind, f, a, s)
+                  : dispatch<__half, 128>(kind, f, a, s);
   else
-    err = D == 64 ? dispatch<bf16, 64>(bwd, a, s)
-                  : dispatch<bf16, 128>(bwd, a, s);
+    err = D == 64 ? dispatch<bf16, 64>(kind, f, a, s)
+                  : dispatch<bf16, 128>(kind, f, a, s);
   return (int)err;
 }
 
@@ -600,27 +307,37 @@ extern "C" {
 int hvdt_smallseq_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int B, int H, int Hkv, int L, int D,
                       int fp16, int causal, float scale, void* stream) {
-  Args a = make_args(q, k, v, B, H, Hkv, L, causal, scale);
-  a.o = o;
-  a.lse = (float*)lse;
-  return run(0, a, D, fp16, stream);
+  Args f = make_args(q, k, v, B, H, Hkv, L, causal, scale);
+  f.o = o;
+  f.lse = (float*)lse;
+  return run(0, f, {}, D, fp16, stream);
 }
 
 // Backward: dq [B, L, H, D], dk and dv [B, L, Hkv, D] (group-summed), all
-// in q's type, from dO, the forward's o and lse.
+// in q's type, from dO, the forward's o and lse [B, H, L] f32; delta
+// [B, H, L] f32 is scratch, written by the first launch and read by the
+// second.
 int hvdt_smallseq_bwd(const void* q, const void* k, const void* v,
                       const void* dout, const void* o, const void* lse,
-                      void* dq, void* dk, void* dv, int B, int H, int Hkv,
-                      int L, int D, int fp16, int causal, float scale,
-                      void* stream) {
-  Args a = make_args(q, k, v, B, H, Hkv, L, causal, scale);
+                      void* delta, void* dq, void* dk, void* dv, int B, int H,
+                      int Hkv, int L, int D, int fp16, int causal,
+                      float scale, void* stream) {
+  const Args f = make_args(q, k, v, B, H, Hkv, L, causal, scale);
+  sm90::BwdArgs a = {};
   a.dout = dout;
-  a.o = const_cast<void*>(o);
-  a.lse = (float*)lse;
+  a.o = o;
+  a.lse = (const float*)lse;
+  a.delta = (float*)delta;
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  return run(1, a, D, fp16, stream);
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.Lq = a.Lk = L;
+  a.causal = causal;
+  a.scale = scale;
+  return run(1, f, a, D, fp16, stream);
 }
 
 }  // extern "C"

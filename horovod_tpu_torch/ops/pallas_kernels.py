@@ -30,7 +30,9 @@ short-sequence regime of BERT-style pretraining):
   with no online carry;
 * ``_smallseq_bwd`` (replaces ``_smallseq_bwd_kernel``) — #13: dq, dk, dv
   in the input dtype from the saved logsumexp, ``delta = rowsum(dO * O)``
-  computed inside and a GQA group's dk/dv summed inside; one call.
+  computed once per q row and a GQA group's dk/dv summed inside; one call
+  makes two launches (dQ, which writes delta, then dK/dV), on the
+  backward bodies that #10 and #11 run.
 
 Entry points, with the reference's signatures and [B, L, H, D] layouts:
 :func:`flash_attention` (differentiable), :func:`flash_block_update` (one
@@ -50,10 +52,11 @@ CPU; on a CUDA tensor it launches the kernel or raises (``ValueError``
 for a dtype other than bf16/fp16 or a head dim other than 64/128).
 ``block_q``/``block_k`` (and ``heads_per_block`` for #12/#13) shape the
 plain versions' loops, which follow the TPU kernels' block order and
-pruning; the CUDA kernels tile at their own sizes (#9-#12 on the wgmma +
+pruning; the CUDA kernels tile at their own sizes (all on the wgmma +
 TMA core of ``csrc/flash_sm90.cuh``: 192 q rows a CTA for #9 and for #10
-at D 64, 128 k rows for #11, 64 q rows for #12; #13 at 64).  ``launches`` on each wrapper
-counts kernel launches.
+at D 64, 128 k rows for #11, 64 q rows for #12, 64 q and 64 k rows for
+#13's two launches at D 64).  ``launches`` on each wrapper counts its
+calls that launched its kernels.
 """
 
 from __future__ import annotations
@@ -112,7 +115,7 @@ def _smallseq_lib() -> ctypes.CDLL:
         # B, H, Hkv, L, D, fp16, causal; scale; stream.
         tail = [i] * 7 + [f, p]
         lib.hvdt_smallseq_fwd.argtypes = [p] * 5 + tail
-        lib.hvdt_smallseq_bwd.argtypes = [p] * 9 + tail
+        lib.hvdt_smallseq_bwd.argtypes = [p] * 10 + tail
         lib.hvdt_smallseq_fwd.restype = i
         lib.hvdt_smallseq_bwd.restype = i
         lib._hvdt_typed = True
@@ -677,8 +680,9 @@ def _smallseq_bwd_plain(q, k, v, do, out, lse, *, causal: bool,
 def _smallseq_bwd(q, k, v, do, out, lse, *, causal: bool, scale: float,
                   hb: int):
     """(dq [B, L, H, D], dk, dv [B, L, Hkv, D]) in the input dtype from
-    dO [B, L, H, D], the forward's out and lse [B, H, L] f32.  One
-    launch."""
+    dO [B, L, H, D], the forward's out and lse [B, H, L] f32.  One call
+    makes two launches: dQ, which also writes delta = rowsum(dO·O) into a
+    [B, H, L] f32 scratch tensor, then dK/dV, which reads it."""
     if q.device.type == "cpu":
         return _smallseq_bwd_plain(q, k, v, do, out, lse, causal=causal,
                                    scale=scale, hb=hb)
@@ -687,17 +691,15 @@ def _smallseq_bwd(q, k, v, do, out, lse, *, causal: bool, scale: float,
     if k.shape[1] != l:
         raise ValueError(f"the smallseq kernels need lq == lk, got {l} and "
                          f"{k.shape[1]}")
-    lse = lse.float().contiguous()
-    if lse.shape != (b, h, l):
-        raise ValueError(f"lse must be [B, H, L] = {(b, h, l)}, got "
-                         f"{tuple(lse.shape)}")
+    delta = torch.empty((b, h, l), dtype=torch.float32, device=q.device)
+    lse, delta = _row_stats(lse, delta, (b, h, l))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         rc = _smallseq_lib().hvdt_smallseq_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, h, k.shape[2], l, d, _KERNEL_DTYPES[q.dtype],
-            int(causal), float(scale), _stream(q))
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, h, k.shape[2], l, d,
+            _KERNEL_DTYPES[q.dtype], int(causal), float(scale), _stream(q))
     _check_rc(rc, "hvdt_smallseq_bwd")
     _smallseq_bwd.launches += 1
     return dq, dk, dv

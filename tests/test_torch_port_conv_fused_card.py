@@ -174,3 +174,22 @@ def test_rows_past_m_add_nothing(card):
         assert torch.equal(x, y)
     # The last partial is the one row's values alone.
     _close(s1[1], z[128].float(), 2.0 ** -7)
+
+
+def test_launches_from_a_fresh_thread(card):
+    """The first CUDA call of a new host thread (as autograd's backward
+    thread may make) is a kernel launch: the tensor maps are encoded after
+    the runtime has made the context current there."""
+    import threading
+
+    a, w, scale, bias = _operands(card, 256, 128, 128)
+    got = {}
+    thread = threading.Thread(target=lambda: got.update(
+        y=cf._mm_forward(a, w, scale, bias, True),
+        z=cf.matmul_batch_stats(a, w)))
+    thread.start()
+    thread.join()
+    torch.cuda.synchronize()
+    _close(got["y"], cf._mm_forward_plain(a, w, scale, bias, True),
+           _ULP[a.dtype])
+    _close(got["z"][0], cf._mm_stats_plain(a, w)[0], _ULP[a.dtype])

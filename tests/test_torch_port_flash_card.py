@@ -1,7 +1,8 @@
 """PyTorch port, the attention CUDA kernels (csrc/flash_attn.cu, #9-#11,
-and csrc/flash_smallseq.cu, #12-#13; #9-#12 on the core of
-csrc/flash_sm90.cuh) held against their plain PyTorch versions on the
-card.
+and csrc/flash_smallseq.cu, #12-#13, all on the core of
+csrc/flash_sm90.cuh; #10, #11 and #13 on the backward bodies of
+csrc/flash_bwd_sm90.cuh) held against their plain PyTorch versions on
+the card.
 
 Every test is marked ``cuda`` and skips without a card.  This file
 imports neither JAX nor the JAX package, so it runs where only PyTorch
@@ -41,17 +42,21 @@ def _rand(gen, *shape, dtype=torch.bfloat16):
     return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
-def _assert_close(got, want, dtype, lse=False):
+def _assert_close(got, want, dtype, lse=False, floors=None):
+    """``floors`` (one per output, None for the default) replaces the rms
+    row norm as the floor of an output's rows."""
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    for i, (g, w) in enumerate(zip(got, want)):
+    floors = floors or (None,) * len(got)
+    for i, (g, w, fl) in enumerate(zip(got, want, floors)):
         rel = 1e-5 if (lse and i == 1) else _ULP[dtype]
         diff, w = g.float() - w.float(), w.float()
         if w.dim() == 4:
             err, size = diff.norm(dim=-1), w.norm(dim=-1)
         else:
             err, size = diff.abs(), w.abs()
-        tol = rel * (size + size.square().mean().sqrt())
+        tol = rel * (size + (size.square().mean().sqrt() if fl is None
+                             else fl))
         worst = (err / tol.clamp_min(1e-30)).max().item()
         assert worst <= 1.0, (i, worst, diff.abs().max().item(),
                               w.square().mean().sqrt().item())
@@ -309,6 +314,114 @@ def test_smallseq_forward_tiling_matches_plain(card, l, hkv, d, dtype,
     _assert_close(got, pk._smallseq_fwd_plain(q, k, v, **kw), dtype,
                   lse=True)
     torch.cuda.synchronize()
+
+
+def _rms_row(x):
+    return x.float().norm(dim=-1).square().mean().sqrt().item()
+
+
+# #13 is two launches on the backward bodies of flash_bwd_sm90.cuh: dQ (64
+# q rows a CTA, one warpgroup, K/V tiles of 64 rows), which forms delta,
+# then dK/dV (64 k rows a CTA of one kv head, walking the q tiles of each
+# q head of its GQA group in turn, 64 rows a step at D 64 and 32 at
+# D 128), with ragged ends zero-filled by the TMA and lse/delta read as one
+# 1-D run.  (b, l, h, hkv, d, dtype, causal): L 1 (one key: dS = p (dP -
+# delta) cancels to 0, so dq and dk are held to one ulp of the size of
+# the terms that cancel), L 40 below one tile, L 65 one row past it,
+# L 300 and 1000 off the tiles, GQA groups of 1, 4 and 8 (H 16 over
+# Hkv 2), non-causal at L 1024, D 128 in fp16, and 15 dK/dV CTAs (an odd
+# count: B 3, Hkv 1, 5 k tiles).
+_SMALLSEQ_BWD_TILING = [
+    (2, 1, 4, 2, 64, torch.bfloat16, True),
+    (2, 40, 4, 2, 64, torch.bfloat16, True),
+    (2, 65, 4, 4, 64, torch.bfloat16, True),
+    (2, 300, 4, 1, 64, torch.bfloat16, True),
+    (1, 1000, 16, 2, 64, torch.bfloat16, True),
+    (1, 1000, 4, 4, 128, torch.bfloat16, True),
+    (2, 1024, 4, 1, 64, torch.bfloat16, False),
+    (2, 300, 4, 2, 128, torch.float16, True),
+    (3, 320, 2, 1, 64, torch.bfloat16, True)]
+
+
+@pytest.mark.parametrize("b,l,h,hkv,d,dtype,causal", _SMALLSEQ_BWD_TILING)
+def test_smallseq_backward_tiling_matches_plain(card, b, l, h, hkv, d, dtype,
+                                               causal):
+    q, do = _rand(card, b, l, h, d, dtype=dtype), _rand(card, b, l, h, d,
+                                                       dtype=dtype)
+    k, v = (_rand(card, b, l, hkv, d, dtype=dtype) for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5,
+              hb=pk._fit_heads_per_block(h, h // hkv, 8))
+    out, lse = pk._smallseq_fwd(q, k, v, **kw)
+    args = (q, k, v, do, out, lse)
+    before = pk._smallseq_bwd.launches
+    got = pk._smallseq_bwd(*args, **kw)
+    assert pk._smallseq_bwd.launches == before + 1
+    assert [g.dtype for g in got] == [dtype] * 3
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    floors = None
+    if l == 1:  # a row's terms: scale |dO| |v| |k| (dq), and |q| (dk,
+        # over the group)
+        terms = kw["scale"] * _rms_row(do) * _rms_row(v)
+        floors = (terms * _rms_row(k), terms * _rms_row(q) * (h // hkv),
+                  None)
+    _assert_close(got, pk._smallseq_bwd_plain(*args, **kw), dtype,
+                  floors=floors)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("hkv", [4, 1])
+def test_smallseq_backward_is_deterministic(card, hkv):
+    """No atomics: two calls give the same bits, at GQA groups 1 and 4."""
+    b, l, h, d = 2, 512, 4, 64
+    q, do = _rand(card, b, l, h, d), _rand(card, b, l, h, d)
+    k, v = (_rand(card, b, l, hkv, d) for _ in range(2))
+    kw = dict(causal=True, scale=d ** -0.5, hb=4)
+    args = (q, k, v, do, *pk._smallseq_fwd(q, k, v, **kw))
+    first = pk._smallseq_bwd(*args, **kw)
+    second = pk._smallseq_bwd(*args, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+
+
+def test_kernels_launch_from_a_fresh_thread(card):
+    """The first CUDA call of a new host thread (autograd's backward thread
+    may make its first in a kernel's wrapper) launches #9-#13: the tensor
+    maps are encoded after the runtime has made the context current
+    there."""
+    import threading
+
+    b, l, h, d = 2, 128, 4, 64
+    q, k, v, do = (_rand(card, b, l, h, d) for _ in range(4))
+    ss = dict(causal=True, scale=d ** -0.5, hb=4)
+    fl = dict(causal=True, scale=d ** -0.5, block_q=128, block_k=128)
+    out, lse = pk._smallseq_fwd(q, k, v, **ss)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    calls = {
+        "smallseq_bwd": (lambda: pk._smallseq_bwd(q, k, v, do, out, lse, **ss),
+                         lambda: pk._smallseq_bwd_plain(q, k, v, do, out, lse,
+                                                        **ss)),
+        "smallseq_fwd": (lambda: pk._smallseq_fwd(q, k, v, **ss),
+                         lambda: pk._smallseq_fwd_plain(q, k, v, **ss)),
+        "flash_dq": (lambda: pk._flash_dq(q, k, v, do, lse, delta, 0, 0, **fl),
+                     lambda: pk._flash_dq_plain(q, k, v, do, lse, delta, 0, 0,
+                                                **fl)),
+        "flash_dkv": (lambda: pk._flash_dkv(q, k, v, do, lse, delta, 0, 0,
+                                            **fl),
+                      lambda: pk._flash_dkv_plain(q, k, v, do, lse, delta, 0,
+                                                  0, **fl)),
+        "flash_fwd": (lambda: pk._flash_fwd(q, k, v, None, 0, 0, finish=True,
+                                            **fl),
+                      lambda: pk._flash_fwd_plain(q, k, v, None, 0, 0,
+                                                  finish=True, **fl))}
+    for name, (kern, plain) in calls.items():
+        got = {}
+        thread = threading.Thread(target=lambda: got.update(out=kern()))
+        thread.start()
+        thread.join()
+        assert "out" in got, name
+        torch.cuda.synchronize()
+        _assert_close(got["out"], plain(), torch.bfloat16,
+                      lse=name.endswith("fwd"))
 
 
 def test_smallseq_autograd_runs_the_kernels(card):

@@ -164,8 +164,11 @@ def test_grads_match_jax(causal, h, hkv, hb):
         _close(g, ref, atol=_GRAD_ATOL)
 
 
-def test_bf16_grads_match_jax():
-    q, k, v = _qkv(5, h=4, hkv=2)
+@pytest.mark.parametrize("h,hkv,l", [(4, 2, 128), (8, 2, 128), (4, 2, 40)])
+def test_bf16_grads_match_jax(h, hkv, l):
+    """bf16 gradients against jax.grad of the reference's: GQA groups of 2
+    and 4 (dk/dv summed over the group), and a ragged L 40."""
+    q, k, v = _qkv(5, h=h, hkv=hkv, l=l)
     w = np.cos(np.arange(32, dtype=np.float32))
 
     def loss(a, b, c):
@@ -233,12 +236,15 @@ def test_value_errors_match_jax(shapes, match):
 def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     """A kernel library's name carries the hash of its source and of the
     csrc headers it includes, so an edited header never loads a stale
-    library; both attention sources share flash_common.cuh."""
+    library; both attention sources share flash_common.cuh and, through
+    flash_bwd_sm90.cuh, the backward bodies of #10, #11 and #13."""
     from horovod_tpu_torch import _build
 
     assert "flash_smallseq" in _build.SOURCES
     for name in ("flash_attn", "flash_smallseq"):
-        assert "flash_common.cuh" in [p.name for p in _build._sources(name)]
+        assert {"flash_common.cuh", "flash_sm90.cuh",
+                "flash_bwd_sm90.cuh"} <= {p.name for p in
+                                          _build._sources(name)}
     (tmp_path / "a.cu").write_text('#include "h.cuh"\n#include <math.h>\n')
     (tmp_path / "h.cuh").write_text('#include "i.cuh"\nint x;\n')
     (tmp_path / "i.cuh").write_text("int y;\n")
