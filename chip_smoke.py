@@ -83,17 +83,33 @@ Phases, one JSON line each:
    materialized-score attention: 2.1 GB of f32 scores stays under the 4
    GiB flash gate); the first step's gradients are held against the
    smallseq path's from the same state, and no attention kernel runs;
-16. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
+16. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
+   224x224, batch 128, bf16 compute, f32 params, 3 iterations of 20
+   steps each) in turns: G (--fused-optimizer, HVDT_FUSED_CONV1X1=1,
+   the step captured as one CUDA graph by donated_step), E (the same
+   step eagerly), E, G, D (the default leg: torch.optim.SGD, unfused
+   convs, graphed), each with img/s, MFU, the per-iteration rates and
+   their spread, compile_s and peak memory; torch.profiler over 5 steady
+   steps of G and of E (the device's busy and idle share, the top
+   kernels; a graphed step must launch #4 26 times and #2 once, counted
+   by kernel name); #4 against its plain version at the 9 shapes of the
+   leg's 26 fused convs (batch 128), as in phase 2; then 3 graphed
+   against 3 eager steps of two copies
+   from one state under DistributedOptimizer in the NCCL world of one,
+   with fused_sgd and then fused_adam and deterministic cuDNN: losses,
+   parameters, BN statistics and optimizer state bit-identical;
+17. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
    weight_decay=1e-4) step over clones of the bert-large leaves (11
    leaves, 434.0M parameters), held bit-identical to the plain version,
    beside torch.optim.AdamW(fused=True);
-17. summary — total wall time, then the kernels line (13 kernels).
+18. summary — total wall time, then the kernels line (13 kernels).
 
 Any failure raises and the script exits non-zero without the last line,
 which is exactly {"ok": true, "device": {...}} on success.  Without a
 card, or run from a directory without the package, it exits non-zero.
 """
 
+import gc
 import json
 import math
 import os
@@ -315,6 +331,39 @@ def conv_times(kernel, plain, library) -> dict:
             "plain_ms": cuda_ms(plain)}
 
 
+def conv_operands(gen, m, k, n):
+    """Random bf16 operands of one fused 1x1 conv: a [M, K] and w [K, N],
+    as the model hands the kernels w = (OIHW weight viewed [N, K]).t()."""
+    dev = torch.device("cuda")
+    a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device=dev)
+         / math.sqrt(k)).to(torch.bfloat16).t()
+    return a, w
+
+
+def check_mm_stats(cf, a, w):
+    """#4 against its plain version on one (a, w): z within one bf16 ulp
+    of the largest output (both round an f32 sum that differs only in
+    summation order), the partial sums of z and z^2 within 1e-4 of the
+    largest (128 f32 values, differently associated), and z, s1, s2
+    bit-identical across two calls.  Returns z's error and tolerance."""
+    shape = (*a.shape, w.shape[1])
+    z, s1, s2 = cf.matmul_batch_stats(a, w)
+    z_ref, s1_ref, s2_ref = cf._mm_stats_plain(a, w)
+    again = cf.matmul_batch_stats(a, w)
+    torch.cuda.synchronize()
+    assert all(_bit_err(x, y) == 0.0
+               for x, y in zip((z, s1, s2), again)), shape
+    err = (z.float() - z_ref.float()).abs().max().item()
+    tol = z_ref.float().abs().max().item() * 2.0 ** -7
+    assert err <= tol, ("_mm_stats_kernel", shape, err, tol)
+    for got, want in ((s1, s1_ref), (s2, s2_ref)):
+        serr = (got - want).abs().max().item()
+        stol = 1e-4 * want.abs().max().item()
+        assert serr <= stol, ("_mm_stats_kernel sums", shape, serr, stol)
+    return err, tol
+
+
 def phase_conv_kernels(gen, smi):
     """#3 and #4 against their plain versions at the 9 shapes of the 26
     fused convs of a bs-64 ResNet-50 forward, each timed by
@@ -331,10 +380,7 @@ def phase_conv_kernels(gen, smi):
     dev = torch.device("cuda")
     shapes = fused_conv_shapes(BATCH, IMAGE)
     for (m, k, n), count in sorted(shapes.items()):
-        a = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        # The model hands the kernels w = (OIHW weight viewed [N, K]).t().
-        w = (torch.randn((n, k), generator=gen, device=dev)
-             / math.sqrt(k)).to(torch.bfloat16).t()
+        a, w = conv_operands(gen, m, k, n)
         scale = 1.0 + 0.1 * torch.randn(n, generator=gen, device=dev)
         bias = 0.1 * torch.randn(n, generator=gen, device=dev)
         flops = 2.0 * m * n * k
@@ -366,20 +412,7 @@ def phase_conv_kernels(gen, smi):
         del y, y_ref
 
         # #4: z = a @ w, per-BLOCK_M-row partial sums of z and z^2
-        z, s1, s2 = cf.matmul_batch_stats(a, w)
-        z_ref, s1_ref, s2_ref = cf._mm_stats_plain(a, w)
-        again = cf.matmul_batch_stats(a, w)
-        torch.cuda.synchronize()
-        assert all(_bit_err(x, y) == 0.0
-                   for x, y in zip((z, s1, s2), again)), (m, k, n)
-        err = (z.float() - z_ref.float()).abs().max().item()
-        tol = z_ref.float().abs().max().item() * 2.0 ** -7
-        assert err <= tol, ("_mm_stats_kernel", (m, k, n), err, tol)
-        # Partial sums of 128 f32 values, differently associated.
-        for got, want in ((s1, s1_ref), (s2, s2_ref)):
-            serr = (got - want).abs().max().item()
-            stol = 1e-4 * want.abs().max().item()
-            assert serr <= stol, ("_mm_stats_kernel sums", serr, stol)
+        err, tol = check_mm_stats(cf, a, w)
         nb = -(-m // cf.BLOCK_M)
         b_ms, b_by = bound(io + 8.0 * nb * n, flops, PEAK_BF16_FLOPS)
         row = dict(conv_times(lambda: cf.matmul_batch_stats(a, w),
@@ -393,7 +426,7 @@ def phase_conv_kernels(gen, smi):
             tot[key] += count * row[key]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         tot["bound_by"][b_by] = tot["bound_by"].get(b_by, 0) + count
-        del z, s1, s2, z_ref, s1_ref, s2_ref, again, a, w
+        del a, w
         torch.cuda.empty_cache()
     for name, tot in totals.items():
         emit({"phase": "kernel_total", "name": name,
@@ -1169,6 +1202,247 @@ def phase_lm_smallseq(hvd, gen, smi):
     return launches, shapes
 
 
+BENCH_BATCH = 128
+BENCH_ARGS = ["--num-iters", "3", "--num-batches-per-iter", "20"]
+# The legs of the bench phase: (name, bench flags, HVDT_FUSED_CONV1X1).
+BENCH_LEGS = {"G": (["--fused-optimizer"], "1"),
+              "E": (["--fused-optimizer", "--eager"], "1"),
+              "D": ([], "0")}
+
+
+def step_profile(step, steps: int = 5) -> dict:
+    """torch.profiler over ``steps`` steady calls of ``step``, summarized
+    by :func:`trace_summary`."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return trace_summary(events, steps, wall)
+
+
+# Kernel classes of a step's device time: the first whose name parts
+# match a kernel's name (lowercased) takes it.
+KERNEL_CLASSES = (
+    ("port kernels", ("mm_stats_kernel", "mm_bn_relu_kernel",
+                      "optim_multi")),
+    ("convolutions and matmuls", ("conv", "cudnn", "xmma", "gemm",
+                                  "cutlass", "wgrad", "dgrad")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def trace_summary(events, steps: int, wall_s: float):
+    """From a chrome trace of ``steps`` steps: the device's busy and idle
+    share of the window from its first activity to its last (kernels,
+    copies and fills on any stream, overlaps counted once), the device
+    time and host time a step, kernel launches a step, device ms a step
+    by :data:`KERNEL_CLASSES`, the top kernels by device time; and a
+    function giving the launches a step of the kernels whose name holds a
+    string."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and "dur" in e)
+    assert spans, "the profiler recorded no device activity"
+    busy, (lo, hi) = 0.0, spans[0]
+    for s0, s1 in spans[1:]:
+        if s0 > hi:
+            busy, lo = busy + hi - lo, s0
+        hi = max(hi, s1)
+    busy += hi - lo
+    window = hi - spans[0][0]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            n, t = kernels.get(e["name"], (0, 0.0))
+            kernels[e["name"]] = (n + 1, t + e["dur"])
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+    by_class = {}
+    for k, (_, t) in kernels.items():
+        cls = next((c for c, parts in KERNEL_CLASSES
+                    if any(p in k.lower() for p in parts)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + t / 1e3 / steps
+    summary = {
+        "steps": steps, "window_ms": window / 1e3, "busy_ms": busy / 1e3,
+        "busy_share": busy / window, "idle_share": 1.0 - busy / window,
+        "device_ms_per_step": busy / 1e3 / steps,
+        "host_ms_per_step": wall_s * 1e3 / steps,
+        "kernel_launches_per_step": sum(n for n, _ in kernels.values())
+        / steps,
+        "kernel_ms_per_step_by_class": by_class,
+        "top_kernels": [{"name": k[:120], "per_step": n / steps,
+                         "ms_per_step": t / 1e3 / steps}
+                        for k, (n, t) in top]}
+    return summary, lambda sub: sum(
+        n for k, (n, _) in kernels.items() if sub in k) / steps
+
+
+def bench_leg(bench, name: str, smi: str):
+    """One leg of the port's bench at full width, through
+    horovod_tpu_torch.bench.measure (the child's code): its JSON line,
+    per-iteration rates and their spread, peak memory and the kernel
+    counters of its run."""
+    flags, fused_conv = BENCH_LEGS[name]
+    os.environ["HVDT_FUSED_CONV1X1"] = fused_conv
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    leg = bench.measure(bench._parse_args([*BENCH_ARGS, *flags]))
+    launches = counters()
+    rates = leg.rates
+    mean = sum(rates) / len(rates)
+    row = {"leg": name, "flags": flags, "HVDT_FUSED_CONV1X1": fused_conv,
+           "images_per_s": leg.doc["value"], "rates": rates,
+           "spread": (sum((r - mean) ** 2 for r in rates)
+                      / len(rates)) ** 0.5,
+           "min_rate": min(rates), "max_rate": max(rates),
+           "mfu": leg.doc["mfu"], "flops_per_step": leg.doc["flops_per_step"],
+           "compile_s": leg.doc["compile_s"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: v for k, v in launches.items() if v},
+           "json": leg.doc, "card": smi}
+    return leg, row
+
+
+def graphed_equals_eager(hvd, make_opt, images, labels, steps: int = 3):
+    """Two ResNet-50 copies from one state (broadcast_parameters in the
+    NCCL world of one), each under DistributedOptimizer(make_opt(...)):
+    ``steps`` steps through donated_step on one, eager steps on the
+    other.  The largest difference over losses, parameters, BatchNorm
+    running statistics and optimizer state (0.0 when every byte is the
+    same), and the number of tensors compared."""
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init, \
+        resnet_loss
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    def one_step(model, opt, images, labels):
+        opt.zero_grad(set_to_none=True)
+        loss, _ = resnet_loss(model, images, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    out = []
+    for graphed in (True, False):
+        model = resnet50_init(0, ResNetConfig())
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = hvd.DistributedOptimizer(make_opt(model.parameters()))
+        step = donated_step(one_step) if graphed else one_step
+        losses = [step(model, opt, images, labels).clone()
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        inner = opt.optimizer
+        tensors = [torch.stack(losses), *model.state_dict().values(),
+                   *(v for st in inner.state.values() for v in st.values())]
+        out.append((tensors, inner.state_dict()["param_groups"],
+                    opt._passes))
+        del model, opt, step, inner
+    (got, got_groups, got_passes), (want, want_groups, want_passes) = out
+    assert got_groups == want_groups and got_passes == want_passes == steps
+    err = max(_bit_err(a, b) for a, b in zip(got, want))
+    return err, len(got)
+
+
+def phase_bench(hvd, smi):
+    """The port's bench leg at full width (ResNet-50, 224x224, batch 128,
+    bf16 compute, f32 params) in turns G, E, E, G, D; torch.profiler over
+    5 steady steps of G and of E; #4 against its plain version at the
+    leg's 26 fused-conv shapes; then graphed against eager steps under
+    DistributedOptimizer with fused_sgd and fused_adam.  Returns #4's
+    largest error there."""
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import ResNetConfig
+
+    t0 = time.perf_counter()
+    rows, profiles, main_launches = [], {}, None
+    for name in ("G", "E", "E", "G", "D"):
+        leg, row = bench_leg(bench, name, smi)
+        if name == "G" and main_launches is None:
+            main_launches = row["launches"]
+            assert main_launches.get("_sgd_kernel", 0) >= 1, main_launches
+            assert main_launches.get("_mm_stats_kernel", 0) >= 1, \
+                main_launches
+        if name not in profiles:
+            prof, launches_of = step_profile(leg.step)
+            if name == "G":
+                per_step = {"_mm_stats_kernel": launches_of(
+                                "mm_stats_kernel"),
+                            "_sgd_kernel": launches_of("optim_multi<false>")}
+                assert per_step == {"_mm_stats_kernel": 26,
+                                    "_sgd_kernel": 1}, per_step
+                prof["launches_per_graphed_step"] = per_step
+            profiles[name] = prof
+            emit({"phase": "bench_profile", "leg": name, **prof,
+                  "card": smi})
+        emit({"phase": "bench_leg", **row})
+        rows.append(row)
+        del leg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # #4 against its plain version at the shapes the leg gives it.
+    from horovod_tpu_torch.ops import conv_fused as cf
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    mm_stats = []
+    for (m, k, n), count in sorted(fused_conv_shapes(BENCH_BATCH,
+                                                     IMAGE).items()):
+        a, w = conv_operands(gen, m, k, n)
+        err, tol = check_mm_stats(cf, a, w)
+        mm_stats.append({"shape": [m, k, n], "per_forward": count,
+                         "max_abs_err": err, "tolerance": tol})
+        del a, w
+        torch.cuda.empty_cache()
+
+    # Graphed equals eager on the main path, with deterministic cuDNN.
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        images = torch.randn((BENCH_BATCH, IMAGE, IMAGE, 3), generator=gen,
+                             device="cuda", dtype=torch.bfloat16)
+        labels = torch.randint(0, ResNetConfig().num_classes, (BENCH_BATCH,),
+                               generator=gen, device="cuda")
+        checks = {}
+        for name, make in (
+                ("fused_sgd", lambda ps: hvd.fused_sgd(ps, 0.01,
+                                                        momentum=0.9)),
+                ("fused_adam", lambda ps: hvd.fused_adam(ps, 1e-3))):
+            err, n = graphed_equals_eager(hvd, make, images, labels)
+            assert err == 0.0, (name, err)
+            checks[name] = {"steps": 3, "tensors": n, "max_abs_err": err}
+        del images, labels
+    finally:
+        torch.backends.cudnn.deterministic = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    by = {}
+    for row in rows:
+        by.setdefault(row["leg"], []).append(row["images_per_s"])
+    emit({"phase": "bench", "model": "resnet50", "batch": BENCH_BATCH,
+          "image": IMAGE, "order": [r["leg"] for r in rows],
+          "images_per_s": by, "graphed_over_eager": [
+              g / e for g, e in zip(by["G"], by["E"])],
+          "launches": main_launches, "mm_stats_vs_plain": mm_stats,
+          "graphed_equals_eager": checks, "tolerance": 0.0,
+          "wall_s": time.perf_counter() - t0, "card": smi})
+    return max(r["max_abs_err"] for r in mm_stats)
+
+
 def reset_counters():
     from horovod_tpu_torch.ops import conv_fused as cf
     from horovod_tpu_torch.ops import optim_kernels as ok
@@ -1417,6 +1691,9 @@ def main() -> int:
     lm_launches = phase_lm(hvd, gen, smi)
     flash.update(phase_smallseq_kernels(gen, smi))
     ss_launches, lm_shapes = phase_lm_smallseq(hvd, gen, smi)
+    bench_mm_err = phase_bench(hvd, smi)
+    conv["_mm_stats_kernel"]["max_abs_err"] = max(
+        conv["_mm_stats_kernel"]["max_abs_err"], bench_mm_err)
     hvd.shutdown()
     phase_optim_lm(gen, smi, lm_shapes)
 

@@ -100,6 +100,19 @@ KNOBS: Dict[str, Knob] = {
              "fp8 (e4m3) compute path: off (default) or matmul (the "
              "transformer projections through fp8; not ported yet, so it "
              "raises).  Unknown values raise with the valid list."),
+        Knob("HVDT_TELEMETRY", False, _parse_bool,
+             "Step statistics in the bench's JSON line (the StepTimer "
+             "snapshot and the goodput fraction).  The exporter, traces "
+             "and the flight recorder are not ported yet."),
+        Knob("HVDT_COMPILATION_CACHE", "", str,
+             "Directory for what the port compiles at run time "
+             "(step_pipeline.enable_compilation_cache: the torch inductor "
+             "and Triton caches, for callers who torch.compile their own "
+             "step).  Empty/off = disabled."),
+        Knob("HVDT_COMPILATION_CACHE_MIN_COMPILE_SECS", 1.0, float,
+             "The reference's filter of cheap XLA compilations.  Accepted "
+             "and without effect in the port: torch's caches keep every "
+             "entry."),
         Knob("HVDT_RANK", -1, int, "Global process rank (set by launcher)."),
         Knob("HVDT_SIZE", -1, int, "Global process count (set by launcher)."),
         Knob("HVDT_LOCAL_RANK", -1, int,

@@ -44,6 +44,13 @@
 // The operands' types (f32, bf16, f16; m independent of p) are launch-wide
 // codes, so one kernel serves every combination with uniform branches.
 //
+// The scalars travel by value in the header, or, when the caller passes a
+// device pointer to them (the second kernel parameter), are read from device
+// memory: a launch recorded into a CUDA graph then takes each replay's
+// learning rate and bias corrections, which the host writes there before the
+// replay (as the TPU kernels take theirs as an operand).  Both routes give the
+// kernel the same f32 values, so the results are the same bytes.
+//
 // Each entry returns cudaGetLastError() after its launch (nonzero if the
 // launch was refused) or cudaErrorInvalidValue for a table it cannot take.
 // The Python wrapper checks devices, types and layouts and builds the table;
@@ -102,7 +109,8 @@ struct Launch {
   Leaf leaves[CAP];
 };
 static_assert(offsetof(Launch, leaves) == HEADER_BYTES, "Launch layout");
-static_assert(sizeof(Launch) <= PARAM_BYTES, "table exceeds parameter space");
+static_assert(sizeof(Launch) + sizeof(const float*) <= PARAM_BYTES,
+              "table and scalar pointer exceed parameter space");
 
 // ---- typed access as raw bits ----------------------------------------------
 
@@ -203,10 +211,9 @@ struct Types {
 // Group u covers elements base + (i0 + u * NT) * V .. + V, if its index
 // i0 + u * NT is below limit.  All loads are issued before any is used.
 template <bool ADAM, int V, int U>
-__device__ __forceinline__ void update(const Header& h, const Leaf& t,
-                                       const Types& ty, long long base, int i0,
-                                       int limit) {
-  const Scalars& s = h.s;
+__device__ __forceinline__ void update(const Header& h, const Scalars& s,
+                                       const Leaf& t, const Types& ty,
+                                       long long base, int i0, int limit) {
   const bool apply = h.flags & APPLY;
   const bool wd = ADAM && (h.flags & WEIGHT_DECAY);
   const bool need_p = apply || wd;
@@ -282,9 +289,31 @@ __device__ __forceinline__ int find_leaf(const Launch& L, int b) {
   return lo;
 }
 
+// The scalars in the order of the C entries' arrays (below).
+template <bool ADAM>
+__device__ __forceinline__ void read_scalars(const float* __restrict__ sp,
+                                             Scalars& s) {
+  s.lr = __ldg(sp);
+  if constexpr (ADAM) {
+    s.bc1 = __ldg(sp + 1);
+    s.bc2 = __ldg(sp + 2);
+    s.b1 = __ldg(sp + 3);
+    s.omb1 = __ldg(sp + 4);
+    s.b2 = __ldg(sp + 5);
+    s.omb2 = __ldg(sp + 6);
+    s.eps = __ldg(sp + 7);
+    s.eps_root = __ldg(sp + 8);
+    s.wd = __ldg(sp + 9);
+  } else {
+    s.momentum = __ldg(sp + 1);
+  }
+}
+
 template <bool ADAM>
 __global__ void __launch_bounds__(NT)
-    optim_multi(const __grid_constant__ Launch L) {
+    optim_multi(const __grid_constant__ Launch L, const float* sp) {
+  Scalars s = L.h.s;
+  if (sp != nullptr) read_scalars<ADAM>(sp, s);
   const Leaf& t = L.leaves[find_leaf(L, blockIdx.x)];
   const Types ty(L.h.dtypes);
   const long long base = (long long)(blockIdx.x - t.chunk0) * CHUNK;
@@ -292,16 +321,16 @@ __global__ void __launch_bounds__(NT)
   const int len = left < CHUNK ? (int)left : CHUNK;
   const int nvec = t.aligned ? len / VEC : 0;
   for (int i0 = threadIdx.x; i0 < nvec; i0 += NT * UNROLL)
-    update<ADAM, VEC, UNROLL>(L.h, t, ty, base, i0, nvec);
+    update<ADAM, VEC, UNROLL>(L.h, s, t, ty, base, i0, nvec);
   const long long tail = base + (long long)nvec * VEC;
   const int rest = len - nvec * VEC;
   for (int i0 = threadIdx.x; i0 < rest; i0 += NT * UNROLL)
-    update<ADAM, 1, UNROLL>(L.h, t, ty, tail, i0, rest);
+    update<ADAM, 1, UNROLL>(L.h, s, t, ty, tail, i0, rest);
 }
 
 template <bool ADAM>
 int launch(const void* leaves, int nleaves, int nchunks, int dtypes, int flags,
-           const Scalars& s, void* stream) {
+           const Scalars& s, const float* dev_scalars, void* stream) {
   if (nleaves < 1 || nleaves > CAP || nchunks < 1)
     return (int)cudaErrorInvalidValue;
   Launch L;
@@ -312,7 +341,7 @@ int launch(const void* leaves, int nleaves, int nchunks, int dtypes, int flags,
   L.h.dtypes = dtypes;
   L.h.flags = flags;
   memcpy(L.leaves, leaves, (size_t)nleaves * sizeof(Leaf));
-  optim_multi<ADAM><<<nchunks, NT, 0, (cudaStream_t)stream>>>(L);
+  optim_multi<ADAM><<<nchunks, NT, 0, (cudaStream_t)stream>>>(L, dev_scalars);
   return (int)cudaGetLastError();
 }
 
@@ -329,19 +358,23 @@ int hvdt_optim_layout(int* out) {
   return 0;
 }
 
-// scalars: [lr, momentum].
+// scalars: [lr, momentum] on the host; dev_scalars: null, or the same in
+// device memory, read by the kernel when it runs.
 int hvdt_sgd_multi(const void* leaves, int nleaves, int nchunks, int dtypes,
-                   int flags, const float* scalars, void* stream) {
+                   int flags, const float* scalars, const float* dev_scalars,
+                   void* stream) {
   Scalars s = {};
   s.lr = scalars[0];
   s.momentum = scalars[1];
-  return launch<false>(leaves, nleaves, nchunks, dtypes, flags, s, stream);
+  return launch<false>(leaves, nleaves, nchunks, dtypes, flags, s, dev_scalars,
+                       stream);
 }
 
 // scalars: [lr, 1/(1-b1^t), 1/(1-b2^t), b1, 1-b1, b2, 1-b2, eps, eps_root,
-// weight decay].
+// weight decay] on the host; dev_scalars: null, or the same in device memory.
 int hvdt_adam_multi(const void* leaves, int nleaves, int nchunks, int dtypes,
-                    int flags, const float* scalars, void* stream) {
+                    int flags, const float* scalars, const float* dev_scalars,
+                    void* stream) {
   Scalars s = {};
   s.lr = scalars[0];
   s.bc1 = scalars[1];
@@ -353,7 +386,8 @@ int hvdt_adam_multi(const void* leaves, int nleaves, int nchunks, int dtypes,
   s.eps = scalars[7];
   s.eps_root = scalars[8];
   s.wd = scalars[9];
-  return launch<true>(leaves, nleaves, nchunks, dtypes, flags, s, stream);
+  return launch<true>(leaves, nleaves, nchunks, dtypes, flags, s, dev_scalars,
+                      stream);
 }
 
 }  // extern "C"

@@ -95,18 +95,17 @@ def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.num_experts:
         raise NotImplementedError(
             "MoE blocks (num_experts > 0) are not ported yet (ROADMAP "
-            "Queue 1, item 9)")
+            "Queue 1: parallel axes)")
     for axis, n in (("sp", cfg.sp), ("pp", cfg.pp), ("ep", cfg.ep)):
         if n > 1:
-            item = "7 (ring attention)" if axis == "sp" else "9"
+            item = "ring attention" if axis == "sp" else "parallel axes"
             raise NotImplementedError(
-                f"{axis} > 1 is not ported yet (ROADMAP Queue 1, item "
-                f"{item})")
+                f"{axis} > 1 is not ported yet (ROADMAP Queue 1: {item})")
     if cfg.remat and cfg.remat_policy != "full":
         if cfg.remat_policy == "dots":
             raise NotImplementedError(
-                "remat_policy='dots' is not ported yet (ROADMAP Queue 1, "
-                "item 7)")
+                "remat_policy='dots' is not ported yet (ROADMAP Queue 1: "
+                "parallel axes)")
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
                          "(expected 'full' or 'dots')")
 
@@ -197,7 +196,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if _fp8_mode() == "matmul":
         raise NotImplementedError(
             "HVDT_FP8=matmul (quant/fp8.py) is not ported yet (ROADMAP "
-            "Queue 1, slice 2 omissions)")
+            "Queue 1: the rest of slice 2)")
     return x @ w.to(x.dtype)
 
 
@@ -340,7 +339,8 @@ def checkpoint_policy(mode: Optional[str] = None):
                          f"{', '.join(_REMAT_MODES)}")
     if mode == "dots":
         raise NotImplementedError(
-            "HVDT_REMAT=dots is not ported yet (ROADMAP Queue 1, item 7)")
+            "HVDT_REMAT=dots is not ported yet (ROADMAP Queue 1: parallel "
+            "axes)")
     return None if mode == "none" else "full"
 
 

@@ -299,8 +299,8 @@ def conv1x1_bn_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
     Differentiable (see module docstring)."""
     if axis is not None:
         raise NotImplementedError(
-            "cross-rank SyncBN (axis=) is not ported yet (ROADMAP Queue 1, "
-            "item 4)")
+            "cross-rank SyncBN (axis=) is not ported yet (ROADMAP Queue 1: "
+            "the rest of slice 1)")
     b, h, wd, cin = x.shape
     cout = w.shape[1]
     if gamma.shape != (cout,) or beta.shape != (cout,):

@@ -43,7 +43,8 @@ def _reduce_(buf: torch.Tensor, op: ReduceOp,
     op = ReduceOp(op)
     if op == ReduceOp.ADASUM:
         raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP Queue 1, item 8)")
+            "Adasum is not ported yet (ROADMAP Queue 1: exchange "
+            "scheduling)")
     dist.all_reduce(buf, _DIST_OPS[op], group=ps.group)
     if op == ReduceOp.AVERAGE:
         if buf.is_floating_point():

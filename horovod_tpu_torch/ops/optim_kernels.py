@@ -37,11 +37,24 @@ no fused multiply-add, so they round as the plain versions do.
 Each update takes the plain PyTorch version for tensors on the CPU, or
 when the caller passes ``use_kernels=False``; on a CUDA tensor it
 launches its kernel or raises.  ``launches`` on ``_sgd_multi`` and
-``_adam_multi`` counts kernel launches.
+``_adam_multi`` counts the wrapper's launches, the one recorded into a
+CUDA graph included; a replay of the graph does not call the wrapper
+and does not move it.
+
+Under a CUDA-graph capture (``step_pipeline.donated_step``) the scalars
+cannot travel by value: the graph would replay the captured step's
+learning rate and bias corrections forever.  There, as the TPU kernels
+take their scalars as an operand, each launch reads them from a device
+buffer (one row a param group), and a replay hook
+(``common.graphs.on_replay``) computes them as an eager step would and
+copies them in before each replay; FusedAdam's count advances in that
+hook.  Every leaf must then take the kernel (the plain version would bake
+its scalars into the graph), or the step raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from dataclasses import dataclass
 from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
@@ -49,6 +62,8 @@ from typing import (Any, Callable, Dict, Hashable, List, Optional, Sequence,
 
 import numpy as np
 import torch
+
+from ..common import graphs
 
 __all__ = ["fused_adam", "fused_sgd", "fused_update_eligible",
            "sgd_leaf_update", "adam_leaf_update", "FusedAdam", "FusedSGD"]
@@ -67,6 +82,7 @@ _CHUNK = 16384          # elements a CTA
 _ALIGN = 16             # bytes a vector access needs
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _APPLY, _NESTEROV, _WEIGHT_DECAY = 1, 2, 4
+_ROW = 16               # f32 a param group's row of device scalars (64 B)
 
 
 def fused_update_eligible(leaf: torch.Tensor, *extra_dtypes) -> bool:
@@ -209,7 +225,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         for name in ("hvdt_sgd_multi", "hvdt_adam_multi"):
             fn = getattr(lib, name)
-            fn.argtypes = [p, i, i, i, i, p, p]
+            fn.argtypes = [p, i, i, i, i, p, p, p]
             fn.restype = i
         lib.hvdt_optim_layout.argtypes = [p]
         lib.hvdt_optim_layout.restype = i
@@ -224,36 +240,41 @@ def _lib() -> ctypes.CDLL:
 
 
 def _launch(entry: str, table: _Table, scalars: Sequence[float], flags: int,
-            device: torch.device) -> None:
+            device: torch.device, dev_scalars: Optional[int] = None) -> None:
     """Call the C entry on ``device``'s current stream; raises on a CUDA
-    error.  The scalars round to f32 as PyTorch rounds a Python scalar."""
+    error.  The scalars round to f32 as PyTorch rounds a Python scalar;
+    with ``dev_scalars`` (the address of f32 scalars in device memory, in
+    the same order) the kernel reads them there instead."""
     sc = np.asarray(scalars, np.float32)
     with torch.cuda.device(device):
         rc = getattr(_lib(), entry)(
             table.rec.ctypes.data, len(table.rec), table.nchunks,
-            table.dtypes, flags, sc.ctypes.data,
+            table.dtypes, flags, sc.ctypes.data, dev_scalars,
             torch.cuda.current_stream(device).cuda_stream)
     if rc:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
 
 
 def _sgd_multi(table: _Table, lr: float, momentum: float, *, nesterov: bool,
-               apply: bool, device: torch.device) -> None:
+               apply: bool, device: torch.device,
+               dev_scalars: Optional[int] = None) -> None:
     """#2: one launch of ``hvdt_sgd_multi`` over every leaf of ``table``."""
     flags = (_APPLY if apply else 0) | (_NESTEROV if nesterov else 0)
-    _launch("hvdt_sgd_multi", table, [lr, momentum], flags, device)
+    _launch("hvdt_sgd_multi", table, [lr, momentum], flags, device,
+            dev_scalars)
     _sgd_multi.launches += 1
 
 
 def _adam_multi(table: _Table, scalars: Sequence[float], *, b1: float,
                 b2: float, eps: float, eps_root: float, wd: float,
-                apply: bool, device: torch.device) -> None:
+                apply: bool, device: torch.device,
+                dev_scalars: Optional[int] = None) -> None:
     """#1: one launch of ``hvdt_adam_multi`` over every leaf of ``table``;
     ``scalars`` is ``[lr, 1/(1-b1^t), 1/(1-b2^t)]``."""
     flags = (_APPLY if apply else 0) | (_WEIGHT_DECAY if wd else 0)
     _launch("hvdt_adam_multi", table,
             [*scalars, b1, 1.0 - b1, b2, 1.0 - b2, eps, eps_root, wd],
-            flags, device)
+            flags, device, dev_scalars)
     _adam_multi.launches += 1
 
 
@@ -343,6 +364,61 @@ class _MultiTensorOptimizer(torch.optim.Optimizer):
         """Zero moments for every parameter of ``group``."""
         raise NotImplementedError
 
+    def _replayed_scalars(self, plan: _Plan, plain: List[int],
+                          row: Callable[[dict], Sequence[float]],
+                          advance: Optional[Callable[[], None]] = None
+                          ) -> Tuple[bool, Optional[torch.Tensor]]:
+        """(capturing, rows).  Under a ``donated_step`` capture, ``rows``
+        is the device buffer this step's launches read their scalars from
+        (row ``gi`` for param group ``gi``, as :func:`_launch` orders
+        them; None when no leaf has a grad), and a replay hook fills it
+        with ``row(group)`` and then calls ``advance()``, as an eager
+        step computes and advances them.  ``(False, None)`` outside a
+        capture.
+
+        Each refresh copies from a fresh pinned block of PyTorch's
+        caching host allocator, which hands a block out again only after
+        its copy has run: the host may be steps ahead of the device, and
+        one fixed pinned buffer rewritten for step N+1 could feed step N.
+        """
+        if not graphs.capturing():
+            return False, None
+        if plain:
+            raise ValueError(
+                "under CUDA-graph capture every leaf must take the fused "
+                "kernel (a CUDA leaf, use_kernels=True, momentum > 0): the "
+                "plain version would bake its scalars into the graph")
+        if len({t.group[1] for t in plan.tables}) > 1:
+            raise ValueError("a CUDA graph captures one device; this "
+                             "optimizer's leaves span several")
+        rows = None
+        if plan.tables:
+            # Allocated for the default stream, so outside the graph's
+            # memory pool: a block of the pool may hold one of the step's
+            # temporaries earlier in the replay and would overwrite what
+            # the hook wrote.  torch.empty launches nothing (a captured
+            # fill would run on every replay, after the hook's copy).
+            device = plan.tables[0].group[1]
+            with (torch.cuda.stream(torch.cuda.default_stream(device))
+                  if device.type == "cuda" else contextlib.nullcontext()):
+                rows = torch.empty((len(self.param_groups), _ROW),
+                                   dtype=torch.float32, device=device)
+
+        def refresh() -> None:
+            if rows is not None:
+                host = np.zeros(rows.shape, np.float32)
+                for gi, group in enumerate(self.param_groups):
+                    vals = row(group)
+                    host[gi, :len(vals)] = vals
+                src = torch.from_numpy(host)
+                rows.copy_(src.pin_memory() if rows.is_cuda else src,
+                           non_blocking=True)
+            if advance is not None:
+                advance()
+
+        graphs.on_replay(refresh)
+        return True, rows
+
     def add_param_group(self, param_group: dict) -> None:
         """Add a group and create its state (also for the groups given at
         construction, which ``torch.optim.Optimizer.__init__`` adds
@@ -420,6 +496,12 @@ class FusedSGD(_MultiTensorOptimizer):
                                       momentum=float(momentum),
                                       nesterov=bool(nesterov)))
 
+    def _frozen_at_capture(self) -> list:
+        """What a CUDA graph of a step keeps as captured (the replay hook
+        refreshes the learning rate and momentum): which updates run."""
+        return [self.use_kernels, *((g["nesterov"], bool(g["momentum"]))
+                                    for g in self.param_groups)]
+
     def _init_state(self, group):
         if group["momentum"]:
             for p in group["params"]:
@@ -439,6 +521,8 @@ class FusedSGD(_MultiTensorOptimizer):
         grads, key = self._grads()
         key += (tuple(bool(g["momentum"]) for g in self.param_groups),)
         plan, plain = self._plan(grads, key)
+        _, rows = self._replayed_scalars(
+            plan, plain, lambda group: [group["lr"], group["momentum"]])
         for pos in plain:
             gi, p = self._leaves[pos]
             group = self.param_groups[gi]
@@ -454,7 +538,9 @@ class FusedSGD(_MultiTensorOptimizer):
             gi, device = t.group
             group = self.param_groups[gi]
             _sgd_multi(t, group["lr"], group["momentum"],
-                       nesterov=group["nesterov"], apply=True, device=device)
+                       nesterov=group["nesterov"], apply=True, device=device,
+                       dev_scalars=None if rows is None
+                       else rows[gi].data_ptr())
         del copies
         return loss
 
@@ -480,6 +566,15 @@ def _adam_scalars(count: int, learning_rate, b1: float, b2: float):
     return [float(f32(lr)),
             float(one / (one - np.power(f32(b1), t))),
             float(one / (one - np.power(f32(b2), t)))]
+
+
+def _adam_row(group: dict) -> List[float]:
+    """Every scalar of one ``hvdt_adam_multi`` launch for a param group,
+    in :func:`_adam_multi`'s order, at the group's current count."""
+    b1, b2 = group["b1"], group["b2"]
+    return [*_adam_scalars(group["count"], group["learning_rate"], b1, b2),
+            b1, 1.0 - b1, b2, 1.0 - b2, group["eps"], group["eps_root"],
+            group["weight_decay"]]
 
 
 def _adam_leaf_plain(p, g, m, v, scalars, *, b1, b2, eps, eps_root, wd,
@@ -545,6 +640,12 @@ class FusedAdam(_MultiTensorOptimizer):
             eps=float(eps), eps_root=float(eps_root),
             weight_decay=float(weight_decay), count=0))
 
+    def _frozen_at_capture(self) -> list:
+        """What a CUDA graph of a step keeps as captured (the replay hook
+        refreshes every scalar and the count): which updates run."""
+        return [self.use_kernels,
+                *(bool(g["weight_decay"]) for g in self.param_groups)]
+
     def _init_state(self, group):
         for p in group["params"]:
             self.state[p]["mu"] = torch.zeros_like(
@@ -563,6 +664,8 @@ class FusedAdam(_MultiTensorOptimizer):
                 loss = closure()
         grads, key = self._grads()
         plan, plain = self._plan(grads, key)
+        graphed, rows = self._replayed_scalars(plan, plain, _adam_row,
+                                               self._advance_count)
         scalars = [_adam_scalars(g["count"], g["learning_rate"], g["b1"],
                                  g["b2"]) for g in self.param_groups]
 
@@ -581,11 +684,17 @@ class FusedAdam(_MultiTensorOptimizer):
         for t in plan.tables:
             gi, device = t.group
             _adam_multi(t, scalars[gi], apply=True, device=device,
+                        dev_scalars=None if rows is None
+                        else rows[gi].data_ptr(),
                         **hyper(self.param_groups[gi]))
         del copies
+        if not graphed:
+            self._advance_count()
+        return loss
+
+    def _advance_count(self) -> None:
         for group in self.param_groups:
             group["count"] += 1
-        return loss
 
 
 def fused_adam(params, learning_rate: Union[float, Callable],

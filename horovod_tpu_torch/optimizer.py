@@ -19,6 +19,12 @@ through the two-stage block-scaled quantized allreduce
 Left unset, it is read from the environment (``HVDT_COMPRESSION``,
 ``HVDT_QUANT``) by ``Compression.from_env()``, as in the JAX package.
 
+Inside a CUDA-graph capture (``step_pipeline.donated_step``) the pass
+count advances in a replay hook, once a replay; a step that decides on
+the host whether to communicate (``backward_passes_per_step > 1``) raises
+``ValueError`` there, and the int8/int4 wire raises
+``NotImplementedError``.
+
 ZeRO, overlap scheduling and Adasum are later work and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -29,17 +35,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from .common import graphs
 from .common.process_sets import ProcessSet
 from .common.types import ReduceOp
 from .ops import device as dev
 from .ops.compression import Compression, Compressor
+from .quant.collectives import quant_wire_leg
 
 __all__ = ["DistributedOptimizer", "allreduce_gradients"]
 
 def _check_supported(op: ReduceOp) -> None:
     if ReduceOp(op) == ReduceOp.ADASUM:
         raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP Queue 1, item 8)")
+            "Adasum is not ported yet (ROADMAP Queue 1: exchange "
+            "scheduling)")
     if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM):
         raise ValueError(f"Unsupported gradient reduce op: {op}")
 
@@ -97,6 +106,11 @@ class _DistributedOptimizer:
     def synchronize(self) -> None:
         """Average (or sum) every ``.grad`` over the process set, in
         place, as fused bucket collectives."""
+        if graphs.capturing() and quant_wire_leg(
+                self._compression.wire_dtype) is not None:
+            raise NotImplementedError(
+                "the int8/int4 wire inside a CUDA-graph capture is not "
+                "ported yet (ROADMAP Queue 1: the rest of slice 2)")
         params = self._params_with_grad()
         reduced = allreduce_gradients(
             [p.grad for p in params], op=self._op,
@@ -133,12 +147,23 @@ class _DistributedOptimizer:
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        self._passes += 1
-        if self._k > 1 and not self._accumulate():
-            return loss
+        if graphs.capturing():
+            if self._k > 1:
+                raise ValueError(
+                    "backward_passes_per_step > 1 decides on the host "
+                    "whether a step communicates; it cannot run inside a "
+                    "CUDA-graph capture")
+            graphs.on_replay(self._count_pass)
+        else:
+            self._count_pass()
+            if self._k > 1 and not self._accumulate():
+                return loss
         self.synchronize()
         self.optimizer.step()
         return loss
+
+    def _count_pass(self) -> None:
+        self._passes += 1
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.optimizer.zero_grad(set_to_none=set_to_none)
@@ -176,7 +201,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     """
     if zero is not None:
         raise NotImplementedError(
-            "ZeRO state sharding is not ported yet (ROADMAP Queue 1, item 8)")
+            "ZeRO state sharding is not ported yet (ROADMAP Queue 1: "
+            "exchange scheduling)")
     _check_supported(op)
     if compression is None:
         compression = Compression.from_env()

@@ -15,7 +15,9 @@ optimizer's ``step()``:
 sibling): exactly the stage-1 wire value, so the first hop of the
 quantized allreduce carries ``sent`` without further loss.  The f32
 residuals are per-rank state.  ``enabled=False`` keeps the same state
-(zero residuals) and passes the gradients through exactly.
+(zero residuals) and passes the gradients through exactly.  A step
+inside a CUDA-graph capture raises ``NotImplementedError``: the wire
+under capture is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from ..common import graphs
 from . import kernels as qk
 
 __all__ = ["with_error_feedback"]
@@ -74,6 +77,10 @@ class _ErrorFeedbackOptimizer:
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        if graphs.capturing():
+            raise NotImplementedError(
+                "error feedback inside a CUDA-graph capture is not ported "
+                "yet (ROADMAP Queue 1: the rest of slice 2)")
         self.compensate()
         self.optimizer.step()
         return loss

@@ -1,0 +1,250 @@
+"""PyTorch port, the ResNet-50 bench leg (horovod_tpu_torch/bench.py) on
+the CPU.
+
+* ``flops_per_step`` (FlopCounterMode over the port's training step on
+  the meta device) within 10% of the JAX package's compiled
+  ``cost_analysis()`` flops for the reference bench's step (depth 50,
+  64x64, batch 2, bf16 compute, optax SGD-momentum).  On this container
+  the port counts 7.7% fewer: it counts the convolutions and matmuls
+  only, where XLA also counts BatchNorm, the elementwise work and the
+  optimizer update.
+* ``python -m horovod_tpu_torch.bench --device cpu ...`` prints one JSON
+  line with the reference's keys, ``platform`` "cpu" and ``mfu`` null;
+  the fused-optimizer leg launches no kernel on the CPU.
+* The reference's other legs exit non-zero naming their ROADMAP item.
+* The parent without a card exits non-zero with ``value`` 0.0 and never
+  prints a CPU or cached number as the headline; the last-good cache
+  rules of tests/test_bench_gate.py, on the port's own file.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+from horovod_tpu.models import resnet as jrn
+from horovod_tpu_torch import bench
+from horovod_tpu_torch.models import ResNetConfig
+from horovod_tpu_torch.ops import conv_fused as tcf
+from horovod_tpu_torch.ops import optim_kernels as tok
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SMALL = ["--batch-size", "2", "--image-size", "64", "--num-iters", "1",
+          "--num-batches-per-iter", "1", "--num-warmup", "1"]
+_KEYS = {"metric", "value", "unit", "vs_baseline", "platform",
+         "device_kind", "mfu", "hbm_util", "hbm_util_method", "batch_size",
+         "compile_s", "flops_per_step"}
+
+
+def _env(**extra):
+    env = dict(os.environ,
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.update(extra)
+    return env
+
+
+def test_flops_per_step_within_10_percent_of_jax_cost_analysis():
+    cfg = jrn.ResNetConfig(num_classes=1000, dtype=jnp.bfloat16)
+    params, stats = jax.eval_shape(lambda k: jrn.resnet50_init(k, cfg),
+                                   jax.random.PRNGKey(0))
+    opt = optax.sgd(0.01, momentum=0.9)
+
+    def one_step(params, stats, opt_state, images, labels):
+        (loss, new_stats), grads = jax.value_and_grad(
+            jrn.resnet_loss, has_aux=True)(params, stats, images, labels,
+                                           cfg)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), new_stats, opt_state, \
+            loss
+
+    compiled = jax.jit(one_step).lower(
+        params, stats, jax.eval_shape(opt.init, params),
+        jax.ShapeDtypeStruct((2, 64, 64, 3), jnp.bfloat16),
+        jax.ShapeDtypeStruct((2,), jnp.int32)).compile()
+    want = float(compiled.cost_analysis()["flops"])
+    got = bench.train_step_flops(ResNetConfig(), 2, 64)
+    assert abs(got - want) <= 0.10 * want, (got, want, got / want)
+
+
+def test_flops_scale_with_batch_and_ignore_the_fused_knob(monkeypatch):
+    one = bench.train_step_flops(ResNetConfig(depth=26), 1, 64)
+    monkeypatch.setenv("HVDT_FUSED_CONV1X1", "1")
+    assert bench.train_step_flops(ResNetConfig(depth=26), 3, 64) == 3 * one
+    assert os.environ["HVDT_FUSED_CONV1X1"] == "1"
+
+
+def test_cpu_leg_prints_one_json_line():
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.bench", "--device", "cpu",
+         *_SMALL], env=_env(), capture_output=True, text=True, timeout=300,
+        cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1, out.stdout
+    d = json.loads(lines[0])
+    assert _KEYS <= set(d)
+    assert d["metric"] == "resnet50_images_per_sec_per_gpu"
+    assert d["unit"] == "images/sec/gpu"
+    assert d["platform"] == "cpu" and d["device_kind"] == "cpu"
+    assert d["mfu"] is None and d["hbm_util"] is None
+    assert d["hbm_util_method"] is None and d["batch_size"] == 2
+    assert d["value"] > 0 and d["flops_per_step"] > 0
+    assert d["vs_baseline"] == round(d["value"] / (1656.82 / 16), 3)
+    assert "img/sec per iter" in out.stderr
+
+
+def test_fused_optimizer_leg_launches_no_kernel_on_cpu(monkeypatch):
+    monkeypatch.setenv("HVDT_TELEMETRY", "1")
+    for counter in (tok._sgd_multi, tcf.matmul_batch_stats,
+                    tcf._mm_forward):
+        monkeypatch.setattr(counter, "launches", 0)
+    leg = bench.measure(bench._parse_args(
+        ["--device", "cpu", "--fused-optimizer", "--steps-per-call", "2",
+         *_SMALL]))
+    assert leg.doc["fused_optimizer"] is True
+    assert leg.doc["steps_per_call"] == 2
+    assert leg.doc["telemetry"]["steps"] == 2
+    assert 0 < leg.doc["telemetry"]["goodput_fraction"] <= 1
+    assert len(leg.rates) == 1 and torch.isfinite(leg.step())
+    assert tok._sgd_multi.launches == 0
+    assert tcf.matmul_batch_stats.launches == tcf._mm_forward.launches == 0
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--overlap"], "exchange scheduling"),
+    (["--transport", "auto"], "exchange scheduling"),
+    (["--zero", "grads"], "exchange scheduling"),
+    (["--ckpt-stall"], "exchange scheduling"),
+    (["--fp8"], "the rest of slice 2"),
+    (["--remat", "full"], "parallel axes"),
+    (["--moe"], "parallel axes"), (["--pipeline"], "parallel axes"),
+    (["--serve"], "serving"), (["--serve-llm"], "serving"),
+    (["--controller"], "control, analysis and the edges"),
+    (["--fleet", "diurnal"], "control, analysis and the edges"),
+    (["--report"], "control, analysis and the edges")])
+def test_unported_legs_raise(flag, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"{flag[0]} is not ported yet .ROADMAP "
+                             f"Queue 1: {item}"):
+        bench.main(flag)
+
+
+def test_unported_leg_exits_nonzero():
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.bench", "--overlap"],
+        env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert out.returncode != 0
+    assert "ROADMAP Queue 1: exchange scheduling" in out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_parent_without_card_exits_nonzero():
+    if torch.cuda.is_available():
+        pytest.skip("this case needs a machine without a card")
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.bench", *_SMALL],
+        env=_env(HVDT_BENCH_ATTEMPT_TIMEOUTS="120,120",
+                 HVDT_BENCH_ATTEMPT_SLEEP="0"),
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode != 0
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1
+    d = json.loads(lines[0])
+    assert d["value"] == 0.0 and d["platform"] is None
+    assert "no CUDA device" in d["error"]
+    assert "attempt0" in d["error"] and "attempt1" in d["error"]
+
+
+# ---- the parent's cache rules (tests/test_bench_gate.py, adapted) ---------
+
+GPU_LINE = {
+    "metric": "resnet50_images_per_sec_per_gpu", "value": 1234.5,
+    "unit": "images/sec/gpu", "vs_baseline": 11.922, "platform": "gpu",
+    "device_kind": "NVIDIA H100 80GB HBM3", "mfu": 0.0305,
+    "batch_size": 128}
+
+
+@pytest.fixture
+def parent(monkeypatch, tmp_path):
+    monkeypatch.setattr(time, "sleep", lambda _s: None)
+    monkeypatch.setenv("HVDT_BENCH_ATTEMPT_TIMEOUTS", "1,1")
+    monkeypatch.delenv("HVDT_BENCH_NO_CACHE", raising=False)
+    monkeypatch.setattr(bench, "LAST_GOOD_PATH", str(tmp_path / "lg.json"))
+    return bench
+
+
+def _run(parent, capsys, spawn, argv=()):
+    parent._spawn = spawn
+    rc = parent.main(list(argv))
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1, "the bench prints exactly one JSON line"
+    return rc, json.loads(out[0])
+
+
+def test_failure_keeps_the_cached_run_as_a_stale_sub_record(parent, capsys,
+                                                            monkeypatch):
+    cached = dict(GPU_LINE, measured_at=time.strftime(
+        "%Y-%m-%dT%H:%M:%SZ", time.gmtime(time.time() - 7200)))
+    with open(parent.LAST_GOOD_PATH, "w") as f:
+        json.dump(cached, f)
+    rc, d = _run(parent, capsys, lambda *a: (False, None, "card down"))
+    assert rc != 0
+    assert d["value"] == 0.0 and d["vs_baseline"] == 0.0
+    assert d["platform"] is None
+    assert d["last_good"]["value"] == 1234.5
+    assert d["last_good"]["stale"] is True
+    assert d["last_good"]["age_hours"] == pytest.approx(2.0, abs=0.2)
+    assert "attempt0: card down" in d["error"]
+    assert "attempt1: card down" in d["error"]
+
+
+def test_failure_without_cache(parent, capsys):
+    rc, d = _run(parent, capsys, lambda *a: (False, None, "nope"))
+    assert rc != 0 and d["value"] == 0.0 and "last_good" not in d
+
+
+def test_healthy_card_run_is_cached(parent, capsys):
+    rc, d = _run(parent, capsys,
+                 lambda *a: (True, json.dumps(GPU_LINE), ""))
+    assert rc == 0 and d["value"] == 1234.5 and "stale" not in d
+    with open(parent.LAST_GOOD_PATH) as f:
+        assert json.load(f)["measured_at"]
+
+
+@pytest.mark.parametrize("variant", [
+    {"fused_optimizer": True}, {"steps_per_call": 4}, {"eager": True},
+    {"telemetry": {"steps": 3}}, {"platform": "cpu"}])
+def test_variants_and_cpu_runs_are_not_cached(parent, capsys, variant):
+    line = json.dumps(dict(GPU_LINE, **variant))
+    rc, d = _run(parent, capsys, lambda *a: (True, line, ""))
+    assert rc == 0 and d == json.loads(line)
+    assert not os.path.exists(parent.LAST_GOOD_PATH)
+
+
+def test_no_cache_env_protects_the_cache(parent, capsys, monkeypatch):
+    monkeypatch.setenv("HVDT_BENCH_NO_CACHE", "1")
+    rc, d = _run(parent, capsys,
+                 lambda *a: (True, json.dumps(GPU_LINE), ""))
+    assert rc == 0 and d["value"] == 1234.5
+    assert not os.path.exists(parent.LAST_GOOD_PATH)
+
+
+def test_cpu_device_is_one_attempt_and_never_cached(parent, capsys):
+    seen = []
+
+    def spawn(child_args, timeout_s):
+        seen.append(child_args)
+        return True, json.dumps(dict(GPU_LINE, platform="cpu")), ""
+
+    rc, d = _run(parent, capsys, spawn, ["--device", "cpu"])
+    assert rc == 0 and d["platform"] == "cpu"
+    assert len(seen) == 1 and seen[0][-2:] == ["--device", "cpu"]
+    assert not os.path.exists(parent.LAST_GOOD_PATH)

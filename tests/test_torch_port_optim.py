@@ -246,7 +246,8 @@ def table_route(monkeypatch):
     (entry, leaves, dtype word, chunks)."""
     launches = []
 
-    def launch(entry, table, scalars, flags, device):
+    def launch(entry, table, scalars, flags, device, dev_scalars=None):
+        assert dev_scalars is None        # no capture here
         launches.append((entry, len(table.rec), table.dtypes, table.nchunks))
         _interpret(entry, table, [float(s) for s in scalars], flags)
 

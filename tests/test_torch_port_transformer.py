@@ -244,9 +244,11 @@ def test_smallseq_on_raises_and_streaming_overrides(monkeypatch, jax_side):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(num_experts=4), "item 9"), (dict(sp=2), "item 7"),
-    (dict(pp=2), "item 9"), (dict(ep=2), "item 9"),
-    (dict(remat=True, remat_policy="dots"), "item 7")])
+    (dict(num_experts=4), "Queue 1: parallel axes"),
+    (dict(sp=2), "Queue 1: ring attention"),
+    (dict(pp=2), "Queue 1: parallel axes"),
+    (dict(ep=2), "Queue 1: parallel axes"),
+    (dict(remat=True, remat_policy="dots"), "Queue 1: parallel axes")])
 def test_unported_configs_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         tt.transformer_init(0, _tcfg(**kw), device="cpu")
