@@ -54,17 +54,32 @@ Phases, one JSON line each:
    a ragged one (L 1000, Hkv 4, offsets and a carry, the rows that see no
    key passed through bit for bit; then flash_grad_block at the same
    offsets against the plain versions of #10 and #11);
-11. lm_train — the bert-large transformer LM preset at full width and
+11. ring    — ring attention (horovod_tpu_torch.parallel) at the LM
+   path's attention width (H 16, D 64, bf16): ring_entry, the entry
+   point in the NCCL world of one at the lm_train shape (B 16, L 4096),
+   forward and backward with use_pallas=True, against flash_attention
+   with the kernel backward (#9 launches once, #10 and #11 once each),
+   then the plain step (use_pallas=False, no kernel launch) at B 1
+   against the kernel step; ring_virtual, every member of a ring of 4
+   (shard 4096, batch 4, global L 16384) through the ring module's step
+   functions, the rotation done by indexing the shard list, against
+   whole-sequence flash_attention (causal: #9, #10 and #11 launch 10
+   times each; not causal: 16), then the same ring of 4 at B 1 with the
+   plain step (no kernel launch) against the kernel ring; ring_step, the device-alone time of one
+   fully visible and one diagonal step beside their bounds, and the
+   summed ring of 4 against the whole-sequence kernels (the transfers
+   are not timed: one card has no peer);
+12. lm_train — the bert-large transformer LM preset at full width and
    depth (24 x 1024, 16 heads, d_ff 4096, vocab 30528, bf16 compute, f32
    params, remat full, loss_chunk 8192) at seq 4096, batch 16, through
    init, broadcast_parameters and DistributedOptimizer(fused_adam(3e-4,
    weight_decay=1e-4)), HVDT_FLASH_ATTENTION unset (the auto gate must
    engage) and HVDT_FLASH_BWD=kernel, 3 steps: per step #9 launches 48
    times (forward and remat recompute), #10 and #11 24 times each;
-12. lm_bwd_default — 2 steps with HVDT_FLASH_BWD unset (the plain
+13. lm_bwd_default — 2 steps with HVDT_FLASH_BWD unset (the plain
    blockwise backward); the first step's gradients are held against the
    kernel backward's from the same state;
-13. smallseq_kernel — the two whole-sequence kernels (#12 forward, #13
+14. smallseq_kernel — the two whole-sequence kernels (#12 forward, #13
    backward, two launches a call) against their plain versions at the
    seq-512 LM path's shape (B 128, H 16, L 512, D 64, bf16, causal), each
    timed on the device alone and back to back beside
@@ -73,17 +88,17 @@ Phases, one JSON line each:
    #13's line adds its design's byte floor and, from torch.profiler, its
    launches a call and each one's device time); then GQA (Hkv 4), D 128,
    non-causal, fp16 and ragged (L 200) cases;
-14. lm_smallseq — the same bert-large preset at seq 512, batch 128, full
+15. lm_smallseq — the same bert-large preset at seq 512, batch 128, full
    width and depth, HVDT_FLASH_SMALLSEQ=on (HVDT_FLASH_ATTENTION and
    HVDT_FLASH_SMALLSEQ_HB unset), fused_adam(3e-4, weight_decay=1e-4), 3
    steps: per step #12 launches 48 times (forward and remat recompute),
    #13 24 times and #9-#11 never (and in every train phase the optimizer
    kernel exactly once a step);
-15. lm_smallseq_default — 2 steps with HVDT_FLASH_SMALLSEQ unset (the
+16. lm_smallseq_default — 2 steps with HVDT_FLASH_SMALLSEQ unset (the
    materialized-score attention: 2.1 GB of f32 scores stays under the 4
    GiB flash gate); the first step's gradients are held against the
    smallseq path's from the same state, and no attention kernel runs;
-16. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
+17. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
    224x224, batch 128, bf16 compute, f32 params, 3 iterations of 20
    steps each) in turns: G (--fused-optimizer, HVDT_FUSED_CONV1X1=1,
    the step captured as one CUDA graph by donated_step), E (the same
@@ -98,15 +113,27 @@ Phases, one JSON line each:
    from one state under DistributedOptimizer in the NCCL world of one,
    with fused_sgd and then fused_adam and deterministic cuDNN: losses,
    parameters, BN statistics and optimizer state bit-identical;
-17. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
+18. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
    weight_decay=1e-4) step over clones of the bert-large leaves (11
    leaves, 434.0M parameters), held bit-identical to the plain version,
    beside torch.optim.AdamW(fused=True);
-18. summary — total wall time, then the kernels line (13 kernels).
+19. summary — total wall time, then the kernels line (13 kernels).
 
 Any failure raises and the script exits non-zero without the last line,
 which is exactly {"ok": true, "device": {...}} on success.  Without a
 card, or run from a directory without the package, it exits non-zero.
+
+    python3 chip_smoke.py --ring-cards 4
+
+runs ring attention across 4 cards instead (one process a card, an NCCL
+world, the mesh's sp dimension): ring_cards, the ring at the ring phase's
+shape against whole-sequence flash_attention (causal and not, the
+launches of each rank) and the plain step against the kernel step;
+ring_cards_time, the ring's forward and backward beside the same kernel
+steps without transfers and a bare rotation; ring_cards_lm, the
+bert-large preset with sp = 4 at global seq 16384, batch 4: its hidden
+states against the whole sequence on one card, and 3 training steps
+(the ring's default on bf16 operands on the card: kernels #9-#11).
 """
 
 import gc
@@ -640,17 +667,20 @@ def _visible_pairs(lq: int, lk: int, q_offset: int, k_offset: int) -> int:
                for i in range(lq))
 
 
-def _flash_bounds(b, lq, lk, h, hkv, d, pairs):
+def _flash_bounds(b, lq, lk, h, hkv, d, pairs, carry=False):
     """(bound_ms, bound_by) of #9 (finished form), #10 and #11: each
     input read once, each output written once (o in bf16; dq and the
     per-q-head dk/dv in f32; lse and delta one f32 per row); 2 FLOP per
     multiply-add over the visible pairs, two products in the forward,
-    three in dQ, four in dK/dV."""
+    three in dQ, four in dK/dV.  With ``carry``, #9 is a ring step
+    (flash_block_update): it reads and writes the f32 carry (acc, m, l)
+    in place of writing o and lse."""
     q_bytes, kv_bytes = 2.0 * b * lq * h * d, 2.0 * b * lk * hkv * d
     row = 4.0 * b * h * lq
     per_product = 2.0 * b * h * d * pairs
+    fwd_out = (2 * (2 * q_bytes + 2 * row) if carry else q_bytes + row)
     return {
-        "_kernel": bound(2 * q_bytes + 2 * kv_bytes + row,
+        "_kernel": bound(q_bytes + 2 * kv_bytes + fwd_out,
                          2 * per_product, PEAK_BF16_FLOPS),
         "_dq_kernel": bound(4 * q_bytes + 2 * kv_bytes + 2 * row,
                             3 * per_product, PEAK_BF16_FLOPS),
@@ -866,6 +896,266 @@ def phase_flash_kernels(gen, smi):
     return rows
 
 
+# The ring phase: a ring of 4 members at ring-local shard length 4096 and
+# batch 4 (global L 16384; tools/ring_ab.py's middle shard), at the LM
+# path's attention width.
+RING_SP, RING_SHARD, RING_BATCH = 4, 4096, 4
+
+
+def _attn_grads(fn, q, k, v, do):
+    """(out, dq, dk, dv) of ``fn(q, k, v)`` under the cotangent ``do``."""
+    q, k, v = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+
+
+def _flash_kernel_bwd(pk, q, k, v, do, causal):
+    """flash_attention's forward (#9) and, under HVDT_FLASH_BWD=kernel,
+    its kernel backward (#10, #11): (out, dq, dk, dv)."""
+    before = os.environ.get("HVDT_FLASH_BWD")
+    os.environ["HVDT_FLASH_BWD"] = "kernel"
+    try:
+        return _attn_grads(lambda *a: pk.flash_attention(*a, causal=causal),
+                           q, k, v, do)
+    finally:
+        if before is None:
+            del os.environ["HVDT_FLASH_BWD"]
+        else:
+            os.environ["HVDT_FLASH_BWD"] = before
+
+
+def _ring_launches(want):
+    """The counters of #9-#11 since the last reset, held to ``want``
+    (and every other kernel to 0)."""
+    torch.cuda.synchronize()
+    got = counters()
+    assert all(got[n] == want.get(n, 0) for n in got), (got, want)
+    return {n: got[n] for n in ("_kernel", "_dq_kernel", "_dkv_kernel")}
+
+
+def ring_entry(pk, ring_attention, gen, smi):
+    """ring_attention in the NCCL world of one at the lm_train shape (one
+    diagonal step, no transfer), forward and backward, against
+    flash_attention with the kernel backward; then the plain step at B 1
+    against the kernel step."""
+    import torch.distributed as dist
+
+    b, l, h = LM_BATCH, LM_SEQ, LM_HEADS
+    c = _flash_case(pk, b, l, l, h, h, gen)
+    args = (c["q"], c["k"], c["v"], c["do"])
+    world = dist.group.WORLD
+
+    def ring(use_pallas):
+        return lambda q, k, v: ring_attention(q, k, v, group=world,
+                                              use_pallas=use_pallas)
+
+    reset_counters()
+    got = _attn_grads(ring(True), *args)
+    launches = _ring_launches({"_kernel": 1, "_dq_kernel": 1,
+                               "_dkv_kernel": 1})
+    want = _flash_kernel_bwd(pk, *args, causal=True)
+    names = ("out", "dq", "dk", "dv")
+    vs_flash = {n: closeness(g, w, BF16_ULP)
+                for n, g, w in zip(names, got, want)}
+    del got, want
+    # The plain step at B 1: 4096^2 f32 scores a head, 1 GiB.
+    one = tuple(x[:1] for x in args)
+    reset_counters()
+    plain = _attn_grads(ring(False), *one)
+    plain_launches = _ring_launches({})
+    kern = _attn_grads(ring(True), *one)
+    # The kernel step rounds P and dS to bf16 before its products, the
+    # plain step keeps them in f32: on the CPU, against the kernels' plain
+    # versions (B 1, H 2, L 1024-2048), 0.44-0.49 of one bf16 ulp a row;
+    # the kernels stay within one ulp of their plain versions.  2^-6.
+    plain_rel = 2 * BF16_ULP
+    vs_kernel = {n: closeness(g, w, plain_rel)
+                 for n, g, w in zip(names, plain, kern)}
+    emit({"phase": "ring_entry", "shape": [b, l, h, h, LM_HEAD_DIM],
+          "dtype": "bf16", "causal": True, "members": 1,
+          "launches": launches, "vs_flash_attention": vs_flash,
+          "plain_shape": [1, l, h, h, LM_HEAD_DIM],
+          "plain_launches": plain_launches,
+          "plain_vs_kernel_step": vs_kernel, "card": smi})
+    assert all(o["err_over_tol"] <= 1.0 for o in vs_flash.values()), vs_flash
+    assert all(o["err_over_tol"] <= 1.0 for o in vs_kernel.values()), \
+        vs_kernel
+
+
+def _virtual_ring(rmod, shards, causal, scale, use_pallas):
+    """Every member of a ring in turn, through the ring module's step
+    functions, the rotation done by indexing the shard lists (q, k, v,
+    do): the assembled (out, dq, dk, dv) in bf16."""
+    qs, ks, vs, dos = shards
+    sp = len(qs)
+    kw = dict(causal=causal, scale=scale, use_pallas=use_pallas)
+    outs, lses = [], []
+    for my in range(sp):
+        carry = rmod._init_carry(qs[my])
+        for s in range(sp):
+            src = (my - s) % sp
+            carry = rmod._forward_step(qs[my], ks[src], vs[src], carry,
+                                       src=src, my=my, **kw)
+        out, lse = rmod._finish(carry, qs[my].dtype)
+        outs.append(out)
+        lses.append(lse)
+    dq = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+          for x in qs]
+    dk = [torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+          for x in ks]
+    dv = [torch.zeros_like(x) for x in dk]
+    for my in range(sp):
+        inp = rmod._bwd_inputs(qs[my], dos[my], outs[my], lses[my],
+                               use_pallas)
+        for s in range(sp):
+            src = (my - s) % sp
+            g = rmod._backward_step(inp, ks[src], vs[src], src=src, my=my,
+                                    **kw)
+            if g is not None:
+                dq[my] += g[0]
+                dk[src] += g[1]
+                dv[src] += g[2]
+        del inp
+    return [torch.cat(x, 1).to(torch.bfloat16) for x in (outs, dq, dk, dv)]
+
+
+def ring_virtual(pk, rmod, gen, smi, causal):
+    """Every member of a ring of RING_SP in turn, through the ring
+    module's step functions; the assembled output and gradients against
+    whole-sequence flash_attention (#9, and #10/#11 under
+    HVDT_FLASH_BWD=kernel); then the same ring at B 1 with the plain step
+    (fully visible and diagonal steps, 1 GiB of f32 scores each) against
+    the kernel ring."""
+    sp, n, h, d = RING_SP, RING_SHARD, LM_HEADS, LM_HEAD_DIM
+    c = _flash_case(pk, RING_BATCH, sp * n, sp * n, h, h, gen)
+    scale = c["scale"]
+    shards = [[c[x][:, i * n:(i + 1) * n].contiguous() for i in range(sp)]
+              for x in ("q", "k", "v", "do")]
+    steps = sp * (sp + 1) // 2 if causal else sp * sp
+    names = ("out", "dq", "dk", "dv")
+    reset_counters()
+    got = _virtual_ring(rmod, shards, causal, scale, True)
+    launches = _ring_launches({"_kernel": steps, "_dq_kernel": steps,
+                               "_dkv_kernel": steps})
+    want = _flash_kernel_bwd(pk, c["q"], c["k"], c["v"], c["do"], causal)
+    vs_whole = {name: closeness(g, w, BF16_ULP)
+                for name, g, w in zip(names, got, want)}
+    del got, want
+    one = [[x[:1] for x in xs] for xs in shards]
+    reset_counters()
+    plain = _virtual_ring(rmod, one, causal, scale, False)
+    plain_launches = _ring_launches({})
+    kern = _virtual_ring(rmod, one, causal, scale, True)
+    # 2^-6, as ring_entry holds the plain step to the kernel step.
+    vs_kernel = {name: closeness(g, w, 2 * BF16_ULP)
+                 for name, g, w in zip(names, plain, kern)}
+    del plain, kern, one, shards
+    emit({"phase": "ring_virtual", "members": sp, "shard": n,
+          "global_seq": sp * n, "batch": RING_BATCH, "heads": h,
+          "head_dim": d, "dtype": "bf16", "causal": causal,
+          "steps_computed": steps, "launches": launches,
+          "vs_whole_sequence": vs_whole, "plain_batch": 1,
+          "plain_launches": plain_launches,
+          "plain_vs_kernel_ring": vs_kernel, "card": smi})
+    assert all(o["err_over_tol"] <= 1.0 for o in vs_whole.values()), vs_whole
+    assert all(o["err_over_tol"] <= 1.0 for o in vs_kernel.values()), \
+        vs_kernel
+
+
+def ring_step(pk, gen, smi):
+    """Device-alone times of one fully visible and one diagonal ring step
+    at the ring-local shape (#9 through flash_block_update, #10 and #11
+    as flash_grad_block calls them), each beside its bound; then the
+    summed ring of RING_SP against the whole-sequence kernels."""
+    sp, n, h, d = RING_SP, RING_SHARD, LM_HEADS, LM_HEAD_DIM
+    b = RING_BATCH
+    c = _flash_case(pk, b, n, n, h, h, gen, carry=True)
+    q, k, v, do, scale = c["q"], c["k"], c["v"], c["do"], c["scale"]
+    carry = tuple(x.contiguous() for x in c["carry"])
+    out, lse = pk._flash_fwd(q, k, v, None, 0, 0, causal=True, scale=scale,
+                             block_q=512, block_k=1024, finish=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    bw = dict(scale=scale, block_q=512, block_k=512)
+    steps = {}
+    for case, causal in (("full", False), ("diagonal", True)):
+        pairs = n * n if not causal else _visible_pairs(n, n, 0, 0)
+        bounds = _flash_bounds(b, n, n, h, h, d, pairs, carry=True)
+        grad = (q, k, v, do, lse, delta, 0, 0)
+        calls = {
+            "_kernel": lambda: pk.flash_block_update(
+                q, k, v, *carry, q_offset=0, k_offset=0, causal=causal,
+                scale=scale),
+            "_dq_kernel": lambda: pk._flash_dq(*grad, causal=causal, **bw),
+            "_dkv_kernel": lambda: pk._flash_dkv(*grad, causal=causal, **bw),
+        }
+        row = {}
+        for name, fn in calls.items():
+            t = device_ms_stats(fn, iters=5)
+            b_ms, b_by = bounds[name]
+            row[name] = {"device_ms": t, "bound_ms": b_ms, "bound_by": b_by,
+                         "fraction_of_bound": b_ms / t["median"]}
+        row["flash_grad_block"] = {"device_ms": device_ms_stats(
+            lambda: pk.flash_grad_block(q, k, v, do, out, lse, causal=causal,
+                                        scale=scale, delta=delta), iters=5)}
+        steps[case] = row
+        emit({"phase": "ring_step", "case": case, "causal": causal,
+              "shape": [b, n, h, h, d], "dtype": "bf16",
+              "visible_pairs_per_head": pairs, **row,
+              "note": "per-member device time of one ring step; the "
+                      "transfers are not timed (one card has no peer)",
+              "card": smi})
+    del c, q, k, v, do, carry, out, lse, delta
+    # The whole sequence through the same kernels, against the ring's 10
+    # causal steps summed over its members (sp diagonal, the rest full).
+    w = _flash_case(pk, b, sp * n, sp * n, h, h, gen)
+    wout, wlse = pk._flash_fwd(w["q"], w["k"], w["v"], None, 0, 0,
+                               causal=True, scale=scale, block_q=512,
+                               block_k=1024, finish=True)
+    wdelta = (w["do"].float() * wout.float()).sum(-1).transpose(1, 2)
+    wgrad = (w["q"], w["k"], w["v"], w["do"], wlse, wdelta.contiguous(), 0, 0)
+    whole = {
+        "_kernel": device_ms_stats(lambda: pk._flash_fwd(
+            w["q"], w["k"], w["v"], None, 0, 0, causal=True, scale=scale,
+            block_q=512, block_k=1024, finish=True), iters=3)["median"],
+        "_dq_kernel": device_ms_stats(lambda: pk._flash_dq(
+            *wgrad, causal=True, **bw), iters=3)["median"],
+        "_dkv_kernel": device_ms_stats(lambda: pk._flash_dkv(
+            *wgrad, causal=True, **bw), iters=3)["median"],
+    }
+    n_full, n_diag = sp * (sp - 1) // 2, sp
+    summed = {name: n_full * steps["full"][name]["device_ms"]["median"]
+              + n_diag * steps["diagonal"][name]["device_ms"]["median"]
+              for name in whole}
+    last = {name: (sp - 1) * steps["full"][name]["device_ms"]["median"]
+            + steps["diagonal"][name]["device_ms"]["median"]
+            for name in whole}
+    emit({"phase": "ring_step", "case": "ring_vs_whole", "members": sp,
+          "global_shape": [b, sp * n, h, h, d], "causal": True,
+          "ring_summed_ms": summed, "whole_sequence_ms": whole,
+          "ring_over_whole": {k_: summed[k_] / whole[k_] for k_ in whole},
+          "last_member_ms": last,
+          "carry_bytes_per_step": 2 * 4 * b * n * h * d,
+          "note": "device time of the ring's kernel steps; the transfers "
+                  "are not timed (one card has no peer)", "card": smi})
+    del w, wout, wlse, wdelta, wgrad
+
+
+def phase_ring(gen, smi):
+    """ring_entry, ring_virtual (causal and not) and ring_step."""
+    import importlib
+
+    from horovod_tpu_torch.ops import pallas_kernels as pk
+
+    # The package exports the function under the module's name.
+    rmod = importlib.import_module(
+        "horovod_tpu_torch.parallel.ring_attention")
+    ring_entry(pk, rmod.ring_attention, gen, smi)
+    for causal in (True, False):
+        ring_virtual(pk, rmod, gen, smi, causal)
+    ring_step(pk, gen, smi)
+    torch.cuda.empty_cache()
+
+
 # The whole-sequence path: bert-large at seq 512, batch 128 (the
 # tools/tpu_ab.py lm_smallseq_hb8_bs128 leg).
 SS_BATCH, SS_SEQ = 128, 512
@@ -1037,7 +1327,7 @@ def lm_config(seq: int = LM_SEQ):
 
 
 def run_lm_steps(model, opt, tokens, cfg, steps, before_step=None,
-                 after_step=None):
+                 after_step=None, sp_group=None):
     """``steps`` optimizer steps, each timed on the host clock between
     synchronizes; ``before_step`` runs once, after the first backward and
     before its optimizer step, ``after_step`` after every step."""
@@ -1048,7 +1338,7 @@ def run_lm_steps(model, opt, tokens, cfg, steps, before_step=None,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad()
-        loss = transformer_loss(model, tokens, cfg)
+        loss = transformer_loss(model, tokens, cfg, sp_group=sp_group)
         loss.backward()
         if before_step is not None:
             before_step()
@@ -1531,6 +1821,305 @@ def run_steps(model, opt, images, labels, steps):
     return times, losses
 
 
+# ---- python3 chip_smoke.py --ring-cards N: the ring across N cards ----------
+
+RING_CARDS_TIMEOUT_S = 600
+# The sp LM against the whole sequence on one card, hidden states after
+# the final norm, relative L2 over the batch: the two attend the same keys
+# through the same kernels in another order (ring_virtual: 0.04-0.26%
+# relative L2 per attention output), and bf16 activations carry that
+# through the layers: 0.7% after 2 layers and 1.4% after 24 in a CPU
+# rehearsal (d 256, seq 512, 4 members, the kernels' plain versions),
+# where positions left without their ring offset give 76%.  5e-2, as
+# lm_default_phase's gradients.
+RING_LM_HIDDEN_TOL = 5e-2
+
+
+def _timed(fn, reps: int = 5, warmup: int = 2):
+    """Median over ``reps`` of one call's time by CUDA events, every rank
+    starting together (a barrier and a synchronize before each call)."""
+    import torch.distributed as dist
+
+    times = []
+    for i in range(warmup + reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(start.elapsed_time(end))
+    return _stats(times)
+
+
+def _gather_seq(t, n):
+    """The members' shards of ``t`` ([B, l, ...]) joined along the
+    sequence, on every rank."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous())
+    return torch.cat(parts, 1)
+
+
+def _gather_obj(obj, n):
+    import torch.distributed as dist
+
+    out = [None] * n
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def ring_cards_worker(device=None) -> None:
+    """One rank of ``--ring-cards``: ring attention over NCCL between the
+    cards (one rank a card, the mesh's sp dimension), held against
+    whole-sequence flash_attention on rank 0; its forward and backward
+    timed beside the same steps without transfers and beside a bare
+    rotation; then the bert-large LM with sp = N at global seq N x
+    RING_SHARD, batch RING_BATCH: hidden states against the whole
+    sequence on one card, and 3 training steps (the ring's default on
+    the card: kernels #9-#11).  Rank 0 prints the lines."""
+    import dataclasses
+    import importlib
+
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer_hidden, transformer_init
+    from horovod_tpu_torch.ops import pallas_kernels as pk
+    from horovod_tpu_torch.parallel import make_mesh
+
+    rmod = importlib.import_module(
+        "horovod_tpu_torch.parallel.ring_attention")
+    hvd.init(device=device)
+    r, n = hvd.rank(), hvd.size()
+    dev = hvd.topology().device
+    lead = r == 0
+    mesh = make_mesh(sp=n)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines() if dev.type == "cuda" \
+        else ["cpu"]
+    h, d, b, shard = LM_HEADS, LM_HEAD_DIM, RING_BATCH, RING_SHARD
+    seq = n * shard
+    rows = slice(r * shard, (r + 1) * shard)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    c = _flash_case(pk, b, seq, seq, h, h, gen)
+    glob = [c[x] for x in ("q", "k", "v", "do")]
+    for t in glob:
+        dist.broadcast(t, src=0)
+    local = [x[:, rows].contiguous() for x in glob]
+
+    # 1. The ring against the whole sequence, causal and not.
+    checks = {}
+    for causal in (True, False):
+        reset_counters()
+        got = _attn_grads(lambda q, k, v: rmod.ring_attention(
+            q, k, v, group=mesh, causal=causal, use_pallas=True), *local)
+        steps = r + 1 if causal else n
+        launches = _gather_obj(_ring_launches(
+            {"_kernel": steps, "_dq_kernel": steps, "_dkv_kernel": steps}),
+            n)
+        got = [_gather_seq(t, n) for t in got]
+        if lead:
+            want = _flash_kernel_bwd(pk, *glob, causal=causal)
+            checks[f"causal_{causal}"] = {
+                name: closeness(g, w, BF16_ULP) for name, g, w in
+                zip(("out", "dq", "dk", "dv"), got, want)}
+            checks[f"causal_{causal}_launches_by_rank"] = launches
+            del want
+        del got
+    # The plain step (B 1) against the kernel step, on every rank.
+    one = [x[:1] for x in local]
+    plain = _attn_grads(lambda q, k, v: rmod.ring_attention(
+        q, k, v, group=mesh, use_pallas=False), *one)
+    kern = _attn_grads(lambda q, k, v: rmod.ring_attention(
+        q, k, v, group=mesh, use_pallas=True), *one)
+    errs = _gather_obj(max(closeness(g, w, 2 * BF16_ULP)["err_over_tol"]
+                           for g, w in zip(plain, kern)), n)
+    del plain, kern
+    if lead:
+        emit({"phase": "ring_cards", "members": n, "shard": shard,
+              "global_seq": seq, "batch": b, "heads": h, "head_dim": d,
+              "dtype": "bf16", "vs_whole_sequence": checks,
+              "plain_vs_kernel_step_err_over_tol_by_rank": errs,
+              "card": smi})
+        assert all(o["err_over_tol"] <= 1.0 for key, v in checks.items()
+                   if "launches" not in key for o in v.values()), checks
+        assert max(errs) <= 1.0, errs
+
+    # 2. Times: the ring (causal, kernels) against its steps without
+    # transfers, and a bare rotation of one K/V block and of one dK/dV
+    # accumulator.
+    q, k, v = (x.detach().clone().requires_grad_() for x in local[:3])
+    do = local[3]
+    held = {}
+
+    def fwd():
+        held["out"] = rmod.ring_attention(q, k, v, group=mesh,
+                                          use_pallas=True)
+
+    def bwd():
+        torch.autograd.grad(held["out"], (q, k, v), do, retain_graph=True)
+
+    shards = [[x[:, i * shard:(i + 1) * shard].contiguous()
+               for i in range(n)] for x in glob[:3]]
+    kw = dict(causal=True, scale=d ** -0.5, use_pallas=True)
+
+    def compute_fwd():
+        carry = rmod._init_carry(local[0])
+        for s_ in range(n):
+            src = (r - s_) % n
+            carry = rmod._forward_step(local[0], shards[1][src],
+                                       shards[2][src], carry, src=src,
+                                       my=r, **kw)
+        held["fin"] = rmod._finish(carry, local[0].dtype)
+
+    def compute_bwd():
+        inp = rmod._bwd_inputs(local[0], do, *held["fin"], True)
+        for s_ in range(n):
+            src = (r - s_) % n
+            rmod._backward_step(inp, shards[1][src], shards[2][src],
+                                src=src, my=r, **kw)
+
+    peer = rmod._Ring(mesh)
+    acc = [torch.zeros(local[1].shape, dtype=torch.float32, device=dev)
+           for _ in range(2)]
+
+    def rotate(*ts):
+        _, p = peer.post(*ts)
+        p.wait()
+
+    times = {"ring_fwd": _timed(fwd), "ring_bwd": _timed(bwd),
+             "steps_fwd": _timed(compute_fwd),
+             "steps_bwd": _timed(compute_bwd),
+             "rotate_kv": _timed(lambda: rotate(local[1], local[2])),
+             "rotate_dkv": _timed(lambda: rotate(*acc))}
+    del held["out"]
+    by_rank = _gather_obj({k_: t["median"] for k_, t in times.items()}, n)
+    kv_bytes = 2 * local[1].numel() * local[1].element_size()
+    if lead:
+        emit({"phase": "ring_cards_time", "members": n, "causal": True,
+              "shape": [b, shard, h, h, d], "ms_by_rank": by_rank,
+              "kv_block_bytes": kv_bytes,
+              "rotate_kv_gb_per_s_by_rank": [
+                  kv_bytes / (x["rotate_kv"] * 1e-3) / 1e9 for x in by_rank],
+              "note": "ring_* are the entry point (transfers posted before "
+                      "each step); steps_* the same kernel steps without "
+                      "transfers; rotate_* one bare send/receive pair",
+              "card": smi})
+    del q, k, v, do, shards, acc, c, glob, local
+    torch.cuda.empty_cache()
+
+    # 3. The sp LM: bert-large at global seq N x RING_SHARD.
+    cfg = dataclasses.replace(lm_config(seq), sp=n)
+    model = transformer_init(0, cfg, device=dev)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    tokens = torch.randint(0, cfg.vocab, (b, seq), generator=gen,
+                           device=dev)
+    dist.broadcast(tokens, src=0)
+    mine = tokens[:, rows].contiguous()
+    with torch.no_grad():
+        hid = _gather_seq(transformer_hidden(model, mine, cfg,
+                                             sp_group=mesh), n)
+        if lead:
+            whole = transformer_hidden(model, tokens,
+                                       dataclasses.replace(cfg, sp=1))
+            hid_err = ((hid.float() - whole.float()).norm()
+                       / whole.float().norm()).item()
+            del whole
+    del hid
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4))
+    steps, per = 3, r + 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t, losses = run_lm_steps(model, opt, mine, cfg, steps, sp_group=mesh)
+    launches = counters()
+    assert launches["_kernel"] == 2 * cfg.layers * per * steps, launches
+    assert launches["_dq_kernel"] == cfg.layers * per * steps, launches
+    assert launches["_dkv_kernel"] == cfg.layers * per * steps, launches
+    assert launches["_adam_kernel"] == steps, launches
+    assert all(math.isfinite(x) for x in losses), losses
+    runs = {"kernel": {"step_s": t, "losses": losses,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated()
+                       / 1e9}}
+    every = _gather_obj(runs, n)
+    if lead:
+        out = {}
+        for name in runs:
+            steady = [sorted(x[name]["step_s"][1:])[
+                len(x[name]["step_s"][1:]) // 2] for x in every]
+            out[name] = {
+                "step_s_by_rank": [x[name]["step_s"] for x in every],
+                "ring_mean_loss": [sum(x[name]["losses"][i] for x in every)
+                                   / n for i in range(len(runs[name]
+                                                         ["losses"]))],
+                "steady_step_s": max(steady),
+                "tokens_per_s": b * seq / max(steady),
+                "peak_mem_gb_by_rank": [x[name]["peak_mem_gb"]
+                                        for x in every]}
+        emit({"phase": "ring_cards_lm", "model": "bert-large",
+              "layers": cfg.layers, "sp": n, "global_seq": seq, "batch": b,
+              "hidden_rel_l2_vs_whole_sequence": hid_err,
+              "hidden_tolerance": RING_LM_HIDDEN_TOL, **out, "card": smi})
+        assert hid_err <= RING_LM_HIDDEN_TOL, hid_err
+    dist.barrier()
+    hvd.shutdown()
+
+
+def ring_cards(n: int) -> int:
+    """``python3 chip_smoke.py --ring-cards N``: build the kernels, then
+    run :func:`ring_cards_worker` as N processes, one a card, in an NCCL
+    world (rank 0 prints the lines).  A rank that fails stops them all."""
+    import socket
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --ring-cards {n} needs {n} CUDA cards",
+              file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import horovod_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    t0 = time.perf_counter()
+    phase_device()
+    phase_build()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, HVDT_SIZE=str(n), HVDT_LOCAL_SIZE=str(n),
+               HVDT_COORDINATOR_ADDR=f"127.0.0.1:{port}",
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            ""))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ring-worker"],
+        env=dict(env, HVDT_RANK=str(r), HVDT_LOCAL_RANK=str(r)))
+        for r in range(n)]
+    deadline = time.time() + RING_CARDS_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.poll()]
+            if failed or time.time() > deadline:
+                print(f"chip_smoke: ring worker failed ({failed}) or timed "
+                      "out", file=sys.stderr)
+                return 1
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        return 1
+    emit({"phase": "ring_cards_total", "wall_s": time.perf_counter() - t0})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1688,6 +2277,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     flash = phase_flash_kernels(gen, smi)
+    phase_ring(gen, smi)
     lm_launches = phase_lm(hvd, gen, smi)
     flash.update(phase_smallseq_kernels(gen, smi))
     ss_launches, lm_shapes = phase_lm_smallseq(hvd, gen, smi)
@@ -1766,4 +2356,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ring-cards"]:
+        sys.exit(ring_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--ring-worker"]:
+        sys.exit(ring_cards_worker())
     sys.exit(main())

@@ -91,6 +91,13 @@ KNOBS: Dict[str, Knob] = {
              "to divide the head count and to whole GQA groups).  On the "
              "card it shapes only the plain version's loop over heads; "
              "auto's program count reads it."),
+        Knob("HVDT_RING_PALLAS", False, _parse_bool,
+             "Run ring attention's per-step block update and backward "
+             "through the flash kernels (#9 flash_block_update forward, "
+             "#10/#11 flash_grad_block backward) where legal; read when "
+             "ring_attention is called with use_pallas=None.  On a CUDA "
+             "tensor the kernels are that default anyway wherever they "
+             "take the operands, and the knob makes them required."),
         Knob("HVDT_REMAT", "", str,
              "Activation rematerialization for the transformer block: "
              "'none'/'' (default) saves all activations; 'full' saves "

@@ -12,6 +12,10 @@ sharding; here each tensor of a batch is copied to one device:
   used on that stream (``record_stream``), so its memory is not reused
   while the consumer may still read it.
 
+Numpy arrays, numpy scalars and Python numbers become tensors first
+(``torch.as_tensor``) and are copied like any other tensor, as the
+reference ``device_put``s every leaf; strings and ``None`` pass through.
+
 On the CPU (``device="cpu"``) a batch is moved with ``.to(device)`` and
 nothing is in flight.
 """
@@ -19,8 +23,10 @@ nothing is in flight.
 from __future__ import annotations
 
 import collections
+import numbers
 from typing import Any, Callable, Iterable, Iterator, Optional
 
+import numpy as np
 import torch
 
 from ..common.basics import DeviceLike, resolve_device
@@ -30,9 +36,14 @@ __all__ = ["prefetch_to_device"]
 
 def _map(fn: Callable[[torch.Tensor], Any], batch: Any) -> Any:
     """``fn`` over every tensor of a batch (tensors, and tuples, lists
-    and dicts of them); other leaves pass through."""
+    and dicts of them); numeric numpy arrays, numpy scalars and Python
+    numbers go through ``torch.as_tensor`` first, and other leaves pass
+    through."""
     if isinstance(batch, torch.Tensor):
         return fn(batch)
+    if ((isinstance(batch, np.ndarray) and batch.dtype.kind in "biufc")
+            or isinstance(batch, (np.number, np.bool_, numbers.Number))):
+        return fn(torch.as_tensor(batch))
     if isinstance(batch, (tuple, list)):
         return type(batch)(_map(fn, b) for b in batch)
     if isinstance(batch, dict):

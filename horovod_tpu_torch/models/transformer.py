@@ -35,8 +35,24 @@ as the reference:
   online logsumexp (logits rounded to bf16 before the f32 math, the
   padded vocab masked with -inf).
 
+Sequence parallelism (``cfg.sp > 1``) runs attention as the exact ring
+of ``parallel/ring_attention.py`` (on the card through kernels #9-#11,
+its default there) over the ``sp_group=`` that
+:func:`transformer_hidden`, :func:`transformer_apply`,
+:func:`transformer_loss` and ``Transformer.forward`` take (a process
+group, or a mesh whose ``sp`` dimension is taken; required when ``sp >
+1``, of size ``sp``).  Each member passes its local shard of the tokens,
+positions are offset by ``sp_rank * local_seq``, and the loss is the
+local shard's loss, as in the reference: the caller averages it over the
+ring (the reference's example takes ``lax.pmean`` over ``sp``).  The
+gradients each member's backward leaves are its share of the gradient of
+the ring's summed loss, so ``DistributedOptimizer``'s average over the
+whole world (dp x sp ranks) is the reference's gradient of the sp-mean
+loss averaged over dp.  Under ``remat`` the recompute runs the forward
+ring again, with its transfers, on every member in the same order.
+
 Outside this slice, and raising ``NotImplementedError`` naming their
-ROADMAP item: MoE (``num_experts > 0``), ``sp``/``pp``/``ep > 1``,
+ROADMAP item: MoE (``num_experts > 0``), ``pp``/``ep > 1``,
 ``HVDT_FP8=matmul``, ``remat_policy="dots"``, and the paged serving
 functions (not defined here yet).
 """
@@ -54,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from ..common import config
 from ..common.basics import DeviceLike, resolve_device
 from ..ops.pallas_kernels import flash_attention, flash_attention_smallseq
+from ..parallel.ring_attention import _Ring, ring_attention
 
 __all__ = [
     "TransformerConfig", "Transformer", "transformer_init",
@@ -79,7 +96,7 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32
     num_experts: int = 0         # MoE: not ported yet
     capacity_factor: float = 1.25
-    sp: int = 1                  # ring attention: not ported yet
+    sp: int = 1                  # sequence-parallel degree (ring attention)
     ep: int = 1                  # expert parallel: not ported yet
     pp: int = 1                  # pipeline: not ported yet
     remat: bool = False          # torch.utils.checkpoint each block
@@ -96,11 +113,11 @@ def _check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "MoE blocks (num_experts > 0) are not ported yet (ROADMAP "
             "Queue 1: parallel axes)")
-    for axis, n in (("sp", cfg.sp), ("pp", cfg.pp), ("ep", cfg.ep)):
+    for axis, n in (("pp", cfg.pp), ("ep", cfg.ep)):
         if n > 1:
-            item = "ring attention" if axis == "sp" else "parallel axes"
             raise NotImplementedError(
-                f"{axis} > 1 is not ported yet (ROADMAP Queue 1: {item})")
+                f"{axis} > 1 is not ported yet (ROADMAP Queue 1: parallel "
+                "axes)")
     if cfg.remat and cfg.remat_policy != "full":
         if cfg.remat_policy == "dots":
             raise NotImplementedError(
@@ -148,8 +165,9 @@ class Transformer(nn.Module):
         })
         self.to(dev)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return transformer_apply(self, tokens, self.cfg)
+    def forward(self, tokens: torch.Tensor, *,
+                sp_group=None) -> torch.Tensor:
+        return transformer_apply(self, tokens, self.cfg, sp_group=sp_group)
 
 
 def transformer_init(seed: Union[int, torch.Generator],
@@ -211,15 +229,18 @@ def _qkv(p, x, positions, cfg: TransformerConfig):
             _rope(k, positions, cfg.rope_theta), v)
 
 
-def _attention(p, x, positions, cfg: TransformerConfig):
+def _attention(p, x, positions, cfg: TransformerConfig, sp_group=None):
     b, l, d = x.shape
     h, hk, dh = cfg.heads, cfg.kv_heads, cfg.head_dim
     q, k, v = _qkv(p, x, positions, cfg)
     # The reference's mesh-island planner (_flash_plan) exists because
     # Mosaic kernels cannot be auto-partitioned by GSPMD; a process here
-    # holds whole local tensors, so the plan is the direct call or none.
-    fn = _flash_fn(l, dh, batch=b, heads=h, device=x.device)
-    if fn is not None:
+    # holds whole local tensors, so the plan is the ring (the sequence
+    # dim is this member's shard), the direct call or none.
+    if cfg.sp > 1:
+        o = ring_attention(q, k, v, group=sp_group, causal=True)
+    elif (fn := _flash_fn(l, dh, batch=b, heads=h,
+                          device=x.device)) is not None:
         o = fn(q, k, v)
     else:
         if h != hk:
@@ -352,13 +373,13 @@ def remat_from_env(cfg: TransformerConfig,
     return dataclasses.replace(cfg, remat=True, remat_policy="full")
 
 
-def _block(p, x, positions, cfg: TransformerConfig):
-    x = x + _attention(p, _rmsnorm(x, p["ln1"]), positions, cfg)
+def _block(p, x, positions, cfg: TransformerConfig, sp_group=None):
+    x = x + _attention(p, _rmsnorm(x, p["ln1"]), positions, cfg, sp_group)
     return x + _mlp(p, _rmsnorm(x, p["ln2"]))
 
 
 def _scan_blocks(block_params: Mapping[str, torch.Tensor], x, positions,
-                 cfg: TransformerConfig):
+                 cfg: TransformerConfig, sp_group=None):
     """The reference's ``lax.scan`` over the stacked layers, as a loop:
     each stacked leaf is unbound once, and with ``cfg.remat`` every layer
     runs under ``torch.utils.checkpoint`` (saving only its input)."""
@@ -367,7 +388,8 @@ def _scan_blocks(block_params: Mapping[str, torch.Tensor], x, positions,
                            for n in names)))
 
     def body(x, *leaves):
-        return _block(dict(zip(names, leaves)), x, positions, cfg)
+        return _block(dict(zip(names, leaves)), x, positions, cfg,
+                      sp_group)
 
     for leaves in per_layer:
         if cfg.remat:
@@ -377,22 +399,45 @@ def _scan_blocks(block_params: Mapping[str, torch.Tensor], x, positions,
     return x
 
 
+def _sp_rank(cfg: TransformerConfig, sp_group) -> int:
+    """This member's index in the sequence-parallel ring (0 without
+    one); checks that ``sp_group`` is given when ``cfg.sp > 1`` and that
+    its size is ``cfg.sp``."""
+    if sp_group is None:
+        if cfg.sp > 1:
+            raise ValueError(f"cfg.sp = {cfg.sp} needs sp_group= (the "
+                             "ring's process group or a mesh with an 'sp' "
+                             "dimension)")
+        return 0
+    ring = _Ring(sp_group, "sp")
+    if ring.size != cfg.sp:
+        raise ValueError(f"sp_group has {ring.size} members, cfg.sp is "
+                         f"{cfg.sp}")
+    return ring.rank
+
+
 def transformer_hidden(params: Transformer, tokens: torch.Tensor,
-                       cfg: TransformerConfig) -> torch.Tensor:
+                       cfg: TransformerConfig, *,
+                       sp_group=None) -> torch.Tensor:
     """Final-norm hidden states [batch, seq, d_model] (everything but the
-    vocab projection).  tokens: [batch, seq] integer ids."""
+    vocab projection).  tokens: [batch, seq] integer ids: this member's
+    local shard of the sequence when ``cfg.sp > 1`` (positions offset by
+    ``sp_rank * seq``), the full sequence otherwise."""
     _check_supported(cfg)
     b, l = tokens.shape
-    positions = torch.arange(l, device=tokens.device).expand(b, l)
+    offset = _sp_rank(cfg, sp_group) * l
+    positions = offset + torch.arange(l, device=tokens.device).expand(b, l)
     x = params.embed.to(cfg.dtype)[tokens.long()]
-    x = _scan_blocks(params.block, x, positions, cfg)
+    x = _scan_blocks(params.block, x, positions, cfg, sp_group)
     return _rmsnorm(x, params.ln_f)
 
 
 def transformer_apply(params: Transformer, tokens: torch.Tensor,
-                      cfg: TransformerConfig) -> torch.Tensor:
-    """Logits [batch, seq, vocab] f32 for next-token prediction."""
-    x = transformer_hidden(params, tokens, cfg)
+                      cfg: TransformerConfig, *,
+                      sp_group=None) -> torch.Tensor:
+    """Logits [batch, seq, vocab] f32 for next-token prediction (see
+    :func:`transformer_hidden`)."""
+    x = transformer_hidden(params, tokens, cfg, sp_group=sp_group)
     return (x @ params.embed.to(x.dtype).t()).float()
 
 
@@ -438,16 +483,20 @@ def _chunked_xent(x: torch.Tensor, embed: torch.Tensor,
 
 
 def transformer_loss(params: Transformer, tokens: torch.Tensor,
-                     cfg: TransformerConfig) -> torch.Tensor:
-    """Causal LM loss (next-token cross entropy).  The model runs on the
-    FULL sequence and the last position's prediction is dropped, so the
-    attention length stays the caller's ``seq`` (which is what lets the
-    flash gate's tiling check pass)."""
+                     cfg: TransformerConfig, *,
+                     sp_group=None) -> torch.Tensor:
+    """Causal LM loss (next-token cross entropy) over the local shard.
+    The model runs on the FULL (local) sequence and the last position's
+    prediction is dropped, so the attention length stays the caller's
+    ``seq`` (which is what lets the flash gate's tiling check pass).
+    Under ``cfg.sp > 1`` the caller averages the members' losses."""
     targets = tokens[:, 1:]
     if cfg.loss_chunk:
-        x = transformer_hidden(params, tokens, cfg)[:, :-1]
+        x = transformer_hidden(params, tokens, cfg,
+                               sp_group=sp_group)[:, :-1]
         return _chunked_xent(x, params.embed, targets, cfg.loss_chunk)
-    logits = transformer_apply(params, tokens, cfg)[:, :-1]
+    logits = transformer_apply(params, tokens, cfg,
+                               sp_group=sp_group)[:, :-1]
     logp = torch.log_softmax(logits, -1)
     return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
 

@@ -1,0 +1,30 @@
+"""Parallelism substrate of the port: mesh axes and sequence parallelism.
+
+The PyTorch counterpart of the JAX package's ``parallel/``.  A mesh is a
+``torch.distributed.device_mesh.DeviceMesh`` over the world's ranks in
+the canonical axis order, and a mesh axis is the process group of its
+dimension (``mesh.get_group("sp")``).
+
+Canonical axis names (any subset may be present, size-1 axes are free):
+
+* ``dp`` — data parallel (gradient allreduce over the whole world)
+* ``fsdp`` — fully-sharded data parallel (not ported yet)
+* ``pp`` — pipeline stages (not ported yet)
+* ``ep`` — expert parallel (not ported yet)
+* ``sp`` — sequence/context parallel (ring attention)
+* ``tp`` — tensor parallel within a layer (not ported yet)
+"""
+
+from .mesh import (  # noqa: F401
+    AXIS_DP,
+    AXIS_FSDP,
+    AXIS_PP,
+    AXIS_TP,
+    AXIS_SP,
+    AXIS_EP,
+    CANONICAL_AXES,
+    MeshSpec,
+    make_mesh,
+    mesh_shape_for,
+)
+from .ring_attention import ring_attention  # noqa: F401

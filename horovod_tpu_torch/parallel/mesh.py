@@ -1,0 +1,131 @@
+"""Device-mesh construction for multi-axis parallelism.
+
+The PyTorch counterpart of the JAX package's ``parallel/mesh.py``: the
+axis names, their canonical order, :class:`MeshSpec` and
+:func:`mesh_shape_for` are copies of the reference's, and
+:func:`make_mesh` lays the world's ranks out on a
+``torch.distributed.device_mesh.DeviceMesh`` where the reference lays
+devices out on a ``jax.sharding.Mesh``.
+
+Axis order follows the reference's convention: outermost axes change
+slowest across ranks, so the bandwidth-hungry axes (``tp``, ``sp``) are
+innermost and their members are neighbouring ranks (on one host, the
+cards that share NVLink), and the latency-tolerant axes (``dp``, ``pp``)
+are outermost.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch.distributed as dist
+
+AXIS_DP = "dp"
+AXIS_FSDP = "fsdp"
+AXIS_PP = "pp"
+AXIS_TP = "tp"
+AXIS_SP = "sp"
+AXIS_EP = "ep"
+
+# Outer-to-inner canonical ordering (latency-tolerant → bandwidth-hungry).
+CANONICAL_AXES: Tuple[str, ...] = (
+    AXIS_DP, AXIS_PP, AXIS_FSDP, AXIS_EP, AXIS_SP, AXIS_TP)
+
+__all__ = [
+    "AXIS_DP", "AXIS_FSDP", "AXIS_PP", "AXIS_TP", "AXIS_SP", "AXIS_EP",
+    "CANONICAL_AXES", "MeshSpec", "make_mesh", "mesh_shape_for",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A validated mesh layout: ordered (axis, size) pairs.
+
+    ``MeshSpec.create(dp=2, tp=4)`` fills unspecified axes with size 1 and
+    orders axes canonically; total size must divide the device count.
+    """
+
+    axes: Tuple[Tuple[str, int], ...]
+
+    @classmethod
+    def create(cls, *, devices_total: Optional[int] = None,
+               **sizes: int) -> "MeshSpec":
+        for name, n in sizes.items():
+            if n < 1:
+                raise ValueError(f"axis {name!r} must have size >= 1, got {n}")
+        ordered: List[Tuple[str, int]] = []
+        for name in CANONICAL_AXES:
+            if name in sizes:
+                ordered.append((name, sizes.pop(name)))
+        # Unknown (user-defined) axes go last, in given order.
+        for name, n in sizes.items():
+            ordered.append((name, n))
+        spec = cls(tuple(ordered))
+        if devices_total is not None:
+            want = spec.total
+            if want > devices_total or devices_total % want:
+                raise ValueError(
+                    f"mesh spec {spec.shape} (total {want}) does not divide "
+                    f"{devices_total} devices")
+        return spec
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(self.axes)
+
+    @property
+    def names(self) -> Tuple[str, ...]:
+        return tuple(n for n, _ in self.axes)
+
+    @property
+    def total(self) -> int:
+        return math.prod(n for _, n in self.axes)
+
+
+def mesh_shape_for(n_devices: int,
+                   *,
+                   tp: int = 1,
+                   pp: int = 1,
+                   sp: int = 1,
+                   ep: int = 1,
+                   fsdp: int = 1) -> MeshSpec:
+    """Fill the ``dp`` axis with whatever devices remain after the model
+    axes (the reference's default-layout helper)."""
+    model = tp * pp * sp * ep * fsdp
+    if n_devices % model:
+        raise ValueError(
+            f"model-parallel degree {model} (tp={tp} pp={pp} sp={sp} ep={ep} "
+            f"fsdp={fsdp}) does not divide {n_devices} devices")
+    return MeshSpec.create(dp=n_devices // model, pp=pp, fsdp=fsdp,
+                           ep=ep, sp=sp, tp=tp)
+
+
+def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int):
+    """A ``DeviceMesh`` over the whole world from a spec or axis sizes.
+
+    ``make_mesh(dp=2, sp=4)`` lays ranks 0-7 out as ``[[0, 1, 2, 3], [4,
+    5, 6, 7]]`` with dims ("dp", "sp"): the canonical order, ``sp``
+    inside ``dp``, so ``mesh.get_group("sp")`` is a ring of neighbouring
+    ranks.  Every rank must call it (each dimension's process groups are
+    made collectively).  The mesh's device type is ``"cuda"`` on an NCCL
+    world and ``"cpu"`` otherwise.  The spec's total must equal the world
+    size.
+    """
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if spec is None:
+        spec = MeshSpec.create(**sizes)
+    elif sizes:
+        raise TypeError("pass either spec= or axis sizes, not both")
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialized process group "
+                           "(horovod_tpu_torch.init())")
+    world = dist.get_world_size()
+    if spec.total != world:
+        raise ValueError(f"mesh {spec.shape} has {spec.total} members, the "
+                         f"world has {world} ranks")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    shape = tuple(n for _, n in spec.axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=spec.names)

@@ -400,7 +400,9 @@ _SLICE_MODULES = ("horovod_tpu_torch.bench", "horovod_tpu_torch.step_pipeline",
                   "horovod_tpu_torch.common.graphs",
                   "horovod_tpu_torch.telemetry.metrics",
                   "horovod_tpu_torch.telemetry.step_stats",
-                  "horovod_tpu_torch.data.loader")
+                  "horovod_tpu_torch.data.loader",
+                  "horovod_tpu_torch.parallel.mesh",
+                  "horovod_tpu_torch.parallel.ring_attention")
 
 
 def test_import_loads_no_jax():

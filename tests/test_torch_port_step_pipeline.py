@@ -30,6 +30,7 @@ import optax
 import pytest
 import torch
 
+from horovod_tpu.data.loader import prefetch_to_device as jax_prefetch
 from horovod_tpu.models import resnet as jrn
 from horovod_tpu.ops.optim_kernels import fused_sgd as jax_fused_sgd
 from horovod_tpu.step_pipeline import donated_step as jax_donated_step
@@ -355,6 +356,29 @@ def test_prefetch_moves_nested_batches_in_order():
     assert [float(x[0]) for x, _ in out] == [0, 1, 2, 3, 4]
     assert [int(d["y"]) for _, d in out] == [0, 1, 2, 3, 4]
     assert isinstance(out[0], tuple) and out[0][0].device.type == "cpu"
+
+
+def test_prefetch_turns_numpy_and_scalar_leaves_into_tensors():
+    """The reference device_puts every leaf (tests/test_data.py's case);
+    numpy arrays, numpy scalars and Python numbers come out as tensors on
+    the device with equal values, strings and None pass through."""
+    batches = [np.arange(8.0) + i for i in range(7)]
+    out = list(tloader.prefetch_to_device(batches, size=2, device="cpu"))
+    want = list(jax_prefetch(batches, size=2))
+    assert len(out) == len(want) == 7
+    for b, w in zip(out, want):
+        assert isinstance(b, torch.Tensor) and b.device.type == "cpu"
+        np.testing.assert_array_equal(b.numpy(), np.asarray(w))
+    dicts = [{"x": np.full((2, 3), i, np.float32), "step": np.int32(i),
+              "lr": 0.5 * i, "flag": np.bool_(i % 2), "name": f"b{i}",
+              "none": None} for i in range(3)]
+    for i, d in enumerate(tloader.prefetch_to_device(dicts, device="cpu")):
+        for key in ("x", "step", "lr", "flag"):
+            assert isinstance(d[key], torch.Tensor), key
+            assert d[key].device.type == "cpu"
+            np.testing.assert_array_equal(d[key].numpy(), dicts[i][key])
+        assert d["step"].dtype == torch.int32
+        assert d["name"] == f"b{i}" and d["none"] is None
 
 
 def test_overlap_step_run_threads_state_and_splats_batches():

@@ -245,7 +245,7 @@ def test_smallseq_on_raises_and_streaming_overrides(monkeypatch, jax_side):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(num_experts=4), "Queue 1: parallel axes"),
-    (dict(sp=2), "Queue 1: ring attention"),
+    (dict(sp=2, pp=2), "Queue 1: parallel axes"),
     (dict(pp=2), "Queue 1: parallel axes"),
     (dict(ep=2), "Queue 1: parallel axes"),
     (dict(remat=True, remat_policy="dots"), "Queue 1: parallel axes")])
