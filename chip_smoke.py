@@ -43,7 +43,27 @@ Phases, one JSON line each:
    error feedback and of one exchange over each wire;
 9. int4    — 2 steps with compression left unset and HVDT_COMPRESSION=
    int4 (Compression.from_env), with_error_feedback(..., wire="int4");
-10. flash_kernel — the three flash-attention kernels (#9 forward, #10
+10. eager  — the reference's eager core (ops/eager.py) in the NCCL world
+   of one: examples/jax_imagenet_resnet50.py's loop through the port's
+   top level at full width (ResNet-50, batch 64, bf16 compute, f32
+   params, HVDT_FUSED_CONV1X1=1): broadcast_parameters, hvd.broadcast of
+   the start epoch, 3 steps of DistributedOptimizer(fused_sgd(0.01,
+   momentum 0.9)) with hvd.allreduce(loss, name="avg_loss") each step
+   (#4 26 launches a step, #2 one); every eager op on CUDA tensors of
+   f32, bf16, fp16, int32 and int64 (allreduce with each reduce op and
+   with pre/post scale, grouped allreduce, ragged allgather, broadcast,
+   alltoall with splits, reducescatter, barrier, join,
+   allgather_object, sparse_allreduce) bit-identical to the world-of-one
+   answer, on the input's device and dtype, the producer-stream case (an
+   input still being computed on a side stream) and a numpy input;
+   eager_grouped, a grouped_allreduce of ResNet-50's 161 gradient leaves
+   (its fused responses and bytes) bit-identical to
+   device.fused_allreduce, with the host ms of one call of each;
+   eager_costs, one small allreduce's host ms from enqueue to
+   synchronize and the controller's idle cycles and store round trips a
+   second; eager_capture, a donated_step capture taken while eager ops
+   are in flight, replayed bit-identically to the eager step;
+11. flash_kernel — the three flash-attention kernels (#9 forward, #10
    dQ, #11 dK/dV) against their plain versions at the LM path's shape
    (B 16, H 16, L 4096, D 64, bf16, causal), with
    scaled_dot_product_attention's forward and backward as the library
@@ -54,7 +74,7 @@ Phases, one JSON line each:
    a ragged one (L 1000, Hkv 4, offsets and a carry, the rows that see no
    key passed through bit for bit; then flash_grad_block at the same
    offsets against the plain versions of #10 and #11);
-11. ring    — ring attention (horovod_tpu_torch.parallel) at the LM
+12. ring    — ring attention (horovod_tpu_torch.parallel) at the LM
    path's attention width (H 16, D 64, bf16): ring_entry, the entry
    point in the NCCL world of one at the lm_train shape (B 16, L 4096),
    forward and backward with use_pallas=True, against flash_attention
@@ -69,17 +89,17 @@ Phases, one JSON line each:
    fully visible and one diagonal step beside their bounds, and the
    summed ring of 4 against the whole-sequence kernels (the transfers
    are not timed: one card has no peer);
-12. lm_train — the bert-large transformer LM preset at full width and
+13. lm_train — the bert-large transformer LM preset at full width and
    depth (24 x 1024, 16 heads, d_ff 4096, vocab 30528, bf16 compute, f32
    params, remat full, loss_chunk 8192) at seq 4096, batch 16, through
    init, broadcast_parameters and DistributedOptimizer(fused_adam(3e-4,
    weight_decay=1e-4)), HVDT_FLASH_ATTENTION unset (the auto gate must
    engage) and HVDT_FLASH_BWD=kernel, 3 steps: per step #9 launches 48
    times (forward and remat recompute), #10 and #11 24 times each;
-13. lm_bwd_default — 2 steps with HVDT_FLASH_BWD unset (the plain
+14. lm_bwd_default — 2 steps with HVDT_FLASH_BWD unset (the plain
    blockwise backward); the first step's gradients are held against the
    kernel backward's from the same state;
-14. smallseq_kernel — the two whole-sequence kernels (#12 forward, #13
+15. smallseq_kernel — the two whole-sequence kernels (#12 forward, #13
    backward, two launches a call) against their plain versions at the
    seq-512 LM path's shape (B 128, H 16, L 512, D 64, bf16, causal), each
    timed on the device alone and back to back beside
@@ -88,17 +108,17 @@ Phases, one JSON line each:
    #13's line adds its design's byte floor and, from torch.profiler, its
    launches a call and each one's device time); then GQA (Hkv 4), D 128,
    non-causal, fp16 and ragged (L 200) cases;
-15. lm_smallseq — the same bert-large preset at seq 512, batch 128, full
+16. lm_smallseq — the same bert-large preset at seq 512, batch 128, full
    width and depth, HVDT_FLASH_SMALLSEQ=on (HVDT_FLASH_ATTENTION and
    HVDT_FLASH_SMALLSEQ_HB unset), fused_adam(3e-4, weight_decay=1e-4), 3
    steps: per step #12 launches 48 times (forward and remat recompute),
    #13 24 times and #9-#11 never (and in every train phase the optimizer
    kernel exactly once a step);
-16. lm_smallseq_default — 2 steps with HVDT_FLASH_SMALLSEQ unset (the
+17. lm_smallseq_default — 2 steps with HVDT_FLASH_SMALLSEQ unset (the
    materialized-score attention: 2.1 GB of f32 scores stays under the 4
    GiB flash gate); the first step's gradients are held against the
    smallseq path's from the same state, and no attention kernel runs;
-17. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
+18. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
    224x224, batch 128, bf16 compute, f32 params, 3 iterations of 20
    steps each) in turns: G (--fused-optimizer, HVDT_FUSED_CONV1X1=1,
    the step captured as one CUDA graph by donated_step), E (the same
@@ -113,11 +133,11 @@ Phases, one JSON line each:
    from one state under DistributedOptimizer in the NCCL world of one,
    with fused_sgd and then fused_adam and deterministic cuDNN: losses,
    parameters, BN statistics and optimizer state bit-identical;
-18. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
+19. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
    weight_decay=1e-4) step over clones of the bert-large leaves (11
    leaves, 434.0M parameters), held bit-identical to the plain version,
    beside torch.optim.AdamW(fused=True);
-19. summary — total wall time, then the kernels line (13 kernels).
+20. summary — total wall time, then the kernels line (13 kernels).
 
 Any failure raises and the script exits non-zero without the last line,
 which is exactly {"ok": true, "device": {...}} on success.  Without a
@@ -134,6 +154,20 @@ steps without transfers and a bare rotation; ring_cards_lm, the
 bert-large preset with sp = 4 at global seq 16384, batch 4: its hidden
 states against the whole sequence on one card, and 3 training steps
 (the ring's default on bf16 operands on the card: kernels #9-#11).
+
+    python3 chip_smoke.py --eager-cards 4
+
+runs the eager core across 4 cards (one process a card, an NCCL world;
+no kernel is built): eager_cards, every eager op of every dtype above
+issued in a different order on each rank and held against numpy's
+answer (exact for integers, MIN/MAX and moves; a float sum within its
+dtype's rounding of the summands), a rank that joins at once while the
+others reduce (it adds each reduction's identity), allgather_object,
+one named uneven alltoall called three times; eager_cards_grouped, the 161-leaf grouped allreduce against
+device.fused_allreduce (its fused responses, host ms of each), one small
+allreduce's host ms, and each rank's idle cycles a second and store
+round trips a cycle.  Both multi-card modes end with the card's line and
+the last line of the one-card run.
 """
 
 import gc
@@ -144,6 +178,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores and HBM.
@@ -576,7 +611,8 @@ def _bits(t):
     """A tensor's bytes as integers of its element size, for bit-identity
     checks."""
     return t.contiguous().view({1: torch.uint8, 2: torch.int16,
-                                4: torch.int32}[t.element_size()])
+                                4: torch.int32,
+                                8: torch.int64}[t.element_size()])
 
 
 def _bit_err(got, want) -> float:
@@ -1608,13 +1644,16 @@ def bench_leg(bench, name: str, smi: str):
     return leg, row
 
 
-def graphed_equals_eager(hvd, make_opt, images, labels, steps: int = 3):
+def graphed_equals_eager(hvd, make_opt, images, labels, steps: int = 3,
+                         before_call=None):
     """Two ResNet-50 copies from one state (broadcast_parameters in the
     NCCL world of one), each under DistributedOptimizer(make_opt(...)):
     ``steps`` steps through donated_step on one, eager steps on the
-    other.  The largest difference over losses, parameters, BatchNorm
-    running statistics and optimizer state (0.0 when every byte is the
-    same), and the number of tensors compared."""
+    other (``before_call(i)``, when given, runs before the graphed copy's
+    call i: call 0 is eager, call 1 captures).  The largest difference
+    over losses, parameters, BatchNorm running statistics and optimizer
+    state (0.0 when every byte is the same), and the number of tensors
+    compared."""
     from horovod_tpu_torch.models import ResNetConfig, resnet50_init, \
         resnet_loss
     from horovod_tpu_torch.step_pipeline import donated_step
@@ -1632,8 +1671,11 @@ def graphed_equals_eager(hvd, make_opt, images, labels, steps: int = 3):
         hvd.broadcast_parameters(model.state_dict(), root_rank=0)
         opt = hvd.DistributedOptimizer(make_opt(model.parameters()))
         step = donated_step(one_step) if graphed else one_step
-        losses = [step(model, opt, images, labels).clone()
-                  for _ in range(steps)]
+        losses = []
+        for i in range(steps):
+            if graphed and before_call is not None:
+                before_call(i)
+            losses.append(step(model, opt, images, labels).clone())
         torch.cuda.synchronize()
         inner = opt.optimizer
         tensors = [torch.stack(losses), *model.state_dict().values(),
@@ -1819,6 +1861,309 @@ def run_steps(model, opt, images, labels, steps):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return times, losses
+
+
+# ---- the eager phase: Horovod's named, negotiated collectives ---------------
+
+EAGER_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+                torch.int64)
+EAGER_OPS = ("AVERAGE", "SUM", "MIN", "MAX", "PRODUCT")
+EAGER_SCALES = ((2.0, 1.0), (1.0, 0.5), (0.5, 3.0))
+EAGER_STEPS = 3
+
+
+def _eager_tensor(gen, dtype, shape, device="cuda"):
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    return torch.randint(-50, 50, shape, generator=gen, device=device,
+                         dtype=dtype)
+
+
+def _times(x, factor):
+    """``x`` times ``factor`` cast to x's dtype first: the scale of an
+    eager allreduce (the reference's ``v * np.asarray(factor, v.dtype)``)."""
+    return x * torch.tensor(factor, dtype=x.dtype) if factor != 1.0 else x
+
+
+def _same_bits(name, got, want):
+    """An eager result: a tensor on ``want``'s device, of its dtype and
+    shape, holding its bytes."""
+    assert isinstance(got, torch.Tensor), (name, type(got))
+    assert got.device == want.device and got.dtype == want.dtype, \
+        (name, got.device, got.dtype, want.device, want.dtype)
+    err = _bit_err(got, want)
+    assert err == 0.0, (name, err)
+
+
+def _producer(gen, n=4096, chain=16):
+    """A [n, n] f32 result of a chain of matmuls enqueued on the current
+    stream: tens of ms of device work (TF32 off) still running when the
+    eager call that reads it is made."""
+    a = torch.randn((n, n), generator=gen, device="cuda") / math.sqrt(n)
+    x = torch.randn((n, n), generator=gen, device="cuda")
+    for _ in range(chain):
+        x = x @ a
+    return x
+
+
+class _FusedResponses:
+    """Records (tensors, bytes) of every response the eager controller
+    executes while open."""
+
+    def __enter__(self):
+        from horovod_tpu_torch.common.types import torch_dtype_of
+        from horovod_tpu_torch.ops import eager
+
+        self.seen, self._cls = [], eager.EagerController
+        orig = self._orig = eager.EagerController._dispatch
+        seen = self.seen
+
+        def spy(ctl, resp, entries):
+            size = torch_dtype_of(resp.tensor_type).itemsize
+            seen.append((len(resp.tensor_names),
+                         sum(math.prod(s) for s in resp.tensor_shapes)
+                         * size))
+            return orig(ctl, resp, entries)
+
+        self._cls._dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._dispatch = self._orig
+
+
+def _host_ms_of(fn, reps: int = 5) -> dict:
+    """Host-clock time of ``fn`` (which returns once its work is done),
+    from an idle device: median, min and max over ``reps``."""
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _stats(times[1:])
+
+
+def eager_example_loop(hvd, gen, smi):
+    """examples/jax_imagenet_resnet50.py's loop through the port's top
+    level: broadcast_parameters, the start epoch by hvd.broadcast, then
+    EAGER_STEPS steps of DistributedOptimizer(fused_sgd) with
+    hvd.allreduce(loss, name="avg_loss") each step.  #4 must launch 26
+    times a step and #2 once.  Returns the model's gradients."""
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init, \
+        resnet_loss
+
+    cfg = ResNetConfig()
+    model = resnet50_init(0, cfg)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    start_epoch = int(hvd.broadcast(
+        torch.tensor(0, dtype=torch.int64, device="cuda"), root_rank=0,
+        name="start_epoch"))
+    assert start_epoch == 0
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9))
+    images = torch.randn((BATCH, IMAGE, IMAGE, 3), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (BATCH,), generator=gen,
+                           device="cuda")
+    reset_counters()
+    losses, avg, times = [], [], []
+    for _ in range(EAGER_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss, _ = resnet_loss(model, images, labels)
+        loss.backward()
+        opt.step()
+        a = hvd.allreduce(loss.detach(), name="avg_loss")
+        _same_bits("avg_loss", a, loss.detach())   # a world of one
+        losses.append(loss.item())
+        avg.append(a.item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = counters()
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_mm_stats_kernel"] == 26 * EAGER_STEPS, launches
+    assert launches["_sgd_kernel"] == EAGER_STEPS, launches
+    emit({"phase": "eager_train", "model": "resnet50", "batch": BATCH,
+          "image": IMAGE, "steps": EAGER_STEPS, "losses": losses,
+          "avg_loss": avg, "step_s": times, "launches": launches,
+          "card": smi})
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    del model, opt, images, labels
+    return grads
+
+
+def eager_every_op(hvd, gen, smi):
+    """Every eager op on CUDA tensors of each of EAGER_DTYPES, in the NCCL
+    world of one: each result a tensor on the input's device and of its
+    dtype, bit-identical to the world-of-one answer (the input, scaled
+    where asked); then the producer-stream case and a numpy input."""
+    count = 0
+    for dt in EAGER_DTYPES:
+        tag = str(dt).rsplit(".", 1)[-1]
+        x = _eager_tensor(gen, dt, (64, 33))
+        for op in EAGER_OPS:
+            _same_bits(f"{tag}.{op}", hvd.allreduce(
+                x, op=getattr(hvd.ReduceOp, op), name=f"e.{tag}.{op}"), x)
+        for pre, post in EAGER_SCALES:
+            _same_bits(f"{tag}.scale", hvd.allreduce(
+                x, op=hvd.Sum, prescale_factor=pre, postscale_factor=post,
+                name=f"e.{tag}.{pre}.{post}"), _times(_times(x, pre), post))
+        parts = [x[:5], x[5:], x[:1]]
+        for g, p in zip(hvd.grouped_allreduce(parts, op=hvd.Sum,
+                                              name=f"e.{tag}.grp"), parts):
+            _same_bits(f"{tag}.grouped", g, p)
+        _same_bits(f"{tag}.allgather",
+                   hvd.allgather(x[:7], name=f"e.{tag}.ag"), x[:7])
+        _same_bits(f"{tag}.broadcast",
+                   hvd.broadcast(x, 0, name=f"e.{tag}.bc"), x)
+        out, splits = hvd.alltoall(x, splits=[64], name=f"e.{tag}.a2a")
+        _same_bits(f"{tag}.alltoall", out, x)
+        assert splits == [64], splits
+        _same_bits(f"{tag}.reducescatter",
+                   hvd.reducescatter(x, name=f"e.{tag}.rs"), x)
+        count += len(EAGER_OPS) + len(EAGER_SCALES) + 5
+    hvd.barrier()
+    assert hvd.join() == 0
+    obj = {"rank": 0, "card": smi}
+    assert hvd.allgather_object(obj, name="e.obj") == [obj]
+    # distinct indices: index_add_ on the card adds duplicates in any order
+    idx = torch.randperm(100, generator=gen, device="cuda")[:17]
+    vals = torch.randn((17, 8), generator=gen, device="cuda")
+    sp = hvd.sparse_allreduce(idx, vals, (100, 8), name="e.sparse")
+    _same_bits("sparse.indices", sp.indices, idx)
+    _same_bits("sparse.values", sp.values, vals)
+    _same_bits("sparse.dense", sp.to_dense(),
+               torch.zeros((100, 8), device="cuda").index_add_(0, idx, vals))
+    count += 5
+
+    # The producer-stream case: the eager call reads a result that a side
+    # stream is still computing; the controller's stream must wait for it.
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        x = _producer(gen)
+        h = hvd.allreduce_async(x, name="e.producer")
+        polled = hvd.poll(h)
+        got = hvd.synchronize(h)
+        want = x.clone()
+    torch.cuda.synchronize()
+    assert not polled, "poll was true before the producer finished"
+    _same_bits("producer", got, want)
+    a = np.arange(12, dtype=np.float32).reshape(3, 4)
+    out = hvd.allreduce(a, op=hvd.Max, name="e.numpy")
+    assert isinstance(out, np.ndarray) and np.array_equal(out, a)
+    count += 2
+    emit({"phase": "eager_ops", "ops": count,
+          "dtypes": [str(d).rsplit(".", 1)[-1] for d in EAGER_DTYPES],
+          "bit_identical": True, "producer_polled_early": polled,
+          "card": smi})
+    return count
+
+
+def eager_grouped_vs_fused(hvd, grads, name="e.grads"):
+    """A grouped_allreduce of the model's gradient leaves through
+    negotiation and fusion (HVDT_FUSION_THRESHOLD, 64 MiB by default):
+    its fused responses and their bytes, the result against
+    device.fused_allreduce of the same leaves, and the host ms of one call
+    of each (the grouped call's enqueue alone beside it).  Returns (fused
+    responses, largest difference, grouped ms, fused_allreduce ms)."""
+    with _FusedResponses() as rec:
+        got = hvd.grouped_allreduce(grads, name=name)
+    want = hvd.device.fused_allreduce(grads)
+    err = max(_bit_err(g, w) for g, w in zip(got, want))
+    assert all(g.device == w.device and g.dtype == w.dtype
+               for g, w in zip(got, want))
+    enqueue = []
+
+    def grouped():
+        t0 = time.perf_counter()
+        hs = hvd.grouped_allreduce_async(grads, name=name)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        for h in hs:
+            hvd.synchronize(h)
+
+    grouped_ms = _host_ms_of(grouped)
+    grouped_ms["enqueue_median"] = _stats(enqueue)["median"]
+    fused_ms = _host_ms_of(lambda: hvd.device.fused_allreduce(grads))
+    return rec.seen, err, grouped_ms, fused_ms
+
+
+def eager_controller_costs(hvd, reps: int = 50):
+    """Host ms from enqueue to synchronize of one small allreduce (a CUDA
+    tensor and a numpy array), and the controller's negotiation cycles
+    and control-plane round trips a second while idle."""
+    from horovod_tpu_torch.ops import eager
+
+    x = torch.ones(1024, device="cuda")
+    a = np.ones(1024, np.float32)
+    out = {}
+    for kind, value in (("cuda", x), ("numpy", a)):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hvd.allreduce(value, name=f"e.latency.{kind}")
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"enqueue_to_sync_ms_{kind}"] = _stats(times)
+    ctl = eager._controller()
+    trips = lambda: getattr(ctl.cp, "round_trips", 0)   # noqa: E731
+    c0, rt0, t0 = ctl.cycles, trips(), time.perf_counter()
+    time.sleep(1.0)
+    dt = time.perf_counter() - t0
+    out["idle_cycles_per_s"] = (ctl.cycles - c0) / dt
+    out["idle_round_trips_per_s"] = (trips() - rt0) / dt
+    out["control_plane"] = type(ctl.cp).__name__
+    return out
+
+
+def phase_eager(hvd, gen, smi):
+    """The eager phase (see the module docstring)."""
+    t0 = time.perf_counter()
+    grads = eager_example_loop(hvd, gen, smi)
+    assert len(grads) == 161 and sum(g.numel() for g in grads) > 25e6
+    ops = eager_every_op(hvd, gen, smi)
+    fused, err, grouped_ms, fused_ms = eager_grouped_vs_fused(hvd, grads)
+    assert err == 0.0, err
+    emit({"phase": "eager_grouped", "leaves": len(grads),
+          "params": sum(g.numel() for g in grads),
+          "bytes": sum(g.numel() * g.element_size() for g in grads),
+          "threshold": hvd.ops.device._validated_threshold(None),
+          "fused_responses": [{"tensors": t, "bytes": b} for t, b in fused],
+          "max_abs_err_vs_fused_allreduce": err,
+          "grouped_host_ms": grouped_ms, "fused_allreduce_host_ms": fused_ms,
+          "card": smi})
+    costs = eager_controller_costs(hvd)
+    emit(dict(phase="eager_costs", card=smi, **costs))
+
+    # A donated_step capture taken while eager ops are in flight (their
+    # inputs still being produced) replays bit-identically to the eager
+    # step, and the eager results hold.
+    pending = []
+
+    def in_flight(i):
+        if i == 1:                      # the call that captures
+            x = _producer(gen, chain=8)
+            pending.append((x, [hvd.allreduce_async(x, name=f"e.cap.{k}")
+                                for k in range(3)]))
+
+    images = torch.randn((BATCH, IMAGE, IMAGE, 3), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device="cuda")
+    cap_err, n = graphed_equals_eager(
+        hvd, lambda ps: hvd.fused_sgd(ps, 0.01, momentum=0.9), images,
+        labels, before_call=in_flight)
+    assert cap_err == 0.0, cap_err
+    (x, hs), = pending
+    for h in hs:
+        _same_bits("capture.in_flight", hvd.synchronize(h), x)
+    emit({"phase": "eager_capture", "max_abs_err_graphed_vs_eager": cap_err,
+          "tensors_compared": n, "eager_ops_in_flight": len(hs),
+          "wall_s": time.perf_counter() - t0, "card": smi})
+    del grads, images, labels, pending
+    torch.cuda.empty_cache()
+    return ops
 
 
 # ---- python3 chip_smoke.py --ring-cards N: the ring across N cards ----------
@@ -2072,23 +2417,14 @@ def ring_cards_worker(device=None) -> None:
     hvd.shutdown()
 
 
-def ring_cards(n: int) -> int:
-    """``python3 chip_smoke.py --ring-cards N``: build the kernels, then
-    run :func:`ring_cards_worker` as N processes, one a card, in an NCCL
-    world (rank 0 prints the lines).  A rank that fails stops them all."""
+def _spawn_ranks(n: int, flag: str, timeout_s: float) -> int:
+    """Run this script with ``flag`` as N processes, one a card, in an
+    NCCL world (``HVDT_SIZE/RANK/LOCAL_RANK/COORDINATOR_ADDR``); 0 when
+    every rank exits 0.  A rank that fails, or the timeout, stops them
+    all."""
     import socket
 
-    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
-        print(f"chip_smoke: --ring-cards {n} needs {n} CUDA cards",
-              file=sys.stderr)
-        return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
-    import horovod_tpu_torch  # noqa: F401  (fails outside the repo)
-
-    t0 = time.perf_counter()
-    phase_device()
-    phase_build()
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
@@ -2097,15 +2433,15 @@ def ring_cards(n: int) -> int:
                PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
                                                             ""))
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--ring-worker"],
+        [sys.executable, os.path.abspath(__file__), flag],
         env=dict(env, HVDT_RANK=str(r), HVDT_LOCAL_RANK=str(r)))
         for r in range(n)]
-    deadline = time.time() + RING_CARDS_TIMEOUT_S
+    deadline = time.time() + timeout_s
     try:
         while any(p.poll() is None for p in procs):
             failed = [p.returncode for p in procs if p.poll()]
             if failed or time.time() > deadline:
-                print(f"chip_smoke: ring worker failed ({failed}) or timed "
+                print(f"chip_smoke: {flag} rank failed ({failed}) or timed "
                       "out", file=sys.stderr)
                 return 1
             time.sleep(1)
@@ -2114,9 +2450,284 @@ def ring_cards(n: int) -> int:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    if any(p.returncode for p in procs):
-        return 1
+    return 1 if any(p.returncode for p in procs) else 0
+
+
+def _last_lines(smi: str) -> None:
+    """The card's name and power limit, then the contract's last line."""
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+def ring_cards(n: int) -> int:
+    """``python3 chip_smoke.py --ring-cards N``: build the kernels, then
+    run :func:`ring_cards_worker` as N processes, one a card, in an NCCL
+    world (rank 0 prints the lines).  A rank that fails stops them all."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --ring-cards {n} needs {n} CUDA cards",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    rc = _spawn_ranks(n, "--ring-worker", RING_CARDS_TIMEOUT_S)
+    if rc:
+        return rc
     emit({"phase": "ring_cards_total", "wall_s": time.perf_counter() - t0})
+    _last_lines(smi)
+    return 0
+
+# ---- python3 chip_smoke.py --eager-cards N: the eager core across N cards ---
+
+EAGER_CARDS_TIMEOUT_S = 600
+
+
+def _rank_input(q, dtype, shape, seed):
+    """Rank ``q``'s seeded input (on the host, so that every rank can make
+    every rank's and compute the answer)."""
+    g = torch.Generator().manual_seed(1000 * seed + q)
+    if dtype == torch.int64:
+        return torch.randint(-2**40, 2**40, shape, generator=g,
+                             dtype=dtype)
+    if not dtype.is_floating_point:
+        return torch.randint(-9, 10, shape, generator=g, dtype=dtype)
+    return torch.randn(shape, generator=g).to(dtype)
+
+
+def _np(x):
+    """A tensor as numpy (floats as float64: numpy has no bfloat16)."""
+    x = x.detach().cpu()
+    return x.double().numpy() if x.is_floating_point() else x.numpy()
+
+
+def _np_answer(op, xs):
+    """numpy's answer for the reduction ``op`` over the ranks' inputs (in
+    float64 for floats; integer Average truncates toward zero)."""
+    a = np.stack([_np(x) for x in xs])
+    if op == "SUM":
+        return a.sum(0)
+    if op == "AVERAGE":
+        s = a.sum(0)
+        return s / len(xs) if a.dtype.kind == "f" else np.trunc(
+            s / len(xs)).astype(a.dtype)
+    if op == "PRODUCT":
+        return a.prod(0)
+    return a.min(0) if op == "MIN" else a.max(0)
+
+
+def _held(name, got, want, dtype, summands=None):
+    """Exact for integers and for MIN/MAX/moves (``summands`` None); for
+    a float sum, within the dtype's rounding of the summands' magnitude."""
+    got = _np(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    if summands is None or not dtype.is_floating_point:
+        if dtype.is_floating_point:
+            want = torch.from_numpy(want).to(dtype).double().numpy()
+        assert np.array_equal(got, want), (name, np.abs(got - want).max())
+        return 0.0
+    eps = {torch.float32: 2**-23, torch.bfloat16: 2**-7,
+           torch.float16: 2**-10}[dtype]
+    scale = np.abs(np.stack([_np(s) for s in summands])).sum(0)
+    err = np.abs(got - want)
+    assert (err <= 4 * eps * (scale + np.abs(want)) + 1e-30).all(), \
+        (name, err.max())
+    return float(err.max())
+
+
+def eager_cards_worker(device=None) -> None:
+    """One rank of ``--eager-cards``: every eager op across the cards,
+    issued in a different order on each rank and held against numpy's
+    answer; a joined rank; one named uneven alltoall called three times;
+    the 161-leaf grouped allreduce of ResNet-50's
+    gradient shapes against device.fused_allreduce; one small allreduce's
+    host latency and the control plane's store round trips a cycle.
+    Rank 0 prints the lines."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.ops import eager
+
+    hvd.init(device=device)
+    r, n = hvd.rank(), hvd.size()
+    dev = hvd.topology().device
+    lead = r == 0
+    t_start = time.perf_counter()
+
+    def on_dev(x):
+        return x.to(dev)
+
+    # Every op, every dtype, a different issue order on each rank.
+    specs = []   # (fn, name, per-rank inputs, kwargs, check)
+    for k, dt in enumerate(EAGER_DTYPES):
+        tag = str(dt).rsplit(".", 1)[-1]
+        for op in EAGER_OPS:
+            if op == "PRODUCT" and dt in (torch.bfloat16, torch.float16,
+                                          torch.int64):
+                continue
+            xs = [_rank_input(q, dt, (33, 5), 10 * k + len(specs))
+                  for q in range(n)]
+            specs.append(("allreduce", f"c.{tag}.{op}", xs,
+                          {"op": getattr(hvd.ReduceOp, op)},
+                          ("reduce", op)))
+        xs = [_rank_input(q, dt, (q + 1, 3), 500 + k) for q in range(n)]
+        specs.append(("allgather", f"c.{tag}.ag", xs, {}, ("gather",)))
+        xs = [_rank_input(q, dt, (6,), 600 + k) for q in range(n)]
+        specs.append(("broadcast", f"c.{tag}.bc", xs,
+                      {"root_rank": n - 1}, ("bcast", n - 1)))
+        splits = [[(q + j) % 3 for j in range(n)] for q in range(n)]
+        xs = [_rank_input(q, dt, (sum(splits[q]), 2), 700 + k)
+              for q in range(n)]
+        specs.append(("alltoall", f"c.{tag}.a2a", xs,
+                      {"splits": splits[r]}, ("a2a", splits)))
+        xs = [_rank_input(q, dt, (2 * n + 1, 4), 800 + k) for q in range(n)]
+        specs.append(("reducescatter", f"c.{tag}.rs", xs, {"op": hvd.Sum},
+                      ("rs",)))
+    xs = [_rank_input(q, torch.float32, (8,), 900) for q in range(n)]
+    specs.append(("allreduce", "c.scaled", xs,
+                  {"op": hvd.Sum, "prescale_factor": 0.5,
+                   "postscale_factor": 3.0}, ("scaled",)))
+    order = torch.randperm(len(specs),
+                           generator=torch.Generator().manual_seed(r))
+    dist.barrier()
+    handles = {}
+    for i in order.tolist():
+        fn, name, xs, kw, _ = specs[i]
+        handles[name] = getattr(hvd, fn + "_async")(on_dev(xs[r]), name=name,
+                                                    **kw)
+    max_err = 0.0
+    for fn, name, xs, kw, check in specs:
+        got = hvd.synchronize(handles[name])
+        dt = xs[0].dtype
+        if check[0] == "reduce":
+            # a float product rounds at each factor: relative to itself
+            rounded = {"SUM": xs, "AVERAGE": xs,
+                       "PRODUCT": [torch.zeros_like(xs[0])]}.get(check[1])
+            max_err = max(max_err, _held(name, got, _np_answer(check[1], xs),
+                                         dt, rounded))
+        elif check[0] == "scaled":
+            scaled = [x * torch.tensor(0.5) for x in xs]
+            max_err = max(max_err, _held(
+                name, got, _np_answer("SUM", scaled) * 3.0, dt,
+                [3 * x for x in scaled]))
+        elif check[0] == "gather":
+            _held(name, got, _np(torch.cat(xs)), dt)
+        elif check[0] == "bcast":
+            _held(name, got, _np(xs[check[1]]), dt)
+        elif check[0] == "a2a":
+            out, recv = got
+            sp = check[1]
+            parts = [xs[q][sum(sp[q][:r]):sum(sp[q][:r + 1])]
+                     for q in range(n)]
+            assert recv == [sp[q][r] for q in range(n)], (name, recv)
+            _held(name, out, _np(torch.cat(parts)), dt)
+        else:
+            full = _np_answer("SUM", xs)
+            base, rem = divmod(full.shape[0], n)
+            start = r * base + min(r, rem)
+            stop = start + base + (r < rem)
+            max_err = max(max_err, _held(
+                name, got, full[start:stop], dt,
+                [x[start:stop] for x in xs]))
+        if isinstance(got, tuple):
+            got = got[0]
+        assert got.device == dev and got.dtype == dt, (name, got.device)
+
+    # A joined rank: the last rank joins at once, the others reduce twice.
+    if r != n - 1:
+        s = hvd.allreduce(torch.full((3,), float(r + 1), device=dev),
+                          name="c.join.sum", op=hvd.Sum)
+        m = hvd.allreduce(torch.full((3,), r + 5, device=dev,
+                                     dtype=torch.int32),
+                          name="c.join.min", op=hvd.Min)
+        assert s.tolist() == [float(sum(q + 1 for q in range(n - 1)))] * 3
+        assert m.tolist() == [5] * 3      # the joined rank adds MIN's identity
+    last = hvd.join()
+    assert 0 <= last < max(n - 1, 1), last
+    objs = hvd.allgather_object({"rank": r}, name="c.obj")
+    assert objs == [{"rank": q} for q in range(n)], objs
+    # One named alltoall three times, each rank with its own send splits
+    # and the same shape every call: each call must send with them.
+    base = [j + 1 for j in range(n)]
+    rot = [base[q:] + base[:q] for q in range(n)]
+    for step in range(3):
+        xs = [_rank_input(q, torch.float32, (sum(base), 2), 950 + step)
+              for q in range(n)]
+        out, recv = hvd.alltoall(on_dev(xs[r]), splits=rot[r],
+                                 name="c.a2a.repeat")
+        assert recv == [rot[q][r] for q in range(n)], (step, recv)
+        _held("c.a2a.repeat", out, _np(torch.cat(
+            [xs[q][sum(rot[q][:r]):sum(rot[q][:r + 1])] for q in range(n)])),
+            torch.float32)
+    if lead:
+        emit({"phase": "eager_cards", "cards": n, "ops": len(specs),
+              "a2a_repeats": 3, "max_abs_err_float_sums": max_err,
+              "last_joined": last, "wall_s": time.perf_counter() - t_start})
+
+    # The 161 gradient leaves of ResNet-50, seeded per rank.
+    model = resnet50_init(0, ResNetConfig(), device=dev)
+    g = torch.Generator(device=dev).manual_seed(r)
+    grads = [torch.randn(p.shape, generator=g, device=dev)
+             for p in model.parameters()]
+    del model
+    fused, err, grouped_ms, fused_ms = eager_grouped_vs_fused(
+        hvd, grads, name="c.grads")
+    # The ranks' sums in the order of each plan's buckets: NCCL may add
+    # them in another order for another bucket boundary.
+    assert err <= 1e-5, err
+    ctl = eager._controller()
+    lat = []
+    for _ in range(50):
+        dist.barrier()
+        t0 = time.perf_counter()
+        hvd.allreduce(torch.ones(1024, device=dev), name="c.latency")
+        lat.append((time.perf_counter() - t0) * 1e3)
+    c0, rt0, t0 = ctl.cycles, ctl.cp.round_trips, time.perf_counter()
+    time.sleep(1.0)
+    cycles = ctl.cycles - c0
+    stats = {"idle_cycles_per_s": cycles / (time.perf_counter() - t0),
+             "round_trips_per_cycle": (ctl.cp.round_trips - rt0)
+             / max(cycles, 1)}
+    every = [None] * n
+    dist.all_gather_object(every, stats)
+    if lead:
+        emit({"phase": "eager_cards_grouped", "cards": n,
+              "leaves": len(grads),
+              "bytes": sum(x.numel() * x.element_size() for x in grads),
+              "fused_responses": [{"tensors": t, "bytes": b}
+                                  for t, b in fused],
+              "max_abs_err_vs_fused_allreduce": err,
+              "grouped_host_ms": grouped_ms,
+              "fused_allreduce_host_ms": fused_ms,
+              "enqueue_to_sync_ms": _stats(lat), "control_plane": every})
+    hvd.shutdown()
+
+
+def eager_cards(n: int) -> int:
+    """``python3 chip_smoke.py --eager-cards N``: run
+    :func:`eager_cards_worker` as N processes, one a card, in an NCCL
+    world (rank 0 prints the lines).  A rank that fails stops them all.
+    No kernel is built: this mode runs no kernel."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --eager-cards {n} needs {n} CUDA cards",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    t0 = time.perf_counter()
+    smi = phase_device()
+    rc = _spawn_ranks(n, "--eager-worker", EAGER_CARDS_TIMEOUT_S)
+    if rc:
+        return rc
+    emit({"phase": "eager_cards_total", "wall_s": time.perf_counter() - t0})
+    _last_lines(smi)
     return 0
 
 
@@ -2276,6 +2887,8 @@ def main() -> int:
     del int4_opt, adam, opt, model, params, images, labels, grads
     torch.cuda.empty_cache()
 
+    phase_eager(hvd, gen, smi)
+
     flash = phase_flash_kernels(gen, smi)
     phase_ring(gen, smi)
     lm_launches = phase_lm(hvd, gen, smi)
@@ -2347,11 +2960,8 @@ def main() -> int:
                         "library_ms": row["library_ms"]})
     assert len(kernels) == 13, [k["name"] for k in kernels]
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
-    print(smi, flush=True)
     emit({"kernels": kernels})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    _last_lines(smi)
     return 0
 
 
@@ -2360,4 +2970,8 @@ if __name__ == "__main__":
         sys.exit(ring_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--ring-worker"]:
         sys.exit(ring_cards_worker())
+    if sys.argv[1:2] == ["--eager-cards"]:
+        sys.exit(eager_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--eager-worker"]:
+        sys.exit(eager_cards_worker())
     sys.exit(main())

@@ -17,8 +17,16 @@ The int8 gradient wire with error feedback::
         hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9),
         compression=hvd.Compression.int8))
 
+Named, negotiated eager collectives (Horovod's own API), e.g. metric
+averaging and an epoch broadcast::
+
+    avg_loss = hvd.allreduce(loss, name="avg_loss")
+    start_epoch = int(hvd.broadcast(torch.tensor(start_epoch), root_rank=0,
+                                    name="start_epoch"))
+
 Entry points run on the CUDA card unless the caller passes
-``device="cpu"``.
+``device="cpu"``.  Importing the package starts no thread: the eager
+controller starts at the first eager call.
 """
 
 from __future__ import annotations
@@ -36,11 +44,17 @@ from .common.basics import (  # noqa: F401
     cross_rank,
     cross_size,
     topology,
+    num_devices,
+    local_devices,
+    global_devices,
+    is_homogeneous,
 )
 from .common.process_sets import (  # noqa: F401
     ProcessSet,
     add_process_set,
     global_process_set,
+    process_set_by_id,
+    remove_process_set,
 )
 from .common.types import ReduceOp, Status  # noqa: F401
 from .common.exceptions import (  # noqa: F401
@@ -65,7 +79,46 @@ from .optimizer import (  # noqa: F401,E402
     allreduce_gradients,
 )
 from .functions import (  # noqa: F401,E402
+    allgather_object,
     broadcast_object,
     broadcast_optimizer_state,
     broadcast_parameters,
+)
+from .ops.eager import (  # noqa: F401,E402
+    allgather,
+    allgather_async,
+    allreduce,
+    allreduce_async,
+    alltoall,
+    alltoall_async,
+    barrier,
+    broadcast,
+    broadcast_async,
+    grouped_allreduce,
+    grouped_allreduce_async,
+    join,
+    poll,
+    reducescatter,
+    reducescatter_async,
+    synchronize,
+)
+from .ops.sparse import (  # noqa: F401,E402
+    sparse_allreduce,
+    sparse_allreduce_async,
+)
+from .common.util import (  # noqa: F401,E402
+    ccl_built,
+    cuda_built,
+    ddl_built,
+    gloo_built,
+    gloo_enabled,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    native_built,
+    nccl_built,
+    rocm_built,
+    tcp_enabled,
+    tpu_available,
+    xla_built,
 )

@@ -19,7 +19,7 @@ import atexit
 import dataclasses
 import os
 import threading
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -39,6 +39,10 @@ __all__ = [
     "cross_size",
     "Topology",
     "topology",
+    "num_devices",
+    "local_devices",
+    "global_devices",
+    "is_homogeneous",
     "resolve_device",
 ]
 
@@ -65,12 +69,18 @@ class _GlobalState:
         self.topology: Optional[Topology] = None
         self.process_set_table = None
         self.owns_group = False
+        # The c10d store the process group was made over: the eager
+        # control plane's transport (ops/control_plane.py).
+        self.store: Optional[dist.Store] = None
+        self.eager_controller = None
 
     def reset(self) -> None:
         self.initialized = False
         self.topology = None
         self.process_set_table = None
         self.owns_group = False
+        self.store = None
+        self.eager_controller = None
 
 
 _state = _GlobalState()
@@ -169,24 +179,33 @@ def init(*, device: DeviceLike = None,
         owns = False
         if dist.is_initialized():
             proc_id, n_proc = dist.get_rank(), dist.get_world_size()
+            # The caller made the group: reach the store it was made over
+            # through torch.distributed.distributed_c10d._get_default_store
+            # (PyTorch's own accessor for the default group's store).
+            store = dist.distributed_c10d._get_default_store()
         elif n_proc > 1:
             coord = (coordinator_address
                      or config.get_str("HVDT_COORDINATOR_ADDR"))
             if coord:
-                init_method = f"tcp://{coord}"
+                host, port = coord.rsplit(":", 1)
             elif os.environ.get("MASTER_ADDR"):
-                init_method = "env://"
+                host = os.environ["MASTER_ADDR"]
+                port = os.environ.get("MASTER_PORT", "29500")
             else:
                 raise ValueError(
                     f"a {n_proc}-process world needs a rendezvous: set "
                     "HVDT_COORDINATOR_ADDR (host:port) or MASTER_ADDR/"
                     "MASTER_PORT")
-            dist.init_process_group(backend, init_method=init_method,
-                                    rank=proc_id, world_size=n_proc)
+            store = dist.TCPStore(host, int(port), n_proc,
+                                  is_master=proc_id == 0,
+                                  timeout=dist.constants.default_pg_timeout)
+            dist.init_process_group(backend, store=store, rank=proc_id,
+                                    world_size=n_proc)
             owns = True
         else:
-            dist.init_process_group(backend, store=dist.HashStore(),
-                                    rank=0, world_size=1)
+            store = dist.HashStore()
+            dist.init_process_group(backend, store=store, rank=0,
+                                    world_size=1)
             owns = True
 
         topo = Topology(rank=proc_id, size=n_proc, local_rank=local_rank_,
@@ -196,6 +215,7 @@ def init(*, device: DeviceLike = None,
 
         _state.topology = topo
         _state.owns_group = owns
+        _state.store = store
         _state.process_set_table = ps.ProcessSetTable(topo)
         for ranks in process_sets or ():
             _state.process_set_table.add(list(ranks))
@@ -203,7 +223,11 @@ def init(*, device: DeviceLike = None,
 
 
 def shutdown() -> None:
-    """Tear down; destroys the process group if ``init`` made it."""
+    """Tear down: stops the eager controller, then destroys the process
+    group if ``init`` made it."""
+    from ..ops.eager import shutdown_controller
+
+    shutdown_controller()
     with _state.lock:
         if not _state.initialized:
             return
@@ -253,3 +277,32 @@ def cross_rank() -> int:
 
 def cross_size() -> int:
     return _topo().cross_size
+
+
+def num_devices() -> int:
+    """Devices of the world: one a process (its CUDA card, or the CPU in
+    a gloo world)."""
+    return _topo().size
+
+
+def is_homogeneous() -> bool:
+    """Whether every host runs the same number of processes."""
+    t = _topo()
+    return t.size == t.local_size * t.cross_size or t.size == 1
+
+
+def local_devices() -> List[torch.device]:
+    """The devices of this process: its CUDA card, or the CPU."""
+    return [_topo().device]
+
+
+def global_devices() -> List[torch.device]:
+    """The device of every rank, in rank order, for ranks laid out host
+    by host (rank = cross_rank * local_size + local_rank, as the
+    launchers lay them out)."""
+    t = _topo()
+    if t.device.type != "cuda":
+        return [t.device] * t.size
+    n = max(torch.cuda.device_count(), 1)
+    return [torch.device("cuda", (r % t.local_size) % n)
+            for r in range(t.size)]

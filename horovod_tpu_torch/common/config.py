@@ -12,7 +12,8 @@ import dataclasses
 import os
 from typing import Any, Callable, Dict
 
-__all__ = ["Knob", "KNOBS", "get", "get_bool", "get_int", "get_str"]
+__all__ = ["Knob", "KNOBS", "get", "get_bool", "get_int", "get_float",
+           "get_str"]
 
 
 def _parse_bool(v: str) -> bool:
@@ -120,6 +121,42 @@ KNOBS: Dict[str, Knob] = {
              "The reference's filter of cheap XLA compilations.  Accepted "
              "and without effect in the port: torch's caches keep every "
              "entry."),
+        Knob("HVDT_CYCLE_TIME", 0.0, float,
+             "Background-loop cycle time in ms for the eager path. 0 = run "
+             "as fast as possible (with an idle back-off of up to 2 ms)."),
+        Knob("HVDT_BATCH_COLLECTIVES", True, _parse_bool,
+             "Pack multiple same-dtype tensors into one fused collective."),
+        Knob("HVDT_CACHE_CAPACITY", 1024, int,
+             "Response-cache capacity (negotiated-collective descriptors)."),
+        Knob("HVDT_TIMELINE", "", str,
+             "Write per-tensor Chrome-tracing timeline JSON to this path.  "
+             "Not ported yet: the eager controller raises when it is set."),
+        Knob("HVDT_STALL_CHECK_DISABLE", False, _parse_bool,
+             "Disable stall inspector."),
+        Knob("HVDT_STALL_CHECK_TIME_SECONDS", 60, int,
+             "Warn when a tensor is ready on some-but-not-all ranks this "
+             "long."),
+        Knob("HVDT_STALL_SHUTDOWN_TIME_SECONDS", 0, int,
+             "Log an error, once, when a tensor has stalled this long "
+             "(0 = never).  Logs only: HVDT_STALL_ABORT_TIME_SECONDS is "
+             "what fails a stalled op."),
+        Knob("HVDT_STALL_ABORT_TIME_SECONDS", 0, int,
+             "Stall-escalation abort rung (resilience/escalation.py): past "
+             "this age the coordinator aborts the stalled negotiation with "
+             "an error response, so waiters raise HorovodInternalError "
+             "instead of hanging forever.  0 = disabled."),
+        Knob("HVDT_STALL_RESET_TIME_SECONDS", 0, int,
+             "Stall-escalation reset rung: past this age a worker "
+             "additionally asks the elastic driver for a re-rendezvous.  "
+             "0 = disabled.  No effect yet: the elastic launcher is not "
+             "ported (ROADMAP Queue 1, item 6), so the rung only logs."),
+        Knob("HVDT_CONTROL_PLANE_TIMEOUT_S", 300.0, float,
+             "Eager control-plane gather/broadcast timeout — the failure-"
+             "detection latency bound: a dead peer surfaces as this timeout "
+             "firing, converted to HorovodInternalError."),
+        Knob("HVDT_DISABLE_PROFILER_RANGES", False, _parse_bool,
+             "Disable the torch.profiler record_function ranges around "
+             "eager ops."),
         Knob("HVDT_RANK", -1, int, "Global process rank (set by launcher)."),
         Knob("HVDT_SIZE", -1, int, "Global process count (set by launcher)."),
         Knob("HVDT_LOCAL_RANK", -1, int,
@@ -144,6 +181,10 @@ def get_bool(name: str) -> bool:
 
 def get_int(name: str) -> int:
     return int(get(name))
+
+
+def get_float(name: str) -> float:
+    return float(get(name))
 
 
 def get_str(name: str) -> str:

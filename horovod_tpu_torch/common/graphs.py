@@ -10,16 +10,31 @@ advance it asks :func:`capturing` and raises inside a capture.
 The optimizers, the exchange and error feedback import this module; the
 step layer above them opens :func:`collect_replay_hooks` around its
 capture.
+
+``donated_step`` captures with ``capture_error_mode="global"``: a CUDA
+call from any other thread during the capture invalidates it.  The eager
+controller's thread issues CUDA work, so it holds :data:`capture_lock`
+around that work, and ``donated_step`` holds it across a capture.  A
+capture taken by other means (``torch.cuda.graph``,
+``make_graphed_callables``, global mode too) while eager ops are in
+flight must hold :data:`capture_lock` across it as well, or
+``synchronize`` the ops first.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Callable, Iterator, List, Optional
 
 import torch
 
-__all__ = ["capturing", "on_replay", "collect_replay_hooks"]
+__all__ = ["capturing", "on_replay", "collect_replay_hooks",
+           "capture_lock"]
+
+# Held across a donated_step capture, and by a thread other than the
+# capturing one around each piece of CUDA work it issues.
+capture_lock = threading.RLock()
 
 # The hooks of the graph being captured by donated_step (None otherwise).
 _hooks: Optional[List[Callable[[], None]]] = None

@@ -1,7 +1,12 @@
 """Process sets — sub-groups of ranks doing independent collectives.
 
 The PyTorch counterpart of the JAX package's ``common/process_sets.py``:
-a process set is a ``torch.distributed`` group over its ranks.
+a process set is a ``torch.distributed`` group over its ranks, and a
+second group over the same ranks for the eager plane only
+(``ops/eager.py``).  The eager controller issues its collectives from
+its own thread; on a group of their own they can never interleave with
+the main thread's collectives (``DistributedOptimizer``,
+``broadcast_parameters``) in another order on another rank.
 """
 
 from __future__ import annotations
@@ -14,18 +19,28 @@ import torch.distributed as dist
 from .exceptions import HorovodTpuError, NotInitializedError
 
 __all__ = ["ProcessSet", "ProcessSetTable", "global_process_set",
-           "add_process_set"]
+           "add_process_set", "remove_process_set", "process_set_by_id"]
+
+
+def _eager_group(ranks: List[int]) -> Optional[dist.ProcessGroup]:
+    """The eager plane's group over ``ranks`` (None for a set of one,
+    whose eager collectives are local).  ``dist.new_group`` is collective
+    over the world: every process calls this in the same order."""
+    return dist.new_group(ranks) if len(ranks) > 1 else None
 
 
 class ProcessSet:
-    """A set of global ranks and the process group over them (``None``
-    is the default group, i.e. the whole world)."""
+    """A set of global ranks, the process group over them (``None`` is
+    the default group, i.e. the whole world) and the eager plane's group
+    over them."""
 
     def __init__(self, ranks: Sequence[int], set_id: int, topo,
-                 group: Optional[dist.ProcessGroup] = None):
+                 group: Optional[dist.ProcessGroup] = None,
+                 eager_group: Optional[dist.ProcessGroup] = None):
         self.ranks: List[int] = sorted(set(int(r) for r in ranks))
         self.id = set_id
         self.group = group
+        self.eager_group = eager_group
         self._topo = topo
 
     def included(self, global_rank: Optional[int] = None) -> bool:
@@ -60,16 +75,20 @@ class ProcessSetTable:
         self._lock = threading.RLock()
         self._topo = topo
         self._next_id = 1
+        ranks = list(range(topo.size))
         self._sets: Dict[int, ProcessSet] = {
-            self.GLOBAL_ID: ProcessSet(range(topo.size), self.GLOBAL_ID, topo)
+            self.GLOBAL_ID: ProcessSet(ranks, self.GLOBAL_ID, topo,
+                                       eager_group=_eager_group(ranks))
         }
 
     def get(self, set_id: int) -> ProcessSet:
-        with self._lock:
-            try:
-                return self._sets[set_id]
-            except KeyError:
-                raise HorovodTpuError(f"Unknown process set id {set_id}")
+        # No lock: a dict lookup is atomic, and the eager controller's
+        # thread looks sets up while add() holds the lock across the
+        # collective dist.new_group, which waits for the other ranks.
+        ps = self._sets.get(set_id)
+        if ps is None:
+            raise HorovodTpuError(f"Unknown process set id {set_id}")
+        return ps
 
     def global_set(self) -> ProcessSet:
         return self.get(self.GLOBAL_ID)
@@ -88,10 +107,17 @@ class ProcessSetTable:
                 if ps.ranks == ranks:
                     return ps
             group = dist.new_group(ranks)
-            ps = ProcessSet(ranks, self._next_id, self._topo, group)
+            ps = ProcessSet(ranks, self._next_id, self._topo, group,
+                            _eager_group(ranks))
             self._sets[self._next_id] = ps
             self._next_id += 1
             return ps
+
+    def remove(self, set_id: int) -> None:
+        if set_id == self.GLOBAL_ID:
+            raise HorovodTpuError("Cannot remove the global process set")
+        with self._lock:
+            self._sets.pop(set_id, None)
 
 
 def _table() -> ProcessSetTable:
@@ -109,3 +135,11 @@ def global_process_set() -> ProcessSet:
 
 def add_process_set(ranks: Sequence[int]) -> ProcessSet:
     return _table().add(ranks)
+
+
+def remove_process_set(set_id: int) -> None:
+    _table().remove(set_id)
+
+
+def process_set_by_id(set_id: int) -> ProcessSet:
+    return _table().get(set_id)

@@ -6,8 +6,10 @@ state authoritative.  Tensors are broadcast in place.
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Iterable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -15,7 +17,7 @@ from .common import basics
 from .common.process_sets import ProcessSet, global_process_set
 
 __all__ = ["broadcast_parameters", "broadcast_optimizer_state",
-           "broadcast_object"]
+           "broadcast_object", "allgather_object"]
 
 Params = Union[torch.nn.Module, dict, Iterable[Tuple[str, torch.Tensor]],
                Iterable[torch.Tensor]]
@@ -108,3 +110,27 @@ def broadcast_object(obj: Any, root_rank: int = 0,
     dist.broadcast_object_list(box, src=ps.global_rank(root_rank),
                                group=ps.group)
     return box[0]
+
+
+def allgather_object(obj: Any, process_set: Optional[ProcessSet] = None,
+                     name: Optional[str] = None) -> list:
+    """Gather a picklable object from every rank, in set-rank order, over
+    two named eager allgathers (the pickled bytes, then their lengths)."""
+    from .ops import eager
+
+    ps = process_set or global_process_set()
+    name = name or "allgather_object"
+    payload = np.frombuffer(pickle.dumps(obj), dtype=np.uint8).copy()
+    gathered = eager.allgather(payload.reshape(-1, 1),
+                               name=f"{name}.data", process_set=ps)
+    # ragged gather of (n_i, 1) blocks; recover per-rank lengths
+    sizes = eager.allgather(np.array([[payload.shape[0]]], dtype=np.int64),
+                            name=f"{name}.sizes", process_set=ps)
+    out = []
+    offset = 0
+    flat = np.asarray(gathered).reshape(-1)
+    for n in np.asarray(sizes).reshape(-1):
+        out.append(pickle.loads(flat[offset:offset + int(n)]
+                                .astype(np.uint8).tobytes()))
+        offset += int(n)
+    return out

@@ -26,8 +26,9 @@ from ..common.types import ReduceOp
 
 log = logging.getLogger(__name__)
 
-__all__ = ["allreduce", "allgather", "reduce_scatter", "alltoall",
-           "broadcast", "fused_allreduce", "fused_allreduce_buckets"]
+__all__ = ["allreduce", "allgather", "allgather_ragged", "reduce_scatter",
+           "alltoall", "alltoall_uneven", "broadcast", "fused_allreduce",
+           "fused_allreduce_buckets"]
 
 _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
              ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -36,16 +37,18 @@ _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
              ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT}
 
 
-def _reduce_(buf: torch.Tensor, op: ReduceOp,
-             ps: ProcessSet) -> torch.Tensor:
-    """All-reduce ``buf`` in place; returns the reduced tensor (a new
-    one only for an integer Average, which turns float)."""
+def _reduce_(buf: torch.Tensor, op: ReduceOp, ps: ProcessSet,
+             group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """All-reduce ``buf`` in place over ``group`` (default: the set's
+    group); returns the reduced tensor (a new one only for an integer
+    Average, which turns float)."""
     op = ReduceOp(op)
     if op == ReduceOp.ADASUM:
         raise NotImplementedError(
             "Adasum is not ported yet (ROADMAP Queue 1: exchange "
             "scheduling)")
-    dist.all_reduce(buf, _DIST_OPS[op], group=ps.group)
+    dist.all_reduce(buf, _DIST_OPS[op],
+                    group=ps.group if group is None else group)
     if op == ReduceOp.AVERAGE:
         if buf.is_floating_point():
             return buf.div_(ps.size())
@@ -84,6 +87,65 @@ def allgather(tensor: torch.Tensor, concat_axis: int = 0, *,
     if not tiled:
         return gathered.movedim(0, concat_axis).contiguous()
     return torch.cat(list(gathered.unbind(0)), dim=concat_axis)
+
+
+def allgather_ragged(tensor: torch.Tensor, sizes: Sequence[int],
+                     process_set: Optional[ProcessSet] = None
+                     ) -> torch.Tensor:
+    """Allgather where set rank r contributes its first ``sizes[r]`` rows.
+    Every rank passes a tensor padded to ``max(sizes)`` rows (rows past
+    its own size are ignored), as in the JAX package, whose shapes are
+    static; returns the ``sum(sizes)``-row concatenation in set-rank
+    order."""
+    ps = process_set or global_process_set()
+    sizes = [int(s) for s in sizes]
+    n = ps.size()
+    if len(sizes) != n:
+        raise ValueError(f"len(sizes)={len(sizes)} != set size {n}")
+    maxpad = max(sizes)
+    if tensor.shape[0] != maxpad:
+        raise ValueError(
+            f"ragged allgather input must be padded to max(sizes)="
+            f"{maxpad} rows, got {tensor.shape[0]}")
+    gathered = allgather(tensor, tiled=False, process_set=ps)
+    return torch.cat([gathered[r, :sizes[r]] for r in range(n)])
+
+
+def alltoall_uneven(tensor: torch.Tensor,
+                    send_splits: Sequence[Sequence[int]],
+                    process_set: Optional[ProcessSet] = None):
+    """All-to-all with per-(src, dst) row counts: ``send_splits[r][j]``
+    rows go from set rank r to set rank j, each rank's rows summing to
+    the (uniform) input's first dimension.  As in the JAX package, the
+    output is padded to the largest receive total; returns ``(out,
+    recv_count)`` with the rows received in source order, zeros past
+    them, and this rank's count as an int32 scalar tensor."""
+    ps = process_set or global_process_set()
+    m = [[int(v) for v in row] for row in send_splits]
+    n = ps.size()
+    if len(m) != n or any(len(row) != n for row in m):
+        raise ValueError(f"send_splits must be {n}x{n}")
+    row_tot = {sum(row) for row in m}
+    if len(row_tot) != 1:
+        raise ValueError(
+            "each rank's send_splits row must sum to the same (uniform) "
+            f"input length, got sums {sorted(row_tot)}")
+    in_rows = row_tot.pop()
+    if tensor.shape[0] != in_rows:
+        raise ValueError(
+            f"input rows {tensor.shape[0]} != send_splits row sum {in_rows}")
+    me = ps.rank()
+    recv = [m[r][me] for r in range(n)]
+    max_out = max(sum(m[r][j] for r in range(n)) for j in range(n))
+    rest = tuple(tensor.shape[1:])
+    got = tensor.new_empty((sum(recv),) + rest)
+    dist.all_to_all_single(got, tensor.detach().contiguous(),
+                           output_split_sizes=recv,
+                           input_split_sizes=m[me], group=ps.group)
+    out = tensor.new_zeros((max_out,) + rest)
+    out[:got.shape[0]] = got
+    return out, torch.tensor(sum(recv), dtype=torch.int32,
+                             device=tensor.device)
 
 
 def _split_rows(t: torch.Tensor, axis: int, n: int) -> torch.Tensor:

@@ -195,7 +195,8 @@ class _GraphedStep:
             static[i] = a.clone()
         graph = torch.cuda.CUDAGraph()
         try:
-            with graphs.collect_replay_hooks() as hooks, \
+            with graphs.capture_lock, \
+                    graphs.collect_replay_hooks() as hooks, \
                     torch.cuda.device(device), \
                     torch.cuda.graph(graph, capture_error_mode="global"):
                 out = self._fn(*static)

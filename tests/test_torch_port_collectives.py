@@ -395,26 +395,39 @@ def test_broadcast_optimizer_state_two_processes(tmp_path):
 # ---- (f) import isolation -------------------------------------------------
 
 
-# Modules of the bench/step-pipeline slice the walk below must reach.
+# Modules of the later slices the walk below must reach.
 _SLICE_MODULES = ("horovod_tpu_torch.bench", "horovod_tpu_torch.step_pipeline",
                   "horovod_tpu_torch.common.graphs",
                   "horovod_tpu_torch.telemetry.metrics",
                   "horovod_tpu_torch.telemetry.step_stats",
                   "horovod_tpu_torch.data.loader",
                   "horovod_tpu_torch.parallel.mesh",
-                  "horovod_tpu_torch.parallel.ring_attention")
+                  "horovod_tpu_torch.parallel.ring_attention",
+                  "horovod_tpu_torch.ops.eager",
+                  "horovod_tpu_torch.ops.control_plane",
+                  "horovod_tpu_torch.ops.host_collectives",
+                  "horovod_tpu_torch.ops.messages",
+                  "horovod_tpu_torch.ops.handles",
+                  "horovod_tpu_torch.ops.sparse",
+                  "horovod_tpu_torch.stall",
+                  "horovod_tpu_torch.resilience.escalation",
+                  "horovod_tpu_torch.common.util")
 
 
 def test_import_loads_no_jax():
+    """Importing every module of the port loads nothing of JAX, and
+    starts no thread (the eager controller starts at the first eager
+    call)."""
     code = (
-        "import sys, importlib, pkgutil, horovod_tpu_torch as h\n"
+        "import sys, threading, importlib, pkgutil, horovod_tpu_torch as h\n"
         "for m in pkgutil.walk_packages(h.__path__, 'horovod_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         f"missing = [m for m in {_SLICE_MODULES!r} if m not in sys.modules]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'optax', 'horovod_tpu', 'triton'))\n"
-        "print(bad, missing)\n"
-        "sys.exit(1 if bad or missing else 0)\n")
+        "threads = [t.name for t in threading.enumerate()]\n"
+        "print(bad, missing, threads)\n"
+        "sys.exit(1 if bad or missing or len(threads) > 1 else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
