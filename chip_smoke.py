@@ -63,6 +63,29 @@ Phases, one JSON line each:
    synchronize and the controller's idle cycles and store round trips a
    second; eager_capture, a donated_step capture taken while eager ops
    are in flight, replayed bit-identically to the eager step;
+10b. sync_bn — SyncBatchNorm on the main path: the bs-64 ResNet-50 step
+   with bn_axis="dp", HVDT_FUSED_CONV1X1=1 (#4 under axis=) and
+   DistributedOptimizer(fused_sgd) (#2), graphed by donated_step:
+   losses, parameters, BN statistics and momentum bit-identical to the
+   eager step and to bn_axis=None (a world of one), #4 26 times and #2
+   once a replay (torch.profiler), the step's ms against bn_axis=None's
+   in turns;
+10c. accumulate — backward_passes_per_step k = 2 and 4 under
+   donated_step (one graph a pass of the cycle) against the eager
+   passes, bit for bit, on the bs-64 batch cut into k micro-batches; the
+   kernels of each pass's replay (no NCCL kernel and no #2 on a
+   non-boundary pass); microbatch_gradients with k = 4 against the
+   gradients one k = 4 accumulation hands the optimizer, bit for bit;
+10d. wire_graphed — the int8 and int4 wires under with_error_feedback(
+   DistributedOptimizer(...)) graphed against eager over 3 steps
+   (parameters, momentum and residuals bit-identical), #5-#8 launches a
+   replay against the leaf count and the bucket plan, the graphed step's
+   ms against the eager step's in turns;
+10e. vgg, mlp — VGG-16 (configuration D, 224x224, 1000 classes, bf16
+   compute, f32 params, batch 64, 138.4M parameters) under
+   DistributedOptimizer(fused_sgd(1e-3)), 3 graphed steps, then its step
+   ms, img/s and MFU (FlopCounterMode); the MLP (784-256-128-10, batch
+   64), 3 graphed steps and its step ms;
 11. flash_kernel — the three flash-attention kernels (#9 forward, #10
    dQ, #11 dK/dV) against their plain versions at the LM path's shape
    (B 16, H 16, L 4096, D 64, bf16, causal), with
@@ -166,8 +189,31 @@ others reduce (it adds each reduction's identity), allgather_object,
 one named uneven alltoall called three times; eager_cards_grouped, the 161-leaf grouped allreduce against
 device.fused_allreduce (its fused responses, host ms of each), one small
 allreduce's host ms, and each rank's idle cycles a second and store
-round trips a cycle.  Both multi-card modes end with the card's line and
-the last line of the one-card run.
+round trips a cycle.
+
+    python3 chip_smoke.py --dp-cards 4
+
+runs the data-parallel step across 4 cards (one process a card, an NCCL
+world, the eager controller never started), after the one-card bench
+leg G on card 0 (bench_leg line, the yardstick of the scaling):
+dp_cards, ResNet-50 with bn_axis="dp", fused convs (#4) and
+DistributedOptimizer(fused_sgd) (#2), graphed, at batch 32 a card:
+state bit-identical on every rank after 3 steps, and the first step in
+f32 (unfused) against one card running the global batch of 128 with
+bn_axis=None, with the reordered global batch as the yardstick, and
+each distinct fused 1x1 conv + BN of that model (#4 under axis="dp")
+against the same op on the global batch, rank by rank, with the op's
+per-rank statistics as the yardstick;
+dp_cards_time, batch 128 a card: the step with the exchange and the
+SyncBN collectives, with one of them, and with neither, graphed; img/s
+a card and the scaling efficiency against leg G; dp_cards_wire, the
+int8 and int4 wires graphed against eager on every rank, with the bytes
+each rank sends; dp_cards_vgg, VGG-16 at batch 64 a card over the exact
+and the int8 wire: step ms and one exchange's ms (553 MB of f32
+gradients); dp_cards_accumulate, k = 2 (no SyncBN: the exchange is
+the only collective) graphed against eager, NCCL kernels only on the
+boundary pass.  Every dp line carries its phase's wall_s.  The multi-card modes end with the
+card's line and the last line of the one-card run.
 """
 
 import gc
@@ -2731,6 +2777,911 @@ def eager_cards(n: int) -> int:
     return 0
 
 
+# ---- the data-parallel step made whole: SyncBN, accumulation, the wire in a
+# ---- graph, VGG-16 and the MLP (one card), then --dp-cards N ----------------
+
+DP_STEPS = 3
+# Kernel names in a torch.profiler trace, by kernel of the path: each name
+# part matches that kernel's CUDA function (quant8_kernel is a part of
+# dequant8_kernel's name, so the dequantize kernels are matched first).
+REPLAY_KERNELS = (("_mm_stats_kernel", "mm_stats_kernel"),
+                  ("_sgd_kernel", "optim_multi<false>"),
+                  ("_dequant_kernel", "dequant8_kernel"),
+                  ("_quant_kernel", "quant8_kernel"),
+                  ("_dequant4_kernel", "dequant4_kernel"),
+                  ("_quant4_kernel", "quant4_kernel"),
+                  ("nccl", "nccl"))
+
+
+def replay_kernels(fn) -> dict:
+    """The kernels one call of ``fn`` launches on the card, by
+    :data:`REPLAY_KERNELS` (torch.profiler; a graph replay's kernels are
+    traced one by one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {name: 0 for name, _ in REPLAY_KERNELS}
+    total = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        total += 1
+        key = e.name.lower()
+        for name, part in REPLAY_KERNELS:
+            if part in key:
+                out[name] += 1
+                break
+    out["all"] = total
+    return out
+
+
+def _resnet_step(model, opt, images, labels):
+    from horovod_tpu_torch.models import resnet_loss
+
+    opt.zero_grad(set_to_none=True)
+    loss, _ = resnet_loss(model, images, labels)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _vgg_step(model, opt, images, labels):
+    from horovod_tpu_torch.models import vgg_loss
+
+    opt.zero_grad(set_to_none=True)
+    loss = vgg_loss(model, images, labels)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _mlp_step(model, opt, x, labels):
+    from horovod_tpu_torch.models import mlp_loss
+
+    opt.zero_grad(set_to_none=True)
+    loss = mlp_loss(model, x, labels)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+def _dp_opt(hvd, model, *, k=1, wire=None, lr=0.01):
+    """DistributedOptimizer(fused_sgd(lr, momentum 0.9)) over ``wire``
+    (None: the exact wire; "int8"/"int4" under with_error_feedback)."""
+    comp = {None: hvd.Compression.none, "int8": hvd.Compression.int8,
+            "int4": hvd.Compression.int4}[wire]
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_sgd(model.parameters(), lr, momentum=0.9),
+        compression=comp, backward_passes_per_step=k)
+    return hvd.quant.with_error_feedback(opt, wire=wire) if wire else opt
+
+
+def _state_of(model, opt, losses) -> dict:
+    """Copies of what a graphed and an eager run must share: the losses,
+    the model's state, the optimizer's state and error-feedback
+    residuals."""
+    out = {"losses": torch.stack(losses)}
+    out.update({k: v.detach().clone() for k, v in model.state_dict().items()})
+    inner = opt
+    while not isinstance(inner, torch.optim.Optimizer):
+        if "residual" in vars(inner):
+            out.update({f"residual{i}": r.clone()
+                        for i, r in enumerate(inner.residual.values())})
+        inner = inner.optimizer
+    for i, st in enumerate(inner.state.values()):
+        out.update({f"state{i}.{k}": v.clone() for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    return out
+
+
+def _runs_err(got: dict, want: dict) -> float:
+    assert got.keys() == want.keys()
+    return max(_bit_err(got[k], want[k]) for k in got)
+
+
+def _dp_run(hvd, graphed, batches, calls, *, bn_axis=None, k=1, wire=None,
+            make_model=None, step_fn=None, lr=0.01):
+    """``calls`` steps of a fresh model (ResNet-50 at ``bn_axis`` unless
+    ``make_model``), broadcast from rank 0, under :func:`_dp_opt`; call i
+    takes ``batches[i % len(batches)]``.  Returns (model, opt, step,
+    state) with the state from :func:`_state_of`."""
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    if make_model is None:
+        model = resnet50_init(0, ResNetConfig(bn_axis=bn_axis))
+    else:
+        model = make_model()
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = _dp_opt(hvd, model, k=k, wire=wire, lr=lr)
+    fn = step_fn or _resnet_step
+    step = donated_step(fn) if graphed else fn
+    losses = [step(model, opt, *batches[i % len(batches)]).clone()
+              for i in range(calls)]
+    torch.cuda.synchronize()
+    return model, opt, step, _state_of(model, opt, losses)
+
+
+def _graphed_ms(call, steps: int = 10, reps: int = 3) -> dict:
+    """Device-clock ms a call over ``reps`` runs of ``steps`` calls back
+    to back (CUDA events; every rank starts together when a process
+    group exists)."""
+    import torch.distributed as dist
+
+    call()
+    times = []
+    for _ in range(reps):
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / steps)
+    return _stats(times)
+
+
+def _free():
+    """Return the card's memory once the caller has dropped its
+    references (graphs, models, optimizers)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _bf16_batch(seed, batch, image=IMAGE, classes=1000):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn((batch, image, image, 3), generator=g,
+                         device="cuda", dtype=torch.bfloat16)
+    labels = torch.randint(0, classes, (batch,), generator=g, device="cuda")
+    return images, labels
+
+
+def phase_sync_bn(hvd, smi):
+    """SyncBN on the main path in the NCCL world of one: the bs-64
+    ResNet-50 step with bn_axis="dp", HVDT_FUSED_CONV1X1=1, under
+    DistributedOptimizer(fused_sgd), graphed by donated_step, against
+    the same step eagerly and against bn_axis=None graphed (a world of
+    one: every byte the same); #4's launches on a replay (26 a forward)
+    and the step's ms against bn_axis=None's, in turns."""
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = [_bf16_batch(11, BATCH)]
+        reset_counters()
+        model, opt, step, dp = _dp_run(hvd, True, batch, DP_STEPS,
+                                       bn_axis="dp")
+        launches = counters()
+        assert launches["_mm_stats_kernel"] == 26 * 2, launches
+        assert launches["_sgd_kernel"] == 2, launches
+        assert all(math.isfinite(x) for x in dp["losses"].tolist())
+        per_replay = replay_kernels(lambda: step(model, opt, *batch[0]))
+        assert per_replay["_mm_stats_kernel"] == 26, per_replay
+        assert per_replay["_sgd_kernel"] == 1, per_replay
+        eager = _dp_run(hvd, False, batch, DP_STEPS, bn_axis="dp")[3]
+        err_eager = _runs_err(dp, eager)
+        assert err_eager == 0.0, err_eager
+        m0, o0, s0, none = _dp_run(hvd, True, batch, DP_STEPS)
+        err_none = _runs_err(dp, none)
+        assert err_none == 0.0, err_none
+        ms = {"dp": [], "none": []}
+        for name in ("dp", "none", "none", "dp"):
+            st, mo, op = (step, model, opt) if name == "dp" else (s0, m0, o0)
+            ms[name].append(_graphed_ms(lambda: st(mo, op, *batch[0])))
+        emit({"phase": "sync_bn", "model": "resnet50", "batch": BATCH,
+              "bn_axis": "dp", "steps": DP_STEPS,
+              "losses": dp["losses"].tolist(), "launches": launches,
+              "kernels_per_replay": per_replay,
+              "graphed_vs_eager_max_abs_err": err_eager,
+              "vs_bn_axis_none_max_abs_err": err_none,
+              "tensors": len(dp), "tolerance": 0.0,
+              "step_ms": ms["dp"], "bn_axis_none_step_ms": ms["none"],
+              "card": smi})
+        del model, opt, step, m0, o0, s0
+        _free()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def phase_accumulate(hvd, smi):
+    """backward_passes_per_step k = 2 and 4 under donated_step (one graph
+    a pass of the cycle) against the eager k-pass steps, bit for bit, on
+    the bs-64 ResNet-50 batch cut into k micro-batches; the kernels of
+    each pass's replay (no NCCL kernel on a non-boundary replay; the SGD
+    kernel only on the boundary); then microbatch_gradients with k = 4
+    against the gradients one k = 4 accumulation hands the optimizer."""
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    try:
+        images, labels = _bf16_batch(12, BATCH)
+        rows = {}
+        for k in (2, 4):
+            micro = list(zip(images.chunk(k), labels.chunk(k)))
+            reset_counters()
+            model, opt, step, got = _dp_run(hvd, True, micro, 3 * k, k=k)
+            launches = counters()
+            assert launches["_sgd_kernel"] == 2, launches
+            assert len(step._graphs) == k
+            want = _dp_run(hvd, False, micro, 3 * k, k=k)[3]
+            err = _runs_err(got, want)
+            assert err == 0.0, (k, err)
+            per_pass = {}
+            for key, cap in sorted(step._graphs.items()):
+                per_pass[str(key[0])] = replay_kernels(cap.graph.replay)
+            for key, kern in per_pass.items():
+                boundary = int(key) == k - 1
+                assert kern["_mm_stats_kernel"] == 26, (key, kern)
+                assert kern["_sgd_kernel"] == int(boundary), (key, kern)
+                if not boundary:
+                    assert kern["nccl"] == 0, (key, kern)
+            rows[k] = {"graphs": len(step._graphs), "passes": 3 * k,
+                       "launches": launches,
+                       "graphed_vs_eager_max_abs_err": err,
+                       "kernels_per_replay_by_pass": per_pass,
+                       "pass_ms": _graphed_ms(
+                           lambda: step(model, opt, *micro[0]), steps=k)}
+            del model, opt, step
+            _free()
+
+        # microbatch_gradients (k = 4) against one k = 4 accumulation.
+        from horovod_tpu_torch.models import (ResNetConfig, resnet50_init,
+                                              resnet_loss)
+
+        micro = list(zip(images.chunk(4), labels.chunk(4)))
+        model = resnet50_init(0, ResNetConfig())
+        opt = _dp_opt(hvd, model, k=4)
+        for x, y in micro:
+            _resnet_step(model, opt, x, y)
+        acc = [p.grad.clone() for p in model.parameters()]
+        model = resnet50_init(0, ResNetConfig())
+        params = list(model.parameters())
+
+        def grad_fn(ps, mb):
+            loss, _ = resnet_loss(model, *mb)
+            return torch.autograd.grad(loss, ps)
+
+        reset_counters()
+        mb = hvd.microbatch_gradients(grad_fn, params, (images, labels), 4)
+        mb_launches = counters()
+        torch.cuda.synchronize()
+        mb_err = max(_bit_err(a.contiguous(), b.contiguous())
+                     for a, b in zip(mb, acc))
+        assert mb_err == 0.0, mb_err
+        emit({"phase": "accumulate", "model": "resnet50", "batch": BATCH,
+              "k": rows, "microbatch_vs_accumulation_max_abs_err": mb_err,
+              "microbatch_launches": mb_launches, "tolerance": 0.0,
+              "card": smi})
+        del model, opt, acc, mb
+        _free()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def phase_wire_graphed(hvd, smi):
+    """The int8 and int4 wires under with_error_feedback(
+    DistributedOptimizer(...)) graphed against eager over 3 steps
+    (parameters, momentum and residuals bit-identical), the quantize and
+    dequantize kernels a replay launches, and the graphed step's ms
+    against the eager step's, in turns."""
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = [_bf16_batch(13, BATCH)]
+        rows = {}
+        for wire in ("int8", "int4"):
+            reset_counters()
+            model, opt, step, got = _dp_run(hvd, True, batch, DP_STEPS,
+                                            wire=wire)
+            launches = counters()
+            em, eo, _, want = _dp_run(hvd, False, batch, DP_STEPS, wire=wire)
+            err = _runs_err(got, want)
+            assert err == 0.0, (wire, err)
+            want_q, want_dq = expected_quant_launches(hvd, model, 1, wire)
+            kern = replay_kernels(lambda: step(model, opt, *batch[0]))
+            q, dq = (("_quant4_kernel", "_dequant4_kernel") if wire == "int4"
+                     else ("_quant_kernel", "_dequant_kernel"))
+            assert (kern[q], kern[dq]) == (want_q, want_dq), (wire, kern)
+            assert launches[q] == 2 * want_q, (wire, launches)
+
+            def eager_step():
+                _resnet_step(em, eo, *batch[0])
+
+            graphed = lambda: step(model, opt, *batch[0])  # noqa: E731
+            ms = {"graphed": [], "eager": []}
+            for name in ("graphed", "eager", "eager", "graphed"):
+                ms[name].append(_graphed_ms(
+                    graphed if name == "graphed" else eager_step, steps=5))
+            rows[wire] = {"launches": launches, "kernels_per_replay": kern,
+                          "expected_quant_dequant_per_step": [want_q,
+                                                              want_dq],
+                          "graphed_vs_eager_max_abs_err": err,
+                          "tensors": len(got), "graphed_step_ms": ms[
+                              "graphed"], "eager_step_ms": ms["eager"]}
+            del model, opt, step, em, eo
+            _free()
+        emit({"phase": "wire_graphed", "model": "resnet50", "batch": BATCH,
+              "steps": DP_STEPS, "wires": rows, "tolerance": 0.0,
+              "card": smi})
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def vgg_step_flops(cfg, batch: int) -> float:
+    """FLOPs of one VGG training step (convolutions and matmuls, 2 a
+    multiply-add), counted by FlopCounterMode on the meta device, as the
+    bench counts ResNet-50's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from horovod_tpu_torch.models import vgg16_init, vgg_loss
+
+    model = vgg16_init(0, cfg, device="meta")
+    images = torch.empty((batch, cfg.image_size, cfg.image_size, 3),
+                         device="meta")
+    labels = torch.zeros((batch,), dtype=torch.long, device="meta")
+    with FlopCounterMode(display=False) as counter:
+        vgg_loss(model, images, labels).backward()
+    return float(counter.get_total_flops())
+
+
+VGG_BATCH = 64
+MLP_BATCH = 64
+# VGG has no BatchNorm: SGD at 0.01 with momentum 0.9 on one repeated
+# batch diverges within a few steps, so its phases step at 1e-3.
+VGG_LR = 1e-3
+
+
+def phase_vgg_mlp(hvd, smi):
+    """VGG-16 (configuration D, 224x224, 1000 classes, bf16 compute, f32
+    params, batch 64) under DistributedOptimizer(fused_sgd), 3 graphed
+    steps, then its step ms, img/s and MFU; the MLP (784-256-128-10,
+    batch 64) for 3 graphed steps."""
+    from horovod_tpu_torch.models import VGGConfig, mlp_init, vgg16_init
+
+    cfg = VGGConfig()
+    batch = [_bf16_batch(14, VGG_BATCH)]
+    reset_counters()
+    model, opt, step, got = _dp_run(
+        hvd, True, batch, DP_STEPS, make_model=lambda: vgg16_init(0, cfg),
+        step_fn=_vgg_step, lr=VGG_LR)
+    launches = counters()
+    losses = got["losses"].tolist()
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_sgd_kernel"] == 2, launches
+    n_params = sum(p.numel() for p in model.parameters())
+    ms = _graphed_ms(lambda: step(model, opt, *batch[0]))
+    flops = vgg_step_flops(cfg, VGG_BATCH)
+    step_s = ms["median"] / 1e3
+    emit({"phase": "vgg", "model": "vgg16", "batch": VGG_BATCH,
+          "image": cfg.image_size, "params": n_params, "losses": losses,
+          "launches": launches, "step_ms": ms,
+          "images_per_s": VGG_BATCH / step_s, "flops_per_step": flops,
+          "mfu": flops / step_s / PEAK_BF16_FLOPS, "card": smi})
+    del model, opt, step
+    _free()
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    x = torch.randn((MLP_BATCH, 784), generator=g, device="cuda")
+    y = torch.randint(0, 10, (MLP_BATCH,), generator=g, device="cuda")
+    reset_counters()
+    model, opt, step, got = _dp_run(
+        hvd, True, [(x, y)], DP_STEPS, make_model=lambda: mlp_init(0),
+        step_fn=_mlp_step)
+    mlp_launches = counters()
+    losses = got["losses"].tolist()
+    assert all(math.isfinite(v) for v in losses), losses
+    assert mlp_launches["_sgd_kernel"] == 2, mlp_launches
+    emit({"phase": "mlp", "model": "mlp", "sizes": [784, 256, 128, 10],
+          "batch": MLP_BATCH, "losses": losses, "launches": mlp_launches,
+          "step_ms": _graphed_ms(lambda: step(model, opt, x, y)),
+          "card": smi})
+    del model, opt, step
+    _free()
+
+
+# ---- python3 chip_smoke.py --dp-cards N: the data-parallel step across N
+# ---- cards --------------------------------------------------------------------
+
+DP_CARDS_TIMEOUT_S = 900
+DP_CHECK_BATCH, DP_TIME_BATCH = 32, 128
+# The dp run's first step against one card running the global batch with
+# bn_axis=None.  At random init ResNet-50's gradients are ill-conditioned:
+# on the CPU, merely reordering the images of one f32 batch moved them by
+# 2.8% relative L2 (ResNet-50, 16 images of 160x160, unfused), and in bf16
+# by 111%, as large as the gradients themselves.  So the gradients are
+# held in f32 (unfused: the fused kernels take 16-bit operands), against
+# twice what reordering the global batch does on the same card, plus
+# 1e-3; the loss within 1e-4 relative in f32 and 5e-2 in bf16 (the
+# graphed run's first loss, fused convs).
+DP_F32_LOSS_TOL, DP_BF16_LOSS_TOL = 1e-4, 5e-2
+
+
+def _rel_l2(got, want) -> float:
+    diff = sum(float((a.double() - b.double()).norm()) ** 2
+               for a, b in zip(got, want)) ** 0.5
+    return diff / sum(float(b.double().norm()) ** 2 for b in want) ** 0.5
+
+
+def _global_batch_check(hvd, images, labels, loss_bf16) -> dict:
+    """The first step of the dp run in f32 (bn_axis="dp", unfused, one
+    exchange of the gradients) against one card running the global batch
+    with bn_axis=None, with the reordered global batch as the yardstick;
+    ``loss_bf16`` is the graphed bf16 run's first loss averaged over the
+    ranks, held against the global batch's bf16 loss.  Collective: every
+    rank calls it; rank 0 returns the result."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import (ResNetConfig, resnet50_init,
+                                          resnet_loss)
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    everyone = [torch.empty_like(images) for _ in range(n)]
+    dist.all_gather(everyone, images)
+    every_label = [torch.empty_like(labels) for _ in range(n)]
+    dist.all_gather(every_label, labels)
+    os.environ["HVDT_FUSED_CONV1X1"] = "0"
+    f32 = ResNetConfig(dtype=torch.float32, bn_axis="dp")
+    model = resnet50_init(0, f32)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    loss, _ = resnet_loss(model, images.float(), labels)
+    loss.backward()
+    grads = hvd.allreduce_gradients([p.grad for p in model.parameters()])
+    loss = hvd.allreduce_gradients([loss.detach()])[0]
+    del model
+    _free()
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    if r:
+        return None
+    x, y = torch.cat(everyone).float(), torch.cat(every_label)
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(
+        0)).to(x.device)
+    runs = []
+    for order in (None, perm):
+        os.environ["HVDT_FUSED_CONV1X1"] = "0"
+        ref = resnet50_init(0, ResNetConfig(dtype=torch.float32))
+        xs, ys = (x, y) if order is None else (x[order], y[order])
+        want, _ = resnet_loss(ref, xs, ys)
+        want.backward()
+        runs.append((want.item(), [p.grad for p in ref.parameters()]))
+        del ref, xs, ys
+        _free()
+    with torch.no_grad():
+        os.environ["HVDT_FUSED_CONV1X1"] = "1"
+        ref = resnet50_init(0, ResNetConfig())
+        want_bf16, _ = resnet_loss(ref, x.to(torch.bfloat16), y)
+        del ref
+    _free()
+    (want, want_g), (_, perm_g) = runs
+    floor = _rel_l2(perm_g, want_g)
+    out = {"f32_loss": float(loss), "f32_global_batch_loss": want,
+           "f32_loss_rel_err": abs(float(loss) - want) / abs(want),
+           "f32_grads_rel_l2": _rel_l2(grads, want_g),
+           "f32_reordered_batch_grads_rel_l2": floor,
+           "bf16_loss": loss_bf16, "bf16_global_batch_loss": float(
+               want_bf16),
+           "bf16_loss_rel_err": abs(loss_bf16 - float(want_bf16))
+           / abs(float(want_bf16)),
+           "tolerance": {"f32_loss": DP_F32_LOSS_TOL,
+                         "f32_grads": "2 x reordered + 1e-3",
+                         "bf16_loss": DP_BF16_LOSS_TOL}}
+    assert out["f32_loss_rel_err"] <= DP_F32_LOSS_TOL, out
+    assert out["f32_grads_rel_l2"] <= 2 * floor + 1e-3, out
+    assert out["bf16_loss_rel_err"] <= DP_BF16_LOSS_TOL, out
+    return out
+
+
+# #4 under axis= across the cards, op by op (_fused_sync_check): each
+# rank's shard has its own scale and offset, so statistics taken per rank
+# miss the global ones by O(1) (the check also runs axis=None on the
+# local shard as its yardstick, which must fail every tolerance below
+# but dbeta's: without a ReLU, dbeta does not read the statistics).
+# mean in units of the global standard deviation, var relative, y
+# relative to |y| + 1 (a bf16 output: one ulp is 2^-8 relative), the
+# gradients relative L2 after the sum over the ranks.
+DP_FUSED_TOL = {"mean": 1e-3, "var": 1e-3, "y": 1e-2, "dx": 1e-2,
+                "dw": 1e-2, "dgamma": 1e-3, "dbeta": 1e-3}
+
+
+def _fused_shapes() -> list:
+    """(x shape, w shape, relu) of each distinct conv1x1_bn_train call in
+    ResNet-50's train forward at DP_CHECK_BATCH a card (bn_axis="dp",
+    HVDT_FUSED_CONV1X1=1), in call order.  Collective (the forward's
+    SyncBN all-reduces): every rank calls it."""
+    from horovod_tpu_torch.models import (ResNetConfig, resnet50_init,
+                                          resnet_loss)
+    from horovod_tpu_torch.models import resnet as rn
+
+    shapes = {}
+    real = rn.conv1x1_bn_train
+
+    def record(x, w, *args, relu=True, **kw):
+        shapes.setdefault((tuple(x.shape), tuple(w.shape), relu), None)
+        return real(x, w, *args, relu=relu, **kw)
+
+    rn.conv1x1_bn_train = record
+    try:
+        model = resnet50_init(0, ResNetConfig(bn_axis="dp"))
+        with torch.no_grad():
+            resnet_loss(model, *_bf16_batch(7, DP_CHECK_BATCH))
+    finally:
+        rn.conv1x1_bn_train = real
+    del model
+    _free()
+    return list(shapes)
+
+
+def _fused_sync_check(shapes, device="cuda") -> dict:
+    """conv1x1_bn_train(axis="dp") on each rank's shard against
+    conv1x1_bn_train(axis=None) on the global batch (every rank's shard,
+    made from seeds on every rank), at each of ``shapes`` (bf16 operands,
+    f32 gamma/beta): batch mean and variance, the rank's rows of y and
+    dx, and dw/dgamma/dbeta summed over the ranks (the reference's
+    convention for a replicated parameter).  The same with axis=None on
+    the local shard is the yardstick.  Largest error over shapes and
+    ranks, each held to DP_FUSED_TOL.  Collective: every rank calls it;
+    every rank returns the result."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.ops.conv_fused import conv1x1_bn_train
+
+    r, n = dist.get_rank(), dist.get_world_size()
+
+    def rand(shape, seed, scale=1.0, offset=0.0, dtype=torch.bfloat16):
+        g = torch.Generator(device=device).manual_seed(seed)
+        t = torch.randn(shape, generator=g, device=device)
+        return (t * scale + offset).to(dtype)
+
+    def run(x, dy, w, gamma, beta, relu, axis):
+        x, w, gamma, beta = (t.clone().requires_grad_()
+                             for t in (x, w, gamma, beta))
+        y, mean, var = conv1x1_bn_train(x, w, gamma, beta, relu=relu,
+                                        axis=axis)
+        y.backward(dy)
+        return {"mean": mean.detach(), "var": var.detach(),
+                "y": y.detach(), "dx": x.grad, "dw": w.grad.float(),
+                "dgamma": gamma.grad, "dbeta": beta.grad}
+
+    def summed(out):
+        for key in ("dw", "dgamma", "dbeta"):
+            dist.all_reduce(out[key])
+        return out
+
+    def errors(got, want, var, rows):
+        inv_sd = torch.rsqrt(var + 1e-5)
+        y, wy = got["y"].float(), want["y"][rows].float()
+        return {"mean": float(((got["mean"] - want["mean"]).abs()
+                               * inv_sd).max()),
+                "var": float(((got["var"] - var).abs() / (var + 1e-5))
+                             .max()),
+                "y": float(((y - wy).abs() / (wy.abs() + 1)).max()),
+                "dx": _rel_l2([got["dx"]], [want["dx"][rows]]),
+                **{k: _rel_l2([got[k]], [want[k]])
+                   for k in ("dw", "dgamma", "dbeta")}}
+
+    worst = {"synced": dict.fromkeys(DP_FUSED_TOL, 0.0),
+             "per_rank": dict.fromkeys(DP_FUSED_TOL, math.inf)}
+    for i, (xshape, wshape, relu) in enumerate(shapes):
+        yshape = xshape[:-1] + wshape[1:]
+        xs = [rand(xshape, 1000 * i + q, 1 + q, q) for q in range(n)]
+        dys = [rand(yshape, 1000 * i + 500 + q, 1 + q, q) for q in range(n)]
+        w = rand(wshape, 1000 * i + 900, wshape[0] ** -0.5)
+        gamma = rand(wshape[1:], 1000 * i + 901, 0.1, 1.0, torch.float32)
+        beta = rand(wshape[1:], 1000 * i + 902, 0.1, 0.0, torch.float32)
+        synced = summed(run(xs[r], dys[r], w, gamma, beta, relu, "dp"))
+        alone = summed(run(xs[r], dys[r], w, gamma, beta, relu, None))
+        want = run(torch.cat(xs), torch.cat(dys), w, gamma, beta, relu,
+                   None)
+        rows = slice(r * xshape[0], (r + 1) * xshape[0])
+        for name, got, pick in (("synced", synced, max),
+                                ("per_rank", alone, min)):
+            for k, e in errors(got, want, want["var"], rows).items():
+                worst[name][k] = pick(worst[name][k], e)
+        del xs, dys, synced, alone, want
+    for name, op in (("synced", dist.ReduceOp.MAX),
+                     ("per_rank", dist.ReduceOp.MIN)):
+        t = torch.tensor(list(worst[name].values()), dtype=torch.float64,
+                         device=device)
+        dist.all_reduce(t, op)
+        worst[name] = dict(zip(worst[name], t.tolist()))
+    out = {"shapes": len(shapes), "max_err": worst["synced"],
+           "per_rank_stats_min_err": worst["per_rank"],
+           "tolerance": DP_FUSED_TOL}
+    for k, tol in DP_FUSED_TOL.items():
+        assert out["max_err"][k] <= tol, (k, out)
+        assert k == "dbeta" or out["per_rank_stats_min_err"][k] > tol, \
+            (k, out)
+    return out
+
+
+def _same_on_every_rank(tensors) -> bool:
+    """Every rank holds rank 0's bytes of ``tensors``."""
+    import torch.distributed as dist
+
+    blob = torch.cat([t.detach().reshape(-1).view(torch.uint8)
+                      for t in tensors])
+    ref = blob.clone()
+    dist.broadcast(ref, 0)
+    ok = torch.tensor([int(torch.equal(ref, blob))], device=blob.device)
+    dist.all_reduce(ok, dist.ReduceOp.MIN)
+    return bool(ok.item())
+
+
+def _wire_bytes_per_rank(hvd, model, wire, n) -> dict:
+    """Bytes one rank sends in one exchange of the model's gradients, from
+    the bucket plan: the two-stage quantized wire sends (n-1) shards of
+    payload and scales in its all_to_all and (n-1) in its all_gather; the
+    exact wire's ring allreduce sends 2 (n-1)/n of each f32 bucket."""
+    from horovod_tpu_torch.quant import kernels as qk
+
+    grads = [p for p in model.parameters()]
+    block = qk.quant_block_size()
+    quant = exact = 0
+    for bucket in hvd.device.fused_allreduce_buckets(grads, None):
+        size = sum(grads[i].numel() for i in bucket)
+        shard = -(-size // (n * block)) * block
+        payload = shard // 2 if wire == "int4" else shard
+        quant += 2 * (n - 1) * (payload + 4 * shard // block)
+        exact += 2 * (n - 1) * size * 4 // n
+    return {"quantized": quant, "f32_ring": exact}
+
+
+def dp_check(hvd, smi):
+    """dp_cards: ResNet-50 with bn_axis="dp", fused convs and
+    DistributedOptimizer(fused_sgd), graphed, at batch 32 a card: state
+    bit-identical on every rank after 3 steps; the first step against
+    one card running the global batch (:func:`_global_batch_check`)."""
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    batch = [_bf16_batch(100 + r, DP_CHECK_BATCH)]
+    reset_counters()
+    model, opt, step, got = _dp_run(hvd, True, batch, DP_STEPS,
+                                    bn_axis="dp")
+    launches = counters()
+    assert launches["_mm_stats_kernel"] == 26 * 2, launches
+    assert launches["_sgd_kernel"] == 2, launches
+    same = _same_on_every_rank([v for k, v in got.items() if k != "losses"])
+    assert same
+    per_replay = replay_kernels(lambda: step(model, opt, *batch[0]))
+    loss0 = got["losses"][:1].clone()
+    dist.all_reduce(loss0)
+    del model, opt, step
+    _free()
+    check = _global_batch_check(hvd, *batch[0], float(loss0) / n)
+    fused = _fused_sync_check(_fused_shapes())
+    if r == 0:
+        emit({"phase": "dp_cards", "cards": n, "model": "resnet50",
+              "batch_per_card": DP_CHECK_BATCH, "bn_axis": "dp",
+              "steps": DP_STEPS, "losses_rank0": got["losses"].tolist(),
+              "state_identical_on_every_rank": same,
+              "first_step_vs_one_card_global_batch": check,
+              "fused_sync_bn_vs_one_card_global_batch": fused,
+              "launches_rank0": launches,
+              "kernels_per_replay_rank0": per_replay,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def dp_time(hvd, smi):
+    """dp_cards_time: batch 128 a card, graphed, cuDNN's default
+    algorithms as the one-card bench leg: the step with the exchange and
+    the SyncBN collectives, with one of them and with neither; img/s a
+    card and the scaling efficiency against leg G."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    batch = _bf16_batch(200 + r, DP_TIME_BATCH)
+    times = {}
+    variants = {"full": ("dp", True), "exchange_only": (None, True),
+                "syncbn_only": ("dp", False), "local": (None, False)}
+    for name in ("full", "exchange_only", "syncbn_only", "local", "full"):
+        axis, exchange = variants[name]
+        model = resnet50_init(0, ResNetConfig(bn_axis=axis))
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        inner = hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9)
+        opt = hvd.DistributedOptimizer(inner) if exchange else inner
+        step = donated_step(_resnet_step)
+        step(model, opt, *batch)
+        kern = replay_kernels(lambda: step(model, opt, *batch))
+        times.setdefault(name, []).append(
+            {**_graphed_ms(lambda: step(model, opt, *batch)),
+             "nccl_kernels_per_step": kern["nccl"]})
+        del model, opt, inner, step
+        _free()
+    torch.backends.cudnn.deterministic = True
+    if r == 0:
+        full = min(t["median"] for t in times["full"])
+        per_card = DP_TIME_BATCH / (full / 1e3)
+        one_card = float(os.environ.get("CHIP_SMOKE_LEG_G_IMG_S", "nan"))
+        emit({"phase": "dp_cards_time", "cards": n, "model": "resnet50",
+              "batch_per_card": DP_TIME_BATCH, "step_ms": times,
+              "images_per_s_per_card": per_card,
+              "images_per_s": per_card * n,
+              "one_card_leg_g_images_per_s": one_card,
+              "scaling_efficiency": per_card / one_card,
+              "exchange_and_syncbn_share": 1 - min(
+                  t["median"] for t in times["local"]) / full,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def dp_wire(hvd, smi):
+    """dp_cards_wire: the int8 and int4 wires under error feedback,
+    graphed against eager on every rank, with the bytes each rank
+    sends."""
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    batch = [_bf16_batch(300 + r, DP_CHECK_BATCH)]
+    rows = {}
+    for wire in ("int8", "int4"):
+        model, opt, step, got = _dp_run(hvd, True, batch, DP_STEPS,
+                                        wire=wire, bn_axis="dp")
+        want = _dp_run(hvd, False, batch, DP_STEPS, wire=wire,
+                       bn_axis="dp")[3]
+        err = _runs_err(got, want)
+        assert err == 0.0, (wire, err)
+        shared = [v for k, v in got.items()
+                  if k != "losses" and not k.startswith("residual")]
+        same = _same_on_every_rank(shared)
+        assert same, wire
+        rows[wire] = {"graphed_vs_eager_max_abs_err": err,
+                      "state_identical_on_every_rank": same,
+                      "bytes_sent_per_rank": _wire_bytes_per_rank(
+                          hvd, model, wire, n),
+                      "kernels_per_replay": replay_kernels(
+                          lambda: step(model, opt, *batch[0]))}
+        del model, opt, step
+        _free()
+    if r == 0:
+        emit({"phase": "dp_cards_wire", "cards": n, "model": "resnet50",
+              "batch_per_card": DP_CHECK_BATCH, "steps": DP_STEPS,
+              "wires": rows, "tolerance": 0.0,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def dp_vgg(hvd, smi):
+    """dp_cards_vgg: VGG-16 at batch 64 a card over the exact and the
+    int8 wire: the graphed step and one exchange of its gradients."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import VGGConfig, vgg16_init
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = False
+    batch = [_bf16_batch(400 + r, VGG_BATCH)]
+    rows = {}
+    for wire in (None, "int8"):
+        model, opt, step, _ = _dp_run(
+            hvd, True, batch, 2, wire=wire,
+            make_model=lambda: vgg16_init(0, VGGConfig()), step_fn=_vgg_step,
+            lr=VGG_LR)
+        grads = [p.grad for p in model.parameters()]
+        sentinel = hvd.quant.INT8_WIRE if wire else None
+        rows[wire or "f32"] = {
+            "step_ms": _graphed_ms(lambda: step(model, opt, *batch[0])),
+            "exchange_ms": _graphed_ms(lambda: hvd.device.fused_allreduce(
+                grads, wire_dtype=sentinel)),
+            "gradient_bytes": sum(g.numel() * g.element_size()
+                                  for g in grads),
+            "bytes_sent_per_rank": _wire_bytes_per_rank(hvd, model, "int8",
+                                                        n)}
+        del model, opt, step, grads
+        _free()
+    torch.backends.cudnn.deterministic = True
+    if r == 0:
+        emit({"phase": "dp_cards_vgg", "cards": n, "model": "vgg16",
+              "batch_per_card": VGG_BATCH, "wires": rows,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def dp_accumulate(hvd, smi):
+    """dp_cards_accumulate: k = 2 across the cards (no SyncBN, so the
+    exchange is the only collective), graphed against eager: NCCL
+    kernels only on the boundary pass."""
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    images, labels = _bf16_batch(500 + r, DP_CHECK_BATCH)
+    micro = list(zip(images.chunk(2), labels.chunk(2)))
+    model, opt, step, got = _dp_run(hvd, True, micro, 6, k=2)
+    want = _dp_run(hvd, False, micro, 6, k=2)[3]
+    err = _runs_err(got, want)
+    assert err == 0.0, err
+    per_pass = {str(key[0]): replay_kernels(cap.graph.replay)
+                for key, cap in sorted(step._graphs.items())}
+    assert per_pass["0"]["nccl"] == 0 < per_pass["1"]["nccl"], per_pass
+    # Without SyncBN each rank keeps its own BN running statistics.
+    same = _same_on_every_rank([v for k, v in got.items() if k != "losses"
+                                and not k.endswith((".mean", ".var"))])
+    assert same
+    if r == 0:
+        emit({"phase": "dp_cards_accumulate", "cards": n, "k": 2,
+              "batch_per_card": DP_CHECK_BATCH, "passes": 6,
+              "graphed_vs_eager_max_abs_err": err,
+              "state_identical_on_every_rank": same,
+              "kernels_per_replay_by_pass": per_pass,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    del model, opt, step
+    _free()
+
+
+def dp_cards_worker(device=None) -> None:
+    """One rank of ``--dp-cards``: :func:`dp_check`, :func:`dp_time`,
+    :func:`dp_wire`, :func:`dp_vgg` and :func:`dp_accumulate` in an NCCL
+    world of one process a card.  Rank 0 prints the lines.  The eager
+    controller is never started."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device=device)
+    smi = phase_device() if hvd.rank() == 0 else None
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        for phase in (dp_check, dp_time, dp_wire, dp_vgg, dp_accumulate):
+            phase(hvd, smi)
+            dist.barrier()
+    except BaseException:
+        # A failed rank leaves its peers blocked in a collective, and the
+        # NCCL teardown at exit would wait on them: exit at once, so the
+        # parent sees the failure and stops the others.
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    hvd.shutdown()
+
+
+def dp_cards(n: int) -> int:
+    """``python3 chip_smoke.py --dp-cards N``: build the kernels, time the
+    one-card bench leg G on card 0 (the yardstick of the scaling
+    efficiency), then run :func:`dp_cards_worker` as N processes, one a
+    card, in an NCCL world (rank 0 prints the lines).  A rank that fails
+    stops them all."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --dp-cards {n} needs {n} CUDA cards",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from horovod_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = phase_device()
+    phase_build()
+    leg, row = bench_leg(bench, "G", smi)
+    emit({"phase": "bench_leg", **row})
+    del leg
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.environ["CHIP_SMOKE_LEG_G_IMG_S"] = str(row["images_per_s"])
+    rc = _spawn_ranks(n, "--dp-worker", DP_CARDS_TIMEOUT_S)
+    if rc:
+        return rc
+    emit({"phase": "dp_cards_total", "wall_s": time.perf_counter() - t0})
+    _last_lines(smi)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2888,6 +3839,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_eager(hvd, gen, smi)
+    phase_sync_bn(hvd, smi)
+    phase_accumulate(hvd, smi)
+    phase_wire_graphed(hvd, smi)
+    phase_vgg_mlp(hvd, smi)
 
     flash = phase_flash_kernels(gen, smi)
     phase_ring(gen, smi)
@@ -2974,4 +3929,8 @@ if __name__ == "__main__":
         sys.exit(eager_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--eager-worker"]:
         sys.exit(eager_cards_worker())
+    if sys.argv[1:2] == ["--dp-cards"]:
+        sys.exit(dp_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_cards_worker())
     sys.exit(main())

@@ -77,7 +77,9 @@ from .ops.optim_kernels import fused_adam, fused_sgd  # noqa: F401,E402
 from .optimizer import (  # noqa: F401,E402
     DistributedOptimizer,
     allreduce_gradients,
+    microbatch_gradients,
 )
+from .sync_batch_norm import SyncBatchNorm, sync_batch_stats  # noqa: F401,E402
 from .functions import (  # noqa: F401,E402
     allgather_object,
     broadcast_object,

@@ -10,6 +10,11 @@ Transformer: every leaf copied under its dotted name (``embed``,
 ``ln_f``, ``block.wq``, ...): the port keeps ``x @ w`` with ``w`` as
 [in, out] and the block leaves stacked [layers, ...], as the reference
 does.
+
+VGG-16: ``conv{i}.w`` HWIO → OIHW; ``fc{j}.w`` stays [in, out] (the
+port flattens in the reference's H, W, C order, so ``fc1``'s rows need
+no permutation); biases copied.  MLP: every leaf copied.  SyncBN adds no
+parameters: a ResNet with ``bn_axis`` loads the same state.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 __all__ = ["resnet_params_from_jax", "transformer_params_from_jax",
+           "vgg_params_from_jax", "mlp_params_from_jax",
            "optimizer_state_from_jax"]
 
 
@@ -78,6 +84,25 @@ def transformer_params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:
     ``state_dict`` for :class:`horovod_tpu_torch.models.transformer.
     Transformer` (copies, same layouts)."""
     return _param_tensors(params_np)
+
+
+def vgg_params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's VGG ``params`` numpy pytree → a ``state_dict``
+    for :class:`horovod_tpu_torch.models.vgg.VGG`."""
+    out: Dict[str, torch.Tensor] = {}
+    for layer, leaves in params_np.items():
+        for k, v in leaves.items():
+            a = np.asarray(v)
+            if layer.startswith("conv") and k == "w":
+                a = a.transpose(3, 2, 0, 1)          # HWIO → OIHW
+            out[f"{layer}.{k}"] = _tensor(np.ascontiguousarray(a))
+    return out
+
+
+def mlp_params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's MLP ``params`` (``w{i}``, ``b{i}``) → a
+    ``state_dict`` for :class:`horovod_tpu_torch.models.mlp.MLP`."""
+    return {k: _tensor(v) for k, v in params_np.items()}
 
 
 def _moments_state(opt_state: Any) -> Any:

@@ -18,3 +18,11 @@ from .transformer import (  # noqa: F401
     transformer_init,
     transformer_loss,
 )
+from .vgg import (  # noqa: F401
+    VGG,
+    VGGConfig,
+    vgg16_init,
+    vgg_apply,
+    vgg_loss,
+)
+from .mlp import MLP, mlp_apply, mlp_init, mlp_loss  # noqa: F401

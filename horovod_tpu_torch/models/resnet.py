@@ -18,6 +18,12 @@ numerics as the reference:
 * the stem is the exact space-to-depth rewrite of the 7x7/2 conv;
 * the head averages bf16 activations, then works in f32; the loss is
   f32 log-softmax mean NLL;
+* ``bn_axis`` (SyncBatchNorm, the reference's ``cfg.bn_axis``): train
+  mode takes the batch statistics of the global batch over the model's
+  ``bn_group`` (a process group, a ``DeviceMesh`` whose ``bn_axis``
+  dimension is taken, or None for the world): the unfused BN averages
+  its moments with ``sync_batch_norm.sync_batch_stats``, the fused 1x1
+  convs sum their partial sums (``conv1x1_bn_train(axis=...)``);
 * ``HVDT_FUSED_CONV1X1=1`` routes the same 1x1 convs as the reference
   (:func:`_fused_1x1_eligible`) through the fused conv kernels
   (``ops/conv_fused.py``) — 26 per forward at ResNet-50.  The 3x3
@@ -41,6 +47,7 @@ import torch.nn.functional as F
 from ..common import config
 from ..common.basics import DeviceLike, resolve_device
 from ..ops.conv_fused import conv1x1_bn_relu, conv1x1_bn_train
+from ..sync_batch_norm import sync_batch_stats
 
 __all__ = ["ResNetConfig", "ResNet", "resnet50_init", "resnet_apply",
            "resnet_loss"]
@@ -60,6 +67,7 @@ class ResNetConfig:
     param_dtype: torch.dtype = torch.float32
     bn_momentum: float = 0.9
     bn_eps: float = 1e-5
+    bn_axis: Optional[str] = None  # mesh axis for cross-rank SyncBN
     depth: int = 50              # 26, 50 or 101 (bottleneck stage layouts)
 
 
@@ -131,14 +139,21 @@ def _stem_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _batch_norm(x: torch.Tensor, bn: _BN, cfg: ResNetConfig,
-                train: bool) -> torch.Tensor:
-    """Batch statistics (train) or running statistics (eval), folded
-    into one per-channel ``x*a + b`` in the activation dtype; a train
-    call updates the running statistics."""
+                train: bool, group=None) -> torch.Tensor:
+    """Batch statistics (train; over ``group`` too under
+    ``cfg.bn_axis``) or running statistics (eval), folded into one
+    per-channel ``x*a + b`` in the activation dtype; a train call updates
+    the running statistics."""
     if train:
         xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = (xf * xf).mean((0, 2, 3)) - mean * mean
+        if cfg.bn_axis is not None:
+            # Sync the moments, then form the variance: averaging
+            # per-rank variances would drop the between-rank term.
+            mean, var = sync_batch_stats(xf, group, (0, 2, 3),
+                                         axis=cfg.bn_axis)
+        else:
+            mean = xf.mean((0, 2, 3))
+            var = (xf * xf).mean((0, 2, 3)) - mean * mean
         bn.update_stats(mean.detach(), var.detach(), cfg.bn_momentum)
     else:
         mean, var = bn.mean, bn.var
@@ -154,7 +169,8 @@ def _fused_1x1_eligible(w: torch.Tensor, stride: int,
     """HVDT_FUSED_CONV1X1 gate, the same layers as the reference's:
     1x1, stride 1, Cin % 128 == 0 and Cout % 128 == 0, and M = B*H*W
     whose largest power-of-2 divisor clears the per-dtype row floor (8
-    rows f32 / 16 bf16 / 32 one-byte).  w is OIHW, x NCHW."""
+    rows f32 / 16 bf16 / 32 one-byte).  SyncBN (``cfg.bn_axis``) stays
+    eligible.  w is OIHW, x NCHW."""
     cout, cin, kh, kw = w.shape
     m = x.shape[0] * x.shape[2] * x.shape[3]
     floor = {4: 8, 2: 16, 1: 32}.get(x.element_size(), 8)
@@ -165,22 +181,23 @@ def _fused_1x1_eligible(w: torch.Tensor, stride: int,
 
 
 def _conv_bn(x: torch.Tensor, w: torch.Tensor, bn: _BN, cfg: ResNetConfig,
-             train: bool, *, stride: int = 1,
-             relu: bool = False) -> torch.Tensor:
+             train: bool, *, stride: int = 1, relu: bool = False,
+             group=None) -> torch.Tensor:
     """conv + BN (+ReLU), through the fused kernels where eligible."""
     if _fused_1x1_eligible(w, stride, x):
         w2 = w.view(w.shape[0], w.shape[1]).t().to(x.dtype)  # [Cin, Cout]
         xh = x.permute(0, 2, 3, 1)                             # NHWC view
         if train:
             y, mean, var = conv1x1_bn_train(xh, w2, bn.scale, bn.bias,
-                                            eps=cfg.bn_eps, relu=relu)
+                                            eps=cfg.bn_eps, relu=relu,
+                                            axis=cfg.bn_axis, group=group)
             bn.update_stats(mean.detach(), var.detach(), cfg.bn_momentum)
         else:
             scale = bn.scale.float() * torch.rsqrt(bn.var + cfg.bn_eps)
             bias = bn.bias.float() - bn.mean * scale
             y = conv1x1_bn_relu(xh, w2, scale, bias, relu=relu)
         return y.permute(0, 3, 1, 2)
-    y = _batch_norm(_conv(x, w, stride), bn, cfg, train)
+    y = _batch_norm(_conv(x, w, stride), bn, cfg, train, group)
     return torch.relu(y) if relu else y
 
 
@@ -202,17 +219,18 @@ class _Bottleneck(nn.Module):
         else:
             self.conv_proj = None
 
-    def forward(self, x: torch.Tensor, cfg: ResNetConfig,
-                stride: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cfg: ResNetConfig, stride: int,
+                group=None) -> torch.Tensor:
         train = self.training
-        y = _conv_bn(x, self.conv1, self.bn1, cfg, train, relu=True)
+        y = _conv_bn(x, self.conv1, self.bn1, cfg, train, relu=True,
+                     group=group)
         # v1.5: the stride lives on the 3x3 conv.
         y = _conv_bn(y, self.conv2, self.bn2, cfg, train, stride=stride,
-                     relu=True)
-        y = _conv_bn(y, self.conv3, self.bn3, cfg, train)
+                     relu=True, group=group)
+        y = _conv_bn(y, self.conv3, self.bn3, cfg, train, group=group)
         if self.conv_proj is not None:
             sc = _conv_bn(x, self.conv_proj, self.bn_proj, cfg, train,
-                          stride=stride)
+                          stride=stride, group=group)
         else:
             sc = x
         return torch.relu(y + sc)
@@ -223,15 +241,17 @@ class ResNet(nn.Module):
     ``conv_stem``, ``bn_stem.{scale,bias,mean,var}``, ``s{i}b{j}.conv1``
     ... ``s{i}b{j}.bn_proj.*``, ``fc_w`` ``[classes, cin]``, ``fc_b``.
     Conv weights are OIHW.  ``forward`` takes NHWC images and returns
-    f32 logits."""
+    f32 logits.  ``bn_group`` is the SyncBN group under ``cfg.bn_axis``
+    (a process group, a ``DeviceMesh`` or None for the world)."""
 
     def __init__(self, cfg: ResNetConfig,
                  generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, bn_group=None):
         super().__init__()
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator()
         self.cfg = cfg
+        self.bn_group = bn_group
         pd = cfg.param_dtype
         self.conv_stem = nn.Parameter(_conv_init(gen, 7, 7, 3, 64, pd))
         self.bn_stem = _BN(64, pd)
@@ -252,13 +272,14 @@ class ResNet(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = _stem_conv(images.to(cfg.dtype), self.conv_stem)
-        x = torch.relu(_batch_norm(x, self.bn_stem, cfg, self.training))
+        x = torch.relu(_batch_norm(x, self.bn_stem, cfg, self.training,
+                                   self.bn_group))
         ph = _same_pads(x.shape[2], 3, 2)
         pw = _same_pads(x.shape[3], 3, 2)
         x = F.max_pool2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1]),
                                value=float("-inf")), 3, 2)
         for name, stride in self._blocks:
-            x = getattr(self, name)(x, cfg, stride)
+            x = getattr(self, name)(x, cfg, stride, self.bn_group)
         x = x.mean(dim=(2, 3)).float()
         return x @ self.fc_w.float().t() + self.fc_b.float()
 
@@ -278,13 +299,14 @@ class ResNet(nn.Module):
 
 
 def resnet50_init(seed: Union[int, torch.Generator], cfg: ResNetConfig,
-                  device: DeviceLike = None) -> ResNet:
+                  device: DeviceLike = None, bn_group=None) -> ResNet:
     """A ResNet of ``cfg.depth`` (50 by default) with random weights drawn
     on the CPU from ``seed`` (an int or a ``torch.Generator``), placed on
-    ``device`` (the card unless the caller names another)."""
+    ``device`` (the card unless the caller names another); ``bn_group``
+    as :class:`ResNet`'s."""
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator().manual_seed(int(seed))
-    return ResNet(cfg, generator=gen, device=device)
+    return ResNet(cfg, generator=gen, device=device, bn_group=bn_group)
 
 
 def resnet_apply(model: ResNet, images: torch.Tensor, train: bool = True

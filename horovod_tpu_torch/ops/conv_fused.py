@@ -21,9 +21,13 @@ launches.
 
 The differentiable entries are ``torch.autograd.Function``s whose
 backward is the JAX package's formula in plain PyTorch (the reference's
-backward is XLA): z is recomputed, relu'(0) = 0 from the ``y > 0`` mask,
-and cotangents arriving on the batch mean/var are honoured.  BatchNorm
-here is per-rank; the cross-rank (SyncBN) form is later work.
+backward is XLA): z is recomputed (16-bit operands on the tensor cores
+with an f32 result, as the reference's ``preferred_element_type=f32``),
+relu'(0) = 0 from the ``y > 0`` mask, and cotangents arriving on the
+batch mean/var are honoured.  With ``axis=`` (SyncBatchNorm) the batch
+statistics are global: the kernel's partial sums are all-reduced over
+the process group as one ``[2, N]`` collective, and the backward's
+batch means of ``dzhat`` and ``dzhat * zhat`` are one more.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from ..sync_batch_norm import all_sum_, resolve_group
 
 __all__ = ["matmul_bn_relu", "conv1x1_bn_relu", "conv1x1_bn_relu_reference",
            "matmul_batch_stats", "conv1x1_bn_train",
@@ -95,6 +101,15 @@ def _cuda_operands(a: torch.Tensor, w: torch.Tensor, k: int, n: int):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _dot_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` with an f32 result.  On the card 16-bit operands go to
+    the tensor cores as they are (their products are exact in f32 and
+    the sum accumulates in f32); elsewhere the product runs in f32."""
+    if a.is_cuda and a.dtype in _KERNEL_DTYPES and w.dtype == a.dtype:
+        return torch.mm(a, w, out_dtype=torch.float32)
+    return torch.matmul(a.float(), w.float())
 
 
 # ---- kernel #3: matmul + folded BN affine (+ReLU) ------------------------
@@ -163,7 +178,7 @@ class _MMDiff(torch.autograd.Function):
         # contiguous, so the grad reaches an OIHW weight in its layout.
         dw = torch.matmul(dz.t(), a).t().to(w.dtype)
         dbias = g.sum(0).to(bias.dtype)
-        z = torch.matmul(a.float(), w.float())
+        z = _dot_f32(a, w)
         dscale = (g * z).sum(0).to(scale.dtype)
         return da, dw, dscale, dbias, None
 
@@ -235,12 +250,15 @@ def matmul_batch_stats(a: torch.Tensor, w: torch.Tensor):
 matmul_batch_stats.launches = 0
 
 
-def _train_forward(a, w, gamma, beta, eps: float, relu: bool):
-    m = a.shape[0]
+def _train_forward(a, w, gamma, beta, eps: float, relu: bool, group,
+                   size: int):
+    mg = a.shape[0] * max(size, 1)
     z, s1, s2 = matmul_batch_stats(a, w)
     s1t, s2t = s1.sum(0), s2.sum(0)
-    mean = s1t / m
-    var = torch.clamp_min(s2t / m - mean * mean, 0.0)
+    if size:
+        s1t, s2t = all_sum_(torch.stack([s1t, s2t]), group).unbind(0)
+    mean = s1t / mg
+    var = torch.clamp_min(s2t / mg - mean * mean, 0.0)
     scale = gamma.float() * torch.rsqrt(var + eps)
     bias = beta.float() - mean * scale
     # Normalize from the stored z, in f32.
@@ -252,10 +270,14 @@ def _train_forward(a, w, gamma, beta, eps: float, relu: bool):
 
 
 class _TrainDiff(torch.autograd.Function):
+    """``size`` 0: per-rank statistics; otherwise SyncBN over ``group``
+    (``size`` ranks, equal shards)."""
+
     @staticmethod
-    def forward(ctx, a, w, gamma, beta, eps, relu):
-        y, mean, var = _train_forward(a, w, gamma, beta, eps, relu)
-        ctx.eps, ctx.relu = eps, relu
+    def forward(ctx, a, w, gamma, beta, eps, relu, group, size):
+        y, mean, var = _train_forward(a, w, gamma, beta, eps, relu, group,
+                                      size)
+        ctx.eps, ctx.relu, ctx.group, ctx.size = eps, relu, group, size
         ctx.save_for_backward(a, w, gamma, beta, mean, var,
                               y if relu else None)
         return y, mean, var
@@ -265,21 +287,30 @@ class _TrainDiff(torch.autograd.Function):
         """Batch-stat BN backward.  With inv = rsqrt(var+eps) and
         zhat = (z-mean)*inv:  g = dy*1[y>0]; dbeta = sum g;
         dgamma = sum g*zhat; dzhat = g*gamma;
-        dz = inv*(dzhat - mean_B(dzhat) - zhat*mean_B(dzhat*zhat));
-        da = dz w^T; dw = a^T dz.  Cotangents on the mean/var outputs add
-        their direct paths (d mean/d z = 1/M; d var/d z = 2(z-mean)/M)."""
+        dz = inv*(dzhat - mean_B(dzhat) - zhat*mean_B(dzhat*zhat)),
+        mean_B the batch mean (under SyncBN the group mean of the local
+        means, one [2, N] collective); da = dz w^T; dw = a^T dz.
+        Cotangents on the mean/var outputs add their direct paths
+        (d mean/d z = 1/M; d var/d z = 2(z-mean)/M, M the global row
+        count).  Parameter gradients stay local: the caller averages
+        them over the ranks (DistributedOptimizer)."""
         a, w, gamma, beta, mean, var, y = ctx.saved_tensors
-        m = a.shape[0]
+        m = a.shape[0] * max(ctx.size, 1)
         g = dy.float()
         if ctx.relu:
             g = torch.where(y > 0, g, 0.0)
-        z = torch.matmul(a.float(), w.float())
+        z = _dot_f32(a, w)
         inv = torch.rsqrt(var + ctx.eps)
         zhat = (z - mean) * inv
         dbeta = g.sum(0).to(beta.dtype)
         dgamma = (g * zhat).sum(0).to(gamma.dtype)
         dzhat = g * gamma.float()
-        dz = inv * (dzhat - dzhat.mean(0) - zhat * (dzhat * zhat).mean(0))
+        mean_dzhat, mean_dzz = dzhat.mean(0), (dzhat * zhat).mean(0)
+        if ctx.size:
+            mean_dzhat, mean_dzz = all_sum_(
+                torch.stack([mean_dzhat, mean_dzz]), ctx.group).div_(
+                    ctx.size).unbind(0)
+        dz = inv * (dzhat - mean_dzhat - zhat * mean_dzz)
         if dmean_ct is not None:
             dz = dz + dmean_ct.float() / m
         if dvar_ct is not None:
@@ -287,27 +318,34 @@ class _TrainDiff(torch.autograd.Function):
         dz = dz.to(a.dtype)
         da = torch.matmul(dz, w.t()).to(a.dtype)
         dw = torch.matmul(dz.t(), a).t().to(w.dtype)
-        return da, dw, dgamma, dbeta, None, None
+        return da, dw, dgamma, dbeta, None, None, None, None
 
 
 def conv1x1_bn_train(x: torch.Tensor, w: torch.Tensor, gamma: torch.Tensor,
                      beta: torch.Tensor, *, eps: float = 1e-5,
-                     relu: bool = True, axis: Optional[str] = None):
+                     relu: bool = True, axis: Optional[str] = None,
+                     group=None):
     """Fused NHWC 1x1 conv + train-mode BN (+ReLU): batch statistics come
     from the kernel's partial sums.  Returns ``(y, batch_mean,
     batch_var)`` (biased var, f32) for the caller's running-stat update.
+
+    ``axis``: SyncBatchNorm.  The statistics are those of the global
+    batch: the partial sums are summed over the process group (one
+    ``[2, N]`` all-reduce; mean and variance over M x group size rows,
+    equal shards on every rank), and the backward's batch means are the
+    group's.  ``group`` is a ``ProcessGroup``, a ``DeviceMesh`` whose
+    ``axis`` dimension is taken, or None for the world.  Every rank of
+    the group must make the same calls in the same order.
+
     Differentiable (see module docstring)."""
-    if axis is not None:
-        raise NotImplementedError(
-            "cross-rank SyncBN (axis=) is not ported yet (ROADMAP Queue 1: "
-            "the rest of slice 1)")
     b, h, wd, cin = x.shape
     cout = w.shape[1]
     if gamma.shape != (cout,) or beta.shape != (cout,):
         raise ValueError(f"gamma/beta must be [{cout}], got "
                          f"{tuple(gamma.shape)}/{tuple(beta.shape)}")
+    pg, size = resolve_group(group, axis) if axis is not None else (None, 0)
     y2d, mean, var = _TrainDiff.apply(x.reshape(b * h * wd, cin), w, gamma,
-                                      beta, float(eps), relu)
+                                      beta, float(eps), relu, pg, size)
     return y2d.view(b, h, wd, cout), mean, var
 
 

@@ -11,6 +11,8 @@ per bucket, copied back into the gradients).
 mean and steps the wrapped optimizer; the other calls issue no
 collective and leave the parameters unchanged (the update ``optax.
 MultiSteps`` gives in the JAX package, without its per-pass exchange).
+:func:`microbatch_gradients` is the same accumulation inside one step:
+k micro-batches, one exchange.
 
 ``compression`` picks the wire: ``Compression.none`` / ``.fp16`` /
 ``.bf16`` cast each bucket, ``.int8`` / ``.int4`` send each float bucket
@@ -20,10 +22,15 @@ Left unset, it is read from the environment (``HVDT_COMPRESSION``,
 ``HVDT_QUANT``) by ``Compression.from_env()``, as in the JAX package.
 
 Inside a CUDA-graph capture (``step_pipeline.donated_step``) the pass
-count advances in a replay hook, once a replay; a step that decides on
-the host whether to communicate (``backward_passes_per_step > 1``) raises
-``ValueError`` there, and the int8/int4 wire raises
-``NotImplementedError``.
+count advances in a replay hook, once a replay.  With
+``backward_passes_per_step=k > 1`` the step differs by pass (the first
+pass of a cycle copies into the accumulators, the k-th exchanges and
+steps), so ``donated_step`` captures one graph per pass of the cycle,
+keyed by :meth:`_DistributedOptimizer._graph_phase`, and replays the
+one for the pass at hand: the non-boundary graphs hold no collective.
+A captured pass replays a fixed set of gradients, so under a capture
+every accumulated parameter needs a gradient on every pass (eagerly a
+gradient may come and go).  The int8/int4 wire runs inside a capture as it runs eagerly.
 
 ZeRO, overlap scheduling and Adasum are later work and raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -40,9 +47,9 @@ from .common.process_sets import ProcessSet
 from .common.types import ReduceOp
 from .ops import device as dev
 from .ops.compression import Compression, Compressor
-from .quant.collectives import quant_wire_leg
 
-__all__ = ["DistributedOptimizer", "allreduce_gradients"]
+__all__ = ["DistributedOptimizer", "allreduce_gradients",
+           "microbatch_gradients"]
 
 def _check_supported(op: ReduceOp) -> None:
     if ReduceOp(op) == ReduceOp.ADASUM:
@@ -73,6 +80,69 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
         wire_dtype=compression.wire_dtype, process_set=process_set)
 
 
+def _tree_chunk(tree, i: int, k: int):
+    """Micro-batch ``i`` of ``k`` of a batch: every tensor leaf of a
+    tensor / list / tuple / dict cut into k equal slices on its leading
+    axis."""
+    if isinstance(tree, torch.Tensor):
+        if tree.dim() == 0 or tree.shape[0] % k:
+            raise ValueError(f"a batch leaf of shape {tuple(tree.shape)} "
+                             f"does not split into {k} micro-batches")
+        n = tree.shape[0] // k
+        return tree[i * n:(i + 1) * n]
+    if isinstance(tree, dict):
+        return {key: _tree_chunk(v, i, k) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_chunk(v, i, k) for v in tree)
+    return tree
+
+
+def microbatch_gradients(grad_fn: Callable, params: Sequence[torch.Tensor],
+                         batch: Any, num_microbatches: int, *,
+                         op: ReduceOp = ReduceOp.AVERAGE,
+                         compression: Optional[Compressor] = None,
+                         threshold_bytes: Optional[int] = None,
+                         process_set: Optional[ProcessSet] = None
+                         ) -> List[torch.Tensor]:
+    """Accumulate gradients over micro-batches, then communicate once.
+
+    ``grad_fn(params, microbatch)`` returns the gradients of ``params``
+    (a list of tensors, in order) on one micro-batch; ``batch`` is a
+    tensor or a list / tuple / dict of them whose leading axis splits
+    into ``num_microbatches`` equal slices.  Floating gradients are
+    summed in f32 (the first micro-batch's copied, the others added),
+    integer ones in their own dtype; the sum is divided by k and cast
+    once to each parameter's dtype, then averaged (``op``) over the
+    process set by one :func:`allreduce_gradients`.  ``compression``
+    defaults to ``Compression.none``, as in the JAX package (the
+    environment is not read).  Returns the communicated gradients, in
+    ``params`` order."""
+    k = int(num_microbatches)
+    if k < 1:
+        raise ValueError(f"num_microbatches must be >= 1, got {k}")
+    params = list(params)
+    acc: List[torch.Tensor] = []
+    for i in range(k):
+        grads = list(grad_fn(params, _tree_chunk(batch, i, k)))
+        if len(grads) != len(params):
+            raise ValueError(f"grad_fn returned {len(grads)} gradients for "
+                             f"{len(params)} parameters")
+        with torch.no_grad():
+            if not acc:
+                acc = [g.to(torch.float32 if p.is_floating_point()
+                            else p.dtype, copy=True)
+                       for g, p in zip(grads, params)]
+            else:
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+    with torch.no_grad():
+        total = [(a / k).to(p.dtype) for a, p in zip(acc, params)]
+    return allreduce_gradients(total, op=op,
+                               compression=compression or Compression.none,
+                               threshold_bytes=threshold_bytes,
+                               process_set=process_set)
+
+
 class _DistributedOptimizer:
     """The wrapper ``DistributedOptimizer`` returns.  Attribute access it
     does not define (``param_groups``, ``state``, ``state_dict``, ...)
@@ -95,6 +165,9 @@ class _DistributedOptimizer:
         self._process_set = process_set
         self._passes = 0
         self._acc: Dict[torch.Tensor, torch.Tensor] = {}
+        # Eager passes only: the parameters with a gradient so far in
+        # this cycle, in order (a dict as an ordered set).
+        self._seen: Dict[torch.Tensor, None] = {}
 
     def __getattr__(self, name: str):
         return getattr(self.__dict__["optimizer"], name)
@@ -106,11 +179,6 @@ class _DistributedOptimizer:
     def synchronize(self) -> None:
         """Average (or sum) every ``.grad`` over the process set, in
         place, as fused bucket collectives."""
-        if graphs.capturing() and quant_wire_leg(
-                self._compression.wire_dtype) is not None:
-            raise NotImplementedError(
-                "the int8/int4 wire inside a CUDA-graph capture is not "
-                "ported yet (ROADMAP Queue 1: the rest of slice 2)")
         params = self._params_with_grad()
         reduced = allreduce_gradients(
             [p.grad for p in params], op=self._op,
@@ -121,43 +189,70 @@ class _DistributedOptimizer:
             for p, r in zip(params, reduced):
                 p.grad.copy_(r)
 
-    def _accumulate(self) -> bool:
-        """Fold this pass's grads into the f32 accumulators; True on the
-        k-th pass, with the grads then set to the accumulated mean."""
+    def _accumulate(self, phase: int) -> bool:
+        """Fold this pass's grads into the f32 accumulators, pass
+        ``phase`` (0 to k-1) of a cycle: a parameter's first gradient of
+        the cycle is copied, later ones are added.  The accumulators are
+        allocated once and kept, so a captured pass reads and writes the
+        same memory as an eager one.  True on the k-th pass, with the
+        grad of every parameter that had one in the cycle set to the
+        accumulated sum over k, in its dtype (created where the last
+        pass left it None).
+
+        Eagerly a gradient may come and go from pass to pass; a captured
+        pass replays a fixed set, so under a capture every accumulated
+        parameter must have a gradient on every pass."""
+        capturing = graphs.capturing()
         with torch.no_grad():
-            for p in self._params_with_grad():
+            params = self._params_with_grad()
+            if capturing and set(params) != set(self._acc):
+                raise RuntimeError(
+                    "a gradient appeared inside a CUDA-graph capture that "
+                    "no eager pass produced, or one that an eager pass "
+                    "produced is missing; run every pass of a cycle "
+                    "eagerly first, with every parameter given a gradient "
+                    "on every pass")
+            for p in params:
                 acc = self._acc.get(p)
                 if acc is None:
-                    self._acc[p] = p.grad.float().clone()
+                    acc = self._acc[p] = torch.empty(
+                        p.shape, dtype=torch.float32, device=p.grad.device)
+                first = phase == 0 if capturing else p not in self._seen
+                if first:
+                    acc.copy_(p.grad)
                 else:
-                    acc.add_(p.grad.float())
-            if self._passes % self._k:
+                    acc.add_(p.grad)
+                if not capturing:
+                    self._seen[p] = None
+            if phase < self._k - 1:
                 return False
-            for p, acc in self._acc.items():
-                mean = (acc / self._k).to(p.dtype)
+            for p in (self._acc if capturing else self._seen):
+                mean = (self._acc[p] / self._k).to(p.dtype)
                 if p.grad is None:
                     p.grad = mean
                 else:
                     p.grad.copy_(mean)
-            self._acc.clear()
+            self._seen.clear()
         return True
+
+    def _graph_phase(self) -> int:
+        """Passes done in the current cycle of k: what the next
+        ``step()`` does depends on it, so ``donated_step`` keeps one
+        graph for each value."""
+        return self._passes % self._k
 
     def step(self, closure: Optional[Callable[[], Any]] = None):
         loss = None
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        phase = self._graph_phase()
         if graphs.capturing():
-            if self._k > 1:
-                raise ValueError(
-                    "backward_passes_per_step > 1 decides on the host "
-                    "whether a step communicates; it cannot run inside a "
-                    "CUDA-graph capture")
             graphs.on_replay(self._count_pass)
         else:
             self._count_pass()
-            if self._k > 1 and not self._accumulate():
-                return loss
+        if self._k > 1 and not self._accumulate(phase):
+            return loss
         self.synchronize()
         self.optimizer.step()
         return loss
@@ -193,7 +288,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
         .fp16 / .bf16 (casts) or .int8 / .int4 (the quantized allreduce).
         None (default) reads ``HVDT_COMPRESSION`` / ``HVDT_QUANT``.
       backward_passes_per_step: passes accumulated locally between
-        collectives (see module docstring).
+        collectives (see module docstring; under ``donated_step`` one
+        graph a pass of the cycle).
       threshold_bytes: fusion bucket size; default ``HVDT_FUSION_THRESHOLD``.
       prescale_factor / postscale_factor: scales before / after the sum.
       process_set: the ranks to average over (default: the world).

@@ -15,9 +15,10 @@ optimizer's ``step()``:
 sibling): exactly the stage-1 wire value, so the first hop of the
 quantized allreduce carries ``sent`` without further loss.  The f32
 residuals are per-rank state.  ``enabled=False`` keeps the same state
-(zero residuals) and passes the gradients through exactly.  A step
-inside a CUDA-graph capture raises ``NotImplementedError``: the wire
-under capture is not ported yet.
+(zero residuals) and passes the gradients through exactly.  The
+residuals are allocated once and updated in place, and nothing on the
+path reads a value on the host, so a step captured by
+``step_pipeline.donated_step`` replays the eager step.
 """
 
 from __future__ import annotations
@@ -26,7 +27,6 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from ..common import graphs
 from . import kernels as qk
 
 __all__ = ["with_error_feedback"]
@@ -77,10 +77,6 @@ class _ErrorFeedbackOptimizer:
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        if graphs.capturing():
-            raise NotImplementedError(
-                "error feedback inside a CUDA-graph capture is not ported "
-                "yet (ROADMAP Queue 1: the rest of slice 2)")
         self.compensate()
         self.optimizer.step()
         return loss

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -77,41 +77,46 @@ def enable_compilation_cache(path: Optional[str] = None, *,
     return _engaged
 
 
+def _walk(obj) -> Iterator[Any]:
+    """The objects of a step argument: a tensor, a module or an optimizer
+    itself; the items of a list, tuple or dict; any other object itself
+    and, where it wraps an optimizer as ``.optimizer``, that one's."""
+    if isinstance(obj, (torch.Tensor, torch.nn.Module,
+                        torch.optim.Optimizer)):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from _walk(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _walk(o)
+    else:
+        yield obj
+        inner = getattr(obj, "optimizer", None)
+        if inner is not None:
+            yield from _walk(inner)
+
+
 def _tensors(obj) -> List[torch.Tensor]:
-    """The tensors of a step argument: a tensor; a module's parameters
-    and buffers; an optimizer's parameters and state tensors (through
-    wrappers that hold it as ``.optimizer``); the items of a list,
-    tuple or dict."""
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if isinstance(obj, torch.nn.Module):
-        return [*obj.parameters(), *obj.buffers()]
-    if isinstance(obj, torch.optim.Optimizer):
-        out = [p for g in obj.param_groups for p in g["params"]]
-        for st in obj.state.values():
-            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
-        return out
-    if isinstance(obj, (list, tuple)):
-        return [t for o in obj for t in _tensors(o)]
-    if isinstance(obj, dict):
-        return [t for o in obj.values() for t in _tensors(o)]
-    inner = getattr(obj, "optimizer", None)
-    return _tensors(inner) if inner is not None else []
+    """The tensors of a step argument (see :func:`_walk`): a tensor; a
+    module's parameters and buffers; an optimizer's parameters and state
+    tensors."""
+    out: List[torch.Tensor] = []
+    for o in _walk(obj):
+        if isinstance(o, torch.Tensor):
+            out.append(o)
+        elif isinstance(o, torch.nn.Module):
+            out += [*o.parameters(), *o.buffers()]
+        elif isinstance(o, torch.optim.Optimizer):
+            out += [p for g in o.param_groups for p in g["params"]]
+            for st in o.state.values():
+                out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out
 
 
 def _optimizers(obj) -> List[torch.optim.Optimizer]:
-    """The optimizers of a step argument, found as :func:`_tensors`
-    finds tensors."""
-    if isinstance(obj, torch.optim.Optimizer):
-        return [obj]
-    if isinstance(obj, (torch.Tensor, torch.nn.Module)):
-        return []
-    if isinstance(obj, (list, tuple)):
-        return [o for x in obj for o in _optimizers(x)]
-    if isinstance(obj, dict):
-        return [o for x in obj.values() for o in _optimizers(x)]
-    inner = getattr(obj, "optimizer", None)
-    return _optimizers(inner) if inner is not None else []
+    """The optimizers of a step argument (see :func:`_walk`)."""
+    return [o for o in _walk(obj) if isinstance(o, torch.optim.Optimizer)]
 
 
 def _frozen_hyperparameters(obj) -> list:
@@ -144,26 +149,40 @@ def _same(a: Any, b: Any) -> bool:
         return False
 
 
+def _phase(obj) -> tuple:
+    """What a step argument's next step depends on: the
+    ``_graph_phase()`` of each object of it (see :func:`_walk`) whose
+    class has one (``DistributedOptimizer`` with
+    ``backward_passes_per_step > 1``: the pass of its cycle)."""
+    return tuple(o._graph_phase() for o in _walk(obj)
+                 if hasattr(type(o), "_graph_phase"))
+
+
+class _Captured:
+    """One captured graph of a step and what its replays need."""
+
+    __slots__ = ("graph", "device", "static", "ptrs", "frozen", "hooks",
+                 "out")
+
+
 class _GraphedStep:
     """The :func:`donated_step` callable (see there)."""
 
     def __init__(self, fn: Callable, donate_argnums: Sequence[int]):
         self._fn = fn
         self._donate = frozenset(int(i) for i in donate_argnums)
-        self._eager_done = False
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._eager_done: set = set()
+        self._graphs: Dict[tuple, _Captured] = {}
+        # One memory pool for the graphs of every phase: they replay one
+        # after another, never at once, and what one leaves for the next
+        # lives outside the pool or stays referenced.
+        self._pool = None
         self._failed: Optional[BaseException] = None
-        self._device: Optional[torch.device] = None
-        self._static: List[Any] = []
-        self._ptrs: Dict[int, List[int]] = {}
-        self._frozen: Dict[int, list] = {}
-        self._hooks: List[Callable[[], None]] = []
-        self._out: Any = None
 
     @property
     def graphed(self) -> bool:
         """Whether the step has been captured (later calls replay)."""
-        return self._graph is not None
+        return bool(self._graphs)
 
     def __call__(self, *args):
         if self._failed is not None:
@@ -175,16 +194,19 @@ class _GraphedStep:
                       None)
         if device is None:            # the CPU: run the step as it is
             return self._fn(*args)
-        if self._graph is None:
-            if not self._eager_done:      # builds what the graph captures
-                self._eager_done = True
+        key = tuple(k for i in sorted(self._donate) if i < len(args)
+                    for k in _phase(args[i]))
+        cap = self._graphs.get(key)
+        if cap is None:
+            if key not in self._eager_done:   # builds what the graph holds
+                self._eager_done.add(key)
                 return self._fn(*args)
-            self._capture(args, device)
+            cap = self._capture(args, device, key)
         else:
-            self._feed(args, tensors)
-        return self._replay()
+            self._feed(cap, args, tensors)
+        return self._replay(cap)
 
-    def _capture(self, args, device: torch.device) -> None:
+    def _capture(self, args, device: torch.device, key: tuple) -> _Captured:
         static = list(args)
         for i, a in enumerate(args):
             if i in self._donate or not isinstance(a, torch.Tensor):
@@ -194,44 +216,49 @@ class _GraphedStep:
                                  "inputs of a graphed step lie on the card")
             static[i] = a.clone()
         graph = torch.cuda.CUDAGraph()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
         try:
             with graphs.capture_lock, \
                     graphs.collect_replay_hooks() as hooks, \
                     torch.cuda.device(device), \
-                    torch.cuda.graph(graph, capture_error_mode="global"):
+                    torch.cuda.graph(graph, pool=self._pool,
+                                     capture_error_mode="global"):
                 out = self._fn(*static)
         except BaseException as e:
             self._failed = e
             raise
-        self._device, self._static, self._hooks, self._out = (
-            device, static, hooks, out)
+        cap = _Captured()
+        cap.graph, cap.device, cap.static, cap.hooks, cap.out = (
+            graph, device, static, hooks, out)
         donated = [i for i in self._donate if i < len(args)]
-        self._ptrs = {i: [t.data_ptr() for t in _tensors(args[i])]
-                      for i in donated}
-        self._frozen = {i: _frozen_hyperparameters(args[i]) for i in donated}
-        self._graph = graph
+        cap.ptrs = {i: [t.data_ptr() for t in _tensors(args[i])]
+                    for i in donated}
+        cap.frozen = {i: _frozen_hyperparameters(args[i]) for i in donated}
+        self._graphs[key] = cap
+        return cap
 
-    def _feed(self, args, tensors) -> None:
+    def _feed(self, cap: _Captured, args, tensors) -> None:
         """Check the donated arguments and copy the others into the
         graph's inputs."""
-        if len(args) != len(self._static):
+        if len(args) != len(cap.static):
             raise ValueError(f"graphed step captured with "
-                             f"{len(self._static)} arguments, called with "
+                             f"{len(cap.static)} arguments, called with "
                              f"{len(args)}")
-        for i, ptrs in self._ptrs.items():
+        for i, ptrs in cap.ptrs.items():
             if [t.data_ptr() for t in tensors[i]] != ptrs:
                 raise ValueError(
                     f"donated argument {i} is not the state the step was "
                     "captured with: pass the same tensors (same storage) "
                     "on every call")
-            if _frozen_hyperparameters(args[i]) != self._frozen[i]:
+            if _frozen_hyperparameters(args[i]) != cap.frozen[i]:
                 raise ValueError(
                     f"an optimizer of donated argument {i} changed a "
                     "hyperparameter that the graph keeps as captured (a "
                     "torch.optim optimizer's Python floats, a fused "
                     "optimizer's nesterov or weight decay on/off); "
                     "build a new donated_step for the new values")
-        for i, (a, s) in enumerate(zip(args, self._static)):
+        for i, (a, s) in enumerate(zip(args, cap.static)):
             if i in self._donate or a is s:
                 continue
             if isinstance(s, torch.Tensor):
@@ -245,12 +272,12 @@ class _GraphedStep:
                 raise ValueError(f"argument {i} differs from its value at "
                                  "capture, which the graph baked in")
 
-    def _replay(self):
-        for hook in self._hooks:
+    def _replay(self, cap: _Captured):
+        for hook in cap.hooks:
             hook()
-        with torch.cuda.device(self._device):
-            self._graph.replay()
-        return self._out
+        with torch.cuda.device(cap.device):
+            cap.graph.replay()
+        return cap.out
 
 
 def donated_step(fn: Callable, *, donate_argnums: Sequence[int] = (0, 1),
@@ -263,11 +290,21 @@ def donated_step(fn: Callable, *, donate_argnums: Sequence[int] = (0, 1),
     N calls are exactly N steps:
 
     * the first call runs ``fn`` eagerly, as a real step: it creates the
-      optimizer state, the library workspaces and the NCCL communicator;
+      optimizer state, the library workspaces and the NCCL communicators
+      (the exchange's and SyncBatchNorm's);
     * the second call captures ``fn`` with ``torch.cuda.graph`` (in the
       "global" error mode, which refuses any host call a capture cannot
       hold) and replays the graph once (the capture itself runs
       nothing), and every later call is one replay.
+
+    A step whose work differs from call to call by host state names that
+    state: a donated argument with a ``_graph_phase()`` method (found
+    through ``.optimizer`` wrappers), such as ``DistributedOptimizer``
+    with ``backward_passes_per_step=k``, whose passes 1 to k-1 only
+    accumulate and whose k-th exchanges and steps.  The rule above then
+    holds per phase: each phase's first call runs eagerly, its second
+    captures a graph of its own, and a call replays the graph of the
+    phase at hand (k graphs, which share one memory pool).
 
     Donated arguments are the state: the same tensors, at the same
     storage, on every call; otherwise the call raises ``ValueError``.
@@ -289,9 +326,9 @@ def donated_step(fn: Callable, *, donate_argnums: Sequence[int] = (0, 1),
     replay, so a schedule and the count advance as in eager steps; which
     updates run (nesterov, weight decay on or off) stays as captured,
     and a call that changes it raises.  ``DistributedOptimizer``
-    advances its pass count per replay and raises inside a capture for
-    ``backward_passes_per_step > 1`` (the host decides when to
-    communicate) and for the int8/int4 wire.  The kernels' ``launches``
+    advances its pass count per replay.  The int8/int4 wire and
+    ``quant.with_error_feedback`` run inside the graph (their residuals
+    are kept in place).  The kernels' ``launches``
     counters count Python calls, so a replay does not move them; count
     a graphed step's launches with ``torch.profiler``.
 

@@ -199,7 +199,25 @@ def test_matmul_bn_relu_relu_grad_at_zero_is_zero():
 
 
 def test_sync_bn_axis_not_ported():
-    x = torch.zeros(1, 2, 2, 8)
-    with pytest.raises(NotImplementedError, match="SyncBN"):
-        tcf.conv1x1_bn_train(x, torch.zeros(8, 8), torch.ones(8),
-                             torch.zeros(8), axis="dp")
+    """SyncBN (``axis=``) is ported: in a world of one it gives the bytes
+    of ``axis=None`` (forward, mean, var and every gradient), though its
+    two ``[2, N]`` collectives run.  Multi-rank worlds are held against
+    the reference in tests/test_torch_port_sync_bn.py."""
+    import horovod_tpu_torch as hvd
+
+    inp = _inputs(_CASES[1])
+    hvd.init(device="cpu")
+    try:
+        out = []
+        for axis in (None, "dp"):
+            x, w, g, b = (_t(inp[k], True)
+                          for k in ("x", "w", "scale", "bias"))
+            y, mean, var = tcf.conv1x1_bn_train(x, w, g, b, axis=axis)
+            ((y * _t(inp["r"])).sum() + (mean * _t(inp["rm"])).sum()
+             + (var * _t(inp["rv"])).sum()).backward()
+            out.append([y, mean, var, x.grad, w.grad, g.grad, b.grad])
+    finally:
+        hvd.shutdown()
+    for got, want in zip(*out):
+        assert torch.equal(got.detach().view(torch.int32),
+                           want.detach().view(torch.int32))

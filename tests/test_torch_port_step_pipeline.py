@@ -14,8 +14,10 @@ and device prefetch (data/loader.py), on the CPU.
   instead of made): FusedSGD/FusedAdam leave their count and scalars
   alone at capture, and each hook writes the scalars an eager step would
   use into the rows the launches read and advances the count;
-  DistributedOptimizer's pass count advances per hook, and
-  ``backward_passes_per_step > 1`` and the int8 wire raise.
+  DistributedOptimizer's pass count advances per hook;
+  ``backward_passes_per_step > 1`` captures one graph a pass (no
+  collective on a non-boundary pass, a fixed set of gradients), and the
+  int8 wire and error feedback run under the capture.
 * ``overlap_step.run``, ``prefetch_to_device`` and
   ``enable_compilation_cache`` keep the reference's contract.
 """
@@ -301,18 +303,64 @@ def test_distributed_optimizer_under_capture(fake_capture, world1):
         for h in hooks:
             h()
     assert opt._passes == 3
+    # k = 2 under capture: each pass of the cycle is a graph of its own
+    # (donated_step keys them by _graph_phase); the accumulate-only pass
+    # registers the pass count and launches nothing, the boundary pass
+    # exchanges and steps.  The accumulators come from the eager passes.
+    hooks.clear()
     acc = hvd.DistributedOptimizer(tok.fused_sgd([a, b], 0.1, momentum=0.9),
                                    backward_passes_per_step=2)
-    with pytest.raises(ValueError, match="backward_passes_per_step"):
+    with pytest.raises(RuntimeError, match="run every pass"):
         acc.step()
+    hooks.clear()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "capturing", lambda: False)
+        acc.step()
+        acc.step()
+    assert acc._passes == 2 and acc._graph_phase() == 0
+    _, launches = fake_capture
+    n_launches = len(launches)
+    synced = []
+    acc.synchronize = lambda: synced.append(acc._graph_phase())
+    acc.step()                       # phase 0: accumulate only
+    assert len(hooks) == 1 and len(launches) == n_launches and not synced
+    hooks[0]()
+    assert acc._graph_phase() == 1
+    acc.step()                       # phase 1: exchange and step
+    assert synced == [1] and len(launches) == n_launches + 1
+    assert len(hooks) == 3           # the pass count, the SGD scalars
+    # The int8 wire and error feedback no longer refuse a capture.
+    hooks.clear()
     int8 = hvd.DistributedOptimizer(
         tok.fused_sgd([a, b], 0.1, momentum=0.9),
         compression=hvd.Compression.int8)
-    with pytest.raises(NotImplementedError, match="the rest of slice 2"):
-        int8.step()
-    with pytest.raises(NotImplementedError, match="the rest of slice 2"):
-        hvd.quant.with_error_feedback(
-            tok.fused_sgd([a, b], 0.1, momentum=0.9)).step()
+    int8.step()
+    ef = hvd.quant.with_error_feedback(
+        tok.fused_sgd([a, b], 0.1, momentum=0.9))
+    ef.step()
+    assert len(hooks) == 3
+
+
+def test_accumulation_capture_needs_every_gradient(fake_capture, world1):
+    """A captured pass replays a fixed set of gradients: under a capture
+    a parameter that the eager passes accumulated and that has no
+    gradient now is refused, as is one that they never saw."""
+    a, b = _two_groups()
+    acc = hvd.DistributedOptimizer(tok.fused_sgd([a, b], 0.1, momentum=0.9),
+                                   backward_passes_per_step=2)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs, "capturing", lambda: False)
+        acc.step()
+        acc.step()
+    b.grad = None
+    with pytest.raises(RuntimeError, match="is missing"):
+        acc.step()
+    c = torch.zeros(2, requires_grad=True)
+    c.grad = torch.ones(2)
+    b.grad = torch.ones_like(b)
+    acc.optimizer.param_groups[0]["params"].append(c)
+    with pytest.raises(RuntimeError, match="no eager pass produced"):
+        acc.step()
 
 
 # ---- overlap_step, prefetch_to_device, the compilation cache --------------

@@ -235,19 +235,31 @@ def test_distributed_optimizer_in_an_nccl_world_of_one(world):
 
 
 def test_backward_passes_per_step_refuses_a_capture(world):
+    """k = 2 no longer refuses a capture: donated_step keeps one graph a
+    pass of the cycle (the first eager call of each pass, then a capture
+    of each), and the graphed passes equal the eager ones bit for bit
+    (tests/test_torch_port_sync_bn_card.py holds more cases)."""
     device = torch.device("cuda")
-    model = resnet50_init(0, ResNetConfig(num_classes=10, depth=26),
-                          device=device)
-    opt = hvd.DistributedOptimizer(
-        ok.fused_sgd(model.parameters(), 0.05, momentum=0.9),
-        backward_passes_per_step=2)
-    step = sp.donated_step(_step)
-    images, labels = _batch(device)
-    step(model, opt, images, labels)                  # eager
-    with pytest.raises(ValueError, match="backward_passes_per_step"):
-        step(model, opt, images, labels)              # the capture
-    with pytest.raises(RuntimeError, match="never carries on eagerly"):
-        step(model, opt, images, labels)
+    out = []
+    for graphed in (True, False):
+        model = resnet50_init(0, ResNetConfig(num_classes=10, depth=26),
+                              device=device)
+        opt = hvd.DistributedOptimizer(
+            ok.fused_sgd(model.parameters(), 0.05, momentum=0.9),
+            backward_passes_per_step=2)
+        step = sp.donated_step(_step) if graphed else _step
+        images, labels = _batch(device)
+        losses = torch.stack([step(model, opt, images, labels).clone()
+                              for _ in range(6)])
+        torch.cuda.synchronize()
+        if graphed:
+            assert len(step._graphs) == 2
+        out.append((losses, model.state_dict(), opt._passes))
+    (gl, gsd, gp), (el, esd, ep) = out
+    _assert_same(gl, el)
+    for name in gsd:
+        _assert_same(gsd[name], esd[name], name)
+    assert gp == ep == 6
 
 
 def test_swapped_donated_tensor_raises(card):
@@ -352,3 +364,34 @@ def test_every_kernel_launcher_replays_in_a_global_capture(card):
         assert len(got) == len(want), name
         for x, y in zip(got, want):
             _assert_same(x, y, name)
+
+
+@pytest.mark.parametrize("fault", ["refused_in_python", "host_sync"])
+def test_failed_capture_never_carries_on_eagerly(card, fault):
+    """A step whose capture fails raises at the capture and on every
+    later call: it never falls back to running eagerly.  The capture
+    fails on a refusal raised in Python, or on a host read of a device
+    value (``.item()``), which a capture cannot hold.  The host-sync
+    case is last in this file: it leaves the card usable, but it is the
+    one that makes the CUDA runtime refuse a call."""
+    model = resnet50_init(0, ResNetConfig(num_classes=10, depth=26),
+                          device=card)
+    opt = ok.fused_sgd(model.parameters(), 0.05, momentum=0.9)
+    images, labels = _batch(card)
+
+    def step_fn(model, opt, images, labels):
+        loss = _step(model, opt, images, labels)
+        if fault == "host_sync":
+            loss.item()
+        elif torch.cuda.is_current_stream_capturing():
+            raise ValueError("refused under a capture")
+        return loss
+
+    step = sp.donated_step(step_fn)
+    assert torch.isfinite(step(model, opt, images, labels))   # eager
+    with pytest.raises((RuntimeError, ValueError)):
+        step(model, opt, images, labels)                      # the capture
+    assert not step.graphed
+    with pytest.raises(RuntimeError, match="never carries on eagerly"):
+        step(model, opt, images, labels)
+    torch.cuda.synchronize()
