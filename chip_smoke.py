@@ -86,6 +86,15 @@ Phases, one JSON line each:
    DistributedOptimizer(fused_sgd(1e-3)), 3 graphed steps, then its step
    ms, img/s and MFU (FlopCounterMode); the MLP (784-256-128-10, batch
    64), 3 graphed steps and its step ms;
+10f. overlap — HVDT_OVERLAP=on at 8 MiB buckets (ops/overlap.py): the
+   bs-64 ResNet-50 step graphed (hooks issue each bucket on a
+   communication stream during the backward) against the monolithic
+   graphed step, bit for bit (a world of one's sum is a copy), with the
+   bucket count and overlap_fraction; pipelined_sgd graphed against the
+   monolithic step, bit for bit, #2 once a bucket a replay; the int8
+   and int4 wires with error feedback overlapped, graphed against
+   eager, #5-#8 a replay against the overlap plan; the step's ms with
+   and without overlap, in turns;
 11. flash_kernel — the three flash-attention kernels (#9 forward, #10
    dQ, #11 dK/dV) against their plain versions at the LM path's shape
    (B 16, H 16, L 4096, D 64, bf16, causal), with
@@ -141,6 +150,14 @@ Phases, one JSON line each:
    materialized-score attention: 2.1 GB of f32 scores stays under the 4
    GiB flash gate); the first step's gradients are held against the
    smallseq path's from the same state, and no attention kernel runs;
+17b. fp8 — quant/fp8.py on the card: the e4m3 operands bit for bit
+   against the plain version's (CPU), fp8_matmul (torch._scaled_mm)
+   against the plain product and its straight-through backward against
+   the plain f32 formula, times of _scaled_mm, fp8_matmul and the bf16
+   torch.matmul at M 65536, K 1024, N 4096; the bert-large LM at seq
+   512, batch 128 with HVDT_FP8=matmul and off in turns (finite losses,
+   tokens/s each; #12/#13 as in lm_smallseq), then one profiled step of
+   each (device ms by kernel class, top kernels);
 18. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
    224x224, batch 128, bf16 compute, f32 params, 3 iterations of 20
    steps each) in turns: G (--fused-optimizer, HVDT_FUSED_CONV1X1=1,
@@ -189,7 +206,8 @@ others reduce (it adds each reduction's identity), allgather_object,
 one named uneven alltoall called three times; eager_cards_grouped, the 161-leaf grouped allreduce against
 device.fused_allreduce (its fused responses, host ms of each), one small
 allreduce's host ms, and each rank's idle cycles a second and store
-round trips a cycle.
+round trips a cycle; eager_cards_adasum, hvd.allreduce(op=hvd.Adasum) of
+an f32 and a bf16 vector against the host tree over every rank's.
 
     python3 chip_smoke.py --dp-cards 4
 
@@ -212,7 +230,15 @@ each rank sends; dp_cards_vgg, VGG-16 at batch 64 a card over the exact
 and the int8 wire: step ms and one exchange's ms (553 MB of f32
 gradients); dp_cards_accumulate, k = 2 (no SyncBN: the exchange is
 the only collective) graphed against eager, NCCL kernels only on the
-boundary pass.  Every dp line carries its phase's wall_s.  The multi-card modes end with the
+boundary pass; dp_cards_overlap, batch 128 a card with HVDT_OVERLAP=on
+at 8 MiB buckets: state identical on every rank, one exchange's
+gradients against the monolithic exchange's (relative L2), the graphed
+step with and without overlap in turns and overlap_fraction;
+dp_cards_adasum, one Adasum exchange of ResNet-50's gradients against
+the host tree per bucket; dp_cards_transport, on a 2x2 ("dcn", "ici")
+mesh, hierarchical f32 and the int8 slow tier against the flat exchange,
+bytes a rank sends on each tier and each exchange's ms.  Every dp line
+carries its phase's wall_s.  The multi-card modes end with the
 card's line and the last line of the one-card run.
 """
 
@@ -1574,6 +1600,309 @@ def phase_lm_smallseq(hvd, gen, smi):
     return launches, shapes
 
 
+# ---- slice 14: the fp8 matmul and the overlapped exchange (one card) --------
+
+FP8_MKN = (65536, 1024, 4096)    # bert-large's MLP projection, 128 x 512
+PEAK_FP8_FLOPS = 1979e12
+OVERLAP_THRESHOLD = 8 * 1024 * 1024
+
+
+def _fp8_operands(gen, m, k, n):
+    x = torch.randn((m, k), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device="cuda") * 0.02
+    return x, w
+
+
+def phase_fp8(hvd, gen, smi):
+    """fp8: the e4m3 operands (scale, clip, cast) on the card bit for bit
+    against the plain version's on the CPU; fp8_matmul's forward
+    (torch._scaled_mm) against the plain product on the card; its
+    straight-through backward against the plain f32 formula; times of
+    _scaled_mm, of the whole fp8_matmul and of the bf16 torch.matmul at
+    the bert-large projection shape; then the bert-large LM at seq 512,
+    batch 128 (HVDT_FLASH_SMALLSEQ=on) with HVDT_FP8=matmul and off in
+    turns.
+
+    Tolerance of the product: the plain product sums the exact e4m3
+    products in f32; Hopper's e4m3 tensor-core GEMM keeps its partial
+    sums in less than f32 between promotions to f32 (torch._scaled_mm's
+    default use_fast_accum=False promotes them, but not after every
+    product).  So each element is held to one bf16 ulp of itself (2^-7
+    of its magnitude) plus 2^-10 of the sum of its products' magnitudes
+    (|qx| @ |qw| times the scales), about 8 units in the last place of
+    a 13-bit-mantissa accumulator; the line reports the largest error
+    over that sum.  The backward (bf16 or f32 operands into cuBLAS's
+    f32 accumulation) is held to 2^-7 of each element plus 1e-5 of the
+    largest."""
+    from horovod_tpu_torch.quant import fp8
+
+    t0 = time.perf_counter()
+    assert fp8.fp8_available(), "no e4m3 GEMM on this card"
+    m, k, n = FP8_MKN
+    x, w = _fp8_operands(gen, m, k, n)
+    sx = fp8._scale_for(x.abs().amax())
+    sw = fp8._scale_for(w.abs().amax())
+    bits = {}
+    for name, t, s in (("x", x, sx), ("w", w, sw)):
+        got = fp8._cast_e4m3(t, s).view(torch.uint8).cpu()
+        want = fp8._cast_e4m3(t.cpu(), s.cpu()).view(torch.uint8)
+        bits[name] = int((got != want).sum())
+        assert bits[name] == 0, (name, bits[name])
+    out = fp8.fp8_matmul(x, w)
+    qx, qw = fp8._cast_e4m3(x, sx), fp8._cast_e4m3(w, sw)
+    plain = ((qx.float() @ qw.float()) * (sx * sw)).to(x.dtype)
+
+    def rule(got, want, abs_sum=None):
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        if abs_sum is None:
+            tol = BF16_ULP * want.abs() + 1e-5 * want.abs().max()
+            return {"max_abs_err": err.max().item(),
+                    "err_over_tol": (err / tol).max().item()}
+        tol = BF16_ULP * want.abs() + 2.0 ** -10 * abs_sum
+        return {"max_abs_err": err.max().item(),
+                "err_over_tol": (err / tol).max().item(),
+                "max_err_over_abs_sum": (err / abs_sum.clamp_min(1e-30))
+                .max().item()}
+
+    abs_sum = (qx.float().abs() @ qw.float().abs()) * (sx * sw)
+    fwd = rule(out, plain, abs_sum)
+    del abs_sum
+    assert fwd["err_over_tol"] <= 1, fwd
+    # The backward at 8192 tokens.
+    xs = x[:8192].clone().requires_grad_()
+    ws = w.clone().requires_grad_()
+    g = torch.randn((8192, n), generator=gen, device="cuda",
+                    dtype=torch.bfloat16) * 1e-3
+    fp8.fp8_matmul(xs, ws).backward(g)
+    sxs = fp8._scale_for(xs.detach().abs().amax())
+    qxs, mx = fp8._cast_and_mask(xs.detach(), sxs)
+    qws, mw = fp8._cast_and_mask(w, sw)
+    want_dx = ((g.float() @ qws.float().t()) * sw * mx).to(torch.bfloat16)
+    want_dw = (qxs.float().t() @ g.float()) * sxs * mw
+    bwd = {"dx": rule(xs.grad, want_dx), "dw": rule(ws.grad, want_dw)}
+    assert all(v["err_over_tol"] <= 1 for v in bwd.values()), bwd
+    del xs, ws, g, qxs, mx, mw, want_dx, want_dw
+
+    w16 = w.to(torch.bfloat16)
+    qw_col = qw.t().contiguous().t()
+    flops = 2.0 * m * k * n
+    times = {
+        "scaled_mm": cuda_ms_stats(lambda: torch._scaled_mm(
+            qx, qw_col, scale_a=sx, scale_b=sw, out_dtype=torch.bfloat16)),
+        "fp8_matmul": cuda_ms_stats(lambda: fp8.fp8_matmul(x, w)),
+        "bf16_matmul": cuda_ms_stats(lambda: x @ w16)}
+    bounds = {"scaled_mm": flops / PEAK_FP8_FLOPS * 1e3,
+              "bf16_matmul": flops / PEAK_BF16_FLOPS * 1e3}
+    del x, w, w16, qx, qw, qw_col, out, plain
+    _free()
+
+    # The LM in turns: off, fp8, fp8, off (2 steps a turn).
+    from horovod_tpu_torch.models import transformer_init
+
+    for knob in ("HVDT_FLASH_ATTENTION", "HVDT_FLASH_SMALLSEQ_HB",
+                 "HVDT_FLASH_BWD"):
+        os.environ.pop(knob, None)
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = lm_config(SS_SEQ)
+    model = transformer_init(0, cfg, device=gen.device)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4))
+    tokens = torch.randint(0, cfg.vocab, (SS_BATCH, SS_SEQ), generator=gen,
+                           device=gen.device)
+    turns = {"off": [], "matmul": []}
+    losses = {"off": [], "matmul": []}
+    try:
+        for mode in ("off", "matmul", "matmul", "off"):
+            os.environ["HVDT_FP8"] = mode
+            reset_counters()
+            ts, ls = run_lm_steps(model, opt, tokens, cfg, 2)
+            launches = counters()
+            assert launches["_smallseq_fwd_kernel"] == 2 * 48, launches
+            assert launches["_smallseq_bwd_kernel"] == 2 * 24, launches
+            assert all(math.isfinite(v) for v in ls), (mode, ls)
+            turns[mode] += ts
+            losses[mode] += ls
+    finally:
+        os.environ.pop("HVDT_FP8", None)
+        del os.environ["HVDT_FLASH_SMALLSEQ"]
+    # Where each step's device time goes (torch.profiler, one steady
+    # step of each, after the turns).
+    profiles = {}
+    from horovod_tpu_torch.models import transformer_loss
+
+    def lm_step():
+        opt.zero_grad()
+        transformer_loss(model, tokens, cfg).backward()
+        opt.step()
+
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    try:
+        for mode in ("off", "matmul"):
+            os.environ["HVDT_FP8"] = mode
+            summary, _ = step_profile(lm_step, steps=1)
+            profiles[mode] = {k: summary[k] for k in (
+                "device_ms_per_step", "idle_share",
+                "kernel_launches_per_step", "kernel_ms_per_step_by_class",
+                "top_kernels")}
+            profiles[mode]["top_kernels"] = profiles[mode][
+                "top_kernels"][:6]
+    finally:
+        os.environ.pop("HVDT_FP8", None)
+        del os.environ["HVDT_FLASH_SMALLSEQ"]
+    tokens_per_step = SS_BATCH * SS_SEQ
+    rate = {mode: tokens_per_step / min(ts) for mode, ts in turns.items()}
+    del model, opt, tokens
+    _free()
+    emit({"phase": "fp8", "shape_mkn": list(FP8_MKN),
+          "operand_bits_differing": bits, "forward_vs_plain": fwd,
+          "backward_vs_plain": bwd, "ms": times, "bound_ms": bounds,
+          "bound_by": "operations",
+          "lm": {"model": "bert-large", "seq": SS_SEQ, "batch": SS_BATCH,
+                 "step_s": turns, "losses": losses, "tokens_per_s": rate,
+                 "fp8_over_bf16": rate["matmul"] / rate["off"],
+                 "profile": profiles},
+          "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def _overlap_env(on: bool):
+    from horovod_tpu_torch.ops import overlap
+
+    if on:
+        os.environ["HVDT_OVERLAP"] = "on"
+    else:
+        os.environ.pop("HVDT_OVERLAP", None)
+    overlap.reset()
+
+
+def _drop(opt):
+    """Unregister an overlapped optimizer's hooks (under any wrapper)."""
+    while opt is not None and not isinstance(opt, torch.optim.Optimizer):
+        hooked = vars(opt).get("_hooked")
+        if hooked is not None:
+            hooked.remove()
+        opt = vars(opt).get("optimizer")
+
+
+def _pipelined_run(hvd, batches, calls, graphed):
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.ops import overlap
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    model = resnet50_init(0, ResNetConfig())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = overlap.pipelined_sgd(model.parameters(), 0.01, momentum=0.9,
+                                threshold_bytes=OVERLAP_THRESHOLD)
+    step = donated_step(_resnet_step) if graphed else _resnet_step
+    losses = [step(model, opt, *batches[i % len(batches)]).clone()
+              for i in range(calls)]
+    torch.cuda.synchronize()
+    return model, opt, step, _state_of(model, opt, losses)
+
+
+def phase_overlap(hvd, smi):
+    """overlap (the NCCL world of one): the bs-64 ResNet-50 step graphed
+    with HVDT_OVERLAP=on at 8 MiB buckets (hooks issue each bucket on the
+    communication stream during the backward; the capture holds the
+    fork and the join) against the monolithic graphed step, bit for bit
+    (a world of one's sum is a copy); pipelined_sgd graphed against the
+    monolithic step, bit for bit, with #2's launches a replay (one a
+    bucket); the int8 and int4 wires with error feedback, overlapped and
+    graphed against eager, with #5-#8 launches a replay against the
+    overlap plan; the graphed step's ms with and without overlap, in
+    turns."""
+    from horovod_tpu_torch.ops import overlap
+
+    t0 = time.perf_counter()
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    os.environ["HVDT_FUSION_THRESHOLD"] = str(OVERLAP_THRESHOLD)
+    torch.backends.cudnn.deterministic = True
+    batch = [_bf16_batch(17, BATCH)]
+    try:
+        _overlap_env(False)
+        mm, mo, ms_, mono = _dp_run(hvd, True, batch, DP_STEPS)
+        _overlap_env(True)
+        overlap.reset_accounting()
+        reset_counters()
+        om, oo, os_, ovl = _dp_run(hvd, True, batch, DP_STEPS)
+        launches = counters()
+        buckets = len(oo._hooked.plan)
+        err = _runs_err(ovl, mono)
+        assert err == 0.0, err
+        kern = replay_kernels(lambda: os_(om, oo, *batch[0]))
+        assert kern["_sgd_kernel"] == 1, kern
+        ms = {"monolithic": [], "overlapped": []}
+        for name in ("monolithic", "overlapped", "overlapped",
+                     "monolithic"):
+            ms[name].append(_graphed_ms(
+                (lambda: ms_(mm, mo, *batch[0])) if name == "monolithic"
+                else (lambda: os_(om, oo, *batch[0])), steps=5))
+        fraction = overlap.overlap_fraction()
+        schedule = overlap.last_schedule()
+        _drop(oo)
+        del mm, mo, ms_, om, oo, os_
+        _free()
+
+        _overlap_env(False)
+        reset_counters()
+        pm, po, ps_, pipe = _pipelined_run(hvd, batch, DP_STEPS, True)
+        p_err = _runs_err(pipe, {k: v for k, v in mono.items()})
+        assert p_err == 0.0, p_err
+        p_kern = replay_kernels(lambda: ps_(pm, po, *batch[0]))
+        p_buckets = len(overlap.overlap_schedule(
+            list(pm.parameters()), OVERLAP_THRESHOLD))
+        assert p_kern["_sgd_kernel"] == p_buckets, (p_kern, p_buckets)
+        del pm, po, ps_
+        _free()
+
+        _overlap_env(True)
+        wires = {}
+        for wire in ("int8", "int4"):
+            wm, wo, ws_, wired = _dp_run(hvd, True, batch, DP_STEPS,
+                                         wire=wire)
+            em, eo, _, eager = _dp_run(hvd, False, batch, DP_STEPS,
+                                       wire=wire)
+            w_err = _runs_err(wired, eager)
+            assert w_err == 0.0, (wire, w_err)
+            w_kern = replay_kernels(lambda: ws_(wm, wo, *batch[0]))
+            leaves = len(list(wm.parameters()))
+            nb = len(wo.optimizer._hooked.plan)
+            # Error feedback quantizes and dequantizes every leaf; each
+            # bucket is quantized twice and dequantized once (twice on
+            # the int4 wire, whose accumulate dequantizes through #8).
+            want = (leaves + 2 * nb,
+                    leaves + (2 if wire == "int4" else 1) * nb)
+            q, dq = (("_quant4_kernel", "_dequant4_kernel")
+                     if wire == "int4" else
+                     ("_quant_kernel", "_dequant_kernel"))
+            assert (w_kern[q], w_kern[dq]) == want, (wire, w_kern, want)
+            wires[wire] = {"graphed_vs_eager_max_abs_err": w_err,
+                           "buckets": nb,
+                           "expected_quant_dequant_per_replay": list(want),
+                           "kernels_per_replay": w_kern}
+            _drop(wo)
+            _drop(eo)
+            del wm, wo, ws_, em, eo
+            _free()
+    finally:
+        _overlap_env(False)
+        del os.environ["HVDT_FUSION_THRESHOLD"]
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "overlap", "model": "resnet50", "batch": BATCH,
+          "steps": DP_STEPS, "threshold_bytes": OVERLAP_THRESHOLD,
+          "buckets": buckets, "overlap_fraction": fraction,
+          "schedule": schedule, "overlapped_vs_monolithic_max_abs_err": err,
+          "launches": launches, "kernels_per_replay": kern,
+          "step_ms": ms,
+          "pipelined_sgd": {"vs_monolithic_max_abs_err": p_err,
+                            "buckets": p_buckets,
+                            "kernels_per_replay": p_kern},
+          "wires_overlapped": wires,
+          "tolerance": 0.0, "wall_s": time.perf_counter() - t0,
+          "card": smi})
+
+
 BENCH_BATCH = 128
 BENCH_ARGS = ["--num-iters", "3", "--num-batches-per-iter", "20"]
 # The legs of the bench phase: (name, bench flags, HVDT_FUSED_CONV1X1).
@@ -2716,6 +3045,27 @@ def eager_cards_worker(device=None) -> None:
               "a2a_repeats": 3, "max_abs_err_float_sums": max_err,
               "last_joined": last, "wall_s": time.perf_counter() - t_start})
 
+    # Adasum through the eager core: each rank's seeded vector against the
+    # host tree over every rank's vector (float64, then one rounding to
+    # the dtype: 1e-6 of the largest magnitude for f32, a bf16 ulp of
+    # each element for bf16).
+    from horovod_tpu_torch.ops.adasum import _np_adasum_tree
+
+    ada = {}
+    for dtype, rel, floor in ((torch.float32, 0.0, 1e-6),
+                              (torch.bfloat16, 2.0 ** -7, 1e-6)):
+        xs = [_rank_input(q, dtype, (4099,), 970) for q in range(n)]
+        got = _np(hvd.allreduce(on_dev(xs[r]), op=hvd.Adasum,
+                                name=f"c.adasum.{dtype}"))
+        want = _np_adasum_tree([_np(x) for x in xs])
+        err = np.abs(got - want)
+        assert (err <= rel * np.abs(want) + floor * np.abs(want).max()
+                ).all(), (dtype, err.max())
+        ada[str(dtype).split(".")[-1]] = float(err.max())
+    if lead:
+        emit({"phase": "eager_cards_adasum", "cards": n, "elements": 4099,
+              "max_abs_err_vs_host_tree": ada})
+
     # The 161 gradient leaves of ResNet-50, seeded per rank.
     model = resnet50_init(0, ResNetConfig(), device=dev)
     g = torch.Generator(device=dev).manual_seed(r)
@@ -3618,9 +3968,263 @@ def dp_accumulate(hvd, smi):
     _free()
 
 
+def _exchanged_grads(hvd, model, opt, images, labels):
+    """One backward and ``opt.synchronize()``: the exchanged gradients
+    (copies), with no optimizer step."""
+    from horovod_tpu_torch.models import resnet_loss
+
+    opt.zero_grad(set_to_none=True)
+    loss, _ = resnet_loss(model, images, labels)
+    loss.backward()
+    opt.synchronize()
+    torch.cuda.synchronize()
+    return [p.grad.detach().clone() for p in model.parameters()]
+
+
+def _max_rel_l2(got, want) -> float:
+    return max(((a.double() - b.double()).norm()
+                / b.double().norm().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+# The overlapped exchange's gradients against the monolithic one's: the
+# same f32 terms summed across 4 ranks in another order (NCCL's order for
+# an element depends on its place in the bucket), a few ulps each.
+DP_OVERLAP_TOL = 1e-5
+
+
+def dp_overlap(hvd, smi):
+    """dp_cards_overlap: ResNet-50 with bn_axis="dp", fused convs, at
+    batch 128 a card, HVDT_OVERLAP=on with 8 MiB buckets: state identical
+    on every rank after 3 graphed steps; one step's exchanged gradients
+    against the monolithic exchange's from the same state (relative L2);
+    the graphed step with and without overlap in turns, and
+    overlap_fraction."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.ops import overlap
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    os.environ["HVDT_FUSION_THRESHOLD"] = str(OVERLAP_THRESHOLD)
+    batch = _bf16_batch(500 + r, DP_TIME_BATCH)
+    try:
+        grads = {}
+        for on in (False, True):
+            _overlap_env(on)
+            model = resnet50_init(0, ResNetConfig(bn_axis="dp"))
+            hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+            opt = hvd.DistributedOptimizer(
+                hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9))
+            grads[on] = _exchanged_grads(hvd, model, opt, *batch)
+            _drop(opt)
+            del model, opt
+            _free()
+        rel = _max_rel_l2(grads[True], grads[False])
+        assert rel <= DP_OVERLAP_TOL, rel
+        del grads
+        overlap.reset_accounting()
+        _overlap_env(True)
+        om, oo, ostep, got = _dp_run(hvd, True, [batch], DP_STEPS,
+                                     bn_axis="dp")
+        same = _same_on_every_rank(
+            [v for k, v in got.items() if k != "losses"])
+        assert same
+        fraction = overlap.overlap_fraction()
+        buckets = len(oo._hooked.plan)
+        kern = replay_kernels(lambda: ostep(om, oo, *batch))
+        _overlap_env(False)
+        model = resnet50_init(0, ResNetConfig(bn_axis="dp"))
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        mo = hvd.DistributedOptimizer(
+            hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9))
+        mstep = donated_step(_resnet_step)
+        mstep(model, mo, *batch)
+        times = {"monolithic": [], "overlapped": []}
+        for name in ("monolithic", "overlapped", "overlapped",
+                     "monolithic"):
+            times[name].append(_graphed_ms(
+                (lambda: mstep(model, mo, *batch)) if name == "monolithic"
+                else (lambda: ostep(om, oo, *batch))))
+        _drop(oo)
+        del om, oo, ostep, model, mo, mstep
+        _free()
+    finally:
+        _overlap_env(False)
+        del os.environ["HVDT_FUSION_THRESHOLD"]
+    if r == 0:
+        emit({"phase": "dp_cards_overlap", "cards": n, "model": "resnet50",
+              "batch_per_card": DP_TIME_BATCH, "bn_axis": "dp",
+              "threshold_bytes": OVERLAP_THRESHOLD, "buckets": buckets,
+              "state_identical_on_every_rank": same,
+              "grads_rel_l2_vs_monolithic": rel,
+              "tolerance": DP_OVERLAP_TOL, "overlap_fraction": fraction,
+              "kernels_per_replay_rank0": kern, "step_ms": times,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+# Adasum on the card (f32 combination, dots summed per shard, then across
+# ranks) against the host tree in float64, relative L2 per bucket.
+DP_ADASUM_TOL = 1e-5
+
+
+def dp_adasum(hvd, smi):
+    """dp_cards_adasum: one exchange of ResNet-50's gradients (batch 32 a
+    card, bn_axis=None) under DistributedOptimizer(op=hvd.Adasum): each
+    bucket's result against _np_adasum_tree over every rank's gathered
+    gradients of that bucket."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.ops.adasum import _np_adasum_tree
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    images, labels = _bf16_batch(600 + r, DP_CHECK_BATCH)
+    model = resnet50_init(0, ResNetConfig())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    from horovod_tpu_torch.models import resnet_loss
+
+    model.zero_grad(set_to_none=True)
+    resnet_loss(model, images, labels)[0].backward()
+    local = [p.grad.detach().clone() for p in model.parameters()]
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_sgd(model.parameters(), 0.01), op=hvd.Adasum)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    opt.synchronize()
+    torch.cuda.synchronize()
+    exchange_ms = (time.perf_counter() - t1) * 1e3
+    got = [p.grad.detach() for p in model.parameters()]
+    errs = []
+    for bucket in hvd.device.fused_allreduce_buckets(local, None):
+        mine = torch.cat([local[i].reshape(-1) for i in bucket])
+        every = mine.new_empty(n * mine.numel())
+        dist.all_gather_into_tensor(every, mine)
+        want = _np_adasum_tree(list(every.view(n, -1).double().cpu()
+                                    .numpy()))
+        mine_got = torch.cat([got[i].reshape(-1) for i in bucket])
+        d = mine_got.double().cpu().numpy() - want
+        errs.append({"elements": mine.numel(),
+                     "rel_l2": float(np.linalg.norm(d)
+                                     / np.linalg.norm(want)),
+                     "max_abs_err": float(np.abs(d).max()),
+                     "max_abs_want": float(np.abs(want).max())})
+    assert all(e["rel_l2"] <= DP_ADASUM_TOL for e in errs), errs
+    same = _same_on_every_rank(got)
+    assert same
+    del model, opt, local, got
+    _free()
+    if r == 0:
+        emit({"phase": "dp_cards_adasum", "cards": n, "model": "resnet50",
+              "batch_per_card": DP_CHECK_BATCH, "buckets": errs,
+              "tolerance_rel_l2": DP_ADASUM_TOL,
+              "identical_on_every_rank": same,
+              "exchange_host_ms_rank0": exchange_ms,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+# The hierarchical f32 exchange against the flat one: the same terms in
+# another grouping (2 then 2 against NCCL's ring of 4).
+DP_TRANSPORT_TOL = 1e-5
+
+
+def dp_transport(hvd, smi):
+    """dp_cards_transport, on a 2x2 ("dcn", "ici") mesh (both tiers are
+    NVLink on one host): one exchange of ResNet-50's f32 gradients (batch
+    32 a card) flat, hierarchical at f32 and with the int8 slow tier;
+    each against flat (relative L2, and the int8 tier's error against
+    its block-scale/2 bound); bytes a rank sends on each tier; each
+    exchange's device ms."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.models import resnet_loss
+    from horovod_tpu_torch.parallel import make_mesh
+    from horovod_tpu_torch.transport import hierarchy, policy
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dcn=2, ici=n // 2)
+    images, labels = _bf16_batch(700 + r, DP_CHECK_BATCH)
+    model = resnet50_init(0, ResNetConfig())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    model.zero_grad(set_to_none=True)
+    resnet_loss(model, images, labels)[0].backward()
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    del model
+    specs = {"flat": None, "hier_f32": "ici:ring:f32,dcn:tree:f32",
+             "hier_int8": "ici:ring:f32,dcn:tree:int8"}
+    out, rows = {}, {}
+    try:
+        for name, spec in specs.items():
+            if spec is None:
+                os.environ.pop("HVDT_TRANSPORT", None)
+            else:
+                os.environ["HVDT_TRANSPORT"] = spec
+            policy.reset()
+            out[name] = hvd.device.fused_allreduce(grads)
+            res = hvd.device.resolve_transport()[0]
+            row = {"ms": _graphed_ms(
+                lambda: hvd.device.fused_allreduce(grads), steps=5)}
+            if res is not None and res.kind == "hierarchical":
+                fast_n, slow_n = hierarchy.tier_sizes(res, mesh)
+                fast_b = slow_b = 0
+                for bucket in hvd.device.fused_allreduce_buckets(grads,
+                                                                 None):
+                    size = sum(grads[i].numel() for i in bucket)
+                    total = hierarchy.wire_bytes_estimate(res, size, 4, mesh)
+                    fb = 2 * hierarchy._ring_bytes(size, 4, fast_n)
+                    fast_b += fb
+                    slow_b += total - fb
+                row.update({"tiers": [fast_n, slow_n],
+                            "fast_tier_bytes_per_rank": fast_b,
+                            "slow_tier_bytes_per_rank": slow_b})
+            else:
+                size = sum(g.numel() for g in grads)
+                row["ring_bytes_per_rank"] = 2 * size * 4 * (n - 1) // n
+            rows[name] = row
+    finally:
+        os.environ.pop("HVDT_TRANSPORT", None)
+        policy.reset()
+        hvd.common.basics.set_mesh(None)
+    rows["hier_f32"]["rel_l2_vs_flat"] = _max_rel_l2(out["hier_f32"],
+                                                     out["flat"])
+    assert rows["hier_f32"]["rel_l2_vs_flat"] <= DP_TRANSPORT_TOL, rows
+    # int8 slow tier: stage 1 quantizes each slow rank's ici sum, stage 2
+    # the dcn sum; half a step of 1/127 of the block's absmax each, then
+    # AVERAGE over n.  Taken here from the largest magnitudes.
+    gmax = torch.tensor([max(g.abs().max().item() for g in grads)],
+                        device=grads[0].device)
+    dist.all_reduce(gmax, dist.ReduceOp.MAX)
+    fast_max = (n // 2) * gmax.item()
+    bound = (2 * fast_max / 127 / 2 + n * gmax.item() / 127 / 2) / n
+    err = max((a - b).abs().max().item()
+              for a, b in zip(out["hier_int8"], out["flat"]))
+    rows["hier_int8"].update({"max_abs_err_vs_flat": err, "bound": bound,
+                              "rel_l2_vs_flat": _max_rel_l2(
+                                  out["hier_int8"], out["flat"])})
+    assert err <= bound, (err, bound)
+    same = _same_on_every_rank([t for v in out.values() for t in v])
+    assert same
+    del out, grads
+    _free()
+    if r == 0:
+        emit({"phase": "dp_cards_transport", "cards": n,
+              "mesh": {"dcn": 2, "ici": n // 2}, "model": "resnet50",
+              "batch_per_card": DP_CHECK_BATCH, "exchanges": rows,
+              "tolerance_rel_l2": DP_TRANSPORT_TOL,
+              "identical_on_every_rank": same,
+              "note": "both tiers are NVLink on one host",
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
 def dp_cards_worker(device=None) -> None:
     """One rank of ``--dp-cards``: :func:`dp_check`, :func:`dp_time`,
-    :func:`dp_wire`, :func:`dp_vgg` and :func:`dp_accumulate` in an NCCL
+    :func:`dp_wire`, :func:`dp_vgg`, :func:`dp_accumulate`,
+    :func:`dp_overlap`, :func:`dp_adasum` and :func:`dp_transport` in an NCCL
     world of one process a card.  Rank 0 prints the lines.  The eager
     controller is never started."""
     import torch.distributed as dist
@@ -3634,7 +4238,8 @@ def dp_cards_worker(device=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     try:
-        for phase in (dp_check, dp_time, dp_wire, dp_vgg, dp_accumulate):
+        for phase in (dp_check, dp_time, dp_wire, dp_vgg, dp_accumulate,
+                      dp_overlap, dp_adasum, dp_transport):
             phase(hvd, smi)
             dist.barrier()
     except BaseException:
@@ -3843,12 +4448,14 @@ def main() -> int:
     phase_accumulate(hvd, smi)
     phase_wire_graphed(hvd, smi)
     phase_vgg_mlp(hvd, smi)
+    phase_overlap(hvd, smi)
 
     flash = phase_flash_kernels(gen, smi)
     phase_ring(gen, smi)
     lm_launches = phase_lm(hvd, gen, smi)
     flash.update(phase_smallseq_kernels(gen, smi))
     ss_launches, lm_shapes = phase_lm_smallseq(hvd, gen, smi)
+    phase_fp8(hvd, gen, smi)
     bench_mm_err = phase_bench(hvd, smi)
     conv["_mm_stats_kernel"]["max_abs_err"] = max(
         conv["_mm_stats_kernel"]["max_abs_err"], bench_mm_err)

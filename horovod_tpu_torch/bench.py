@@ -35,6 +35,25 @@ kept in ``.bench_torch_last_good.json`` beside the package; variants
 (``--fused-optimizer``, ``--steps-per-call``, ``--eager``, telemetry,
 ``HVDT_BENCH_NO_CACHE``) never write it.
 
+The exchange-scheduling legs follow the reference's env contract
+(``bench.py:751-783``; explicit env wins over each default):
+
+    python -m horovod_tpu_torch.bench --overlap          # HVDT_OVERLAP=on
+    python -m horovod_tpu_torch.bench --transport auto   # HVDT_TRANSPORT
+    python -m horovod_tpu_torch.bench --fp8              # HVDT_FP8=matmul
+
+``--overlap`` and ``--transport`` give the step a gradient exchange:
+``DistributedOptimizer`` in the world of one process (NCCL on the card)
+with 8 MiB buckets (``HVDT_FUSION_THRESHOLD``), so ResNet-50's gradients
+plan several buckets; their JSON keys are the reference's
+(``overlap_fraction``, ``overlap_schedule``; ``transport``,
+``transport_policy``, plus ``transport_resolved``, the policy applied to
+the step's reduce group).  ``--fp8`` flips the compute gate; the ResNet
+conv stack has no projection, so the step is unchanged, as in the
+reference, and the ``fp8`` key carries the gate and probe state and a
+microbench of ``quant.fp8.fp8_matmul`` (``torch._scaled_mm``) against
+the bf16 ``torch.matmul`` at a bert-large projection shape.
+
 The reference's other legs are not ported yet: each flag raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -60,9 +79,9 @@ LAST_GOOD_PATH = os.path.join(_ROOT, ".bench_torch_last_good.json")
 
 # The reference's other legs (argparse dest -> ROADMAP Queue 1 item).
 _UNPORTED = {
-    "overlap": "exchange scheduling", "transport": "exchange scheduling",
-    "zero": "exchange scheduling", "ckpt_stall": "exchange scheduling",
-    "fp8": "the rest of slice 2", "remat": "parallel axes",
+    "zero": "exchange scheduling (ZeRO, checkpoint)",
+    "ckpt_stall": "exchange scheduling (ZeRO, checkpoint)",
+    "remat": "parallel axes",
     "moe": "parallel axes", "pipeline": "parallel axes",
     "serve": "serving", "serve_llm": "serving",
     "controller": "control, analysis and the edges",
@@ -70,7 +89,11 @@ _UNPORTED = {
     "report": "control, analysis and the edges",
 }
 # Keys of a JSON line that mark a variant, never the headline.
-_VARIANTS = ("fused_optimizer", "steps_per_call", "eager", "telemetry")
+_VARIANTS = ("fused_optimizer", "steps_per_call", "eager", "telemetry",
+             "overlap", "transport", "fp8")
+# The fp8 microbench: a bert-large projection (d_model 1024, d_ff 4096)
+# over 8192 tokens on the card; a small one on the CPU.
+FP8_SHAPE = {"cuda": (8192, 1024, 4096), "cpu": (64, 128, 256)}
 
 
 def _save_last_good(line: str) -> None:
@@ -114,11 +137,21 @@ def _parse_args(argv=None):
                          "(the yardstick for donated_step)")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run on the CPU; the card otherwise")
-    for flag in ("overlap", "fp8", "ckpt-stall", "serve", "serve-llm",
+    ap.add_argument("--overlap", action="store_true",
+                    help="the step exchanges its gradients through "
+                         "DistributedOptimizer with HVDT_OVERLAP=on (hooks "
+                         "issue each 8 MiB bucket during the backward)")
+    ap.add_argument("--transport", default="",
+                    help="the step exchanges its gradients under this "
+                         "HVDT_TRANSPORT policy (e.g. auto)")
+    ap.add_argument("--fp8", action="store_true",
+                    help="HVDT_FP8=matmul, and the fp8 gate, probe and "
+                         "matmul microbench in the JSON")
+    for flag in ("ckpt-stall", "serve", "serve-llm",
                  "report", "controller", "moe", "pipeline"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not ported yet (raises)")
-    for flag in ("transport", "zero", "remat", "fleet"):
+    for flag in ("zero", "remat", "fleet"):
         ap.add_argument(f"--{flag}", default="",
                         help="not ported yet (raises)")
     ap.add_argument("--_child", action="store_true", help=argparse.SUPPRESS)
@@ -179,6 +212,18 @@ def measure(args) -> Leg:
     from .ops.optim_kernels import fused_sgd
     from .step_pipeline import donated_step
 
+    if args.overlap:
+        os.environ.setdefault("HVDT_OVERLAP", "on")
+        os.environ.setdefault("HVDT_TELEMETRY", "1")
+        os.environ.setdefault("HVDT_FUSION_THRESHOLD", str(8 * 1024 * 1024))
+    if args.transport:
+        os.environ["HVDT_TRANSPORT"] = args.transport
+        os.environ.setdefault("HVDT_TELEMETRY", "1")
+        os.environ.setdefault("HVDT_FUSION_THRESHOLD", str(8 * 1024 * 1024))
+    if args.fp8:
+        os.environ["HVDT_FP8"] = "matmul"
+        os.environ.setdefault("HVDT_TELEMETRY", "1")
+
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
     kind = torch.cuda.get_device_name(device) if on_card else device.type
@@ -199,6 +244,17 @@ def measure(args) -> Leg:
         opt = fused_sgd(model.parameters(), 0.01, momentum=0.9)
     else:
         opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
+    if args.overlap or args.transport:
+        # The exchange legs: a world of one process, so the step has the
+        # gradient exchange the headline leg leaves out.
+        import horovod_tpu_torch as hvd
+
+        hvd.init(device=device)
+        opt = hvd.DistributedOptimizer(opt)
+        print(f"exchange leg: HVDT_OVERLAP="
+              f"{os.environ.get('HVDT_OVERLAP')!r} HVDT_TRANSPORT="
+              f"{os.environ.get('HVDT_TRANSPORT')!r} threshold "
+              f"{os.environ.get('HVDT_FUSION_THRESHOLD')}", file=sys.stderr)
 
     def step_fn(model, opt, images, labels):
         for _ in range(args.steps_per_call):
@@ -280,11 +336,74 @@ def measure(args) -> Leg:
         **({"steps_per_call": args.steps_per_call}
            if args.steps_per_call != 1 else {}),
         **({"eager": True} if args.eager else {}),
+        **(_overlap_doc() if args.overlap else {}),
+        **(_transport_doc(args.transport) if args.transport else {}),
+        **(_fp8_doc(device) if args.fp8 else {}),
         **({"telemetry": {**timer.snapshot(),
                           "goodput_fraction": round(ledger.fraction(), 4)}}
            if timer is not None else {}),
     }
     return Leg(doc, rates, call)
+
+
+def _overlap_doc() -> dict:
+    """The --overlap leg's JSON fields (the reference's keys): the
+    byte-weighted overlap fraction and the last bucket plan."""
+    from .ops import overlap
+
+    fraction = overlap.overlap_fraction()
+    return {"overlap": True,
+            "overlap_fraction": (round(fraction, 4)
+                                 if fraction is not None else None),
+            "overlap_schedule": overlap.last_schedule()}
+
+
+def _transport_doc(spec: str) -> dict:
+    """The --transport leg's JSON fields: the policy and what it resolves
+    to for the step's reduce group.  The reference's per-axis wire-byte
+    counters come with the telemetry recorder (ROADMAP Queue 1 item 6)."""
+    import dataclasses as dc
+
+    from .ops import device as dev
+    from .transport import get_policy
+
+    pol = get_policy()
+    res, _ = dev.resolve_transport()
+    return {"transport": spec,
+            "transport_policy": pol.describe() if pol else None,
+            "transport_resolved": dc.asdict(res) if res else None}
+
+
+def _fp8_doc(device) -> dict:
+    """The --fp8 leg's JSON fields: the gate and probe state and a
+    matmul microbench, ``fp8_matmul`` (x bf16, w f32, as the LM's
+    projections call it) against the bf16 ``torch.matmul``."""
+    import torch
+
+    from .quant import fp8
+
+    doc = {"fp8": {"mode": fp8.fp8_mode(), "available": fp8.fp8_available(),
+                   "engaged": fp8.matmul_enabled()}}
+    m, k, n = FP8_SHAPE["cuda" if device.type == "cuda" else "cpu"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((m, k), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device=device) * 0.02
+    w16 = w.to(torch.bfloat16)
+    doc["fp8"]["shape_mkn"] = [m, k, n]
+    for key, fn in (("fp8_matmul_us", lambda: fp8.fp8_matmul(x, w)),
+                    ("bf16_matmul_us", lambda: x @ w16)):
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        doc["fp8"][key] = round((time.perf_counter() - t0) / 10 * 1e6, 1)
+        assert torch.isfinite(out).all()
+    return doc
 
 
 def _spawn(child_args: List[str], timeout_s: int):
@@ -327,6 +446,9 @@ def main(argv=None) -> int:
                   "--steps-per-call", str(args.steps_per_call)] \
         + (["--fused-optimizer"] if args.fused_optimizer else []) \
         + (["--eager"] if args.eager else []) \
+        + (["--overlap"] if args.overlap else []) \
+        + (["--transport", args.transport] if args.transport else []) \
+        + (["--fp8"] if args.fp8 else []) \
         + (["--device", args.device] if args.device else [])
     if args.device == "cpu":      # asked for: one attempt there
         timeouts = [int(os.environ.get("HVDT_BENCH_CPU_TIMEOUT", "600"))]

@@ -9,8 +9,9 @@ CUDA device, gloo when the caller asks for ``device="cpu"``.
 ``HVDT_COORDINATOR_ADDR``) and falls back to torchrun's ``RANK`` /
 ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``.  With neither set it
 makes a one-process world over an in-process store, with no networking.
-It also resolves ``HVDT_COMPRESSION`` / ``HVDT_QUANT``, so an unknown
-compressor name fails at init.
+It also resolves ``HVDT_COMPRESSION`` / ``HVDT_QUANT`` and parses
+``HVDT_TRANSPORT``, so an unknown compressor name or transport
+vocabulary fails at init.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ __all__ = [
     "global_devices",
     "is_homogeneous",
     "resolve_device",
+    "current_mesh",
+    "set_mesh",
 ]
 
 DeviceLike = Union[str, torch.device, None]
@@ -73,6 +76,8 @@ class _GlobalState:
         # control plane's transport (ops/control_plane.py).
         self.store: Optional[dist.Store] = None
         self.eager_controller = None
+        # The DeviceMesh parallel.mesh.make_mesh (or set_mesh) recorded.
+        self.mesh = None
 
     def reset(self) -> None:
         self.initialized = False
@@ -81,6 +86,7 @@ class _GlobalState:
         self.owns_group = False
         self.store = None
         self.eager_controller = None
+        self.mesh = None
 
 
 _state = _GlobalState()
@@ -146,6 +152,11 @@ def init(*, device: DeviceLike = None,
         from ..ops.compression import Compression
 
         Compression.from_env()
+        # HVDT_TRANSPORT too: unknown vocabulary fails here, on every
+        # rank, with the valid lists.
+        from ..transport import validate_env
+
+        validate_env()
         env_size = config.get_int("HVDT_SIZE")
         if env_size <= 0:
             env_size = _env_int("WORLD_SIZE")
@@ -238,6 +249,20 @@ def shutdown() -> None:
 
 
 atexit.register(shutdown)
+
+
+def current_mesh():
+    """The ``DeviceMesh`` :func:`parallel.mesh.make_mesh` (or
+    :func:`set_mesh`) recorded, or None."""
+    return _state.mesh
+
+
+def set_mesh(mesh) -> None:
+    """Adopt ``mesh`` (a ``DeviceMesh`` over the world, or None) as the
+    current mesh: its dimension names are the reduce group a transport
+    policy resolves for ``fused_allreduce``."""
+    with _state.lock:
+        _state.mesh = mesh
 
 
 def _topo() -> Topology:

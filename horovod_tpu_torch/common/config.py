@@ -106,8 +106,27 @@ KNOBS: Dict[str, Knob] = {
              "'dots' is not ported yet and raises."),
         Knob("HVDT_FP8", "off", str,
              "fp8 (e4m3) compute path: off (default) or matmul (the "
-             "transformer projections through fp8; not ported yet, so it "
-             "raises).  Unknown values raise with the valid list."),
+             "transformer projections through quant/fp8.py: "
+             "torch._scaled_mm on the card).  Unknown values raise with "
+             "the valid list."),
+        Knob("HVDT_OVERLAP", "", str,
+             "Overlapped gradient exchange (ops/overlap.py): 'on' makes "
+             "DistributedOptimizer issue each bucket's collective from "
+             "gradient hooks, in reverse-topological order, on a "
+             "communication stream while the backward runs; unset/'off' "
+             "(default) keeps the exchange in step()."),
+        Knob("HVDT_XLA_LATENCY_HIDING", "auto", str,
+             "The reference's XLA latency-hiding flags: auto, on, off "
+             "(validated; the port sets nothing, its overlap comes from "
+             "HVDT_OVERLAP's hooks)."),
+        Knob("HVDT_TRANSPORT", "", str,
+             "Per-mesh-axis transport policy (horovod_tpu_torch/"
+             "transport): comma entries axis:algorithm:wire[:threshold] "
+             "with axis in {ici,dcn,dp,pp,fsdp,ep,sp,tp}, algorithm in "
+             "{ring,tree,2d_ring}, wire in {f32,bf16,fp16,int8,int4} "
+             "(int8/int4 on dcn only), threshold digits[K|M|G]; or "
+             "'auto'.  Unset (default) keeps the flat exchange; unknown "
+             "vocabulary raises at init()."),
         Knob("HVDT_TELEMETRY", False, _parse_bool,
              "Step statistics in the bench's JSON line (the StepTimer "
              "snapshot and the goodput fraction).  The exporter, traces "

@@ -51,9 +51,10 @@ whole world (dp x sp ranks) is the reference's gradient of the sp-mean
 loss averaged over dp.  Under ``remat`` the recompute runs the forward
 ring again, with its transfers, on every member in the same order.
 
-Outside this slice, and raising ``NotImplementedError`` naming their
-ROADMAP item: MoE (``num_experts > 0``), ``pp``/``ep > 1``,
-``HVDT_FP8=matmul``, ``remat_policy="dots"``, and the paged serving
+``HVDT_FP8=matmul`` runs every projection through the e4m3 product of
+``quant/fp8.py``.  Outside this slice, and raising
+``NotImplementedError`` naming their ROADMAP item: MoE (``num_experts >
+0``), ``pp``/``ep > 1``, ``remat_policy="dots"``, and the paged serving
 functions (not defined here yet).
 """
 
@@ -71,6 +72,7 @@ from ..common import config
 from ..common.basics import DeviceLike, resolve_device
 from ..ops.pallas_kernels import flash_attention, flash_attention_smallseq
 from ..parallel.ring_attention import _Ring, ring_attention
+from ..quant import fp8 as _fp8
 
 __all__ = [
     "TransformerConfig", "Transformer", "transformer_init",
@@ -78,7 +80,6 @@ __all__ = [
     "transformer_flops_per_token", "remat_from_env", "checkpoint_policy",
 ]
 
-_FP8_MODES = ("off", "matmul")
 _REMAT_MODES = ("none", "full", "dots")
 
 
@@ -201,20 +202,13 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
                      -1).to(x.dtype)
 
 
-def _fp8_mode() -> str:
-    mode = (config.get_str("HVDT_FP8") or "off").lower()
-    if mode not in _FP8_MODES:
-        raise ValueError(f"unknown HVDT_FP8 mode {mode!r}; valid: "
-                         f"{', '.join(_FP8_MODES)}")
-    return mode
-
-
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Dense projection ``x @ w`` in the activation dtype."""
-    if _fp8_mode() == "matmul":
-        raise NotImplementedError(
-            "HVDT_FP8=matmul (quant/fp8.py) is not ported yet (ROADMAP "
-            "Queue 1: the rest of slice 2)")
+    """Dense projection ``x @ w`` in the activation dtype; with
+    ``HVDT_FP8=matmul`` on a build and card that run e4m3 GEMMs, the
+    per-tensor-scaled fp8 product (``quant/fp8.py``), otherwise exactly
+    the plain matmul.  The gate is read at each call."""
+    if _fp8.matmul_enabled():
+        return _fp8.fp8_matmul(x, w)
     return x @ w.to(x.dtype)
 
 

@@ -28,7 +28,7 @@ log = logging.getLogger(__name__)
 
 __all__ = ["allreduce", "allgather", "allgather_ragged", "reduce_scatter",
            "alltoall", "alltoall_uneven", "broadcast", "fused_allreduce",
-           "fused_allreduce_buckets"]
+           "fused_allreduce_buckets", "resolve_transport"]
 
 _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
              ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -40,13 +40,13 @@ _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
 def _reduce_(buf: torch.Tensor, op: ReduceOp, ps: ProcessSet,
              group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
     """All-reduce ``buf`` in place over ``group`` (default: the set's
-    group); returns the reduced tensor (a new one only for an integer
-    Average, which turns float)."""
+    group); returns the reduced tensor (a new one for an integer
+    Average, which turns float, and for Adasum, ``ops/adasum.py``)."""
     op = ReduceOp(op)
     if op == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP Queue 1: exchange "
-            "scheduling)")
+        from .adasum import adasum_allreduce
+
+        return adasum_allreduce(buf, ps, group=group)
     dist.all_reduce(buf, _DIST_OPS[op],
                     group=ps.group if group is None else group)
     if op == ReduceOp.AVERAGE:
@@ -271,55 +271,225 @@ def fused_allreduce_buckets(leaves: Sequence[torch.Tensor],
     return buckets
 
 
+def _reduce_group(axis, mesh, ps: ProcessSet):
+    """The reduce group a transport policy resolves for an exchange over
+    ``ps``: the ``axis`` given (a mesh-axis name or tuple of them), else
+    every dimension of ``mesh`` (default: the current mesh, which
+    ``parallel.make_mesh`` records) when ``ps`` is the whole world, else
+    the single axis ``"dp"`` (the set's own group).  Returns ``(axes,
+    mesh)``."""
+    from ..common.basics import current_mesh
+
+    if mesh is None:
+        mesh = current_mesh()
+    if axis is not None:
+        return ((axis,) if isinstance(axis, str) else tuple(axis)), mesh
+    if mesh is not None and ps.size() == mesh.size() \
+            and ps is global_process_set():
+        return tuple(mesh.mesh_dim_names), mesh
+    return ("dp",), mesh
+
+
+def resolve_transport(axis=None, mesh=None,
+                      process_set: Optional[ProcessSet] = None):
+    """``(ResolvedTransport or None, mesh)`` for an exchange over
+    ``process_set``: None when ``HVDT_TRANSPORT`` is unset or the policy
+    has nothing to say about the reduce group (:func:`_reduce_group`)."""
+    from ..transport import policy as _tpolicy
+
+    if _tpolicy.get_policy() is None:
+        return None, mesh
+    axes, mesh = _reduce_group(axis, mesh, process_set
+                               or global_process_set())
+    return _tpolicy.resolve_axis(axes), mesh
+
+
+def _policy_wire(res, wire_dtype):
+    """A flat resolution's per-axis wire, where the caller gave none."""
+    from ..quant.collectives import INT4_WIRE, INT8_WIRE
+
+    if res is None or res.kind != "flat" or wire_dtype is not None:
+        return wire_dtype
+    return {"bf16": torch.bfloat16, "fp16": torch.float16,
+            "int8": INT8_WIRE, "int4": INT4_WIRE}.get(res.fast.wire)
+
+
+class _Bucket:
+    """One started bucket: what its two finish halves need."""
+
+    __slots__ = ("kind", "state", "work", "dtype", "red")
+
+    def __init__(self, dtype: torch.dtype):
+        self.dtype = dtype
+        self.kind = self.state = self.work = self.red = None
+
+
+class _BucketRoute:
+    """How each bucket of one exchange is reduced: the routing that
+    :func:`fused_allreduce` and the overlapped exchange
+    (``ops/overlap.py``) share, resolved once an exchange (transport
+    policy, wire, threshold).
+
+    A bucket is started (:meth:`start`), then finished in two halves:
+    :meth:`finish_comm`, the collective's own second half (the
+    hierarchical gather, the quantized wire's second stage, the
+    postscale), which the overlapped exchange runs on its communication
+    stream, and :meth:`finish`, on the caller's stream: the wait and the
+    division of an ``async_op`` all-reduce, and the cast back."""
+
+    def __init__(self, op: ReduceOp, threshold_bytes: Optional[int],
+                 prescale_factor: float, postscale_factor: float,
+                 wire_dtype: Optional[Any], process_set: Optional[ProcessSet],
+                 axis=None, mesh=None):
+        from ..quant.collectives import quant_wire_leg
+
+        self.op = ReduceOp(op)
+        self.ps = process_set or global_process_set()
+        self.res, self.mesh = resolve_transport(axis, mesh, self.ps)
+        if self.res is not None:
+            if threshold_bytes is None:
+                threshold_bytes = self.res.threshold_bytes
+            wire_dtype = _policy_wire(self.res, wire_dtype)
+        self.threshold = _validated_threshold(threshold_bytes)
+        self.hier = (self.res is not None
+                     and self.res.kind == "hierarchical"
+                     and self.op in (ReduceOp.SUM, ReduceOp.AVERAGE))
+        self.quant_leg = quant_wire_leg(wire_dtype)
+        # The quantized path owns the wire format.
+        self.wire_dtype = None if self.quant_leg is not None else wire_dtype
+        self.pre, self.post = prescale_factor, postscale_factor
+
+    def wire_bytes(self, flat: torch.Tensor) -> int:
+        """The bytes a rank puts on the wire for bucket ``flat``."""
+        floating = flat.is_floating_point()
+        if self.hier and floating:
+            from ..transport.hierarchy import wire_bytes_estimate
+
+            return (wire_bytes_estimate(self.res, flat.numel(),
+                                        flat.element_size(), self.mesh)
+                    or flat.numel() * flat.element_size())
+        if self.quant_leg is not None and floating:
+            from ..quant import kernels as qk
+
+            wb = qk.wire_bytes_int4 if self.quant_leg == "int4" \
+                else qk.wire_bytes
+            return int(wb(flat.numel(), qk.quant_block_size()))
+        if self.wire_dtype is not None and floating:
+            return flat.numel() * self.wire_dtype.itemsize
+        return flat.numel() * flat.element_size()
+
+    def start(self, flat: torch.Tensor, async_op: bool = False) -> _Bucket:
+        """Start reducing the flat bucket ``flat`` (which it may consume).
+        ``async_op``: a plain all-reduce is issued with ``async_op=True``
+        and waited in :meth:`finish`; otherwise it completes here."""
+        b = _Bucket(flat.dtype)
+        floating = flat.is_floating_point()
+        if self.hier and floating:
+            from ..transport.hierarchy import hierarchical_allreduce_start
+
+            b.kind = "hier"
+            b.state = hierarchical_allreduce_start(
+                flat, self.res, self.op, self.pre, self.mesh)
+        elif self.quant_leg is not None and floating:
+            from ..quant.collectives import quantized_allreduce_start
+
+            b.kind = "quant"
+            b.state = quantized_allreduce_start(
+                flat, self.op, prescale_factor=self.pre,
+                wire=self.quant_leg, process_set=self.ps)
+        else:
+            if (self.wire_dtype is not None and floating
+                    and flat.dtype != self.wire_dtype):
+                flat = flat.to(self.wire_dtype)
+            if self.pre != 1.0:
+                flat.mul_(self.pre)
+            if async_op and self.op != ReduceOp.ADASUM:
+                b.kind, b.state = "async", flat
+                b.work = dist.all_reduce(flat, _DIST_OPS[self.op],
+                                         group=self.ps.group, async_op=True)
+            else:
+                b.kind, b.state = "reduced", _reduce_(flat, self.op, self.ps)
+        return b
+
+    def finish_comm(self, b: _Bucket) -> None:
+        """The collective's second half (nothing for an ``async`` bucket,
+        whose rest waits for its work in :meth:`finish`)."""
+        if b.kind == "async":
+            return
+        if b.kind == "hier":
+            from ..transport.hierarchy import hierarchical_allreduce_finish
+
+            b.red = hierarchical_allreduce_finish(b.state, self.post)
+        elif b.kind == "quant":
+            from ..quant.collectives import quantized_allreduce_finish
+
+            b.red = quantized_allreduce_finish(b.state, self.post)
+        else:
+            b.red = b.state.mul_(self.post) if self.post != 1.0 else b.state
+        b.state = None
+
+    def finish(self, b: _Bucket) -> torch.Tensor:
+        """The reduced bucket in its own dtype, after :meth:`finish_comm`
+        (an ``async`` bucket is waited for here, on the current stream)."""
+        if b.kind == "async":
+            b.work.wait()
+            red = b.state
+            if self.op == ReduceOp.AVERAGE:
+                red = red.div_(self.ps.size()) if red.is_floating_point() \
+                    else red / self.ps.size()
+            if self.post != 1.0:
+                red = red.mul_(self.post)
+        else:
+            red = b.red
+        if red.dtype != b.dtype:
+            red = red.to(b.dtype)
+        return red
+
+
 def fused_allreduce(tensors: Sequence[torch.Tensor],
                     op: ReduceOp = ReduceOp.AVERAGE,
                     threshold_bytes: Optional[int] = None,
                     prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0,
                     wire_dtype: Optional[Any] = None,
-                    process_set: Optional[ProcessSet] = None
-                    ) -> List[torch.Tensor]:
+                    process_set: Optional[ProcessSet] = None, *,
+                    axis=None, mesh=None) -> List[torch.Tensor]:
     """Allreduce a list of tensors as few fused flat collectives.
 
     Each bucket is concatenated into one flat buffer (cast to
     ``wire_dtype`` when one is given and the bucket is floating), reduced
-    by one ``all_reduce``, cast back, and split; the returned tensors are
-    views into the reduced buffers, in input order and shapes.  The
-    quantized-wire sentinels (``Compression.int8`` / ``.int4``
-    ``wire_dtype``) instead send each float bucket through the two-stage
-    quantized allreduce (``quant/collectives.py``); other buckets keep
-    the exact path."""
-    from ..quant.collectives import quant_wire_leg, quantized_allreduce_flat
+    by one ``all_reduce`` (``op=Adasum``: ``ops/adasum.py`` over the
+    bucket), cast back, and split; the returned tensors are views into
+    the reduced buffers, in input order and shapes.  The quantized-wire
+    sentinels (``Compression.int8`` / ``.int4`` ``wire_dtype``) instead
+    send each float bucket through the two-stage quantized allreduce
+    (``quant/collectives.py``); other buckets keep the exact path.
 
-    ps = process_set or global_process_set()
+    Transport policies (``HVDT_TRANSPORT``, ``horovod_tpu_torch/
+    transport``): when the policy resolves the reduce group
+    hierarchically, float SUM/AVERAGE buckets take the two-level
+    allreduce (fast-tier reduce-scatter, slow-tier shard exchange,
+    all-gather) over the process groups of ``mesh``'s dimensions; a
+    single-axis flat resolution only overrides the wire (where
+    ``wire_dtype`` is None) and the threshold (where ``threshold_bytes``
+    is None).  The reduce group is ``axis`` (a mesh-axis name or a tuple
+    of them), or by default every dimension of ``mesh``, which defaults
+    to the current mesh that ``parallel.make_mesh`` records (the
+    reference's ``hvd.mesh()``), when the process set is the world; with
+    no mesh it is the single axis ``"dp"``.  With ``HVDT_TRANSPORT``
+    unset neither argument is read and the flat path runs as it did
+    without the policy layer."""
     tensors = list(tensors)
     if not tensors:
         return []
-    quant_leg = quant_wire_leg(wire_dtype)
-    if quant_leg is not None:
-        wire_dtype = None       # the quantized path owns the wire format
-    buckets = fused_allreduce_buckets(tensors, threshold_bytes)
+    route = _BucketRoute(op, threshold_bytes, prescale_factor,
+                         postscale_factor, wire_dtype, process_set, axis, mesh)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
-    for bucket in buckets:
+    for bucket in fused_allreduce_buckets(tensors, route.threshold):
         parts = [tensors[i] for i in bucket]
-        flat = torch.cat([p.detach().reshape(-1) for p in parts])
-        orig_dtype = flat.dtype
-        if quant_leg is not None and flat.is_floating_point():
-            red = quantized_allreduce_flat(
-                flat, op, prescale_factor=prescale_factor,
-                postscale_factor=postscale_factor, wire=quant_leg,
-                process_set=ps)
-        else:
-            if (wire_dtype is not None and flat.is_floating_point()
-                    and flat.dtype != wire_dtype):
-                flat = flat.to(wire_dtype)
-            if prescale_factor != 1.0:
-                flat.mul_(prescale_factor)
-            red = _reduce_(flat, op, ps)
-            if postscale_factor != 1.0:
-                red.mul_(postscale_factor)
-        if red.dtype != orig_dtype:
-            red = red.to(orig_dtype)
+        b = route.start(torch.cat([p.detach().reshape(-1) for p in parts]))
+        route.finish_comm(b)
+        red = route.finish(b)
         offset = 0
         for i, p in zip(bucket, parts):
             n = p.numel()

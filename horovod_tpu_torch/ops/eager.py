@@ -76,8 +76,6 @@ log = logging.getLogger(__name__)
 # waiting on the control plane for a peer that has stopped.
 _SHUTDOWN = "shutdown"
 
-_ADASUM = ("Adasum is not ported yet (ROADMAP Queue 1, item 4: exchange "
-           "scheduling)")
 
 
 # ---------------------------------------------------------------------------
@@ -693,7 +691,11 @@ class EagerController:
             # a fused response is one flat buffer (a copy: the results
             # never alias the inputs) and one collective
             red = torch.cat([v.reshape(-1) for v in values])
-            if not single:
+            if not single and op == ReduceOp.ADASUM:
+                from .adasum import host_adasum
+
+                red = host_adasum(red, ps)
+            elif not single:
                 red = hostc.host_allreduce(red, ps, op)
             outs = []
             off = 0
@@ -893,11 +895,23 @@ def _resolve_op(op, average):
     return ReduceOp(op)
 
 
+def _check_adasum(op: ReduceOp, ps: ProcessSet) -> None:
+    """Adasum over a set whose size is not a power of two raises here,
+    at the call site and before anything is enqueued, on every rank."""
+    n = ps.size()
+    if op == ReduceOp.ADASUM and n & (n - 1):
+        raise ValueError(
+            f"Adasum requires a power-of-2 rank count, got {n}")
+
+
 def _no_adasum(op: ReduceOp) -> None:
-    """Adasum raises here, at the call site and before anything is
-    enqueued, so no peer is left waiting in a negotiation."""
+    """Adasum is an allreduce: a reducescatter asking for it raises
+    here, at the call site and before anything is enqueued, so no peer
+    is left waiting in a negotiation."""
     if op == ReduceOp.ADASUM:
-        raise NotImplementedError(_ADASUM)
+        raise ValueError("Adasum is an allreduce (hvd.allreduce / "
+                         "grouped_allreduce); reducescatter takes Sum, "
+                         "Average, Min, Max or Product")
 
 
 def allreduce_async(tensor, average=None, name: Optional[str] = None,
@@ -908,9 +922,11 @@ def allreduce_async(tensor, average=None, name: Optional[str] = None,
     ctl = _controller()
     ps = process_set or global_process_set()
     rop = _resolve_op(op, average)
-    _no_adasum(rop)
+    _check_adasum(rop, ps)
     value, np_dtype, ready = _prep(tensor)
-    req = Request(ctl.cp.rank(), RequestType.ALLREDUCE,
+    req = Request(ctl.cp.rank(),
+                  RequestType.ADASUM if rop == ReduceOp.ADASUM
+                  else RequestType.ALLREDUCE,
                   _auto_name("allreduce", name), int(data_type_of(value)),
                   tuple(value.shape), int(rop), prescale_factor,
                   postscale_factor, process_set_id=ps.id)
@@ -941,7 +957,7 @@ def grouped_allreduce_async(tensors: Sequence, average=None,
     ctl = _controller()
     ps = process_set or global_process_set()
     rop = _resolve_op(op, average)
-    _no_adasum(rop)
+    _check_adasum(rop, ps)
     events: Dict = {}
     prepped = [_prep(t, events) for t in tensors]
     gid = ctl.next_group_id() if group_id is None else int(group_id)

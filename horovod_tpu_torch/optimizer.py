@@ -32,8 +32,27 @@ A captured pass replays a fixed set of gradients, so under a capture
 every accumulated parameter needs a gradient on every pass (eagerly a
 gradient may come and go).  The int8/int4 wire runs inside a capture as it runs eagerly.
 
-ZeRO, overlap scheduling and Adasum are later work and raise
-``NotImplementedError`` naming their ROADMAP item.
+``op=hvd.Adasum`` combines each fused bucket with Adasum
+(``ops/adasum.py``) instead of averaging it.
+
+``HVDT_OVERLAP=on`` (``ops/overlap.py``) overlaps the exchange with the
+backward: a ``register_post_accumulate_grad_hook`` on every parameter
+issues each reverse-topological bucket's collective, on a communication
+stream, as soon as its last gradient lands (buckets strictly in schedule
+order on every rank), and ``step()`` waits, copies back and steps.
+Under ``backward_passes_per_step=k > 1`` only the k-th pass
+communicates: its hooks fold each gradient into the accumulator and
+issue the mean.  Inside a ``donated_step`` capture the hooks, the
+communication stream's fork and its join are captured with the step.
+``quant.with_error_feedback`` compensates each gradient in its hook,
+before the bucket is issued.  A second gradient for a parameter before
+``step()`` on a pass that communicates raises, and so does ``zero_grad()``
+between ``backward()`` and ``step()``, as in upstream Horovod.  With the
+knob unset no hook is registered and ``step()`` runs the exchange as
+before.
+
+ZeRO is later work and raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,11 +71,8 @@ __all__ = ["DistributedOptimizer", "allreduce_gradients",
            "microbatch_gradients"]
 
 def _check_supported(op: ReduceOp) -> None:
-    if ReduceOp(op) == ReduceOp.ADASUM:
-        raise NotImplementedError(
-            "Adasum is not ported yet (ROADMAP Queue 1: exchange "
-            "scheduling)")
-    if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM):
+    if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM,
+                            ReduceOp.ADASUM):
         raise ValueError(f"Unsupported gradient reduce op: {op}")
 
 
@@ -168,6 +184,19 @@ class _DistributedOptimizer:
         # Eager passes only: the parameters with a gradient so far in
         # this cycle, in order (a dict as an ordered set).
         self._seen: Dict[torch.Tensor, None] = {}
+        # HVDT_OVERLAP=on: the hooked exchange, the parameters its hooks
+        # folded (boundary pass, k > 1) and transformed (error feedback's
+        # per-parameter compensation, set by the wrapper) this pass.
+        self._pre_exchange: Optional[Callable[[torch.Tensor], None]] = None
+        self._folded: set = set()
+        self._transformed: set = set()
+        self._hooked = None
+        from .ops import overlap
+
+        if overlap.enabled():
+            self._hooked = overlap.HookedExchange(
+                self, [p for g in optimizer.param_groups
+                       for p in g["params"]])
 
     def __getattr__(self, name: str):
         return getattr(self.__dict__["optimizer"], name)
@@ -178,7 +207,11 @@ class _DistributedOptimizer:
 
     def synchronize(self) -> None:
         """Average (or sum) every ``.grad`` over the process set, in
-        place, as fused bucket collectives."""
+        place, as fused bucket collectives (under ``HVDT_OVERLAP=on``:
+        issue the buckets no hook issued and wait for all)."""
+        if self._hooked is not None:
+            self._hooked.finish()
+            return
         params = self._params_with_grad()
         reduced = allreduce_gradients(
             [p.grad for p in params], op=self._op,
@@ -189,15 +222,39 @@ class _DistributedOptimizer:
             for p, r in zip(params, reduced):
                 p.grad.copy_(r)
 
+    def _fold(self, p: torch.Tensor, phase: int, capturing: bool) -> None:
+        """Fold ``p``'s gradient of pass ``phase`` into its f32
+        accumulator: a parameter's first gradient of the cycle is copied,
+        later ones are added."""
+        acc = self._acc.get(p)
+        if acc is None:
+            acc = self._acc[p] = torch.empty(
+                p.shape, dtype=torch.float32, device=p.grad.device)
+        first = phase == 0 if capturing else p not in self._seen
+        if first:
+            acc.copy_(p.grad)
+        else:
+            acc.add_(p.grad)
+        if not capturing:
+            self._seen[p] = None
+
+    def _set_mean(self, p: torch.Tensor) -> None:
+        """Set ``p.grad`` to the cycle's accumulated sum over k, in
+        ``p``'s dtype (created where the last pass left it None)."""
+        mean = (self._acc[p] / self._k).to(p.dtype)
+        if p.grad is None:
+            p.grad = mean
+        else:
+            p.grad.copy_(mean)
+
     def _accumulate(self, phase: int) -> bool:
         """Fold this pass's grads into the f32 accumulators, pass
-        ``phase`` (0 to k-1) of a cycle: a parameter's first gradient of
-        the cycle is copied, later ones are added.  The accumulators are
-        allocated once and kept, so a captured pass reads and writes the
-        same memory as an eager one.  True on the k-th pass, with the
-        grad of every parameter that had one in the cycle set to the
-        accumulated sum over k, in its dtype (created where the last
-        pass left it None).
+        ``phase`` (0 to k-1) of a cycle.  The accumulators are allocated
+        once and kept, so a captured pass reads and writes the same
+        memory as an eager one.  True on the k-th pass, with the grad of
+        every parameter that had one in the cycle set to the accumulated
+        sum over k, in its dtype.  Parameters a hook already folded this
+        pass (``HVDT_OVERLAP=on``) are skipped.
 
         Eagerly a gradient may come and go from pass to pass; a captured
         pass replays a fixed set, so under a capture every accumulated
@@ -213,27 +270,32 @@ class _DistributedOptimizer:
                     "eagerly first, with every parameter given a gradient "
                     "on every pass")
             for p in params:
-                acc = self._acc.get(p)
-                if acc is None:
-                    acc = self._acc[p] = torch.empty(
-                        p.shape, dtype=torch.float32, device=p.grad.device)
-                first = phase == 0 if capturing else p not in self._seen
-                if first:
-                    acc.copy_(p.grad)
-                else:
-                    acc.add_(p.grad)
-                if not capturing:
-                    self._seen[p] = None
+                if p not in self._folded:
+                    self._fold(p, phase, capturing)
             if phase < self._k - 1:
                 return False
-            for p in (self._acc if capturing else self._seen):
-                mean = (self._acc[p] / self._k).to(p.dtype)
-                if p.grad is None:
-                    p.grad = mean
-                else:
-                    p.grad.copy_(mean)
+            for p in list(self._acc if capturing else self._seen):
+                if p not in self._folded:
+                    self._set_mean(p)
             self._seen.clear()
         return True
+
+    def _hook_pass(self) -> bool:
+        """Whether the backward now running communicates (every pass
+        when k = 1, the k-th of a cycle otherwise)."""
+        return self._graph_phase() == self._k - 1
+
+    def _hook_grad(self, p: torch.Tensor) -> None:
+        """What a hook does to ``p``'s fresh gradient before it is
+        marked ready: error feedback's compensation, then on a k > 1
+        boundary pass the fold and the mean."""
+        if self._pre_exchange is not None:
+            self._pre_exchange(p)
+            self._transformed.add(p)
+        if self._k > 1:
+            self._fold(p, self._k - 1, graphs.capturing())
+            self._set_mean(p)
+            self._folded.add(p)
 
     def _graph_phase(self) -> int:
         """Passes done in the current cycle of k: what the next
@@ -251,9 +313,13 @@ class _DistributedOptimizer:
             graphs.on_replay(self._count_pass)
         else:
             self._count_pass()
-        if self._k > 1 and not self._accumulate(phase):
-            return loss
-        self.synchronize()
+        try:
+            if self._k > 1 and not self._accumulate(phase):
+                return loss
+            self.synchronize()
+        finally:
+            self._folded.clear()
+            self._transformed.clear()
         self.optimizer.step()
         return loss
 
@@ -261,6 +327,11 @@ class _DistributedOptimizer:
         self._passes += 1
 
     def zero_grad(self, set_to_none: bool = True) -> None:
+        if self._hooked is not None and self._hooked.in_flight():
+            raise RuntimeError(
+                "zero_grad() was called after backward() and before step() "
+                "or synchronize() under HVDT_OVERLAP=on: the gradients' "
+                "buckets are already being exchanged")
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
 

@@ -23,6 +23,11 @@ from .mesh import (  # noqa: F401
     AXIS_SP,
     AXIS_EP,
     CANONICAL_AXES,
+    TRANSPORT_ICI,
+    TRANSPORT_DCN,
+    TRANSPORT_CLASSES,
+    axis_transport_class,
+    split_transport_axes,
     MeshSpec,
     make_mesh,
     mesh_shape_for,

@@ -12,13 +12,23 @@ slowest across ranks, so the bandwidth-hungry axes (``tp``, ``sp``) are
 innermost and their members are neighbouring ranks (on one host, the
 cards that share NVLink), and the latency-tolerant axes (``dp``, ``pp``)
 are outermost.
+
+Transport classes (the reference's ``ici``/``dcn``) follow the same
+convention: the innermost axis of a reduce group is the fast tier (on
+the card: NVLink within a host), every outer axis the slow one (across
+hosts).  The transport-policy layer (``horovod_tpu_torch/transport``)
+keys its per-axis choices on them.  :func:`make_mesh` records the mesh
+it builds as the process's current mesh (``common.basics.current_mesh``),
+whose dimensions name the reduce group of a policy-routed
+``fused_allreduce``.  The reference's ``pod_*`` helpers belong to the
+elastic runtime and are not ported here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
@@ -33,10 +43,45 @@ AXIS_EP = "ep"
 CANONICAL_AXES: Tuple[str, ...] = (
     AXIS_DP, AXIS_PP, AXIS_FSDP, AXIS_EP, AXIS_SP, AXIS_TP)
 
+# Transport classes: the interconnect tier a mesh axis rides.  The
+# innermost axis of a group is the fast tier, every outer axis the slow
+# one.
+TRANSPORT_ICI = "ici"
+TRANSPORT_DCN = "dcn"
+TRANSPORT_CLASSES: Tuple[str, ...] = (TRANSPORT_ICI, TRANSPORT_DCN)
+
 __all__ = [
     "AXIS_DP", "AXIS_FSDP", "AXIS_PP", "AXIS_TP", "AXIS_SP", "AXIS_EP",
-    "CANONICAL_AXES", "MeshSpec", "make_mesh", "mesh_shape_for",
+    "CANONICAL_AXES", "TRANSPORT_ICI", "TRANSPORT_DCN",
+    "TRANSPORT_CLASSES", "axis_transport_class", "split_transport_axes",
+    "MeshSpec", "make_mesh", "mesh_shape_for",
 ]
+
+
+def axis_transport_class(axis: str, axes: Sequence[str]) -> str:
+    """Transport tier of ``axis`` within the ordered reduce group
+    ``axes`` (outermost first): the innermost axis of a multi-axis group
+    is ``ici`` (neighbouring ranks share the fastest links), every outer
+    axis ``dcn``; a single-axis group is one ``ici`` domain."""
+    axes = tuple(axes)
+    if axis not in axes:
+        raise ValueError(f"axis {axis!r} not in reduce group {axes}")
+    if len(axes) == 1 or axis == axes[-1]:
+        return TRANSPORT_ICI
+    return TRANSPORT_DCN
+
+
+def split_transport_axes(axes: Sequence[str], fast_width: int = 1
+                         ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """Split an ordered reduce group into ``(slow_axes, fast_axes)``:
+    the ``fast_width`` innermost axes are the tier the hierarchical
+    allreduce reduce-scatters over, the rest the tier the shard crosses.
+    At least one axis stays slow when the group has more than one."""
+    axes = tuple(axes)
+    if not axes:
+        raise ValueError("empty reduce group")
+    width = max(1, min(int(fast_width), len(axes) - 1 or 1))
+    return axes[:-width], axes[-width:]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +156,9 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int):
     ranks.  Every rank must call it (each dimension's process groups are
     made collectively).  The mesh's device type is ``"cuda"`` on an NCCL
     world and ``"cpu"`` otherwise.  The spec's total must equal the world
-    size.
+    size.  The mesh becomes the process's current mesh
+    (``common.basics.current_mesh``) until the next ``make_mesh``,
+    ``set_mesh`` or ``shutdown``.
     """
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -126,6 +173,10 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int):
     if spec.total != world:
         raise ValueError(f"mesh {spec.shape} has {spec.total} members, the "
                          f"world has {world} ranks")
+    from ..common.basics import set_mesh
+
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     shape = tuple(n for _, n in spec.axes)
-    return init_device_mesh(device_type, shape, mesh_dim_names=spec.names)
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=spec.names)
+    set_mesh(mesh)
+    return mesh

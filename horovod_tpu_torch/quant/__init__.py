@@ -9,12 +9,13 @@ The PyTorch counterpart of the JAX package's ``quant/``:
 * :mod:`.collectives` — the two-stage quantized allreduce over
   ``torch.distributed`` (wired into ``fused_allreduce`` as the
   ``Compression.int8`` / ``.int4`` wire) and the all-gather eager form;
-* :mod:`.error_feedback` — ``with_error_feedback(optimizer)``.
+* :mod:`.error_feedback` — ``with_error_feedback(optimizer)`` and the
+  reference's stacked-residual helpers;
+* :mod:`.fp8` — the per-tensor-scaled e4m3 matmul (``HVDT_FP8``).
 
 Selection: ``DistributedOptimizer(compression=hvd.Compression.int8)``
 (or ``.int4``), or env-wide ``HVDT_COMPRESSION=int8|int4`` /
-``HVDT_QUANT=1`` when ``compression=`` is left unset.  The reference's
-fp8 compute path (``quant/fp8.py``, ``HVDT_FP8``) is not ported yet.
+``HVDT_QUANT=1`` when ``compression=`` is left unset.
 """
 
 from __future__ import annotations
@@ -41,7 +42,14 @@ from .collectives import (  # noqa: F401
     quantized_allreduce_flat,
     eager_quantized_allreduce,
 )
-from .error_feedback import with_error_feedback  # noqa: F401
+from .error_feedback import (  # noqa: F401
+    ErrorFeedbackState,
+    stack_residual,
+    tile_residual,
+    unstack_residual,
+    with_error_feedback,
+)
+from . import fp8  # noqa: F401
 
 __all__ = [
     "quant_block_size",
@@ -63,4 +71,9 @@ __all__ = [
     "quantized_allreduce_flat",
     "eager_quantized_allreduce",
     "with_error_feedback",
+    "ErrorFeedbackState",
+    "tile_residual",
+    "stack_residual",
+    "unstack_residual",
+    "fp8",
 ]

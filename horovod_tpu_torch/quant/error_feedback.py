@@ -23,13 +23,64 @@ path reads a value on the host, so a step captured by
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
 from . import kernels as qk
 
-__all__ = ["with_error_feedback"]
+__all__ = ["ErrorFeedbackState", "with_error_feedback", "tile_residual",
+           "stack_residual", "unstack_residual"]
+
+
+class ErrorFeedbackState(NamedTuple):
+    """The reference's functional error-feedback state: ``residual``, a
+    tree (tensor, or dict / list / tuple of them) of f32 carried
+    quantization error, and ``inner``, the wrapped transformation's
+    state."""
+    residual: Any
+    inner: Any
+
+
+# The helpers below are the reference's shard_map carry pattern: there
+# one program holds every rank's residual, stacked on a leading [n] axis
+# that crosses the shard_map boundary.  In the port each process holds
+# its own residual (``_ErrorFeedbackOptimizer.residual``), so a caller
+# needs them only to move a residual tree between that stacked layout
+# and one rank's: a checkpoint written by the reference's loop, or a
+# tree gathered from every rank (``hvd.allgather`` gives the [n, ...]
+# layout ``unstack_residual`` takes row by row).
+
+
+def _map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    raise TypeError(f"unsupported residual leaf {type(tree).__name__}")
+
+
+def tile_residual(state: ErrorFeedbackState, n: int) -> ErrorFeedbackState:
+    """Residual leaves gain a leading [n] axis (identical copies): a
+    fresh state laid out for an ``n``-rank stacked carry."""
+    return state._replace(residual=_map(
+        lambda t: t.unsqueeze(0).repeat((n,) + (1,) * t.dim()),
+        state.residual))
+
+
+def unstack_residual(state: ErrorFeedbackState) -> ErrorFeedbackState:
+    """Drop the leading [1] axis of one rank's slice of a stacked
+    residual."""
+    return state._replace(residual=_map(lambda t: t[0], state.residual))
+
+
+def stack_residual(state: ErrorFeedbackState) -> ErrorFeedbackState:
+    """Re-add the leading [1] axis, so one rank's residual concatenates
+    with its peers' into the stacked layout."""
+    return state._replace(residual=_map(lambda t: t.unsqueeze(0),
+                                        state.residual))
 
 
 class _ErrorFeedbackOptimizer:
@@ -50,27 +101,41 @@ class _ErrorFeedbackOptimizer:
         self.residual: Dict[torch.Tensor, torch.Tensor] = {
             p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
             for p in self._params}
+        # An overlapped DistributedOptimizer (HVDT_OVERLAP=on) issues its
+        # buckets from gradient hooks, before step(): it compensates each
+        # gradient there, and step() skips the ones it did.
+        self._inner_hooks = getattr(optimizer, "_hooked", None) is not None
+        if self._inner_hooks:
+            optimizer._pre_exchange = self._compensate_one
 
     def __getattr__(self, name: str):
         return getattr(self.__dict__["optimizer"], name)
 
     @torch.no_grad()
+    def _compensate_one(self, p: torch.Tensor) -> None:
+        g = p.grad
+        if g is None:
+            return
+        r = self.residual[p]
+        e = g.float() + r
+        if self._enabled:
+            sent = self._qdq(e, self._block)
+            torch.sub(e, sent, out=r)
+        else:
+            sent = e
+        g.copy_(sent)
+
+    @torch.no_grad()
     def compensate(self) -> None:
         """Replace every ``.grad`` with its quantized, error-compensated
         value and keep the new residuals (a no-op when disabled, apart
-        from the f32 round trip of ``grad + 0``)."""
+        from the f32 round trip of ``grad + 0``).  Gradients an
+        overlapped inner optimizer's hooks compensated this pass are
+        skipped."""
+        done = self.optimizer._transformed if self._inner_hooks else ()
         for p in self._params:
-            g = p.grad
-            if g is None:
-                continue
-            r = self.residual[p]
-            e = g.float() + r
-            if self._enabled:
-                sent = self._qdq(e, self._block)
-                torch.sub(e, sent, out=r)
-            else:
-                sent = e
-            g.copy_(sent)
+            if p not in done:
+                self._compensate_one(p)
 
     def step(self, closure: Optional[Callable[[], Any]] = None):
         loss = None

@@ -11,7 +11,9 @@ the CPU.
 * ``python -m horovod_tpu_torch.bench --device cpu ...`` prints one JSON
   line with the reference's keys, ``platform`` "cpu" and ``mfu`` null;
   the fused-optimizer leg launches no kernel on the CPU.
-* The reference's other legs exit non-zero naming their ROADMAP item.
+* The --overlap, --transport and --fp8 legs give the reference's JSON
+  keys; the reference's other legs exit non-zero naming their ROADMAP
+  item.
 * The parent without a card exits non-zero with ``value`` 0.0 and never
   prints a CPU or cached number as the headline; the last-good cache
   rules of tests/test_bench_gate.py, on the port's own file.
@@ -119,11 +121,8 @@ def test_fused_optimizer_leg_launches_no_kernel_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--overlap"], "exchange scheduling"),
-    (["--transport", "auto"], "exchange scheduling"),
-    (["--zero", "grads"], "exchange scheduling"),
-    (["--ckpt-stall"], "exchange scheduling"),
-    (["--fp8"], "the rest of slice 2"),
+    (["--zero", "grads"], r"exchange scheduling \(ZeRO, checkpoint\)"),
+    (["--ckpt-stall"], r"exchange scheduling \(ZeRO, checkpoint\)"),
     (["--remat", "full"], "parallel axes"),
     (["--moe"], "parallel axes"), (["--pipeline"], "parallel axes"),
     (["--serve"], "serving"), (["--serve-llm"], "serving"),
@@ -139,11 +138,62 @@ def test_unported_legs_raise(flag, item):
 
 def test_unported_leg_exits_nonzero():
     out = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.bench", "--overlap"],
+        [sys.executable, "-m", "horovod_tpu_torch.bench", "--zero", "grads"],
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode != 0
-    assert "ROADMAP Queue 1: exchange scheduling" in out.stderr
+    assert ("ROADMAP Queue 1: exchange scheduling (ZeRO, checkpoint)"
+            in out.stderr)
     assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("flag", [["--overlap"], ["--transport", "auto"],
+                                  ["--fp8"]])
+def test_exchange_and_fp8_legs(flag, monkeypatch):
+    """The --overlap, --transport and --fp8 legs on the CPU: the
+    reference's JSON keys.  The exchange legs step through
+    DistributedOptimizer in a world of one (gloo), with 8 MiB buckets:
+    ResNet-50's f32 gradients (102 MB) plan 15 of them."""
+    for k in ("HVDT_OVERLAP", "HVDT_TRANSPORT", "HVDT_FP8", "HVDT_TELEMETRY",
+              "HVDT_FUSION_THRESHOLD"):
+        monkeypatch.delenv(k, raising=False)
+    from horovod_tpu_torch.ops import overlap as tov
+    from horovod_tpu_torch.transport import policy as tpol
+
+    tov.reset()
+    tpol.reset()
+    tov.reset_accounting()
+    import horovod_tpu_torch as hvd
+
+    try:
+        leg = bench.measure(bench._parse_args(["--device", "cpu", *flag,
+                                               *_SMALL]))
+        assert torch.isfinite(leg.step())
+    finally:
+        hvd.shutdown()
+        tov.reset()
+        tpol.reset()
+    d = leg.doc
+    assert d["value"] > 0
+    if flag[0] == "--overlap":
+        assert d["overlap"] is True and 0 < d["overlap_fraction"] < 1
+        sched = d["overlap_schedule"]
+        from horovod_tpu_torch.models import resnet50_init
+
+        params = list(resnet50_init(0, ResNetConfig(),
+                                    device="meta").parameters())
+        assert sched["buckets"] == len(tov.overlap_schedule(
+            params, 8 * 1024 * 1024)) == 15
+        assert sched["wire"] == "exact"
+    elif flag[0] == "--transport":
+        assert d["transport"] == "auto"
+        assert d["transport_policy"].startswith("TransportPolicy(dcn:tree")
+        assert d["transport_resolved"]["kind"] == "flat"
+        assert d["transport_resolved"]["axes"] == ("dp",)
+    else:
+        fp8 = d["fp8"]
+        assert fp8["mode"] == "matmul" and fp8["available"]
+        assert fp8["engaged"] and fp8["shape_mkn"] == [64, 128, 256]
+        assert fp8["fp8_matmul_us"] > 0 and fp8["bf16_matmul_us"] > 0
 
 
 def test_parent_without_card_exits_nonzero():

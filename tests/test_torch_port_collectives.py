@@ -120,9 +120,9 @@ def test_unported_options_raise(world1):
     opt = tok.fused_sgd([torch.zeros(2, requires_grad=True)], 0.1)
     item = "Queue 1: exchange scheduling"
     with pytest.raises(NotImplementedError, match=item):
-        hvd.DistributedOptimizer(opt, op=hvd.Adasum)
-    with pytest.raises(NotImplementedError, match=item):
         hvd.DistributedOptimizer(opt, zero="states")
+    # Adasum is ported (tests/test_torch_port_adasum.py): it builds.
+    assert hvd.DistributedOptimizer(opt, op=hvd.Adasum)._op == hvd.Adasum
     # The int8/int4 wires are ported: they build.
     for comp in (hvd.Compression.int8, hvd.Compression.int4):
         assert hvd.DistributedOptimizer(
@@ -411,7 +411,12 @@ _SLICE_MODULES = ("horovod_tpu_torch.bench", "horovod_tpu_torch.step_pipeline",
                   "horovod_tpu_torch.ops.sparse",
                   "horovod_tpu_torch.stall",
                   "horovod_tpu_torch.resilience.escalation",
-                  "horovod_tpu_torch.common.util")
+                  "horovod_tpu_torch.common.util",
+                  "horovod_tpu_torch.quant.fp8",
+                  "horovod_tpu_torch.ops.adasum",
+                  "horovod_tpu_torch.ops.overlap",
+                  "horovod_tpu_torch.transport.policy",
+                  "horovod_tpu_torch.transport.hierarchy")
 
 
 def test_import_loads_no_jax():

@@ -469,11 +469,14 @@ def test_join_barrier_objects_world_of_one(worlds):
 
 
 def test_adasum_and_timeline_raise(worlds, monkeypatch):
-    for call in (lambda: hvd.allreduce(np.ones(2), op=hvd.Adasum),
-                 lambda: hvd.grouped_allreduce([np.ones(2)], op=hvd.Adasum),
-                 lambda: hvd.reducescatter(np.ones(2), op=hvd.Adasum)):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            call()
+    # Adasum is ported (tests/test_torch_port_adasum.py): in a world of
+    # one it returns the input; a reducescatter asking for it raises.
+    np.testing.assert_array_equal(
+        hvd.allreduce(np.arange(3.0), op=hvd.Adasum), np.arange(3.0))
+    np.testing.assert_array_equal(
+        hvd.grouped_allreduce([np.ones(2)], op=hvd.Adasum)[0], np.ones(2))
+    with pytest.raises(ValueError, match="Adasum is an allreduce"):
+        hvd.reducescatter(np.ones(2), op=hvd.Adasum)
     monkeypatch.setenv("HVDT_TIMELINE", "/nonexistent/timeline.json")
     with pytest.raises(NotImplementedError, match="item 6"):
         teager.EagerController()

@@ -258,9 +258,12 @@ def test_fp8_and_remat_knobs(monkeypatch, jax_side):
     params, tokens, _ = jax_side
     cfg = _tcfg()
     model = _port(params, cfg)
+    off = tt.transformer_loss(model, torch.from_numpy(tokens), cfg)
     monkeypatch.setenv("HVDT_FP8", "matmul")
-    with pytest.raises(NotImplementedError, match="HVDT_FP8"):
-        tt.transformer_loss(model, torch.from_numpy(tokens), cfg)
+    # The e4m3 projections (tests/test_torch_port_fp8.py holds them to
+    # the reference): a finite loss that is not the f32 one.
+    fp8 = tt.transformer_loss(model, torch.from_numpy(tokens), cfg)
+    assert torch.isfinite(fp8) and fp8.item() != off.item()
     monkeypatch.setenv("HVDT_FP8", "bogus")
     with pytest.raises(ValueError, match="valid: off, matmul"):
         tt.transformer_loss(model, torch.from_numpy(tokens), cfg)
