@@ -95,6 +95,23 @@ Phases, one JSON line each:
    and int4 wires with error feedback overlapped, graphed against
    eager, #5-#8 a replay against the overlap plan; the step's ms with
    and without overlap, in turns;
+10g. zero — ZeRO (ops/zero.py) in the world of one, where the layout is
+   unbound (one shard, no collective): the bs-64 ResNet-50 step graphed
+   under DistributedOptimizer(zero=grads|states|params) with fused_sgd
+   and fused_adam(1e-3, weight_decay=1e-4) against the replicated
+   graphed step, parameters, BN statistics and moments bit for bit;
+   #2 or #1 once a replay; each step's ms against the replicated one's
+   in turns;
+10h. ckpt — checkpoint.py: the zero=states Adam step graphed; the model
+   state (CheckpointManager) and the ZeRO state (save_zero_state)
+   saved, the stall of save and of save_async timed, the async snapshot
+   restored to its values although the next replay updated the tensors
+   in place; then restored in place into the captured step, whose
+   replays continue bit for bit as an uninterrupted run;
+10i. autotune — autotune.autotuned_step with HVDT_AUTOTUNE=1 over the
+   bucket, overlap and ZeRO dimensions (4 samples; each knob change a
+   fresh capture over the same optimizer and state): samples, rebuilds,
+   final knobs, and the tuned run's state equal to an untuned run's;
 11. flash_kernel — the three flash-attention kernels (#9 forward, #10
    dQ, #11 dK/dV) against their plain versions at the LM path's shape
    (B 16, H 16, L 4096, D 64, bf16, causal), with
@@ -237,7 +254,14 @@ step with and without overlap in turns and overlap_fraction;
 dp_cards_adasum, one Adasum exchange of ResNet-50's gradients against
 the host tree per bucket; dp_cards_transport, on a 2x2 ("dcn", "ici")
 mesh, hierarchical f32 and the int8 slow tier against the flat exchange,
-bytes a rank sends on each tier and each exchange's ms.  Every dp line
+bytes a rank sends on each tier and each exchange's ms; dp_cards_zero,
+batch 128 a card, SyncBN, fused_adam: ZeRO grads, states and params
+graphed against the replicated step (gradients and state by relative
+L2, identical on every rank), the optimizer state's bytes a rank
+planned and by memory_allocated against the replicated 204.5 MB, each
+stage's step ms against the replicated in turns, states with the int8
+wire, error feedback and HVDT_OVERLAP=on (#5/#6 and #1 a replay), and
+the 4-shard state saved and restored as 2 and as 4 shards.  Every dp line
 carries its phase's wall_s.  The multi-card modes end with the
 card's line and the last line of the one-card run.
 """
@@ -1903,6 +1927,345 @@ def phase_overlap(hvd, smi):
           "card": smi})
 
 
+# ---- ZeRO, checkpoints and the autotuner (slice 15) -----------------------
+
+def _zero_opt(hvd, model, kind, stage, wire=None):
+    """DistributedOptimizer over fused_sgd(0.01, momentum 0.9) ("sgd") or
+    fused_adam(1e-3, weight_decay=1e-4) ("adam"), ZeRO ``stage`` (None:
+    replicated); ``wire`` "int8" adds the int8 wire under error
+    feedback."""
+    inner = (hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9)
+             if kind == "sgd" else
+             hvd.fused_adam(model.parameters(), 1e-3, weight_decay=1e-4))
+    opt = hvd.DistributedOptimizer(
+        inner, zero=stage or "off",
+        compression=hvd.Compression.int8 if wire else hvd.Compression.none)
+    return hvd.quant.with_error_feedback(opt, wire=wire) if wire else opt
+
+
+def _zero_step(model, opt, images, labels):
+    """The ResNet step; a ZeRO "params" optimizer writes the full
+    parameters first (a "states" one has nothing to write)."""
+    gather = getattr(opt, "gather_params", None)
+    if gather is not None:
+        gather()
+    return _resnet_step(model, opt, images, labels)
+
+
+def _zero_inner(opt):
+    """The DistributedOptimizer under any wrapper."""
+    while "_op" not in vars(opt):
+        opt = opt.optimizer
+    return opt
+
+
+def _zero_state_of(model, opt, losses) -> dict:
+    """The losses, the model's state and the moments by leaf: a ZeRO
+    optimizer's whole state (gathered) or the replicated optimizer's,
+    under the same keys."""
+    dopt = _zero_inner(opt)
+    if hasattr(dopt, "transform"):
+        dopt.gather_params()         # "params": the rows are the truth
+    out = {"losses": torch.stack(losses)}
+    out.update({k: v.detach().clone() for k, v in model.state_dict().items()})
+    if hasattr(dopt, "transform"):
+        full = dopt.transform.full_state(dopt.gathered_zero_state(),
+                                         dopt._zparams)
+        for name in ("mu", "nu", "trace"):
+            for i, v in enumerate(full.get(name, [])):
+                out[f"{name}{i}"] = v.clone()
+    else:
+        params = [p for g in dopt.optimizer.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            for name, v in dopt.optimizer.state[p].items():
+                if isinstance(v, torch.Tensor):
+                    out[f"{name}{i}"] = v.clone()
+    return out
+
+
+def _zero_run(hvd, kind, stage, batches, calls, *, graphed=True, bn_axis=None,
+              wire=None):
+    """``calls`` steps of a fresh ResNet-50 under :func:`_zero_opt`.
+    Returns (model, opt, step, state from :func:`_zero_state_of`); the
+    optimizer's bytes on the card (``memory_allocated`` across its
+    construction) are ``opt.hvdt_alloc_bytes``."""
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    model = resnet50_init(0, ResNetConfig(bn_axis=bn_axis))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    opt = _zero_opt(hvd, model, kind, stage, wire)
+    torch.cuda.synchronize()
+    opt.hvdt_alloc_bytes = torch.cuda.memory_allocated() - base
+    step = donated_step(_zero_step) if graphed else _zero_step
+    losses = [step(model, opt, *batches[i % len(batches)]).clone()
+              for i in range(calls)]
+    torch.cuda.synchronize()
+    return model, opt, step, _zero_state_of(model, opt, losses)
+
+
+def _state_err(got: dict, want: dict) -> dict:
+    """Largest absolute difference of the parameters and BN state, and of
+    the moments, between two runs (0 when every byte agrees)."""
+    assert got.keys() == want.keys(), (sorted(got)[:5], sorted(want)[:5])
+    moments = [k for k in got if k[:2] in ("mu", "nu", "tr")]
+    rest = [k for k in got if k not in moments]
+    return {"params_and_stats": max(_bit_err(got[k], want[k]) for k in rest),
+            "moments": max((_bit_err(got[k], want[k]) for k in moments),
+                           default=0.0)}
+
+
+REPLAY_OPTIM = {"sgd": "_sgd_kernel", "adam": "_adam_kernel"}
+
+
+def phase_zero(hvd, smi):
+    """zero (the NCCL world of one, where ZeRO's layout is unbound: one
+    shard, no collective): the bs-64 ResNet-50 step graphed under
+    DistributedOptimizer(zero=grads|states|params) with fused_sgd and with
+    fused_adam against the replicated graphed step from the same state,
+    parameters, BN statistics and moments bit for bit; #1/#2 once a
+    replay (torch.profiler); each ZeRO step's ms against the replicated
+    step's, in turns."""
+    t0 = time.perf_counter()
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    batch = [_bf16_batch(23, BATCH)]
+    rows = {}
+    try:
+        for kind in ("sgd", "adam"):
+            rm, ro, rs_, want = _zero_run(hvd, kind, None, batch, DP_STEPS)
+            for stage in ("grads", "states", "params"):
+                reset_counters()
+                zm, zo, zs_, got = _zero_run(hvd, kind, stage, batch,
+                                             DP_STEPS)
+                launches = counters()
+                assert launches[REPLAY_OPTIM[kind]] >= 2, (kind, stage,
+                                                           launches)
+                err = _state_err(got, want)
+                assert err == {"params_and_stats": 0.0, "moments": 0.0}, (
+                    kind, stage, err)
+                kern = replay_kernels(lambda: zs_(zm, zo, *batch[0]))
+                assert kern[REPLAY_OPTIM[kind]] == 1, (kind, stage, kern)
+                ms = {"replicated": [], "zero": []}
+                for name in ("zero", "replicated", "replicated", "zero"):
+                    ms[name].append(_graphed_ms(
+                        (lambda: rs_(rm, ro, *batch[0]))
+                        if name == "replicated"
+                        else (lambda: zs_(zm, zo, *batch[0])), steps=5))
+                dopt = _zero_inner(zo)
+                rows[f"{kind}.{stage}"] = {
+                    "max_abs_err_vs_replicated": err,
+                    "launches": {k: v for k, v in launches.items() if v},
+                    "kernels_per_replay": kern, "step_ms": ms,
+                    "state_bytes": (dopt.transform.state_bytes_per_rank(
+                        dopt._zparams) if hasattr(dopt, "transform")
+                        else None)}
+                del zm, zo, zs_
+                _free()
+            del rm, ro, rs_
+            _free()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({"phase": "zero", "model": "resnet50", "batch": BATCH,
+          "steps": DP_STEPS, "world": 1, "layout": "unbound",
+          "runs": rows, "tolerance": 0.0,
+          "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def phase_ckpt(hvd, smi):
+    """ckpt (world of one): the bs-64 ResNet-50 step graphed under
+    DistributedOptimizer(fused_adam(...), zero="states").  After 2 steps
+    the model's state (checkpoint.CheckpointManager) and the ZeRO state
+    (save_zero_state) are saved; the stall of a sync save and of
+    save_async (the host snapshot) is timed; the async snapshot, taken
+    before a step that updates the tensors in place, restores to the
+    snapshot's values.  The step then runs 2 more replays; restoring
+    both checkpoints in place (the captured storages) and replaying
+    again gives the same state bit for bit."""
+    import shutil
+    import tempfile
+
+    from horovod_tpu_torch import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    batch = [_bf16_batch(29, BATCH)]
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    prev = os.environ.pop("HVDT_ASYNC_CKPT", None)
+    try:
+        reset_counters()
+        model, opt, step, _ = _zero_run(hvd, "adam", "states", batch, 2)
+        launches = counters()
+        assert launches["_adam_kernel"] >= 2, launches   # eager, capture
+        tree = model.state_dict()
+        mgr = ckpt.CheckpointManager(os.path.join(root, "sync"))
+        stall = {"sync": [], "async": []}
+        for i in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mgr.save(10 + i, tree, force=True)
+            stall["sync"].append((time.perf_counter() - t) * 1e3)
+        ckpt.save_zero_state(os.path.join(root, "zero"),
+                             opt.gathered_zero_state(), opt.zero_metadata(),
+                             step=12)
+        os.environ["HVDT_ASYNC_CKPT"] = "1"
+        amgr = ckpt.CheckpointManager(os.path.join(root, "async"))
+        before = {k: v.detach().clone() for k, v in tree.items()}
+        for i in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            amgr.save_async(20 + i, tree, force=True)
+            stall["async"].append((time.perf_counter() - t) * 1e3)
+            if i == 0:
+                # The next replay rewrites every parameter in place while
+                # the writer may still be serializing.
+                step(model, opt, *batch[0])
+                torch.cuda.synchronize()
+                assert amgr.wait_for_async(120)
+                snap, snap_step = amgr.restore_latest()
+                assert snap_step == 20, snap_step
+                snap_err = max(_bit_err(snap[k], before[k].cpu())
+                               for k in before)
+                assert snap_err == 0.0, snap_err
+                moved = max(_bit_err(tree[k].detach(), before[k])
+                            for k in before)
+                assert moved > 0.0
+        assert amgr.wait_for_async(120)
+        amgr.close()
+        assert amgr.last_good_step() == 22
+
+        # Restore into the captured step: replays continue bit for bit.
+        mgr.save(30, tree, force=True)
+        ckpt.save_zero_state(os.path.join(root, "zero30"),
+                             opt.gathered_zero_state(), opt.zero_metadata(),
+                             step=30)
+        ptrs = [t.data_ptr() for t in tree.values()]
+        losses = [step(model, opt, *batch[0]).clone() for _ in range(2)]
+        want = _zero_state_of(model, opt, losses)
+        restored, rstep = mgr.restore_latest(tree, in_place=True)
+        zstate, zmeta, zstep = ckpt.restore_zero_state(
+            os.path.join(root, "zero30"))
+        assert (rstep, zstep) == (30, 30) and zmeta == opt.zero_metadata()
+        opt.load_zero_state(zstate)
+        assert [t.data_ptr() for t in model.state_dict().values()] == ptrs
+        losses = [step(model, opt, *batch[0]).clone() for _ in range(2)]
+        got = _zero_state_of(model, opt, losses)
+        err = _state_err(got, want)
+        loss_err = _bit_err(got["losses"], want["losses"])
+        assert err == {"params_and_stats": 0.0, "moments": 0.0}, err
+        assert loss_err == 0.0, loss_err
+        nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(mgr.step_path(30)) for f in fs)
+        zbytes = sum(os.path.getsize(os.path.join(root, "zero30", f))
+                     for f in os.listdir(os.path.join(root, "zero30")))
+        del model, opt, step, tree, restored, before, snap
+        _free()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if prev is None:
+            os.environ.pop("HVDT_ASYNC_CKPT", None)
+        else:
+            os.environ["HVDT_ASYNC_CKPT"] = prev
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "ckpt", "model": "resnet50", "batch": BATCH,
+          "optimizer": "fused_adam, zero=states",
+          "checkpoint_stall_ms": stall, "model_checkpoint_bytes": nbytes,
+          "launches": {k: v for k, v in launches.items() if v},
+          "zero_checkpoint_bytes": zbytes,
+          "async_snapshot_vs_before_step_max_abs_err": snap_err,
+          "restored_replays_vs_uninterrupted": {**err, "losses": loss_err},
+          "note": "warm page cache: the files were just written",
+          "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+AUTOTUNE_ENV = {"HVDT_AUTOTUNE": "1", "HVDT_AUTOTUNE_OVERLAP": "1",
+                "HVDT_AUTOTUNE_ZERO": "1",
+                "HVDT_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HVDT_AUTOTUNE_STEPS_PER_SAMPLE": "3",
+                "HVDT_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "4"}
+
+
+def phase_autotune(hvd, smi):
+    """autotune (world of one): autotune.autotuned_step with
+    HVDT_AUTOTUNE=1 over the bucket, overlap and ZeRO dimensions, the
+    bs-64 ResNet-50 step under DistributedOptimizer(fused_sgd(...),
+    zero="states").  Each knob change rebuilds the step as a fresh
+    donated_step (a new capture; the old graph is dropped) over the same
+    optimizer and state: overlap through set_overlap, the ZeRO leg
+    through set_rs_wire (the reduce-scatter or the allreduce-and-slice
+    wire).  In a world of one the legs give the same values, so the
+    tuned run's state equals an untuned run's bit for bit; the line
+    holds the samples, the rebuilds and the final knobs."""
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    t0 = time.perf_counter()
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    batch = _bf16_batch(31, BATCH)
+    calls = 24
+    saved = {k: os.environ.get(k) for k in AUTOTUNE_ENV}
+    os.environ.update(AUTOTUNE_ENV)
+    try:
+        from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+
+        model = resnet50_init(0, ResNetConfig())
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = _zero_opt(hvd, model, "sgd", "states")
+        built = []
+
+        def builder(threshold_bytes, overlap=False, zero=True):
+            opt.set_overlap(overlap)
+            opt.set_rs_wire(zero)
+            built.append({"threshold_bytes": threshold_bytes,
+                          "overlap": bool(overlap), "zero": bool(zero)})
+            return donated_step(_zero_step)
+
+        step = autotune.autotuned_step(builder,
+                                       tree_example=list(model.parameters()))
+        reset_counters()
+        losses = [step(model, opt, *batch).clone() for _ in range(calls)]
+        torch.cuda.synchronize()
+        launches = counters()
+        # Each build's first call runs eagerly and its second captures
+        # (the last build, made after the last sample, runs no call).
+        assert launches["_sgd_kernel"] >= 2 * (len(built) - 1), (
+            launches, built)
+        got = _zero_state_of(model, opt, losses)
+        tuner = step.autotuner
+        summary = step.summary()
+        pm = tuner.pm
+        final = {"bucket_bytes": pm.bucket_bytes,
+                 "overlap": pm.overlap_schedule, "zero": pm.zero_sharding}
+        samples = pm._samples_done
+        opt.set_overlap(False)
+        del step, model, opt
+        _free()
+        for k in AUTOTUNE_ENV:
+            os.environ.pop(k, None)
+        _, _, _, want = _zero_run(hvd, "sgd", "states", [batch], calls)
+        err = _state_err(got, want)
+        assert err == {"params_and_stats": 0.0, "moments": 0.0}, err
+        assert len(built) >= 2 and samples >= 1, (built, samples)
+        _free()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit({"phase": "autotune", "model": "resnet50", "batch": BATCH,
+          "calls": calls, "env": AUTOTUNE_ENV, "samples": samples,
+          "launches": {k: v for k, v in launches.items() if v},
+          "rebuilds": len(built) - 1, "builds": built, "final": final,
+          "summary": summary, "tuned_vs_untuned_max_abs_err": err,
+          "wall_s": time.perf_counter() - t0, "card": smi})
+
+
 BENCH_BATCH = 128
 BENCH_ARGS = ["--num-iters", "3", "--num-batches-per-iter", "20"]
 # The legs of the bench phase: (name, bench flags, HVDT_FUSED_CONV1X1).
@@ -3136,6 +3499,7 @@ DP_STEPS = 3
 # dequant8_kernel's name, so the dequantize kernels are matched first).
 REPLAY_KERNELS = (("_mm_stats_kernel", "mm_stats_kernel"),
                   ("_sgd_kernel", "optim_multi<false>"),
+                  ("_adam_kernel", "optim_multi<true>"),
                   ("_dequant_kernel", "dequant8_kernel"),
                   ("_quant_kernel", "quant8_kernel"),
                   ("_dequant4_kernel", "dequant4_kernel"),
@@ -4221,12 +4585,276 @@ def dp_transport(hvd, smi):
               "wall_s": time.perf_counter() - t0, "card": smi})
 
 
+DP_ZERO_TOL = 1e-5
+
+
+def _more_steps(model, opt, step, batches):
+    """Steps 2 to DP_STEPS of a run (the capture and the replays);
+    returns their losses."""
+    losses = [step(model, opt, *batches[0]).clone()
+              for _ in range(DP_STEPS - 1)]
+    torch.cuda.synchronize()
+    return losses
+
+
+def _params_moments_rel_l2(got: dict, want: dict) -> dict:
+    """Relative L2 of the parameters and BN state, and of the moments,
+    between two runs' states (f32 reassociation: ~1e-7)."""
+    moments = [k for k in want if k[:2] in ("mu", "nu", "tr")]
+    rest = [k for k in want if k not in moments and k != "losses"
+            and want[k].is_floating_point()]
+    return {"params_and_stats": _rel_l2([got[k] for k in rest],
+                                        [want[k] for k in rest]),
+            "moments": _rel_l2([got[k] for k in moments],
+                               [want[k] for k in moments])}
+
+
+def _int8_exchange_bound(gmax: float, leaf_quant: bool) -> float:
+    """Largest error an element of the int8 reduce-scatter's mean can
+    carry when no rank's gradient exceeds ``gmax`` in magnitude: stage 1
+    quantizes each rank's bucket, stage 2 the reduced shard (|sum| <= n
+    gmax), half a step of 1/127 of the block's absmax each, then the
+    mean over n (the bound ``tests/test_torch_port_zero.py`` holds the
+    CPU exchange to); error feedback's own quantization of each leaf
+    (``leaf_quant``) adds half a step of gmax / 127.  Plus 1e-6 gmax for
+    the f32 sums' order."""
+    return gmax / 127 + (gmax / 254 if leaf_quant else 0.0) + gmax * 1e-6
+
+
+def dp_zero(hvd, smi):
+    """dp_cards_zero: ResNet-50 at batch 128 a card with bn_axis="dp" and
+    fused convs, DistributedOptimizer(fused_adam(1e-3, weight_decay=
+    1e-4)), graphed, 3 steps.  One exchange of the first step's
+    gradients: rs_exchange against fused_allreduce in f32 (relative L2)
+    and on the int8 wire (every element within the block-scale bound).
+    Stages grads, states and params against the replicated step: the
+    gradients' effect and the states after the first step (relative
+    L2, asserted) and after 3 (relative L2, at most twice the same
+    distance between two replicated runs at 64 MiB and 8 MiB buckets);
+    the graphed run after 3 steps against the same stage run eagerly,
+    bit for bit; the state identical on every rank; the optimizer
+    state's bytes a rank (planned and by memory_allocated, against the
+    replicated 204.5 MB); each stage's step ms against the replicated
+    step's in turns.  States with the int8 wire under error feedback and
+    HVDT_OVERLAP=on at 8 MiB buckets (the quantized reduce-scatter,
+    #5/#6 and #1 a bucket a replay): its moments after the first step
+    within the int8 bound of the replicated f32 run's.  A save of the
+    4-shard state restored as 2 shards and as 4."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch.models import (ResNetConfig, resnet50_init,
+                                          resnet_loss)
+    from horovod_tpu_torch.ops import zero as tz
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    batch = [_bf16_batch(300 + r, DP_TIME_BATCH)]
+    model = resnet50_init(0, ResNetConfig(bn_axis="dp"))
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    model.zero_grad(set_to_none=True)
+    resnet_loss(model, *batch[0])[0].backward()
+    grads = [p.grad.detach().clone() for p in model.parameters()]
+    exact = hvd.device.fused_allreduce(grads)
+    g_rel = _max_rel_l2(tz.rs_exchange(grads), exact)
+    assert g_rel <= DP_ZERO_TOL, g_rel
+    gmax_t = torch.tensor([max(g.abs().max().item() for g in grads)],
+                          device=grads[0].device)
+    dist.all_reduce(gmax_t, dist.ReduceOp.MAX)
+    gmax = gmax_t.item()
+    q_err = max((a - b).abs().max().item() for a, b in zip(
+        tz.rs_exchange(grads,
+                       wire_dtype=hvd.Compression.int8.wire_dtype), exact))
+    q_bound = _int8_exchange_bound(gmax, leaf_quant=False)
+    assert q_err <= q_bound, (q_err, q_bound)
+    del model, grads, exact
+    _free()
+
+    # States are held to the replicated run's after one (eager) step.
+    # After 3 steps bf16 compute on ill-conditioned gradients amplifies
+    # the exchange's f32 reassociation (DP_CHECK_BATCH's note): the
+    # control below measures how far it carries two replicated runs
+    # that differ only in their buckets, and each stage is held to
+    # twice that.
+    rm, ro, rs_, want = _zero_run(hvd, "adam", None, batch, 1, bn_axis="dp")
+    want3 = _zero_state_of(rm, ro, _more_steps(rm, ro, rs_, batch))
+    repl_bytes = ro.hvdt_alloc_bytes
+    os.environ["HVDT_FUSION_THRESHOLD"] = str(OVERLAP_THRESHOLD)
+    try:
+        cm, co, cs_, c1 = _zero_run(hvd, "adam", None, batch, 1,
+                                    bn_axis="dp")
+        c3 = _zero_state_of(cm, co, _more_steps(cm, co, cs_, batch))
+    finally:
+        del os.environ["HVDT_FUSION_THRESHOLD"]
+    control = {"threshold_bytes": [64 << 20, OVERLAP_THRESHOLD],
+               "rel_l2_after_one_step": _params_moments_rel_l2(c1, want),
+               "rel_l2_after_steps": _params_moments_rel_l2(c3, want3)}
+    del cm, co, cs_, c1, c3
+    _free()
+    rows = {}
+    for stage in ("grads", "states", "params"):
+        reset_counters()
+        zm, zo, zs_, got1 = _zero_run(hvd, "adam", stage, batch, 1,
+                                      bn_axis="dp")
+        rel = _params_moments_rel_l2(got1, want)
+        assert max(rel.values()) <= DP_ZERO_TOL, (stage, rel)
+        got = _zero_state_of(zm, zo, _more_steps(zm, zo, zs_, batch))
+        launches = counters()
+        # The eager step and the capture; replays do not count.
+        assert launches["_adam_kernel"] >= 2, (stage, launches)
+        same = _same_on_every_rank([v for k, v in got.items()
+                                    if k != "losses"])
+        assert same, stage
+        # The same stage eagerly: the same collectives in the same order,
+        # so every byte agrees after DP_STEPS.
+        em, eo, _, eager = _zero_run(hvd, "adam", stage, batch, DP_STEPS,
+                                     graphed=False, bn_axis="dp")
+        del em, eo
+        _free()
+        eager["losses"] = eager["losses"][1:]
+        vs_eager = _state_err(got, eager)
+        assert max(vs_eager.values()) == 0.0, (stage, vs_eager)
+        del eager
+        kern = replay_kernels(lambda: zs_(zm, zo, *batch[0]))
+        assert kern["_adam_kernel"] == 1, (stage, kern)
+        ms = {"replicated": [], "zero": []}
+        for name in ("zero", "replicated", "replicated", "zero"):
+            ms[name].append(_graphed_ms(
+                (lambda: rs_(rm, ro, *batch[0])) if name == "replicated"
+                else (lambda: zs_(zm, zo, *batch[0])), steps=5))
+        rel3 = _params_moments_rel_l2(got, want3)
+        # No further from the replicated run than twice the distance
+        # another bucket size alone puts between two replicated runs.
+        assert all(rel3[k] <= 2 * control["rel_l2_after_steps"][k]
+                   + DP_ZERO_TOL for k in rel3), (stage, rel3, control)
+        row = {"rel_l2_vs_replicated_after_one_step": rel,
+               "rel_l2_vs_replicated_after_steps": rel3,
+               "graphed_vs_eager_max_abs_err_after_steps": vs_eager,
+               "identical_on_every_rank": same,
+               "launches": {k: v for k, v in launches.items() if v},
+               "kernels_per_replay": kern, "step_ms": ms,
+               "optimizer_alloc_bytes": zo.hvdt_alloc_bytes}
+        if stage != "grads":
+            plan = zo.transform.plan_for(zo._zparams)
+            planned = zo.transform.state_bytes_per_rank(zo._zparams)
+            pad = 2 * len(plan.buckets) * tz.shard_align() * 4
+            moments = 2 * sum(p.numel() * p.element_size()
+                              for p in zo._zparams)
+            assert planned <= moments // n + pad, (planned, moments)
+            # Under "params" the optimizer also holds the parameter rows.
+            rows_bytes = sum(t.numel() * t.element_size()
+                             for t in zo.pshards or ())
+            assert zo.hvdt_alloc_bytes - rows_bytes <= (
+                repl_bytes // n + pad + (1 << 20)), (
+                zo.hvdt_alloc_bytes, rows_bytes, repl_bytes)
+            row.update({"planned_state_bytes_per_rank": planned,
+                        "param_row_bytes": rows_bytes,
+                        "replicated_moment_bytes": moments,
+                        "buckets": len(plan.buckets),
+                        "alignment_padding_bound": pad})
+        if stage == "states":
+            full = zo.gathered_zero_state()
+            meta = zo.zero_metadata()
+            path = hvd.broadcast_object(
+                tempfile.mkdtemp(prefix="chip-smoke-zero-") if r == 0
+                else None, root_rank=0)
+            ckpt.save_zero_state(path, full, meta, step=DP_STEPS)
+            as4, meta4, _ = ckpt.restore_zero_state(path)
+            own = all(torch.equal(a[r].to(b.device), b[0]) for a, b in
+                      zip(as4.mu + as4.nu,
+                          zo.zero_state.mu + zo.zero_state.nu))
+            as2, meta2, _ = ckpt.restore_zero_state(path, num_shards=2)
+            f4 = tz.flatten_state_buffers(as4, meta4)
+            f2 = tz.flatten_state_buffers(as2, meta2)
+            resharded = all(np.array_equal(f4[k], f2[k]) for k in f4)
+            assert own and resharded and meta2["num_shards"] == 2
+            dist.barrier()
+            if r == 0:
+                zbytes = sum(os.path.getsize(os.path.join(path, f))
+                             for f in os.listdir(path))
+                shutil.rmtree(path, ignore_errors=True)
+                row["checkpoint"] = {"saved_shards": n, "bytes": zbytes,
+                                     "restored_as_4_own_rows": own,
+                                     "restored_as_2_same_vector": resharded}
+            del full, as4, as2
+        rows[stage] = row
+        del zm, zo, zs_, got
+        _free()
+
+    # The int8 wire under error feedback, overlapped, at 8 MiB buckets.
+    os.environ["HVDT_FUSION_THRESHOLD"] = str(OVERLAP_THRESHOLD)
+    _overlap_env(True)
+    try:
+        qm, qo, qs_, qgot1 = _zero_run(hvd, "adam", "states", batch, 1,
+                                       bn_axis="dp", wire="int8")
+        q_rel = _params_moments_rel_l2(qgot1, want)
+        # After one step mu = (1 - b1) g and nu = (1 - b2) g^2 of the
+        # exchanged mean gradient g: each element within the int8 bound.
+        hp = _zero_inner(qo).optimizer.param_groups[0]
+        e = _int8_exchange_bound(gmax, leaf_quant=True)
+        m_bound = (1 - hp["b1"]) * e
+        v_bound = (1 - hp["b2"]) * e * (2 * gmax + e)
+        m_err = max((qgot1[k] - want[k]).abs().max().item()
+                    for k in want if k.startswith("mu"))
+        v_err = max((qgot1[k] - want[k]).abs().max().item()
+                    for k in want if k.startswith("nu"))
+        assert m_err <= m_bound and v_err <= v_bound, (
+            m_err, m_bound, v_err, v_bound)
+        qgot = _zero_state_of(qm, qo, _more_steps(qm, qo, qs_, batch))
+        dopt = _zero_inner(qo)
+        nb = len(dopt._hooked.plan)
+        leaves = len(dopt._zparams)
+        kern = replay_kernels(lambda: qs_(qm, qo, *batch[0]))
+        # Error feedback quantizes and dequantizes every leaf; the
+        # reduce-scatter quantizes each bucket once (its int8 accumulate
+        # runs in PyTorch, not in #6); #1 runs once a bucket.
+        want_k = (leaves + nb, leaves, nb)
+        got_k = (kern["_quant_kernel"], kern["_dequant_kernel"],
+                 kern["_adam_kernel"])
+        assert got_k == want_k, (kern, want_k)
+        same = _same_on_every_rank([v for k, v in qgot.items()
+                                    if k != "losses"])
+        assert same
+        q_ms = _graphed_ms(lambda: qs_(qm, qo, *batch[0]), steps=5)
+        _drop(qo)
+        del qm, qo, qs_
+        _free()
+    finally:
+        _overlap_env(False)
+        del os.environ["HVDT_FUSION_THRESHOLD"]
+    rows["states_int8_overlap"] = {
+        "threshold_bytes": OVERLAP_THRESHOLD, "buckets": nb,
+        "kernels_per_replay": kern,
+        "expected_quant_dequant_adam_per_replay": list(want_k),
+        "identical_on_every_rank": same,
+        "rel_l2_vs_replicated_f32_after_one_step": q_rel,
+        "moments_max_abs_err_after_one_step": {"mu": m_err, "nu": v_err},
+        "moments_int8_bound": {"mu": m_bound, "nu": v_bound},
+        "step_ms": q_ms}
+    del rm, ro, rs_
+    _free()
+    if r == 0:
+        emit({"phase": "dp_cards_zero", "cards": n, "model": "resnet50",
+              "batch_per_card": DP_TIME_BATCH, "bn_axis": "dp",
+              "optimizer": "fused_adam(1e-3, weight_decay=1e-4)",
+              "steps": DP_STEPS, "grads_rel_l2_rs_vs_allreduce": g_rel,
+              "grads_int8_rs_max_abs_err": q_err,
+              "grads_int8_rs_bound": q_bound, "grads_max_abs": gmax,
+              "replicated_optimizer_alloc_bytes": repl_bytes,
+              "control_replicated_buckets": control,
+              "stages": rows, "tolerance_rel_l2": DP_ZERO_TOL,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
 def dp_cards_worker(device=None) -> None:
     """One rank of ``--dp-cards``: :func:`dp_check`, :func:`dp_time`,
     :func:`dp_wire`, :func:`dp_vgg`, :func:`dp_accumulate`,
-    :func:`dp_overlap`, :func:`dp_adasum` and :func:`dp_transport` in an NCCL
-    world of one process a card.  Rank 0 prints the lines.  The eager
-    controller is never started."""
+    :func:`dp_overlap`, :func:`dp_adasum`, :func:`dp_transport` and
+    :func:`dp_zero` in an NCCL world of one process a card.  Rank 0
+    prints the lines.  The eager controller is never started."""
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -4237,9 +4865,10 @@ def dp_cards_worker(device=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    phases = (dp_check, dp_time, dp_wire, dp_vgg, dp_accumulate,
+              dp_overlap, dp_adasum, dp_transport, dp_zero)
     try:
-        for phase in (dp_check, dp_time, dp_wire, dp_vgg, dp_accumulate,
-                      dp_overlap, dp_adasum, dp_transport):
+        for phase in phases:
             phase(hvd, smi)
             dist.barrier()
     except BaseException:
@@ -4449,6 +5078,9 @@ def main() -> int:
     phase_wire_graphed(hvd, smi)
     phase_vgg_mlp(hvd, smi)
     phase_overlap(hvd, smi)
+    phase_zero(hvd, smi)
+    phase_ckpt(hvd, smi)
+    phase_autotune(hvd, smi)
 
     flash = phase_flash_kernels(gen, smi)
     phase_ring(gen, smi)

@@ -54,6 +54,28 @@ reference, and the ``fp8`` key carries the gate and probe state and a
 microbench of ``quant.fp8.fp8_matmul`` (``torch._scaled_mm``) against
 the bf16 ``torch.matmul`` at a bert-large projection shape.
 
+The ZeRO and checkpoint legs (the reference's ``bench.py:772-783``,
+``:1189-1222``, ``:1324-1348``):
+
+    python -m horovod_tpu_torch.bench --zero states      # HVDT_ZERO
+    python -m horovod_tpu_torch.bench --ckpt-stall
+
+``--zero grads|states|params`` exchanges through
+``DistributedOptimizer(zero=...)`` (``states``/``params`` imply
+``--fused-optimizer``, and the JSON says so: ``fused_sgd``'s update #2
+runs on the rank's shard rows, so their images/s compare with that
+leg's; under
+``params`` the step gathers the parameters before the forward) at 8
+MiB buckets; the JSON gains ``zero_stage``, ``zero_num_shards``,
+``optimizer_state_bytes`` and ``param_bytes`` (a rank's).  In the world
+of one process that this leg runs in there is one shard: the state is
+not smaller; the sharding shows across cards (``chip_smoke.py
+--dp-cards 4``, dp_cards_zero).  ``--ckpt-stall`` times one commit of
+the trained model's state through ``checkpoint.CheckpointManager``,
+``save`` against ``save_async`` (the caller's side: the host snapshot),
+as ``checkpoint_stall_ms`` with ``sync`` and ``async``; unlike the
+reference's probe, a failure raises.
+
 The reference's other legs are not ported yet: each flag raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -79,8 +101,6 @@ LAST_GOOD_PATH = os.path.join(_ROOT, ".bench_torch_last_good.json")
 
 # The reference's other legs (argparse dest -> ROADMAP Queue 1 item).
 _UNPORTED = {
-    "zero": "exchange scheduling (ZeRO, checkpoint)",
-    "ckpt_stall": "exchange scheduling (ZeRO, checkpoint)",
     "remat": "parallel axes",
     "moe": "parallel axes", "pipeline": "parallel axes",
     "serve": "serving", "serve_llm": "serving",
@@ -90,7 +110,8 @@ _UNPORTED = {
 }
 # Keys of a JSON line that mark a variant, never the headline.
 _VARIANTS = ("fused_optimizer", "steps_per_call", "eager", "telemetry",
-             "overlap", "transport", "fp8")
+             "overlap", "transport", "fp8", "zero_stage",
+             "checkpoint_stall_ms")
 # The fp8 microbench: a bert-large projection (d_model 1024, d_ff 4096)
 # over 8192 tokens on the card; a small one on the CPU.
 FP8_SHAPE = {"cuda": (8192, 1024, 4096), "cpu": (64, 128, 256)}
@@ -147,15 +168,36 @@ def _parse_args(argv=None):
     ap.add_argument("--fp8", action="store_true",
                     help="HVDT_FP8=matmul, and the fp8 gate, probe and "
                          "matmul microbench in the JSON")
-    for flag in ("ckpt-stall", "serve", "serve-llm",
+    ap.add_argument("--zero", default="",
+                    choices=("", "grads", "states", "params"),
+                    help="the step exchanges its gradients through "
+                         "DistributedOptimizer(zero=...) (HVDT_ZERO): "
+                         "'grads' reduce-scatters and all-gathers each "
+                         "bucket, 'states' shards the momentum (fused_sgd "
+                         "on the rank's rows, delta all-gather; implies "
+                         "--fused-optimizer), 'params' "
+                         "keeps the parameters sharded between steps; JSON "
+                         "gains zero_stage / optimizer_state_bytes.  One "
+                         "card is one shard: the sharded memory shows "
+                         "only across cards (chip_smoke.py --dp-cards 4)")
+    ap.add_argument("--ckpt-stall", action="store_true",
+                    help="time the commit-point checkpoint stall of the "
+                         "trained state, sync against async "
+                         "(HVDT_ASYNC_CKPT), as checkpoint_stall_ms")
+    for flag in ("serve", "serve-llm",
                  "report", "controller", "moe", "pipeline"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not ported yet (raises)")
-    for flag in ("zero", "remat", "fleet"):
+    for flag in ("remat", "fleet"):
         ap.add_argument(f"--{flag}", default="",
                         help="not ported yet (raises)")
     ap.add_argument("--_child", action="store_true", help=argparse.SUPPRESS)
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.zero in ("states", "params"):
+        # The sharded update is fused_sgd's: the JSON then says
+        # fused_optimizer, the leg these images/s compare with.
+        args.fused_optimizer = True
+    return args
 
 
 def _refuse_unported(args) -> None:
@@ -223,6 +265,10 @@ def measure(args) -> Leg:
     if args.fp8:
         os.environ["HVDT_FP8"] = "matmul"
         os.environ.setdefault("HVDT_TELEMETRY", "1")
+    if args.zero:
+        os.environ["HVDT_ZERO"] = args.zero
+        os.environ.setdefault("HVDT_TELEMETRY", "1")
+        os.environ.setdefault("HVDT_FUSION_THRESHOLD", str(8 * 1024 * 1024))
 
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
@@ -244,7 +290,7 @@ def measure(args) -> Leg:
         opt = fused_sgd(model.parameters(), 0.01, momentum=0.9)
     else:
         opt = torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9)
-    if args.overlap or args.transport:
+    if args.overlap or args.transport or args.zero:
         # The exchange legs: a world of one process, so the step has the
         # gradient exchange the headline leg leaves out.
         import horovod_tpu_torch as hvd
@@ -252,13 +298,16 @@ def measure(args) -> Leg:
         hvd.init(device=device)
         opt = hvd.DistributedOptimizer(opt)
         print(f"exchange leg: HVDT_OVERLAP="
-              f"{os.environ.get('HVDT_OVERLAP')!r} HVDT_TRANSPORT="
+              f"{os.environ.get('HVDT_OVERLAP')!r} HVDT_ZERO="
+              f"{os.environ.get('HVDT_ZERO')!r} HVDT_TRANSPORT="
               f"{os.environ.get('HVDT_TRANSPORT')!r} threshold "
               f"{os.environ.get('HVDT_FUSION_THRESHOLD')}", file=sys.stderr)
 
     def step_fn(model, opt, images, labels):
         for _ in range(args.steps_per_call):
             opt.zero_grad(set_to_none=True)
+            if args.zero == "params":
+                opt.gather_params()
             loss, _ = resnet_loss(model, images, labels)
             loss.backward()
             opt.step()
@@ -339,11 +388,77 @@ def measure(args) -> Leg:
         **(_overlap_doc() if args.overlap else {}),
         **(_transport_doc(args.transport) if args.transport else {}),
         **(_fp8_doc(device) if args.fp8 else {}),
+        **(_zero_doc(args, opt, model) if args.zero else {}),
+        **(_ckpt_stall_doc(model) if args.ckpt_stall else {}),
         **({"telemetry": {**timer.snapshot(),
                           "goodput_fraction": round(ledger.fraction(), 4)}}
            if timer is not None else {}),
     }
     return Leg(doc, rates, call)
+
+
+def _zero_doc(args, opt, model) -> dict:
+    """The --zero leg's JSON fields (the reference's keys): the stage
+    and a rank's memory after sharding.  The state is this rank's rows
+    under states/params; under grads the wrapped optimizer's whole
+    state."""
+    from .telemetry import tree_bytes
+
+    params = list(model.parameters())
+    param_bytes = tree_bytes(params)
+    if args.zero == "grads":
+        from .common.process_sets import global_process_set
+
+        n = global_process_set().size()
+        opt_bytes = tree_bytes([v for st in opt.optimizer.state.values()
+                                for v in st.values()])
+    else:
+        n = opt.transform.plan_for(params).num_shards
+        opt_bytes = tree_bytes(opt.zero_state)
+        if args.zero == "params":
+            param_bytes = tree_bytes(opt.pshards)
+    return {"zero_stage": args.zero, "zero_num_shards": int(n),
+            "optimizer_state_bytes": int(opt_bytes),
+            "param_bytes": int(param_bytes)}
+
+
+def _ckpt_stall_doc(model) -> dict:
+    """The --ckpt-stall leg: the step loop's stall for one commit of the
+    trained state, ``CheckpointManager.save`` against ``save_async``
+    (the caller's side: the device-to-host snapshot); the async write is
+    drained before the directory is removed.  A failure raises."""
+    import shutil
+    import tempfile
+
+    from .checkpoint import CheckpointManager
+
+    out = {}
+    tree = model.state_dict()
+    root = tempfile.mkdtemp(prefix="hvdt-ckpt-stall-")
+    prev = os.environ.pop("HVDT_ASYNC_CKPT", None)
+    try:
+        mgr = CheckpointManager(os.path.join(root, "sync"))
+        t0 = time.perf_counter()
+        mgr.save(1, tree, force=True)
+        out["sync"] = round((time.perf_counter() - t0) * 1e3, 2)
+        os.environ["HVDT_ASYNC_CKPT"] = "1"
+        amgr = CheckpointManager(os.path.join(root, "async"))
+        t0 = time.perf_counter()
+        amgr.save_async(1, tree, force=True)
+        out["async"] = round((time.perf_counter() - t0) * 1e3, 2)
+        if not amgr.wait_for_async(120):
+            raise RuntimeError("the async checkpoint write did not finish "
+                               "within 120 s")
+        amgr.close()
+        if amgr.last_good_step() != 1:
+            raise RuntimeError("the async checkpoint write failed")
+    finally:
+        if prev is None:
+            os.environ.pop("HVDT_ASYNC_CKPT", None)
+        else:
+            os.environ["HVDT_ASYNC_CKPT"] = prev
+        shutil.rmtree(root, ignore_errors=True)
+    return {"checkpoint_stall_ms": out}
 
 
 def _overlap_doc() -> dict:
@@ -449,6 +564,8 @@ def main(argv=None) -> int:
         + (["--overlap"] if args.overlap else []) \
         + (["--transport", args.transport] if args.transport else []) \
         + (["--fp8"] if args.fp8 else []) \
+        + (["--zero", args.zero] if args.zero else []) \
+        + (["--ckpt-stall"] if args.ckpt_stall else []) \
         + (["--device", args.device] if args.device else [])
     if args.device == "cpu":      # asked for: one attempt there
         timeouts = [int(os.environ.get("HVDT_BENCH_CPU_TIMEOUT", "600"))]

@@ -157,6 +157,10 @@ def init(*, device: DeviceLike = None,
         from ..transport import validate_env
 
         validate_env()
+        # HVDT_ZERO likewise: an unknown stage fails here.
+        from ..ops import zero
+
+        zero.validate_env()
         env_size = config.get_int("HVDT_SIZE")
         if env_size <= 0:
             env_size = _env_int("WORLD_SIZE")

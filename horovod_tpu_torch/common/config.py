@@ -127,6 +127,114 @@ KNOBS: Dict[str, Knob] = {
              "(int8/int4 on dcn only), threshold digits[K|M|G]; or "
              "'auto'.  Unset (default) keeps the flat exchange; unknown "
              "vocabulary raises at init()."),
+        Knob("HVDT_ZERO", "", str,
+             "ZeRO-style state-sharding stage (ops/zero.py): 'grads' swaps "
+             "the fused allreduce for an explicit reduce-scatter + "
+             "allgather split (same wire bytes; any torch.optim "
+             "optimizer); 'states' reduce-scatters gradients and runs the "
+             "fused update (#1/#2) on each rank's 1/n shard of the "
+             "moments, allgathering only the parameter deltas (optimizer "
+             "memory shrinks ~n x; requires fused_adam/fused_sgd); "
+             "'params' additionally keeps the parameters sharded between "
+             "steps (gather_params() before the forward).  Unset/'off' "
+             "(default) keeps the replicated path as the identical "
+             "objects; unknown stages fail init() with the valid list."),
+        Knob("HVDT_ASYNC_CKPT", False, _parse_bool,
+             "Asynchronous checkpointing: CheckpointManager.save_async "
+             "takes a device->host snapshot at the commit point and hands "
+             "it to a background writer thread (queue depth 1, a newer "
+             "snapshot supersedes a queued older one); LAST_GOOD advances "
+             "only after the manifest write + fsync.  Unset (default): "
+             "save_async IS the synchronous save."),
+        Knob("HVDT_CKPT_SNAPSHOT_BUDGET_S", 1.0, float,
+             "Stall budget for the commit-point device->host checkpoint "
+             "snapshot (the only part of an async save the step loop "
+             "pays).  Snapshots are timed into hvdt_ckpt_snapshot_seconds; "
+             "one over the budget logs a warning and increments "
+             "hvdt_ckpt_snapshot_over_budget_total."),
+        Knob("HVDT_AUTOTUNE", False, _parse_bool,
+             "Enable Bayesian autotuning of the fusion threshold and the "
+             "knob dimensions below (autotune.AutotunedStep)."),
+        Knob("HVDT_AUTOTUNE_LOG", "", str,
+             "CSV log file for autotune samples."),
+        Knob("HVDT_AUTOTUNE_WARMUP_SAMPLES", 3, int,
+             "Autotune warmup discard count."),
+        Knob("HVDT_AUTOTUNE_STEPS_PER_SAMPLE", 10, int,
+             "Steps per autotune sample."),
+        Knob("HVDT_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20, int,
+             "Max BO samples."),
+        Knob("HVDT_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", 0.8, float,
+             "GP noise alpha."),
+        Knob("HVDT_AUTOTUNE_FUSED_OPTIMIZER", False, _parse_bool,
+             "Add a fused-vs-unfused optimizer dimension (0/1) to the "
+             "autotune search space; the step builder is rebuilt with "
+             "fused=... at each knob change.  Starting point comes from "
+             "HVDT_FUSED_OPTIMIZER."),
+        Knob("HVDT_FUSED_OPTIMIZER", False, _parse_bool,
+             "The fused optimizer kernels (fused_adam/fused_sgd, #1/#2) "
+             "as the default of bench legs that read it; the autotuner's "
+             "fused dimension starts here."),
+        Knob("HVDT_AUTOTUNE_QUANT", False, _parse_bool,
+             "Add a quantized-wire leg dimension (f32/int8/int4) to the "
+             "autotune search space; the step builder is rebuilt with "
+             "quant=.../quant_leg=... at each knob change.  Starting "
+             "point comes from HVDT_QUANT / HVDT_COMPRESSION."),
+        Knob("HVDT_AUTOTUNE_OVERLAP", False, _parse_bool,
+             "Add an overlap-schedule on/off dimension to the autotune "
+             "search space; the step builder is rebuilt with overlap=... "
+             "at each knob change (both legs keep one optimizer state).  "
+             "Starting point comes from HVDT_OVERLAP."),
+        Knob("HVDT_AUTOTUNE_TRANSPORT", False, _parse_bool,
+             "Add a flat-vs-hierarchical transport dimension (0/1) to the "
+             "autotune search space; the step builder is rebuilt with "
+             "transport=... at each knob change.  Starting point: "
+             "HVDT_TRANSPORT set, or the measured "
+             "HVDT_AUTOTUNE_TRANSPORT_SEED verdict."),
+        Knob("HVDT_AUTOTUNE_TRANSPORT_SEED", "", str,
+             "Path to a bench_allreduce --json-out file; when its measured "
+             "hierarchical_speedup_vs_flat_at_peak exceeds 1.0 the "
+             "transport dimension starts on the hierarchical leg."),
+        Knob("HVDT_AUTOTUNE_ZERO", False, _parse_bool,
+             "Add a replicated-vs-ZeRO-sharded dimension (0/1) to the "
+             "autotune search space; the step builder is rebuilt with "
+             "zero=... at each knob change, hot-swappable because both "
+             "legs keep ONE sharded state tree (the replicated leg "
+             "exchanges via allreduce and slices its shard).  Starting "
+             "point: HVDT_ZERO set, or the measured "
+             "HVDT_AUTOTUNE_ZERO_SEED verdict."),
+        Knob("HVDT_AUTOTUNE_ZERO_SEED", "", str,
+             "Path to a bench_allreduce --reduce-scatter --json-out file; "
+             "when its measured rs_ag_speedup_vs_allreduce_at_peak exceeds "
+             "1.0 the zero dimension starts on the sharded leg."),
+        Knob("HVDT_MOE_CAPACITY_FACTOR", 1.25, float,
+             "Default expert capacity factor (the MoE autotune "
+             "dimension's starting point; parallel/moe is not ported "
+             "yet)."),
+        Knob("HVDT_PIPELINE_MICROBATCHES", 8, int,
+             "Default 1F1B microbatch count (the pipeline autotune "
+             "dimension's starting point; parallel/pipeline is not "
+             "ported yet)."),
+        Knob("HVDT_AUTOTUNE_MOE", False, _parse_bool,
+             "Add an expert capacity-factor dimension to the autotune "
+             "search space; builders accepting capacity_factor= are "
+             "rebuilt with it at each knob change."),
+        Knob("HVDT_AUTOTUNE_MOE_SEED", "", str,
+             "Path to a bench --moe --json-out file; its measured "
+             "capacity_factor_at_peak becomes the MoE dimension's "
+             "starting point."),
+        Knob("HVDT_AUTOTUNE_PIPELINE", False, _parse_bool,
+             "Add a 1F1B microbatch-count dimension to the autotune "
+             "search space; builders accepting microbatches= are "
+             "rebuilt with it at each knob change."),
+        Knob("HVDT_AUTOTUNE_PIPELINE_SEED", "", str,
+             "Path to a bench --pipeline --json-out file; its measured "
+             "microbatches_at_peak becomes the pipeline dimension's "
+             "starting point."),
+        Knob("HVDT_AUTOTUNE_MODEL_SEED", "", str,
+             "Let autotune consult the static cost model for its "
+             "starting legs.  The cost model (analysis/costmodel) is not "
+             "ported yet: any value but off raises NotImplementedError "
+             "when a starting leg is chosen."),
         Knob("HVDT_TELEMETRY", False, _parse_bool,
              "Step statistics in the bench's JSON line (the StepTimer "
              "snapshot and the goodput fraction).  The exporter, traces "

@@ -28,7 +28,9 @@ log = logging.getLogger(__name__)
 
 __all__ = ["allreduce", "allgather", "allgather_ragged", "reduce_scatter",
            "alltoall", "alltoall_uneven", "broadcast", "fused_allreduce",
-           "fused_allreduce_buckets", "resolve_transport"]
+           "fused_allreduce_buckets", "resolve_transport",
+           "reduce_scatter_flat", "allgather_flat_shards",
+           "shard_owner_index"]
 
 _DIST_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM,
              ReduceOp.AVERAGE: dist.ReduceOp.SUM,
@@ -288,6 +290,89 @@ def _reduce_group(axis, mesh, ps: ProcessSet):
             and ps is global_process_set():
         return tuple(mesh.mesh_dim_names), mesh
     return ("dp",), mesh
+
+
+def _rs_hop_order(axis) -> tuple:
+    """Sequential reduce-scatter hop order over a reduce group (mesh-axis
+    names, outermost first): innermost axis first, so the full payload
+    rides the fast links and only the 1/n_fast shard crosses the slow
+    outer tier."""
+    return tuple(reversed((axis,) if isinstance(axis, str) else tuple(axis)))
+
+
+def _hops(axis=None, mesh=None, process_set: Optional[ProcessSet] = None):
+    """``[(axis name, group)]`` in :func:`_rs_hop_order` for the reduce
+    group :func:`_reduce_group` resolves: one hop a dimension of
+    ``mesh`` when every axis names one of its dimensions, else the
+    process set's own group as the single hop (a group of one axis)."""
+    ps = process_set or global_process_set()
+    axes, mesh = _reduce_group(axis, mesh, ps)
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if mesh is not None and all(a in names for a in axes):
+        return [(a, mesh.get_group(a)) for a in _rs_hop_order(axes)]
+    if len(axes) > 1:
+        raise ValueError(f"reduce group {axes} names axes that are not "
+                         f"dimensions of the current mesh {names}")
+    return [(axes[0], ps.group)]
+
+
+def _scatter_hops(flat: torch.Tensor, groups) -> torch.Tensor:
+    """One tiled ``reduce_scatter_tensor`` (a sum) a group, in order."""
+    shard = flat.detach().reshape(-1).contiguous()
+    for group in groups:
+        k = dist.get_world_size(group)
+        if shard.numel() % k:
+            raise ValueError(f"a flat vector of {shard.numel()} elements "
+                             f"does not split over {k} ranks")
+        out = shard.new_empty(shard.numel() // k)
+        dist.reduce_scatter_tensor(out, shard, dist.ReduceOp.SUM,
+                                   group=group)
+        shard = out
+    return shard
+
+
+def _gather_hops(shard: torch.Tensor, groups) -> torch.Tensor:
+    """The inverse of :func:`_scatter_hops` over the same groups: one
+    ``all_gather_into_tensor`` a group, in reverse order."""
+    full = shard.detach().reshape(-1).contiguous()
+    for group in reversed(list(groups)):
+        out = full.new_empty(full.numel() * dist.get_world_size(group))
+        dist.all_gather_into_tensor(out, full, group=group)
+        full = out
+    return full
+
+
+def reduce_scatter_flat(flat: torch.Tensor, axis=None, mesh=None,
+                        process_set: Optional[ProcessSet] = None
+                        ) -> torch.Tensor:
+    """Tiled reduce-scatter (a sum) of a flat vector over a (possibly
+    multi-axis) reduce group: one ``reduce_scatter_tensor`` a hop in
+    :func:`_rs_hop_order`.  ``flat``'s length must divide by the group
+    size.  Rank ``shard_owner_index(axis)`` receives its contiguous 1/n
+    chunk of the summed vector: the ZeRO wire primitive
+    (``ops/zero.py``)."""
+    return _scatter_hops(flat, [g for _, g in _hops(axis, mesh,
+                                                    process_set)])
+
+
+def allgather_flat_shards(shard: torch.Tensor, axis=None, mesh=None,
+                          process_set: Optional[ProcessSet] = None
+                          ) -> torch.Tensor:
+    """Inverse of :func:`reduce_scatter_flat`: the shards reassembled in
+    owner order, so every rank of the group holds the whole vector."""
+    return _gather_hops(shard, [g for _, g in _hops(axis, mesh,
+                                                    process_set)])
+
+
+def shard_owner_index(axis=None, mesh=None,
+                      process_set: Optional[ProcessSet] = None) -> int:
+    """The chunk this rank owns after :func:`reduce_scatter_flat` (the
+    first hop's rank is the most significant digit), as the JAX
+    package numbers it."""
+    idx = 0
+    for _, group in _hops(axis, mesh, process_set):
+        idx = idx * dist.get_world_size(group) + dist.get_rank(group)
+    return idx
 
 
 def resolve_transport(axis=None, mesh=None,

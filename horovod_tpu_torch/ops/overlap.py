@@ -598,7 +598,9 @@ def overlap_value_and_grad(stage_fns: Sequence[Callable],
     gradients (a list like ``params_i``), averaged (``op``) over the
     process set: stage i's buckets are issued between backward segment
     i and segment i-1, and all are waited for at the end, in issue
-    order.  ``reduce_grads=False`` skips the exchange (the raw local
+    order; under ``HVDT_ZERO`` each bucket is reduce-scattered instead
+    and all-gathered as it is waited for (``ops/zero.py``).
+    ``reduce_grads=False`` skips the exchange (the raw local
     gradients)."""
     stage_fns = tuple(stage_fns)
     if not stage_fns:
@@ -634,11 +636,19 @@ def overlap_value_and_grad(stage_fns: Sequence[Callable],
                 ct = got[-1]
             grads[i] = g_p
             if reduce_grads and g_p:
-                pipe = _Pipeline(op, threshold_bytes, prescale_factor,
-                                 postscale_factor, wire_dtype, process_set,
-                                 axis, mesh)
-                for ids in overlap_schedule(g_p, pipe.threshold):
-                    pipe.issue(ids, [g_p[j] for j in ids])
+                from . import zero
+
+                if zero.stage() is not None:
+                    pipe = zero._SegmentExchange(
+                        g_p, op, threshold_bytes, prescale_factor,
+                        postscale_factor, wire_dtype, process_set, axis,
+                        mesh)
+                else:
+                    pipe = _Pipeline(op, threshold_bytes, prescale_factor,
+                                     postscale_factor, wire_dtype,
+                                     process_set, axis, mesh)
+                    for ids in overlap_schedule(g_p, pipe.threshold):
+                        pipe.issue(ids, [g_p[j] for j in ids])
                 pipes.append((i, pipe, g_p))
         for i, pipe, g_p in pipes:
             out = list(g_p)

@@ -51,8 +51,23 @@ between ``backward()`` and ``step()``, as in upstream Horovod.  With the
 knob unset no hook is registered and ``step()`` runs the exchange as
 before.
 
-ZeRO is later work and raises ``NotImplementedError`` naming its
-ROADMAP item.
+``zero=`` (default: ``HVDT_ZERO``) shards the exchange and the state
+(``ops/zero.py``).  ``"grads"``: each bucket is reduce-scattered and
+all-gathered instead of all-reduced (any ``torch.optim`` optimizer; under
+``HVDT_OVERLAP=on`` the hooks issue each bucket's reduce-scatter).
+``"states"`` / ``"params"``: the wrapped ``fused_sgd`` / ``fused_adam``
+gives only its hyperparameters; the returned object keeps each rank's
+1/n rows of the moments (its full moments are dropped), and ``step()``
+reduce-scatters every bucket, runs #1/#2 on the rank's rows (one launch
+a step, or one a bucket as each bucket's wait completes under
+``HVDT_OVERLAP=on``) and writes the parameters: under ``"states"`` the
+all-gathered deltas are added to them; under ``"params"`` the parameters
+live as rank rows between steps (``.pshards``), updated in place, and
+:meth:`_ZeroStatesOptimizer.gather_params` writes the full parameters
+into the module before the forward.  ``backward_passes_per_step``
+accumulates as above and communicates on the boundary pass only; a
+``donated_step`` captures the whole sharded step.  With ``HVDT_ZERO``
+unset and ``zero=None`` the object is the one built without ZeRO.
 """
 
 from __future__ import annotations
@@ -194,9 +209,31 @@ class _DistributedOptimizer:
         from .ops import overlap
 
         if overlap.enabled():
-            self._hooked = overlap.HookedExchange(
-                self, [p for g in optimizer.param_groups
-                       for p in g["params"]])
+            self._hooked = self._hooked_exchange(
+                [p for g in optimizer.param_groups for p in g["params"]])
+
+    def _hooked_exchange(self, params):
+        """The exchange the gradient hooks issue (``HVDT_OVERLAP=on``)."""
+        from .ops import overlap
+
+        return overlap.HookedExchange(self, params)
+
+    def set_overlap(self, on: bool) -> None:
+        """Register (or remove) the gradient hooks of the overlapped
+        exchange after construction, as ``HVDT_OVERLAP`` would have at
+        construction: the autotuner's overlap dimension over one
+        optimizer.  A graphed step must be captured again after a
+        change."""
+        if on and self._hooked is None:
+            self._hooked = self._hooked_exchange(
+                [p for g in self.optimizer.param_groups
+                 for p in g["params"]])
+        elif not on and self._hooked is not None:
+            if self._hooked.in_flight():
+                raise RuntimeError("set_overlap() between backward() and "
+                                   "step(): buckets are in flight")
+            self._hooked.remove()
+            self._hooked = None
 
     def __getattr__(self, name: str):
         return getattr(self.__dict__["optimizer"], name)
@@ -335,6 +372,182 @@ class _DistributedOptimizer:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
 
+class _ZeroGradsOptimizer(_DistributedOptimizer):
+    """``zero="grads"``: the exchange is ``ops.zero.rs_exchange`` (each
+    bucket reduce-scattered, then all-gathered into ``.grad``); the
+    wrapped optimizer steps as usual."""
+
+    def __init__(self, optimizer, op, compression, backward_passes_per_step,
+                 threshold_bytes, prescale_factor, postscale_factor,
+                 process_set, *, stage: str, spec=None):
+        del stage
+        self._zero_axis = spec.axis if spec is not None else None
+        super().__init__(optimizer, op, compression, backward_passes_per_step,
+                         threshold_bytes, prescale_factor, postscale_factor,
+                         process_set)
+
+    def _hooked_exchange(self, params):
+        from .ops import zero
+
+        return zero._ZeroHooked.for_grads(self, params, self._zero_axis)
+
+    def synchronize(self) -> None:
+        if self._hooked is not None:
+            self._hooked.finish()
+            return
+        from .ops import zero
+
+        params = self._params_with_grad()
+        reduced = zero.rs_exchange(
+            [p.grad for p in params], op=self._op,
+            threshold_bytes=self._threshold, prescale_factor=self._prescale,
+            postscale_factor=self._postscale,
+            wire_dtype=self._compression.wire_dtype,
+            process_set=self._process_set, axis=self._zero_axis)
+        with torch.no_grad():
+            for p, r in zip(params, reduced):
+                p.grad.copy_(r)
+
+
+class _ZeroStatesOptimizer(_DistributedOptimizer):
+    """``zero="states"`` / ``"params"``: the object that owns the sharded
+    state (module docstring).  ``transform`` is the
+    ``ops.zero.ZeroTransformation``, ``zero_state`` its state (this
+    rank's rows), ``pshards`` the parameter rows under ``"params"``."""
+
+    def __init__(self, optimizer, op, compression, backward_passes_per_step,
+                 threshold_bytes, prescale_factor, postscale_factor,
+                 process_set, *, stage: str, spec=None):
+        from .ops import zero
+
+        self._zero_stage = stage
+        self._zparams = [p for g in optimizer.param_groups
+                         for p in g["params"] if p.requires_grad]
+        self.transform = zero.zero_from_optimizer(
+            optimizer, stage=stage, axis=spec.axis if spec else None, op=op,
+            num_shards=spec.num_shards if spec else None,
+            threshold_bytes=threshold_bytes,
+            wire_dtype=compression.wire_dtype,
+            prescale_factor=prescale_factor,
+            postscale_factor=postscale_factor, process_set=process_set)
+        # The sharded state replaces the wrapped optimizer's moments.
+        for p in self._zparams:
+            optimizer.state.pop(p, None)
+        optimizer._plans = {}
+        self.zero_state = self.transform.init(self._zparams)
+        self.pshards = (self.transform.shard_params(self._zparams)
+                        if stage == "params" else None)
+        super().__init__(optimizer, op, compression, backward_passes_per_step,
+                         threshold_bytes, prescale_factor, postscale_factor,
+                         process_set)
+
+    def _hooked_exchange(self, params):
+        from .ops import zero
+
+        impl = zero._impl(self.transform)
+        if impl.group() is None:
+            return None              # unbound: no exchange to overlap
+        return zero._ZeroHooked(self, params,
+                                impl.plan_for(self._zparams), impl.pipeline)
+
+    def synchronize(self) -> None:
+        raise RuntimeError(
+            "under ZeRO stages 'states'/'params' the reduced gradient is "
+            "never materialized: step() exchanges and updates")
+
+    def state_dict(self, *args):
+        raise RuntimeError(
+            "a ZeRO-sharded optimizer keeps its state as shard rows, not in "
+            "the wrapped optimizer's state_dict: save gathered_zero_state() "
+            "with checkpoint.save_zero_state and restore it with "
+            "load_zero_state()")
+
+    load_state_dict = state_dict
+
+    def step(self, closure: Optional[Callable[[], Any]] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        phase = self._graph_phase()
+        if graphs.capturing():
+            graphs.on_replay(self._count_pass)
+        else:
+            self._count_pass()
+        try:
+            if self._k > 1 and not self._accumulate(phase):
+                return loss
+            missing = [i for i, p in enumerate(self._zparams)
+                       if p.grad is None]
+            if missing:
+                # The sharded update steps every row of a bucket; the
+                # wrapped optimizer would skip these parameters instead.
+                raise RuntimeError(
+                    f"ZeRO stage {self._zero_stage!r} updates every "
+                    f"parameter, but parameters {missing[:8]} (in param "
+                    f"group order) have no gradient this step: freeze them "
+                    f"(requires_grad=False) before building the optimizer, "
+                    f"or give them a zero gradient")
+            shards = (self._hooked.shards() if self._hooked is not None
+                      else None)
+            target = (self._zparams if self._zero_stage == "states"
+                      else self.pshards)
+            self.transform.update([p.grad for p in self._zparams],
+                                  self.zero_state, target, apply=True,
+                                  shards=shards)
+        finally:
+            self._folded.clear()
+            self._transformed.clear()
+        return loss
+
+    @torch.no_grad()
+    def gather_params(self) -> None:
+        """Write the full parameters into the module from the shard rows
+        (stage ``"params"``; under ``"states"`` the parameters are whole
+        already and nothing moves)."""
+        if self.pshards is None:
+            return
+        full = self.transform.gather_params(self.pshards, self._zparams)
+        for p, v in zip(self._zparams, full):
+            p.copy_(v)
+
+    @torch.no_grad()
+    def load_params(self) -> None:
+        """Stage ``"params"``: copy the module's current parameters into
+        the shard rows in place (after a restore of the parameters)."""
+        if self.pshards is not None:
+            for dst, src in zip(self.pshards,
+                                self.transform.shard_params(self._zparams)):
+                dst.copy_(src)
+
+    def zero_metadata(self) -> dict:
+        """``ops.zero.state_metadata`` of this optimizer's plan."""
+        from .ops import zero
+
+        return zero.state_metadata(self.transform, self._zparams)
+
+    def gathered_zero_state(self):
+        """The state with whole ``[n, shard_len]`` stacks (every rank
+        calls it: a rank-local state's rows are all-gathered), for
+        ``checkpoint.save_zero_state``."""
+        return self.transform.gather_state(self.zero_state)
+
+    @torch.no_grad()
+    def load_zero_state(self, state) -> None:
+        """Copy a whole-stack state (``checkpoint.restore_zero_state``)
+        into this optimizer's rows in place: a step captured over them
+        replays from the restored values."""
+        self.transform.scatter_state(state, self.zero_state)
+
+    def set_rs_wire(self, on: bool) -> None:
+        """The autotuner's ZeRO dimension: reduce-scatter wire (True) or
+        allreduce and slice (False), over the same state.  A graphed
+        step must be captured again after a change."""
+        from .ops import zero
+
+        zero._impl(self.transform).rs_wire = bool(on)
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                          op: ReduceOp = ReduceOp.AVERAGE,
                          compression: Optional[Compressor] = None,
@@ -364,16 +577,28 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
       threshold_bytes: fusion bucket size; default ``HVDT_FUSION_THRESHOLD``.
       prescale_factor / postscale_factor: scales before / after the sum.
       process_set: the ranks to average over (default: the world).
-      zero: ZeRO state sharding, not ported yet.
+      zero: ZeRO stage (``ops/zero.py``): ``"grads"``, ``"states"``,
+        ``"params"``, ``True`` (the env's stage or ``"states"``), a
+        ``zero.ZeroSpec`` (its stage, reduce axis, shard count and
+        threshold), or None (default) to read ``HVDT_ZERO``.
     """
-    if zero is not None:
-        raise NotImplementedError(
-            "ZeRO state sharding is not ported yet (ROADMAP Queue 1: "
-            "exchange scheduling)")
+    from .ops import zero as _zero
+
     _check_supported(op)
+    stage = _zero.resolve_stage(zero)
     if compression is None:
         compression = Compression.from_env()
-    return _DistributedOptimizer(optimizer, op, compression,
-                                 backward_passes_per_step, threshold_bytes,
-                                 prescale_factor, postscale_factor,
-                                 process_set)
+    if stage is None:
+        return _DistributedOptimizer(optimizer, op, compression,
+                                     backward_passes_per_step,
+                                     threshold_bytes, prescale_factor,
+                                     postscale_factor, process_set)
+    if ReduceOp(op) not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError(f"ZeRO exchange supports SUM/AVERAGE, got {op}")
+    spec = zero if isinstance(zero, _zero.ZeroSpec) else None
+    if threshold_bytes is None and spec is not None:
+        threshold_bytes = spec.threshold_bytes
+    cls = _ZeroGradsOptimizer if stage == "grads" else _ZeroStatesOptimizer
+    return cls(optimizer, op, compression, backward_passes_per_step,
+               threshold_bytes, prescale_factor, postscale_factor,
+               process_set, stage=stage, spec=spec)

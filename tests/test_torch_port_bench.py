@@ -11,9 +11,9 @@ the CPU.
 * ``python -m horovod_tpu_torch.bench --device cpu ...`` prints one JSON
   line with the reference's keys, ``platform`` "cpu" and ``mfu`` null;
   the fused-optimizer leg launches no kernel on the CPU.
-* The --overlap, --transport and --fp8 legs give the reference's JSON
-  keys; the reference's other legs exit non-zero naming their ROADMAP
-  item.
+* The --overlap, --transport, --fp8, --zero and --ckpt-stall legs give
+  the reference's JSON keys; the reference's other legs exit non-zero
+  naming their ROADMAP item.
 * The parent without a card exits non-zero with ``value`` 0.0 and never
   prints a CPU or cached number as the headline; the last-good cache
   rules of tests/test_bench_gate.py, on the port's own file.
@@ -121,8 +121,6 @@ def test_fused_optimizer_leg_launches_no_kernel_on_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--zero", "grads"], r"exchange scheduling \(ZeRO, checkpoint\)"),
-    (["--ckpt-stall"], r"exchange scheduling \(ZeRO, checkpoint\)"),
     (["--remat", "full"], "parallel axes"),
     (["--moe"], "parallel axes"), (["--pipeline"], "parallel axes"),
     (["--serve"], "serving"), (["--serve-llm"], "serving"),
@@ -138,12 +136,67 @@ def test_unported_legs_raise(flag, item):
 
 def test_unported_leg_exits_nonzero():
     out = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.bench", "--zero", "grads"],
+        [sys.executable, "-m", "horovod_tpu_torch.bench", "--serve"],
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode != 0
-    assert ("ROADMAP Queue 1: exchange scheduling (ZeRO, checkpoint)"
-            in out.stderr)
+    assert "ROADMAP Queue 1: serving" in out.stderr
     assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("flag", [
+    ["--zero", "grads"], ["--zero", "states"], ["--zero", "params"],
+    ["--ckpt-stall"]])
+def test_zero_and_ckpt_stall_legs(flag, monkeypatch):
+    """The --zero legs (a world of one: one shard) and --ckpt-stall on
+    the CPU: the reference's JSON keys.  states/params step fused_sgd on
+    the rank's rows: the momentum rows, 256-element aligned, are the
+    state's bytes."""
+    for k in ("HVDT_ZERO", "HVDT_OVERLAP", "HVDT_TELEMETRY",
+              "HVDT_FUSION_THRESHOLD", "HVDT_ASYNC_CKPT"):
+        # setenv first, so that the leg's own settings are undone too.
+        monkeypatch.setenv(k, "")
+        monkeypatch.delenv(k)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import zero as tz
+
+    tz.reset()
+    try:
+        leg = bench.measure(bench._parse_args(["--device", "cpu", *flag,
+                                               *_SMALL]))
+        assert torch.isfinite(leg.step())
+    finally:
+        if hvd.is_initialized():
+            hvd.shutdown()
+        tz.reset()
+    d = leg.doc
+    assert d["value"] > 0
+    if flag[0] == "--ckpt-stall":
+        stall = d["checkpoint_stall_ms"]
+        assert stall["sync"] > 0 and stall["async"] > 0
+        assert "zero_stage" not in d
+        return
+    from horovod_tpu_torch.models import resnet50_init
+
+    params = list(resnet50_init(0, ResNetConfig(),
+                                device="meta").parameters())
+    size = sum(p.numel() for p in params)
+    assert d["zero_stage"] == flag[1] and d["zero_num_shards"] == 1
+    assert d["param_bytes"] >= 4 * size
+    assert d.get("fused_optimizer", False) is (flag[1] != "grads")
+    if flag[1] == "grads":
+        assert d["optimizer_state_bytes"] == 4 * size     # SGD's momentum
+    else:
+        plan = tz._make_plan(params, 8 * 1024 * 1024, 1)
+        assert d["optimizer_state_bytes"] == 4 * sum(plan.padded_sizes)
+
+
+@pytest.mark.parametrize("stage", ["grads", "states", "params"])
+def test_zero_sharded_update_implies_fused_optimizer(stage):
+    """--zero states/params shard fused_sgd's update, so they imply
+    --fused-optimizer (the JSON's fused_optimizer says so); grads keeps
+    the leg's optimizer."""
+    args = bench._parse_args(["--zero", stage])
+    assert args.fused_optimizer is (stage != "grads")
 
 
 @pytest.mark.parametrize("flag", [["--overlap"], ["--transport", "auto"],

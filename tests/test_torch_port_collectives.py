@@ -118,9 +118,12 @@ def test_one_process_world(world1):
 
 def test_unported_options_raise(world1):
     opt = tok.fused_sgd([torch.zeros(2, requires_grad=True)], 0.1)
-    item = "Queue 1: exchange scheduling"
-    with pytest.raises(NotImplementedError, match=item):
-        hvd.DistributedOptimizer(opt, zero="states")
+    # ZeRO is ported (tests/test_torch_port_zero.py): it builds, and an
+    # unknown stage raises with the valid list.
+    assert type(hvd.DistributedOptimizer(
+        opt, zero="states")).__name__ == "_ZeroStatesOptimizer"
+    with pytest.raises(ValueError, match="valid: off, grads, states"):
+        hvd.DistributedOptimizer(opt, zero="stats")
     # Adasum is ported (tests/test_torch_port_adasum.py): it builds.
     assert hvd.DistributedOptimizer(opt, op=hvd.Adasum)._op == hvd.Adasum
     # The int8/int4 wires are ported: they build.
