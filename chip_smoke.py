@@ -112,6 +112,25 @@ Phases, one JSON line each:
    bucket, overlap and ZeRO dimensions (4 samples; each knob change a
    fresh capture over the same optimizer and state): samples, rebuilds,
    final knobs, and the tuned run's state equal to an untuned run's;
+10j. interop — Horovod's torch API (horovod_tpu_torch.interop.torch) on
+   ResNet-50 at 224x224, batch 128, bf16 compute, f32 params,
+   HVDT_FUSED_CONV1X1=1, deterministic cuDNN: interop, 3 steps of
+   interop.torch.DistributedOptimizer(fused_sgd(0.01, momentum 0.9),
+   named_parameters=...) (161 gradient hooks, each a named async
+   allreduce on the eager controller), held bit for bit against the
+   port's own DistributedOptimizer(fused_sgd) on the same batches (#2 once
+   a step), then both timed in turns with the host ms in the hooks and in
+   synchronize() a step beside the fused exchange's; interop_int8, 3 steps
+   with fused_adam and compression=Compression.int8 (#5 and #6 once a
+   float leaf a step in the hooks, #1 once a step), one step's reduced
+   leaves against the plain quantize-dequantize bit for bit;
+   interop_sync_bn, the interop SyncBatchNorm (plain _BatchNorm in a
+   world of one, bit for bit with nn.BatchNorm2d) and its synchronized
+   function (named eager allreduces of f64 statistics on the card)
+   against F.batch_norm at [128, 256, 56, 56] in f32 and bf16;
+   interop_timeline, 3 interop steps with HVDT_TIMELINE set: every
+   grad.<name> row of the JSON holds NEGOTIATE_ALLREDUCE then
+   EXEC_ALLREDUCE each step;
 11. flash_kernel — the three flash-attention kernels (#9 forward, #10
    dQ, #11 dK/dV) against their plain versions at the LM path's shape
    (B 16, H 16, L 4096, D 64, bf16, causal), with
@@ -261,7 +280,17 @@ L2, identical on every rank), the optimizer state's bytes a rank
 planned and by memory_allocated against the replicated 204.5 MB, each
 stage's step ms against the replicated in turns, states with the int8
 wire, error feedback and HVDT_OVERLAP=on (#5/#6 and #1 a replay), and
-the 4-shard state saved and restored as 2 and as 4 shards.  Every dp line
+the 4-shard state saved and restored as 2 and as 4 shards;
+dp_cards_missing_grad, parameters a, b, c under SGD with a gradient for
+b on rank 0 only, on every exchange path (default, k = 2, HVDT_OVERLAP,
+ZeRO grads/states/params with and without overlap, the interop
+optimizer): the zero-filled average, exactly, on every rank;
+dp_cards_interop, ResNet-50 (f32, bn_axis="dp", batch 32 a card) under
+interop.torch.DistributedOptimizer(fused_sgd): its 161 named
+allreduces against one card running the global batch and against the
+fused exchange, #2 once; dp_cards_interop_sync_bn, the interop
+SyncBatchNorm with ragged batches against BatchNorm over the whole
+batch in f64.  Every dp line
 carries its phase's wall_s.  The multi-card modes end with the
 card's line and the last line of the one-card run.
 """
@@ -2266,6 +2295,273 @@ def phase_autotune(hvd, smi):
           "wall_s": time.perf_counter() - t0, "card": smi})
 
 
+# ---- the interop phase: Horovod's torch API ----------------------------------
+
+INTEROP_BATCH = 128
+INTEROP_STEPS = 3
+# The interop SyncBatchNorm's synchronized function against
+# torch.nn.functional.batch_norm on the card, relative L2 of the output
+# and of the input gradient: in f32 the f64 statistics against cuDNN's
+# (rounding only); in bf16 the normalisation in bf16 against cuDNN's f32
+# arithmetic rounded once (a few bf16 ulps, 2^-8 each).
+INTEROP_BN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+INTEROP_BN_SHAPE = (INTEROP_BATCH, 256, 56, 56)
+
+
+def _interop_opt(hvd, model, optim="sgd", **kw):
+    """interop.torch.DistributedOptimizer over fused_sgd(0.01, momentum
+    0.9) or fused_adam(1e-3), with the model's parameter names."""
+    import horovod_tpu_torch.interop.torch as ihvd
+
+    inner = (hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9)
+             if optim == "sgd" else hvd.fused_adam(model.parameters(), 1e-3))
+    return ihvd.DistributedOptimizer(
+        inner, named_parameters=model.named_parameters(), **kw)
+
+
+def _fused_opt(hvd, model):
+    return hvd.DistributedOptimizer(
+        hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9))
+
+
+def _timed_calls(obj, name, spent):
+    """Wrap ``obj.name`` (an instance attribute shadowing the method) so
+    each call's host seconds are appended to ``spent``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    setattr(obj, name, wrapper)
+
+
+def _step_times(model, opt, batches, steps):
+    """Host seconds of ``steps`` eager ResNet-50 steps (each ended by a
+    synchronize) and their losses."""
+    times, losses = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_resnet_step(model, opt, *batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, losses
+
+
+def _interop_sync_bn(gen):
+    """The interop SyncBatchNorm in the world of one, in f32 and bf16: the
+    module (plain _BatchNorm there) against nn.BatchNorm2d bit for bit,
+    and its synchronized function (the statistics summed by a named eager
+    allreduce, in f64 on the card) against F.batch_norm: output and input
+    gradient by relative L2, dtype kept, forward ms of each."""
+    from horovod_tpu_torch.interop import torch_sync_batch_norm as tsbn
+
+    out = {}
+    c = INTEROP_BN_SHAPE[1]
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(INTEROP_BN_SHAPE, generator=gen,
+                        device="cuda").to(dtype)
+        mod = tsbn.SyncBatchNorm(c).to("cuda", dtype)
+        plain = torch.nn.BatchNorm2d(c).to("cuda", dtype)
+        same = _bit_err(mod(x), plain(x)) == 0.0 and _bit_err(
+            mod.running_var, plain.running_var) == 0.0
+        w = torch.rand(c, generator=gen, device="cuda").to(dtype) + 0.5
+        b = torch.randn(c, generator=gen, device="cuda").to(dtype)
+        xs = x.clone().requires_grad_()
+        y, _, _, count = tsbn._SyncBNFunction.apply(xs, w, b, 1e-5)
+        xr = x.clone().requires_grad_()
+        ref = torch.nn.functional.batch_norm(xr, None, None, w, b, True,
+                                             0.0, 1e-5)
+        dy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+        gx, = torch.autograd.grad(y, xs, dy)
+        gr, = torch.autograd.grad(ref, xr, dy)
+        row = {"module_equals_batchnorm2d": same,
+               "out_rel_l2": _rel_l2([y.detach()], [ref.detach()]),
+               "dx_rel_l2": _rel_l2([gx], [gr]),
+               "dtype_kept": y.dtype == dtype and gx.dtype == dtype,
+               "count": float(count), "tolerance": INTEROP_BN_TOL[dtype],
+               "sync_forward_ms": cuda_ms(lambda: tsbn._SyncBNFunction.apply(
+                   x, w, b, 1e-5), iters=5, reps=3),
+               "batch_norm_forward_ms": cuda_ms(
+                   lambda: torch.nn.functional.batch_norm(
+                       x, None, None, w, b, True, 0.0, 1e-5), iters=5,
+                   reps=3)}
+        assert same and row["dtype_kept"], row
+        assert row["count"] == x.numel() / c, row
+        assert row["out_rel_l2"] <= INTEROP_BN_TOL[dtype], row
+        assert row["dx_rel_l2"] <= INTEROP_BN_TOL[dtype], row
+        out[str(dtype).split(".")[1]] = row
+        del x, xs, xr, y, ref, gx, gr, dy, mod, plain
+        _free()
+    return out
+
+
+def _interop_timeline(hvd, batches):
+    """One interop step with HVDT_TIMELINE set (the controller restarted
+    so it reads the variable): the JSON parses, and every grad.<name>
+    row holds NEGOTIATE_ALLREDUCE then EXEC_ALLREDUCE."""
+    import tempfile
+
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.ops import eager
+
+    path = os.path.join(tempfile.mkdtemp(prefix="hvdt_timeline_"),
+                        "timeline.json")
+    model = resnet50_init(0, ResNetConfig())
+    opt = _interop_opt(hvd, model)
+    os.environ["HVDT_TIMELINE"] = path
+    eager.shutdown_controller()
+    try:
+        times, _ = _step_times(model, opt, batches, INTEROP_STEPS)
+    finally:
+        opt._hvdt.remove()
+        eager.shutdown_controller()
+        hvd.stop_timeline()
+        del os.environ["HVDT_TIMELINE"]
+    with open(path) as f:
+        events = json.load(f)
+    names = {e["pid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    rows = {}
+    for e in events:
+        if e["ph"] == "B":
+            rows.setdefault(names[e["pid"]], []).append(e["name"])
+    grads = [f"grad.{n}" for n, _ in model.named_parameters()]
+    pattern = ["NEGOTIATE_ALLREDUCE", "EXEC_ALLREDUCE"] * INTEROP_STEPS
+    whole = all(rows.get(n) == pattern for n in grads)
+    assert whole, {n: rows.get(n) for n in grads[:3]}
+    os.remove(path)
+    del model, opt
+    _free()
+    return {"events": len(events), "tensors": len(names),
+            "grad_rows_whole": whole, "step_s": times}
+
+
+def phase_interop(hvd, smi):
+    """interop (the NCCL world of one; see the module docstring).
+    Returns the launches of #2 (the interop step) and of #1, #5, #6 (the
+    int8 steps)."""
+    from horovod_tpu_torch.models import (ResNetConfig, resnet50_init,
+                                          resnet_loss)
+    from horovod_tpu_torch.quant import kernels as qk
+
+    t0 = time.perf_counter()
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    batches = [_bf16_batch(300 + i, INTEROP_BATCH)
+               for i in range(INTEROP_STEPS)]
+    try:
+        # The interop optimizer against the port's own, bit for bit (a
+        # world of one reduces nothing; both step #2 on equal gradients).
+        model = resnet50_init(0, ResNetConfig())
+        opt = _interop_opt(hvd, model)
+        reset_counters()
+        _, losses = _step_times(model, opt, batches, INTEROP_STEPS)
+        sgd_launches = counters()
+        leaves = [p for p in model.parameters() if p.requires_grad]
+        assert len(leaves) == 161, len(leaves)
+        assert sgd_launches["_sgd_kernel"] == INTEROP_STEPS, sgd_launches
+        assert sgd_launches["_mm_stats_kernel"] == 26 * INTEROP_STEPS
+        got = _state_of(model, opt, losses)
+        ref_model = resnet50_init(0, ResNetConfig())
+        ref_opt = _fused_opt(hvd, ref_model)
+        _, ref_losses = _step_times(ref_model, ref_opt, batches,
+                                    INTEROP_STEPS)
+        err = _runs_err(got, _state_of(ref_model, ref_opt, ref_losses))
+        assert err == 0.0, err
+
+        # Step times in turns (interop, fused, fused, interop), the host
+        # time in the 161 hooks and in synchronize() a step against the
+        # fused exchange's synchronize().
+        hooks, syncs, fused = [], [], []
+        _timed_calls(opt._hvdt, "_hook", hooks)
+        _timed_calls(opt._hvdt, "synchronize", syncs)
+        _timed_calls(ref_opt, "synchronize", fused)
+        turns = {"interop": [], "fused": []}
+        for name in ("interop", "fused", "fused", "interop"):
+            m, o = (model, opt) if name == "interop" else (ref_model,
+                                                           ref_opt)
+            turns[name] += _step_times(m, o, batches, INTEROP_STEPS)[0]
+        n_steps = 2 * INTEROP_STEPS
+        assert len(hooks) == 161 * n_steps and len(syncs) == n_steps
+        hook_ms = [1e3 * sum(hooks[i * 161:(i + 1) * 161])
+                   for i in range(n_steps)]
+        steady = {k: _stats(v)["median"] for k, v in turns.items()}
+        opt._hvdt.remove()
+        del model, opt, ref_model, ref_opt, got
+        _free()
+        emit({"phase": "interop", "model": "resnet50",
+              "batch": INTEROP_BATCH, "image": IMAGE, "steps": INTEROP_STEPS,
+              "optimizer": "interop.torch.DistributedOptimizer(fused_sgd)",
+              "losses": torch.stack(losses).tolist(),
+              "max_abs_err_vs_port_distributed_optimizer": err,
+              "launches": {k: v for k, v in sgd_launches.items() if v},
+              "step_s": turns, "steady_step_s": steady,
+              "images_per_s": {k: INTEROP_BATCH / v
+                               for k, v in steady.items()},
+              "hooks_host_ms_per_step": _stats(hook_ms),
+              "interop_synchronize_host_ms": _stats(
+                  [1e3 * s for s in syncs]),
+              "fused_synchronize_host_ms": _stats([1e3 * s for s in fused]),
+              "named_allreduces_per_step": 161, "card": smi})
+
+        # compression=Compression.int8 over fused_adam: #5/#6 once a float
+        # leaf a step in the hooks, #1 once a step; one step's leaves
+        # against the plain quantize-dequantize bit for bit.
+        model = resnet50_init(0, ResNetConfig())
+        opt = _interop_opt(hvd, model, "adam",
+                           compression=hvd.Compression.int8)
+        reset_counters()
+        images, labels = batches[0]
+        opt.zero_grad()
+        loss, _ = resnet_loss(model, images, labels)
+        loss.backward()
+        local = [p.grad.detach().clone() for p in model.parameters()]
+        opt.synchronize()
+        leaf_err = max(_bit_err(p.grad, qk.quantize_dequantize(
+            g, use_kernels=False)) for p, g in zip(model.parameters(), local))
+        assert leaf_err == 0.0, leaf_err
+        with opt.skip_synchronize():
+            opt.step()
+        times, q_losses = _step_times(model, opt, batches[1:],
+                                      INTEROP_STEPS - 1)
+        int8_launches = counters()
+        n_float = sum(p.is_floating_point() for p in model.parameters())
+        want = n_float * INTEROP_STEPS
+        assert int8_launches["_quant_kernel"] == want, int8_launches
+        assert int8_launches["_dequant_kernel"] == want, int8_launches
+        assert int8_launches["_adam_kernel"] == INTEROP_STEPS, int8_launches
+        assert all(math.isfinite(float(x)) for x in q_losses)
+        opt._hvdt.remove()
+        del model, opt, local
+        _free()
+        emit({"phase": "interop_int8", "steps": INTEROP_STEPS,
+              "optimizer": "interop.torch.DistributedOptimizer(fused_adam, "
+                           "compression=Compression.int8)",
+              "float_leaves": n_float,
+              "launches": {k: v for k, v in int8_launches.items() if v},
+              "expected_quant_dequant": [want, want],
+              "leaves_vs_plain_max_abs_err": leaf_err, "step_s": times,
+              "card": smi})
+
+        bn = _interop_sync_bn(gen)
+        emit({"phase": "interop_sync_bn", "shape": list(INTEROP_BN_SHAPE),
+              **bn, "card": smi})
+        tl = _interop_timeline(hvd, batches)
+        emit({"phase": "interop_timeline", **tl,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {"_sgd_kernel": sgd_launches["_sgd_kernel"],
+            "_adam_kernel": int8_launches["_adam_kernel"],
+            "_quant_kernel": int8_launches["_quant_kernel"],
+            "_dequant_kernel": int8_launches["_dequant_kernel"]}
+
+
 BENCH_BATCH = 128
 BENCH_ARGS = ["--num-iters", "3", "--num-batches-per-iter", "20"]
 # The legs of the bench phase: (name, bench flags, HVDT_FUSED_CONV1X1).
@@ -3921,6 +4217,32 @@ def _rel_l2(got, want) -> float:
     return diff / sum(float(b.double().norm()) ** 2 for b in want) ** 0.5
 
 
+def _global_f32_grads(x, y):
+    """One card: the f32 (unfused) ResNet-50 loss and gradients of the
+    global batch ``(x, y)`` with bn_axis=None, and the relative L2 by
+    which reordering the batch moves the gradients (the yardstick)."""
+    from horovod_tpu_torch.models import (ResNetConfig, resnet50_init,
+                                          resnet_loss)
+
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(
+        0)).to(x.device)
+    runs = []
+    os.environ["HVDT_FUSED_CONV1X1"] = "0"
+    try:
+        for order in (None, perm):
+            ref = resnet50_init(0, ResNetConfig(dtype=torch.float32))
+            xs, ys = (x, y) if order is None else (x[order], y[order])
+            want, _ = resnet_loss(ref, xs, ys)
+            want.backward()
+            runs.append((want.item(), [p.grad for p in ref.parameters()]))
+            del ref, xs, ys
+            _free()
+    finally:
+        os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    (want, want_g), (_, perm_g) = runs
+    return want, want_g, _rel_l2(perm_g, want_g)
+
+
 def _global_batch_check(hvd, images, labels, loss_bf16) -> dict:
     """The first step of the dp run in f32 (bn_axis="dp", unfused, one
     exchange of the gradients) against one card running the global batch
@@ -3952,26 +4274,12 @@ def _global_batch_check(hvd, images, labels, loss_bf16) -> dict:
     if r:
         return None
     x, y = torch.cat(everyone).float(), torch.cat(every_label)
-    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(
-        0)).to(x.device)
-    runs = []
-    for order in (None, perm):
-        os.environ["HVDT_FUSED_CONV1X1"] = "0"
-        ref = resnet50_init(0, ResNetConfig(dtype=torch.float32))
-        xs, ys = (x, y) if order is None else (x[order], y[order])
-        want, _ = resnet_loss(ref, xs, ys)
-        want.backward()
-        runs.append((want.item(), [p.grad for p in ref.parameters()]))
-        del ref, xs, ys
-        _free()
+    want, want_g, floor = _global_f32_grads(x, y)
     with torch.no_grad():
-        os.environ["HVDT_FUSED_CONV1X1"] = "1"
         ref = resnet50_init(0, ResNetConfig())
         want_bf16, _ = resnet_loss(ref, x.to(torch.bfloat16), y)
         del ref
     _free()
-    (want, want_g), (_, perm_g) = runs
-    floor = _rel_l2(perm_g, want_g)
     out = {"f32_loss": float(loss), "f32_global_batch_loss": want,
            "f32_loss_rel_err": abs(float(loss) - want) / abs(want),
            "f32_grads_rel_l2": _rel_l2(grads, want_g),
@@ -4849,12 +5157,212 @@ def dp_zero(hvd, smi):
               "wall_s": time.perf_counter() - t0, "card": smi})
 
 
+# The Queue 3 input (a gradient that only rank 0 has) on every exchange
+# path, and the interop optimizer and SyncBatchNorm across the cards.
+DP_MISSING_MODES = ("default", "k2", "overlap", "grads", "states", "params",
+                    "grads_overlap", "states_overlap", "params_overlap",
+                    "interop")
+# The interop SyncBatchNorm's ragged per-rank batches against BatchNorm
+# over the whole batch in f64 on the card: relative L2 of the outputs,
+# the input gradients and the running statistics (f32 rounding).
+DP_INTEROP_BN_TOL = 1e-5
+
+
+def _missing_grad_run(hvd, mode, device):
+    """Parameters a (4), b (3), c (5) of ones, SGD with lr 1, one step
+    of ``mode`` (two passes under k2) on loss (r+1)·(sum a + sum c), plus
+    10·sum b on rank 0 only.  Returns [a, b, c]."""
+    import horovod_tpu_torch.interop.torch as ihvd
+
+    r = hvd.rank()
+    ps = [torch.ones(k, device=device, requires_grad=True)
+          for k in (4, 3, 5)]
+    stage = {"grads": "grads", "states": "states",
+             "params": "params"}.get(mode.replace("_overlap", ""))
+    _overlap_env(mode.endswith("overlap"))
+    try:
+        if mode == "interop":
+            opt = ihvd.DistributedOptimizer(
+                torch.optim.SGD(ps, lr=1.0),
+                named_parameters=list(zip("abc", ps)))
+        elif stage in ("states", "params"):
+            opt = hvd.DistributedOptimizer(hvd.fused_sgd(ps, 1.0),
+                                           zero=stage)
+        else:
+            opt = hvd.DistributedOptimizer(
+                torch.optim.SGD(ps, lr=1.0), zero=stage,
+                backward_passes_per_step=2 if mode == "k2" else 1)
+        for _ in range(2 if mode == "k2" else 1):
+            opt.zero_grad()
+            a, b, c = ps
+            loss = (r + 1) * (a.sum() + c.sum())
+            if r == 0:
+                loss = loss + 10 * b.sum()
+            loss.backward()
+            opt.step()
+        if hasattr(opt, "gather_params"):
+            opt.gather_params()
+    finally:
+        _overlap_env(False)
+        if mode == "interop":
+            opt._hvdt.remove()
+        else:
+            _drop(opt)
+    return [p.detach() for p in ps]
+
+
+def dp_missing_grad(hvd, smi, device="cuda"):
+    """dp_cards_missing_grad: the Queue 3 input on every path over the
+    process group (NCCL on the cards): a = c = 1 - (n+1)/2 and b =
+    1 - 10/n on every rank, exactly."""
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    want = [1.0 - (n + 1) / 2, 1.0 - 10.0 / n, 1.0 - (n + 1) / 2]
+    rows = {}
+    for mode in DP_MISSING_MODES:
+        got = _missing_grad_run(hvd, mode, device)
+        exact = all(torch.equal(g, torch.full_like(g, w))
+                    for g, w in zip(got, want))
+        ok = torch.tensor([int(exact)], device=got[0].device)
+        dist.all_reduce(ok, dist.ReduceOp.MIN)
+        rows[mode] = {"exact_on_every_rank": bool(ok.item()),
+                      "rank0": [g.tolist() for g in got]}
+        assert rows[mode]["exact_on_every_rank"], (mode, rows[mode], want)
+    if r == 0:
+        emit({"phase": "dp_cards_missing_grad", "cards": n,
+              "expected_a_b_c": want, "modes": rows,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def dp_interop(hvd, smi):
+    """dp_cards_interop: ResNet-50 (f32, unfused, bn_axis="dp", batch 32
+    a card) under interop.torch.DistributedOptimizer(fused_sgd): its 161
+    named allreduces on the eager controller over NCCL against one card
+    running the global batch (dp_check's tolerance: twice what
+    reordering the batch moves the gradients, plus 1e-3) and against the
+    fused exchange of the same local gradients (DP_OVERLAP_TOL); the
+    interop step (#2 once) leaves the parameters identical on every
+    rank."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import (ResNetConfig, resnet50_init,
+                                          resnet_loss)
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    images, labels = _bf16_batch(700 + r, DP_CHECK_BATCH)
+    everyone = [torch.empty_like(images) for _ in range(n)]
+    dist.all_gather(everyone, images)
+    every_label = [torch.empty_like(labels) for _ in range(n)]
+    dist.all_gather(every_label, labels)
+    os.environ["HVDT_FUSED_CONV1X1"] = "0"
+    try:
+        model = resnet50_init(0, ResNetConfig(dtype=torch.float32,
+                                              bn_axis="dp"))
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        opt = _interop_opt(hvd, model)
+        loss, _ = resnet_loss(model, images.float(), labels)
+        loss.backward()                 # the hooks enqueue 161 allreduces
+        local = [p.grad.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        t_sync = time.perf_counter()
+        opt.synchronize()
+        torch.cuda.synchronize()
+        sync_ms = (time.perf_counter() - t_sync) * 1e3
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        fused = hvd.allreduce_gradients(local)
+        vs_fused = _rel_l2(grads, fused)
+        reset_counters()
+        with opt.skip_synchronize():
+            opt.step()
+        torch.cuda.synchronize()
+        launches = counters()
+        same = _same_on_every_rank(list(model.parameters()))
+        opt._hvdt.remove()
+        del model, opt, local, fused
+        _free()
+    finally:
+        os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    assert launches["_sgd_kernel"] == 1, launches
+    assert same and vs_fused <= DP_OVERLAP_TOL, (same, vs_fused)
+    if r:
+        return
+    want, want_g, floor = _global_f32_grads(torch.cat(everyone).float(),
+                                            torch.cat(every_label))
+    err = _rel_l2(grads, want_g)
+    row = {"phase": "dp_cards_interop", "cards": n, "model": "resnet50",
+           "batch_per_card": DP_CHECK_BATCH, "bn_axis": "dp",
+           "named_allreduces": len(grads),
+           "f32_grads_rel_l2_vs_global_batch": err,
+           "f32_reordered_batch_grads_rel_l2": floor,
+           "rel_l2_vs_fused_exchange": vs_fused,
+           "tolerance": {"global_batch": "2 x reordered + 1e-3",
+                         "fused_exchange": DP_OVERLAP_TOL},
+           "synchronize_host_ms_rank0": sync_ms,
+           "params_identical_on_every_rank": same,
+           "launches_rank0": {k: v for k, v in launches.items() if v},
+           "wall_s": time.perf_counter() - t0, "card": smi}
+    assert err <= 2 * floor + 1e-3, row
+    emit(row)
+
+
+def dp_interop_sync_bn(hvd, smi, device="cuda"):
+    """dp_cards_interop_sync_bn: the interop SyncBatchNorm with ragged
+    per-rank batches (8, 10, ... rows of [C 64, 28, 28]) against
+    BatchNorm over the whole batch in f64 on the card: each rank's
+    outputs and input gradients of sum(y·w) and the running statistics
+    within DP_INTEROP_BN_TOL (relative L2); a bf16 input keeps its
+    dtype."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.interop import torch_sync_batch_norm as tsbn
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    rows = [8 + 2 * i for i in range(n)]
+    lo = sum(rows[:r])
+    g = torch.Generator(device=device).manual_seed(17)
+    full = torch.randn((sum(rows), 64, 28, 28), generator=g, device=device)
+    wgt = torch.randn(full.shape, generator=g, device=device)
+    local = full[lo:lo + rows[r]].clone().requires_grad_()
+    sbn = tsbn.SyncBatchNorm(64).to(device)
+    y = sbn(local)
+    (y * wgt[lo:lo + rows[r]]).sum().backward()
+    ref = torch.nn.BatchNorm2d(64).to(device, torch.float64)
+    x64 = full.double().requires_grad_()
+    y64 = ref(x64)
+    (y64 * wgt.double()).sum().backward()
+    sl = slice(lo, lo + rows[r])
+    errs = {"out": _rel_l2([y.detach()], [y64.detach()[sl]]),
+            "dx": _rel_l2([local.grad], [x64.grad[sl]]),
+            "running_mean": _rel_l2([sbn.running_mean],
+                                    [ref.running_mean]),
+            "running_var": _rel_l2([sbn.running_var], [ref.running_var])}
+    xb = local.detach().to(torch.bfloat16).requires_grad_()
+    yb = tsbn.SyncBatchNorm(64).to(device, torch.bfloat16)(xb)
+    yb.float().sum().backward()
+    kept = yb.dtype == torch.bfloat16 and xb.grad.dtype == torch.bfloat16
+    worst = torch.tensor([max(errs.values())], device=full.device)
+    dist.all_reduce(worst, dist.ReduceOp.MAX)
+    assert worst.item() <= DP_INTEROP_BN_TOL and kept, (errs, kept)
+    if r == 0:
+        emit({"phase": "dp_cards_interop_sync_bn", "cards": n,
+              "rows_per_rank": rows, "channels": 64, "spatial": [28, 28],
+              "rel_l2_rank0": errs, "worst_rel_l2_any_rank": worst.item(),
+              "tolerance": DP_INTEROP_BN_TOL, "bf16_dtype_kept": kept,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+
+
 def dp_cards_worker(device=None) -> None:
     """One rank of ``--dp-cards``: :func:`dp_check`, :func:`dp_time`,
     :func:`dp_wire`, :func:`dp_vgg`, :func:`dp_accumulate`,
-    :func:`dp_overlap`, :func:`dp_adasum`, :func:`dp_transport` and
-    :func:`dp_zero` in an NCCL world of one process a card.  Rank 0
-    prints the lines.  The eager controller is never started."""
+    :func:`dp_overlap`, :func:`dp_adasum`, :func:`dp_transport`,
+    :func:`dp_zero`, :func:`dp_missing_grad`, :func:`dp_interop` and
+    :func:`dp_interop_sync_bn` in an NCCL world of one process a card.
+    Rank 0 prints the lines.  The eager controller starts in the last
+    three (the interop optimizer and SyncBatchNorm negotiate by name)."""
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -4866,7 +5374,8 @@ def dp_cards_worker(device=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     phases = (dp_check, dp_time, dp_wire, dp_vgg, dp_accumulate,
-              dp_overlap, dp_adasum, dp_transport, dp_zero)
+              dp_overlap, dp_adasum, dp_transport, dp_zero,
+              dp_missing_grad, dp_interop, dp_interop_sync_bn)
     try:
         for phase in phases:
             phase(hvd, smi)
@@ -5081,6 +5590,7 @@ def main() -> int:
     phase_zero(hvd, smi)
     phase_ckpt(hvd, smi)
     phase_autotune(hvd, smi)
+    phase_interop(hvd, smi)
 
     flash = phase_flash_kernels(gen, smi)
     phase_ring(gen, smi)

@@ -24,6 +24,21 @@ averaging and an epoch broadcast::
     start_epoch = int(hvd.broadcast(torch.tensor(start_epoch), root_rank=0,
                                     name="start_epoch"))
 
+A Horovod PyTorch script keeps its own names through
+``horovod_tpu_torch.interop.torch``, the drop-in for ``import
+horovod.torch as hvd`` (in-place and async ops, the grad-hook
+``DistributedOptimizer(opt, named_parameters=...)``, a ``_BatchNorm``
+``SyncBatchNorm``)::
+
+    import horovod_tpu_torch.interop.torch as hvd
+    hvd.init()
+    opt = hvd.DistributedOptimizer(opt,
+                                   named_parameters=model.named_parameters())
+    hvd.allreduce_(metric, name="metric")
+
+``start_timeline(path)`` / ``stop_timeline()`` (or ``HVDT_TIMELINE``)
+record the eager collectives as a Chrome-tracing timeline.
+
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``.  Importing the package starts no thread: the eager
 controller starts at the first eager call.
@@ -108,6 +123,7 @@ from .ops.sparse import (  # noqa: F401,E402
     sparse_allreduce,
     sparse_allreduce_async,
 )
+from .timeline import start_timeline, stop_timeline  # noqa: F401,E402
 from .common.util import (  # noqa: F401,E402
     ccl_built,
     cuda_built,

@@ -256,8 +256,10 @@ KNOBS: Dict[str, Knob] = {
         Knob("HVDT_CACHE_CAPACITY", 1024, int,
              "Response-cache capacity (negotiated-collective descriptors)."),
         Knob("HVDT_TIMELINE", "", str,
-             "Write per-tensor Chrome-tracing timeline JSON to this path.  "
-             "Not ported yet: the eager controller raises when it is set."),
+             "Write per-tensor Chrome-tracing timeline JSON to this path "
+             "(timeline.py; started with the eager controller)."),
+        Knob("HVDT_TIMELINE_MARK_CYCLES", False, _parse_bool,
+             "Mark background-loop cycles in the timeline."),
         Knob("HVDT_STALL_CHECK_DISABLE", False, _parse_bool,
              "Disable stall inspector."),
         Knob("HVDT_STALL_CHECK_TIME_SECONDS", 60, int,

@@ -53,6 +53,7 @@ from ..common.exceptions import HorovodInternalError, NotInitializedError
 from ..common.process_sets import ProcessSet, global_process_set
 from ..common.types import (DUPLICATE_NAME_ERROR, ReduceOp, Status,
                             data_type_of, torch_dtype_of)
+from .. import timeline as _timeline
 from . import host_collectives as hostc
 from .control_plane import ControlPlane, default_control_plane
 from .handles import HandleManager
@@ -178,12 +179,11 @@ def _itemsize(tensor_type: int) -> int:
 
 class EagerController:
     def __init__(self, control_plane: Optional[ControlPlane] = None):
-        if config.get_str("HVDT_TIMELINE"):
-            raise NotImplementedError(
-                "HVDT_TIMELINE: the eager controller's timeline is not "
-                "ported yet (ROADMAP Queue 1, item 6: runtime plane)")
         from ..resilience.escalation import EscalationPolicy, Escalator
         from ..stall import StallInspector
+        from ..timeline import get_timeline
+
+        get_timeline()      # start HVDT_TIMELINE's, once
 
         self.cp = control_plane or default_control_plane()
         self.handles = HandleManager()
@@ -249,6 +249,12 @@ class EagerController:
                     request, tensor, handle, np_dtype, ready)
                 self._to_announce.append(request)
                 handles.append(handle)
+        tl = _timeline.current()
+        if tl is not None:
+            for request, *_ in items:
+                tl.start_activity(
+                    request.tensor_name,
+                    f"NEGOTIATE_{RequestType(request.request_type).name}")
         self._wake.set()
         return handles
 
@@ -302,6 +308,9 @@ class EagerController:
                 log.exception("controller cycle failed: %s", e)
                 self._fail_all(f"controller cycle failed: {e}")
                 return
+            tl = _timeline.current()
+            if tl is not None:
+                tl.mark_cycle()
             if not did_work and self._cycle_time_s == 0:
                 # back off while idle, but not past a local enqueue
                 self._wake.wait(idle_sleep)
@@ -604,6 +613,12 @@ class EagerController:
             return
 
         entries = self._pop_entries(resp)
+        tl = _timeline.current()
+        if tl is not None:          # negotiation over, execution begins
+            for name in resp.tensor_names:
+                tl.end_activity(name)
+                tl.start_activity(name, f"EXEC_{rt.name}",
+                                  {"fused": len(resp.tensor_names)})
         try:
             with torch.profiler.record_function(
                     f"hvdt.{rt.name}.{resp.tensor_names[0]}"
@@ -620,6 +635,12 @@ class EagerController:
                         entry.handle,
                         Status.unknown(f"{type(e).__name__}: {e}"))
             raise
+        finally:
+            if tl is not None:
+                for name, shape in zip(resp.tensor_names,
+                                       resp.tensor_shapes or
+                                       [()] * len(resp.tensor_names)):
+                    tl.end_activity(name, {"shape": list(shape)})
         # coherent cache update on every rank, in execution order
         for name, shape in zip(resp.tensor_names, resp.tensor_shapes):
             req = Request(0, rt, name, resp.tensor_type, tuple(shape),
@@ -766,6 +787,10 @@ class EagerController:
             if entry is not None:
                 self.handles.mark_done(entry.handle,
                                        Status.unknown(message))
+        tl = _timeline.current()
+        if tl is not None:
+            for name in resp.tensor_names:
+                tl.instant(name, "ERROR", {"message": message})
 
     def _fail_all(self, message: str) -> None:
         with self._lock:

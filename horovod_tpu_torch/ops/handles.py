@@ -15,12 +15,13 @@ __all__ = ["HandleManager"]
 
 
 class _Entry:
-    __slots__ = ("event", "status", "result")
+    __slots__ = ("event", "status", "result", "meta")
 
     def __init__(self) -> None:
         self.event = threading.Event()
         self.status: Optional[Status] = None
         self.result: Any = None
+        self.meta: Any = None
 
 
 class HandleManager:
@@ -44,6 +45,26 @@ class HandleManager:
         e.status = status
         e.result = result
         e.event.set()
+
+    def set_meta(self, handle: int, meta: Any) -> None:
+        """Attach framework-side metadata (the torch binding's in-place
+        target) to a live handle.  It shares the entry's lifetime, so it
+        is dropped with the entry at ``synchronize`` and never outlives
+        the handle it describes."""
+        with self._lock:
+            e = self._entries.get(handle)
+            if e is not None:
+                e.meta = meta
+
+    def take_meta(self, handle: int) -> Any:
+        """Return and clear the handle's metadata (None if the handle is
+        unknown, already resolved, or carries none)."""
+        with self._lock:
+            e = self._entries.get(handle)
+            if e is None or e.meta is None:
+                return None
+            meta, e.meta = e.meta, None
+            return meta
 
     def poll(self, handle: int) -> bool:
         """True if the operation completed (ref: mpi_ops.py:914 poll)."""

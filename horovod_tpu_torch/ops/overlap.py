@@ -377,10 +377,10 @@ class HookedExchange:
     pass's accumulation, error feedback's compensation) and marks it
     ready; a bucket is issued when all its gradients are ready and every
     bucket before it has been issued.  :meth:`finish` issues the rest
-    (with the leaves that have a gradient), waits in order and copies
-    the reduced values into ``.grad``.  A second gradient for a parameter
-    already ready on this pass raises, as upstream Horovod's hook does:
-    its bucket may be in flight."""
+    (the owner has given every parameter without a gradient a zero one),
+    waits in order and copies the reduced values into ``.grad``.  A
+    second gradient for a parameter already ready on this pass raises,
+    as upstream Horovod's hook does: its bucket may be in flight."""
 
     def __init__(self, owner, params: Sequence[torch.Tensor]):
         self.owner = owner
@@ -444,10 +444,8 @@ class HookedExchange:
                 self._issue(self.next_issue)
 
     def _issue(self, b: int) -> None:
-        ids = [i for i in self.plan[b] if self.params[i].grad is not None]
-        if ids:
-            self._pipeline().issue(
-                ids, [self.params[i].grad for i in ids])
+        ids = list(self.plan[b])
+        self._pipeline().issue(ids, [self.params[i].grad for i in ids])
         self.next_issue = b + 1
 
     @torch.no_grad()

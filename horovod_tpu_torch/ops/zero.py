@@ -616,9 +616,7 @@ class _ZeroHooked(ovl.HookedExchange):
         for bi, shard in self.shards():
             full = self.group.all_gather(shard)
             for i, v in _split_bucket(full, self.zplan, bi).items():
-                g = self.params[i].grad
-                if g is not None:
-                    g.copy_(v)
+                self.params[i].grad.copy_(v)
 
 
 class _SegmentExchange:

@@ -28,9 +28,17 @@ pass of a cycle copies into the accumulators, the k-th exchanges and
 steps), so ``donated_step`` captures one graph per pass of the cycle,
 keyed by :meth:`_DistributedOptimizer._graph_phase`, and replays the
 one for the pass at hand: the non-boundary graphs hold no collective.
-A captured pass replays a fixed set of gradients, so under a capture
-every accumulated parameter needs a gradient on every pass (eagerly a
-gradient may come and go).  The int8/int4 wire runs inside a capture as it runs eagerly.
+The int8/int4 wire runs inside a capture as it runs eagerly.
+
+Every rank exchanges the same set of parameters: each parameter of the
+wrapped optimizer's ``param_groups`` that requires a gradient.  Ranks
+may differ in which of them have a gradient (a branch taken on some
+ranks only, a module frozen on one); a parameter without one goes in as
+zeros, in its own dtype, and holds the reduced gradient as ``.grad``
+afterwards, as in the reference's ``interop/torch_optimizer.py``.  A pass
+of a ``backward_passes_per_step`` cycle that gives a parameter no
+gradient adds zeros to its accumulator.  So the exchanged set is fixed
+by construction, and a captured pass replays it.
 
 ``op=hvd.Adasum`` combines each fused bucket with Adasum
 (``ops/adasum.py``) instead of averaging it.
@@ -84,6 +92,15 @@ from .ops.compression import Compression, Compressor
 
 __all__ = ["DistributedOptimizer", "allreduce_gradients",
            "microbatch_gradients"]
+
+def _zero_fill(params: Sequence[torch.Tensor]) -> None:
+    """Give each of ``params`` that has no gradient a zero one, in its
+    dtype and layout, so every rank sends the same buffers."""
+    with torch.no_grad():
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
 
 def _check_supported(op: ReduceOp) -> None:
     if ReduceOp(op) not in (ReduceOp.AVERAGE, ReduceOp.SUM,
@@ -196,9 +213,6 @@ class _DistributedOptimizer:
         self._process_set = process_set
         self._passes = 0
         self._acc: Dict[torch.Tensor, torch.Tensor] = {}
-        # Eager passes only: the parameters with a gradient so far in
-        # this cycle, in order (a dict as an ordered set).
-        self._seen: Dict[torch.Tensor, None] = {}
         # HVDT_OVERLAP=on: the hooked exchange, the parameters its hooks
         # folded (boundary pass, k > 1) and transformed (error feedback's
         # per-parameter compensation, set by the wrapper) this pass.
@@ -238,18 +252,24 @@ class _DistributedOptimizer:
     def __getattr__(self, name: str):
         return getattr(self.__dict__["optimizer"], name)
 
-    def _params_with_grad(self) -> List[torch.Tensor]:
+    def _exchanged(self) -> List[torch.Tensor]:
+        """The parameters every rank exchanges: each one of
+        ``param_groups`` that requires a gradient, whether or not it has
+        one on this rank."""
         return [p for g in self.optimizer.param_groups for p in g["params"]
-                if p.grad is not None]
+                if p.requires_grad]
 
     def synchronize(self) -> None:
-        """Average (or sum) every ``.grad`` over the process set, in
-        place, as fused bucket collectives (under ``HVDT_OVERLAP=on``:
-        issue the buckets no hook issued and wait for all)."""
+        """Average (or sum) the gradient of every parameter that requires
+        one over the process set, in place, as fused bucket collectives
+        (under ``HVDT_OVERLAP=on``: issue the buckets no hook issued and
+        wait for all).  A parameter without a gradient sends zeros and
+        gets the reduced gradient as ``.grad``."""
+        params = self._exchanged()
+        _zero_fill(params)
         if self._hooked is not None:
             self._hooked.finish()
             return
-        params = self._params_with_grad()
         reduced = allreduce_gradients(
             [p.grad for p in params], op=self._op,
             compression=self._compression, threshold_bytes=self._threshold,
@@ -259,21 +279,21 @@ class _DistributedOptimizer:
             for p, r in zip(params, reduced):
                 p.grad.copy_(r)
 
-    def _fold(self, p: torch.Tensor, phase: int, capturing: bool) -> None:
+    def _fold(self, p: torch.Tensor, phase: int) -> None:
         """Fold ``p``'s gradient of pass ``phase`` into its f32
-        accumulator: a parameter's first gradient of the cycle is copied,
-        later ones are added."""
+        accumulator: copied on the cycle's first pass, added on later
+        ones; a pass that gave ``p`` no gradient adds zeros."""
         acc = self._acc.get(p)
         if acc is None:
             acc = self._acc[p] = torch.empty(
-                p.shape, dtype=torch.float32, device=p.grad.device)
-        first = phase == 0 if capturing else p not in self._seen
-        if first:
+                p.shape, dtype=torch.float32, device=p.device)
+        if p.grad is None:
+            if phase == 0:
+                acc.zero_()
+        elif phase == 0:
             acc.copy_(p.grad)
         else:
             acc.add_(p.grad)
-        if not capturing:
-            self._seen[p] = None
 
     def _set_mean(self, p: torch.Tensor) -> None:
         """Set ``p.grad`` to the cycle's accumulated sum over k, in
@@ -289,32 +309,25 @@ class _DistributedOptimizer:
         ``phase`` (0 to k-1) of a cycle.  The accumulators are allocated
         once and kept, so a captured pass reads and writes the same
         memory as an eager one.  True on the k-th pass, with the grad of
-        every parameter that had one in the cycle set to the accumulated
-        sum over k, in its dtype.  Parameters a hook already folded this
-        pass (``HVDT_OVERLAP=on``) are skipped.
-
-        Eagerly a gradient may come and go from pass to pass; a captured
-        pass replays a fixed set, so under a capture every accumulated
-        parameter must have a gradient on every pass."""
-        capturing = graphs.capturing()
+        every exchanged parameter set to the accumulated sum over k, in
+        its dtype.  Parameters a hook already folded this pass
+        (``HVDT_OVERLAP=on``) are skipped."""
         with torch.no_grad():
-            params = self._params_with_grad()
-            if capturing and set(params) != set(self._acc):
+            params = self._exchanged()
+            if graphs.capturing() and set(params) != set(self._acc):
                 raise RuntimeError(
-                    "a gradient appeared inside a CUDA-graph capture that "
-                    "no eager pass produced, or one that an eager pass "
-                    "produced is missing; run every pass of a cycle "
-                    "eagerly first, with every parameter given a gradient "
-                    "on every pass")
+                    "the parameters that require a gradient are not the "
+                    "ones the eager passes accumulated (requires_grad "
+                    "changed, or a parameter was added): run every pass of "
+                    "a cycle eagerly again before a capture")
             for p in params:
                 if p not in self._folded:
-                    self._fold(p, phase, capturing)
+                    self._fold(p, phase)
             if phase < self._k - 1:
                 return False
-            for p in list(self._acc if capturing else self._seen):
+            for p in params:
                 if p not in self._folded:
                     self._set_mean(p)
-            self._seen.clear()
         return True
 
     def _hook_pass(self) -> bool:
@@ -330,7 +343,7 @@ class _DistributedOptimizer:
             self._pre_exchange(p)
             self._transformed.add(p)
         if self._k > 1:
-            self._fold(p, self._k - 1, graphs.capturing())
+            self._fold(p, self._k - 1)
             self._set_mean(p)
             self._folded.add(p)
 
@@ -392,12 +405,13 @@ class _ZeroGradsOptimizer(_DistributedOptimizer):
         return zero._ZeroHooked.for_grads(self, params, self._zero_axis)
 
     def synchronize(self) -> None:
+        params = self._exchanged()
+        _zero_fill(params)
         if self._hooked is not None:
             self._hooked.finish()
             return
         from .ops import zero
 
-        params = self._params_with_grad()
         reduced = zero.rs_exchange(
             [p.grad for p in params], op=self._op,
             threshold_bytes=self._threshold, prescale_factor=self._prescale,
@@ -477,17 +491,9 @@ class _ZeroStatesOptimizer(_DistributedOptimizer):
         try:
             if self._k > 1 and not self._accumulate(phase):
                 return loss
-            missing = [i for i, p in enumerate(self._zparams)
-                       if p.grad is None]
-            if missing:
-                # The sharded update steps every row of a bucket; the
-                # wrapped optimizer would skip these parameters instead.
-                raise RuntimeError(
-                    f"ZeRO stage {self._zero_stage!r} updates every "
-                    f"parameter, but parameters {missing[:8]} (in param "
-                    f"group order) have no gradient this step: freeze them "
-                    f"(requires_grad=False) before building the optimizer, "
-                    f"or give them a zero gradient")
+            # A parameter without a gradient steps as the wrapped
+            # optimizer steps it on an explicit zero gradient.
+            _zero_fill(self._zparams)
             shards = (self._hooked.shards() if self._hooked is not None
                       else None)
             target = (self._zparams if self._zero_stage == "states"

@@ -419,7 +419,11 @@ _SLICE_MODULES = ("horovod_tpu_torch.bench", "horovod_tpu_torch.step_pipeline",
                   "horovod_tpu_torch.ops.adasum",
                   "horovod_tpu_torch.ops.overlap",
                   "horovod_tpu_torch.transport.policy",
-                  "horovod_tpu_torch.transport.hierarchy")
+                  "horovod_tpu_torch.transport.hierarchy",
+                  "horovod_tpu_torch.interop.torch",
+                  "horovod_tpu_torch.interop.torch_optimizer",
+                  "horovod_tpu_torch.interop.torch_sync_batch_norm",
+                  "horovod_tpu_torch.timeline")
 
 
 def test_import_loads_no_jax():

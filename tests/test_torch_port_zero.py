@@ -806,10 +806,12 @@ def test_knob_unset_builds_the_replicated_optimizer(monkeypatch):
 
 
 @pytest.mark.parametrize("stage", ["states", "params"])
-def test_missing_gradient_raises(stage):
-    """A sharded step updates every row, so a parameter with no gradient
-    raises (the wrapped FusedAdam would skip it); an explicit zero
-    gradient steps as FusedAdam steps it, bit for bit."""
+def test_missing_gradient_zero_filled(stage):
+    """A sharded step updates every row: a parameter with no gradient is
+    given a zero one (every rank sends the same buckets, as the
+    reference's interop optimizer does), so the step equals FusedAdam
+    stepping the same parameter on an explicit zero gradient, bit for
+    bit."""
     hvd.init(device="cpu")
     try:
         def pair():
@@ -821,19 +823,19 @@ def test_missing_gradient_raises(stage):
         opt = hvd.DistributedOptimizer(
             hvd.fused_adam(ps, 1e-2, weight_decay=0.1), zero=stage)
         plain = hvd.fused_adam(ref, 1e-2, weight_decay=0.1)
-        opt.zero_grad()
-        (ps[0] * 2).sum().backward()
-        with pytest.raises(RuntimeError, match=r"parameters \[1\] .* no "
-                           "gradient"):
+        for _ in range(2):
+            opt.zero_grad()
+            plain.zero_grad()
+            (ps[0] * 2).sum().backward()
+            assert ps[1].grad is None
+            ref[0].grad = torch.full_like(ref[0], 2.0)
+            ref[1].grad = torch.zeros_like(ref[1])
             opt.step()
-        for q in (ps, ref):
-            q[0].grad = torch.full_like(q[0], 2.0)
-            q[1].grad = torch.zeros_like(q[1])
-        opt.step()
-        opt.gather_params()
-        plain.step()
-        for a, b in zip(ps, ref):
-            assert torch.equal(a, b)
+            opt.gather_params()
+            plain.step()
+            for a, b in zip(ps, ref):
+                assert torch.equal(a, b)
+        assert not torch.equal(ps[1], pair()[1])   # weight decay moved it
     finally:
         hvd.shutdown()
 
