@@ -194,12 +194,31 @@ Phases, one JSON line each:
    512, batch 128 with HVDT_FP8=matmul and off in turns (finite losses,
    tokens/s each; #12/#13 as in lm_smallseq), then one profiled step of
    each (device ms by kernel class, top kernels);
+17c. moe_dispatch — parallel.moe_dispatch_combine in a group of one at
+   one bert-large MoE layer's shape (T 32 x 512, d 1024, f 4096, 8
+   experts, capacity factor 1.25, bf16, f32 router logits), top_k 1 and
+   2, each row against a float64 reference of the same routing within
+   2^-6, with its time back to back, on the device alone and enqueued,
+   the expert products' time, the dropped fraction and each
+   all-to-all's bytes; then HVDT_TRANSPORT=ep:ring:int8:64M: #5 and #6
+   4 times each in a forward and backward, within 2e-2 of the exact
+   wire;
+17d. lm_moe — the bert-large preset with num_experts=2 at ep=1 (the
+   dense fallback), seq 512, batch 32, HVDT_FLASH_SMALLSEQ=on, fused
+   Adam, 3 steps: losses finite and falling, tokens/s, peak memory,
+   #12 48 / #13 24 / #1 1 a step;
+17e. lm_dots — the bert-large preset (dense) at seq 512, batch 128:
+   remat_policy="dots" against "full", the gradients from one state
+   (equal in every byte, or their distance), 2 steps of each in turns
+   (full, dots, dots, full) with step seconds, peak memory and #12
+   launches, and the aten.mm the backward runs at batch 4 under none,
+   full and dots (0 recomputed under dots);
 18. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
    224x224, batch 128, bf16 compute, f32 params, 3 iterations of 20
    steps each) in turns: G (--fused-optimizer, HVDT_FUSED_CONV1X1=1,
    the step captured as one CUDA graph by donated_step), E (the same
    step eagerly), E, G, D (the default leg: torch.optim.SGD, unfused
-   convs, graphed), each with img/s, MFU, the per-iteration rates and
+   convs, graphed), R (--remat dots: D with the loss checkpointed), each with img/s, MFU, the per-iteration rates and
    their spread, compile_s and peak memory; torch.profiler over 5 steady
    steps of G and of E (the device's busy and idle share, the top
    kernels; a graphed step must launch #4 26 times and #2 once, counted
@@ -291,8 +310,26 @@ allreduces against one card running the global batch and against the
 fused exchange, #2 once; dp_cards_interop_sync_bn, the interop
 SyncBatchNorm with ragged batches against BatchNorm over the whole
 batch in f64.  Every dp line
-carries its phase's wall_s.  The multi-card modes end with the
-card's line and the last line of the one-card run.
+carries its phase's wall_s.
+
+    python3 chip_smoke.py --parallel-cards 4
+
+runs the parallel axes across exactly 4 cards (one process a card, an
+NCCL world): par_cards_moe, bert-large with ep = 4 and 8 experts (2 a
+rank), seq 512, batch 32 a card, DistributedOptimizer(fused_adam,
+axis="dp", expert="ep"): at capacity factor 8 (no drops) one step's
+loss and gradients against one card running the global batch with
+moe_dispatch_combine in a group of one, then 3 steps at 1.25 (step
+seconds, tokens/s a card, one all-to-all's ms and bytes, each layer's
+dropped fraction); par_cards_moe_int8, the int8 ep wire (loss within 5%
+of the exact wire's, #5/#6 144 each a step); par_cards_pp, bert-large
+with pp = 4 (6 layers a stage, m = 4, batch 128): one step against one
+card running 24 layers, 3 steps, #12/#13, the priced bubble 3/7 against
+the observed one; par_cards_4d, the reference's 4D battery at pp 2 x ep
+2 (f32, 5 SGD steps within rtol 2e-4 of the dense reference); the
+bench's --moe and --pipeline sweeps with their autotune seeds.  The
+multi-card modes end with the card's line and the last line of the
+one-card run.
 """
 
 import gc
@@ -305,6 +342,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores and HBM.
 PEAK_BF16_FLOPS = 989e12
@@ -1488,10 +1526,12 @@ def lm_config(seq: int = LM_SEQ):
 
 
 def run_lm_steps(model, opt, tokens, cfg, steps, before_step=None,
-                 after_step=None, sp_group=None):
+                 after_step=None, **groups):
     """``steps`` optimizer steps, each timed on the host clock between
     synchronizes; ``before_step`` runs once, after the first backward and
-    before its optimizer step, ``after_step`` after every step."""
+    before its optimizer step, ``after_step`` after every step.
+    ``groups``: the ``sp_group`` / ``ep_group`` / ``pp_group`` of the
+    loss."""
     from horovod_tpu_torch.models import transformer_loss
 
     times, losses = [], []
@@ -1499,7 +1539,7 @@ def run_lm_steps(model, opt, tokens, cfg, steps, before_step=None,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         opt.zero_grad()
-        loss = transformer_loss(model, tokens, cfg, sp_group=sp_group)
+        loss = transformer_loss(model, tokens, cfg, **groups)
         loss.backward()
         if before_step is not None:
             before_step()
@@ -2567,7 +2607,8 @@ BENCH_ARGS = ["--num-iters", "3", "--num-batches-per-iter", "20"]
 # The legs of the bench phase: (name, bench flags, HVDT_FUSED_CONV1X1).
 BENCH_LEGS = {"G": (["--fused-optimizer"], "1"),
               "E": (["--fused-optimizer", "--eager"], "1"),
-              "D": ([], "0")}
+              "D": ([], "0"),
+              "R": (["--remat", "dots"], "0")}
 
 
 def step_profile(step, steps: int = 5) -> dict:
@@ -2735,7 +2776,7 @@ def phase_bench(hvd, smi):
 
     t0 = time.perf_counter()
     rows, profiles, main_launches = [], {}, None
-    for name in ("G", "E", "E", "G", "D"):
+    for name in ("G", "E", "E", "G", "D", "R"):
         leg, row = bench_leg(bench, name, smi)
         if name == "G" and main_launches is None:
             main_launches = row["launches"]
@@ -2799,14 +2840,276 @@ def phase_bench(hvd, smi):
     by = {}
     for row in rows:
         by.setdefault(row["leg"], []).append(row["images_per_s"])
+    assert rows[-1]["json"]["remat"] == "dots", rows[-1]["json"]
     emit({"phase": "bench", "model": "resnet50", "batch": BENCH_BATCH,
           "image": IMAGE, "order": [r["leg"] for r in rows],
           "images_per_s": by, "graphed_over_eager": [
               g / e for g, e in zip(by["G"], by["E"])],
+          "remat_dots_over_default": by["R"][0] / by["D"][0],
           "launches": main_launches, "mm_stats_vs_plain": mm_stats,
           "graphed_equals_eager": checks, "tolerance": 0.0,
           "wall_s": time.perf_counter() - t0, "card": smi})
     return max(r["max_abs_err"] for r in mm_stats)
+
+
+# ---- slice 17: parallel axes, part 1 (one card) -----------------------------
+
+# One bert-large MoE layer's shape: 32 x 512 tokens, d_model 1024, d_ff
+# 4096, 8 experts, capacity factor 1.25.
+MOE_T, MOE_D, MOE_F, MOE_E, MOE_CF = 32 * 512, 1024, 4096, 8, 1.25
+MOE_LM_BATCH = 32
+# The dispatch against float64: a row's error within 2^-6 of its norm
+# (bf16 operands; the hidden layer and the output rounded to bf16).
+MOE_ROW_TOL = 2.0 ** -6
+# Batch of the aten.mm count under none / full / dots (a count that does
+# not depend on the batch).
+DOTS_COUNT_BATCH = 4
+
+
+def _moe_layer(gen):
+    """bf16 tokens, f32 router logits and one bf16 expert stack."""
+    t, d, f, e = MOE_T, MOE_D, MOE_F, MOE_E
+    tokens = torch.randn((t, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    router = torch.randn((d, e), generator=gen, device="cuda") * d ** -0.5
+    w_up = (torch.randn((e, d, f), generator=gen, device="cuda")
+            * d ** -0.5).to(torch.bfloat16)
+    w_down = (torch.randn((e, f, d), generator=gen, device="cuda")
+              * f ** -0.5).to(torch.bfloat16)
+    return tokens, tokens.float() @ router, w_up, w_down
+
+
+def _moe_reference_f64(tokens, logits, w_up, w_down, k, cf):
+    """The same routing with the experts in float64 on the card: the f32
+    softmax and its top-k (the choices the port makes), the gates
+    renormalised over the k and the k-major capacity, then every kept
+    choice's expert output times its gate in float64; (out [T, D],
+    dropped fraction)."""
+    x = tokens.double()
+    vals, idx = torch.topk(torch.softmax(logits.float(), -1), k, dim=-1)
+    vals = vals.double()
+    gates = vals / vals.sum(-1, keepdim=True)
+    t, e = logits.shape
+    cap = max(1, int(-(-(t * k * cf) // e)))
+    flat = torch.nn.functional.one_hot(idx.t().reshape(-1), e)
+    pos = ((flat.cumsum(0) - flat) * flat).sum(-1)
+    kept = (pos < cap).reshape(k, t).t()
+    out = torch.zeros_like(x)
+    for ex in range(e):
+        gate = (gates * ((idx == ex) & kept)).sum(-1)
+        rows = (gate > 0).nonzero()[:, 0]
+        if rows.numel():
+            h = torch.nn.functional.silu(x[rows] @ w_up[ex].double())
+            out[rows] += gate[rows, None] * (h @ w_down[ex].double())
+    return out, 1.0 - kept.double().mean().item()
+
+
+def phase_moe_dispatch(hvd, smi):
+    """moe_dispatch: moe_dispatch_combine in a group of one (the NCCL
+    world of one) at one bert-large MoE layer's shape, top_k 1 and 2,
+    held against :func:`_moe_reference_f64`, with its time, dropped
+    fraction and the bytes of each all-to-all; then the int8 ep wire
+    (HVDT_TRANSPORT=ep:ring:int8:64M): #5 / #6 launches of a forward and
+    backward, and its distance from the exact wire."""
+    from horovod_tpu_torch.parallel import moe_capacity, moe_dispatch_combine
+    from horovod_tpu_torch.parallel.moe import a2a_wire_bytes
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tokens, logits, w_up, w_down = _moe_layer(gen)
+
+    def fn(x):
+        return torch.bmm(torch.nn.functional.silu(torch.bmm(x, w_up)),
+                         w_down)
+
+    rows = {}
+    for k in (1, 2):
+        def call():
+            return moe_dispatch_combine(tokens, logits, fn,
+                                        experts_per_rank=MOE_E,
+                                        capacity_factor=MOE_CF, top_k=k)
+
+        out, aux = call()
+        want, dropped = _moe_reference_f64(tokens, logits, w_up, w_down, k,
+                                           MOE_CF)
+        check = closeness(out.view(MOE_T, 1, 1, MOE_D),
+                          want.view(MOE_T, 1, 1, MOE_D), MOE_ROW_TOL)
+        assert check["err_over_tol"] <= 1, check
+        assert abs(float(aux.dropped_fraction) - dropped) < 1e-6, (
+            float(aux.dropped_fraction), dropped)
+        cap = moe_capacity(MOE_T, MOE_E, top_k=k, capacity_factor=MOE_CF)
+        slots = torch.randn((MOE_E, cap, MOE_D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+        rows[f"top_k{k}"] = {
+            "ms": cuda_ms(call, iters=5, reps=3),
+            # The split: the device alone (the calls queued behind a
+            # ~50 ms device sleep), the host's enqueue, and the expert
+            # products alone on the [E, cap, D] block.
+            "device_ms": device_ms_stats(call, iters=3, reps=3,
+                                         sleep_cycles=100_000_000),
+            "enqueue_ms": enqueue_ms_stats(call, reps=5),
+            "expert_products_ms": cuda_ms(lambda: fn(slots), iters=5,
+                                          reps=3),
+            "capacity": cap,
+            "dropped_fraction": float(aux.dropped_fraction),
+            "a2a_bytes_each": a2a_wire_bytes((1, MOE_E, cap, MOE_D),
+                                             torch.bfloat16, None),
+            "vs_float64": check}
+    exact, _ = moe_dispatch_combine(tokens, logits, fn, experts_per_rank=MOE_E,
+                                    capacity_factor=MOE_CF, top_k=2)
+    os.environ["HVDT_TRANSPORT"] = "ep:ring:int8:64M"
+    try:
+        x = tokens.clone().requires_grad_()
+        reset_counters()
+        out, _ = moe_dispatch_combine(x, logits, fn, experts_per_rank=MOE_E,
+                                      capacity_factor=MOE_CF, top_k=2)
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+        launches = counters()
+    finally:
+        del os.environ["HVDT_TRANSPORT"]
+    int8_err = ((out.float() - exact.float()).norm()
+                / exact.float().norm()).item()
+    assert launches["_quant_kernel"] == launches["_dequant_kernel"] == 4, \
+        launches
+    assert int8_err <= 2e-2, int8_err
+    cap2 = moe_capacity(MOE_T, MOE_E, top_k=2, capacity_factor=MOE_CF)
+    emit({"phase": "moe_dispatch", "tokens": MOE_T, "d_model": MOE_D,
+          "d_ff": MOE_F, "experts": MOE_E, "capacity_factor": MOE_CF,
+          "dtype": "bfloat16", "router_logits": "float32", "rows": rows,
+          "row_tolerance": MOE_ROW_TOL,
+          "int8_wire": {"launches": {n: launches[n] for n in (
+              "_quant_kernel", "_dequant_kernel")},
+              "a2a_bytes_each": a2a_wire_bytes((1, MOE_E, cap2, MOE_D),
+                                               torch.bfloat16, "int8"),
+              "rel_l2_vs_exact_wire": int8_err, "tolerance": 2e-2},
+          "card": smi})
+    del tokens, logits, w_up, w_down, exact, out, x
+    torch.cuda.empty_cache()
+
+
+def phase_lm_moe(hvd, gen, smi):
+    """lm_moe: the bert-large preset with num_experts=2 at ep=1 (the
+    dense fallback), seq 512, batch 32, bf16, HVDT_FLASH_SMALLSEQ=on,
+    fused Adam, 3 steps: losses finite and falling, tokens/s, #12 / #13
+    / #1 launches, peak memory.  Returns the launches."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import transformer_init
+
+    for knob in ("HVDT_FLASH_ATTENTION", "HVDT_FLASH_SMALLSEQ_HB",
+                 "HVDT_FLASH_BWD"):
+        os.environ.pop(knob, None)
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), num_experts=2)
+    model = transformer_init(0, cfg)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4))
+    tokens = torch.randint(0, cfg.vocab, (MOE_LM_BATCH, SS_SEQ),
+                           generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times, losses = run_lm_steps(model, opt, tokens, cfg, 3)
+    launches = counters()
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    emit({"phase": "lm_moe", "model": "bert-large", "num_experts": 2,
+          "ep": 1, "batch": MOE_LM_BATCH, "seq": SS_SEQ,
+          "params": sum(p.numel() for p in model.parameters()),
+          "steps": 3, "losses": losses, "step_s": times,
+          "steady_step_s": steady,
+          "tokens_per_s": MOE_LM_BATCH * SS_SEQ / steady,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "card": smi})
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert launches["_smallseq_fwd_kernel"] == 48 * 3, launches
+    assert launches["_smallseq_bwd_kernel"] == 24 * 3, launches
+    assert launches["_adam_kernel"] == 3, launches
+    del model, opt, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class CountMm(TorchDispatchMode):
+    """Counts the aten.mm it sees run (a product a selective checkpoint
+    returns from its cache does not reach it)."""
+
+    mm = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.mm.default:
+            self.mm += 1
+        return func(*args, **(kwargs or {}))
+
+
+def phase_lm_dots(hvd, gen, smi):
+    """lm_dots: the bert-large preset (dense) at seq 512, batch 128,
+    HVDT_FLASH_SMALLSEQ=on, remat_policy="dots" against "full": the
+    gradients from one state (equal in every byte, or their distance),
+    then 2 fused-Adam steps of each in turns (full, dots, dots, full)
+    with step ms, peak memory and #12 launches; and at batch 4 the
+    aten.mm the backward runs under none, full and dots (the recomputed
+    ones: full's and dots' counts less none's)."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import transformer_init, transformer_loss
+
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfgs = {"full": lm_config(SS_SEQ),
+            "dots": dataclasses.replace(lm_config(SS_SEQ),
+                                        remat_policy="dots")}
+    model = transformer_init(0, cfgs["full"])
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4))
+    tokens = torch.randint(0, cfgs["full"].vocab, (SS_BATCH, SS_SEQ),
+                           generator=gen, device="cuda")
+    g_full = lm_grads(model, tokens, cfgs["full"])
+    g_dots = lm_grads(model, tokens, cfgs["dots"])
+    equal = all(torch.equal(g_full[n], g_dots[n]) for n in g_full)
+    dist_l2 = max(((g_dots[n].float() - g_full[n].float()).norm()
+                   / g_full[n].float().norm().clamp_min(1e-30)).item()
+                  for n in g_full)
+    del g_full, g_dots
+    turns = []
+    for policy in ("full", "dots", "dots", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        times, losses = run_lm_steps(model, opt, tokens, cfgs[policy], 2)
+        launches = counters()
+        assert all(math.isfinite(x) for x in losses), losses
+        assert launches["_smallseq_fwd_kernel"] == 48 * 2, launches
+        assert launches["_smallseq_bwd_kernel"] == 24 * 2, launches
+        turns.append({"policy": policy, "step_s": times,
+                      "losses": losses,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "smallseq_fwd_launches": launches[
+                          "_smallseq_fwd_kernel"]})
+    small = tokens[:DOTS_COUNT_BATCH]
+    mm = {}
+    for policy in ("none", "full", "dots"):
+        cfg = dataclasses.replace(cfgs["full"], remat=policy != "none",
+                                  remat_policy=("dots" if policy == "dots"
+                                                else "full"))
+        model.zero_grad(set_to_none=True)
+        loss = transformer_loss(model, small, cfg)
+        with CountMm() as count:
+            loss.backward()
+        mm[policy] = count.mm
+    model.zero_grad(set_to_none=True)
+    recomputed = {p: mm[p] - mm["none"] for p in ("full", "dots")}
+    emit({"phase": "lm_dots", "model": "bert-large", "batch": SS_BATCH,
+          "seq": SS_SEQ, "grads_equal_in_every_byte": equal,
+          "grads_max_rel_l2_dots_vs_full": dist_l2, "turns": turns,
+          "backward_mm": mm, "recomputed_mm": recomputed,
+          "card": smi})
+    assert recomputed["dots"] == 0 and recomputed["full"] > 0, mm
+    assert dist_l2 <= 1e-2, dist_l2
+    del model, opt, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def reset_counters():
@@ -5425,6 +5728,514 @@ def dp_cards(n: int) -> int:
     return 0
 
 
+# ---- python3 chip_smoke.py --parallel-cards 4: ep, pp and 4D across cards ---
+
+PAR_CARDS = 4
+PAR_CARDS_TIMEOUT_S = 900
+PAR_EXPERTS, PAR_MOE_BATCH, PAR_PP_BATCH = 8, 32, 128
+# bf16 runs against one card running the same global batch: the shapes
+# of the products differ (a rank's tokens against all of them), so
+# activations round differently and a router logit near a tie may pick
+# another expert.  Loss within 1e-2 relative, each gradient within 5e-2
+# relative L2 (the attention paths' bound in lm_bwd_default).
+PAR_LOSS_TOL, PAR_GRAD_TOL = 1e-2, 5e-2
+# The reference's 4D acceptance geometry (tests/test_parallel4d.py) at
+# pp=2 x ep=2, f32: 5 SGD steps within rtol 2e-4 of the dense reference.
+P4D_PP, P4D_EP, P4D_DIM, P4D_MB, P4D_TOK = 2, 2, 128, 4, 8
+P4D_LR, P4D_STEPS, P4D_RTOL = 0.1, 5, 2e-4
+
+
+def _world_mean(value) -> float:
+    import torch.distributed as dist
+
+    t = torch.tensor([float(value)], dtype=torch.float64, device="cuda")
+    dist.all_reduce(t)
+    return t.item() / dist.get_world_size()
+
+
+def _moe_drops(model, tokens, cfg, **groups):
+    """Each MoE layer's dropped fraction in one forward (no grad)."""
+    from horovod_tpu_torch.models import transformer as tt
+
+    drops, routed = [], tt._moe_mlp
+
+    def record(*args, **kw):
+        out, aux = routed(*args, **kw)
+        drops.append(float(aux.dropped_fraction))
+        return out, aux
+
+    tt._moe_mlp = record
+    try:
+        with torch.no_grad():
+            tt.transformer_loss(model, tokens, cfg, **groups)
+    finally:
+        tt._moe_mlp = routed
+    return drops
+
+
+def par_cards_moe(hvd, smi):
+    """par_cards_moe: bert-large with ep = 4, 8 experts (2 a rank), seq
+    512, batch 32 a rank, HVDT_FLASH_SMALLSEQ=on, DistributedOptimizer(
+    fused_adam, axis="dp", expert="ep").  At capacity factor 8 (no drops)
+    one step's loss and gradients against one card running the global
+    batch with moe_dispatch_combine in a group of one (rank 0's experts
+    and the replicated leaves); then 3 steps at 1.25: step ms, tokens/s a
+    card, one all-to-all's ms and bytes a rank, the dropped fraction of
+    each layer; par_cards_moe_int8: HVDT_TRANSPORT=ep:ring:int8:64M, its
+    loss against the exact wire's at the same state (within 5%), 2 steps
+    with #5 / #6 launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh, moe_capacity
+    from horovod_tpu_torch.parallel import moe as tmoe
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, ep=n)
+    one = dist.new_group([0])
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), num_experts=PAR_EXPERTS,
+                              ep=n)
+    check_cfg = dataclasses.replace(cfg, capacity_factor=float(PAR_EXPERTS))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (n * PAR_MOE_BATCH, SS_SEQ),
+                           generator=gen, device="cuda")
+    mine = tokens[r * PAR_MOE_BATCH:(r + 1) * PAR_MOE_BATCH]
+    model = tt.transformer_init(0, cfg, ep_rank=r)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp", expert="ep")
+    loss = tt.transformer_loss(model, mine, check_cfg, ep_group=mesh)
+    loss.backward()
+    opt.synchronize()
+    loss_ep = _world_mean(loss.detach())
+    drops_check = _moe_drops(model, mine, check_cfg, ep_group=mesh)
+    check = None
+    if r == 0:
+        got = {k: p.grad.detach().float() for k, p in
+               model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        ref_cfg = dataclasses.replace(check_cfg, ep=1)
+        ref = tt.transformer_init(0, ref_cfg)
+        ref_loss = tt.transformer_loss(ref, tokens, ref_cfg, ep_group=one)
+        ref_loss.backward()
+        errs = {}
+        for k, p in ref.named_parameters():
+            want = p.grad.detach()
+            if k.startswith("block."):
+                want = tt.local_slice(k[6:], want, check_cfg, ep_rank=0)
+            errs[k] = _rel_l2([got[k]], [want])
+        check = {"capacity_factor": check_cfg.capacity_factor,
+                 "dropped_fraction_max": max(drops_check),
+                 "loss_ep": loss_ep, "loss_one_card": ref_loss.item(),
+                 "loss_rel_err": abs(loss_ep - ref_loss.item())
+                 / abs(ref_loss.item()),
+                 "grad_rel_l2_rank0": errs,
+                 "tolerances": [PAR_LOSS_TOL, PAR_GRAD_TOL]}
+        del ref, ref_loss, got
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert max(drops_check) == 0.0, drops_check
+        assert check["loss_rel_err"] <= PAR_LOSS_TOL, check
+        assert max(errs.values()) <= PAR_GRAD_TOL, errs
+    dist.barrier()
+    model.zero_grad(set_to_none=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times, losses = run_lm_steps(model, opt, mine, cfg, 3, ep_group=mesh)
+    launches = counters()
+    drops = _moe_drops(model, mine, cfg, ep_group=mesh)
+    cap = moe_capacity(PAR_MOE_BATCH * SS_SEQ, PAR_EXPERTS, top_k=1,
+                       capacity_factor=cfg.capacity_factor)
+    block = torch.randn((n, PAR_EXPERTS // n, cap, cfg.d_model),
+                        generator=gen, device="cuda").to(torch.bfloat16)
+    ring = tmoe._Ring(mesh, "ep")
+    a2a_ms = cuda_ms(lambda: tmoe._exchange(block, ring), iters=5, reps=3)
+    a2a_bytes = tmoe.a2a_wire_bytes(block.shape, block.dtype, None)
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_smallseq_fwd_kernel"] == 48 * 3, launches
+    assert launches["_smallseq_bwd_kernel"] == 24 * 3, launches
+    assert launches["_adam_kernel"] == 3, launches
+    row = {"phase": "par_cards_moe", "cards": n, "model": "bert-large",
+           "ep": n, "experts": PAR_EXPERTS, "seq": SS_SEQ,
+           "batch_per_card": PAR_MOE_BATCH,
+           "params_rank0": sum(p.numel() for p in model.parameters()),
+           "check_vs_one_card": check, "capacity_factor":
+           cfg.capacity_factor, "capacity": cap, "losses_rank0": losses,
+           "step_s_rank0": times, "steady_step_s": steady,
+           "tokens_per_s_per_card": PAR_MOE_BATCH * SS_SEQ / steady,
+           "dropped_fraction_by_layer_rank0": drops,
+           "a2a_ms": a2a_ms, "a2a_bytes_per_rank": a2a_bytes,
+           "a2a_bytes_off_rank": a2a_bytes * (n - 1) // n,
+           "a2a_per_layer_step": 6,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_rank0": launches, "card": smi}
+    del block
+
+    # The int8 ep wire.
+    with torch.no_grad():
+        exact = _world_mean(tt.transformer_loss(model, mine, cfg,
+                                                ep_group=mesh))
+    os.environ["HVDT_TRANSPORT"] = "ep:ring:int8:64M"
+    try:
+        with torch.no_grad():
+            quant = _world_mean(tt.transformer_loss(model, mine, cfg,
+                                                    ep_group=mesh))
+        reset_counters()
+        q_times, q_losses = run_lm_steps(model, opt, mine, cfg, 2,
+                                         ep_group=mesh)
+        q_launches = counters()
+    finally:
+        del os.environ["HVDT_TRANSPORT"]
+    int8_bytes = tmoe.a2a_wire_bytes((n, PAR_EXPERTS // n, cap, cfg.d_model),
+                                     torch.bfloat16, "int8")
+    assert abs(quant - exact) <= 0.05 * abs(exact), (quant, exact)
+    assert q_launches["_quant_kernel"] == 24 * 6 * 2, q_launches
+    assert q_launches["_dequant_kernel"] == 24 * 6 * 2, q_launches
+    row["wall_s"] = time.perf_counter() - t0
+    if r == 0:
+        emit(row)
+        emit({"phase": "par_cards_moe_int8", "cards": n,
+              "loss_exact_wire": exact, "loss_int8_wire": quant,
+              "rel_diff": abs(quant - exact) / abs(exact),
+              "tolerance": 0.05, "step_s_rank0": q_times,
+              "losses_rank0": q_losses,
+              "a2a_bytes_per_rank": int8_bytes,
+              "launches_rank0": {k: q_launches[k] for k in (
+                  "_quant_kernel", "_dequant_kernel", "_smallseq_fwd_kernel",
+                  "_smallseq_bwd_kernel", "_adam_kernel")},
+              "card": smi})
+    del model, opt, tokens, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def par_cards_pp(hvd, smi):
+    """par_cards_pp: bert-large (dense) with pp = 4, 6 layers a stage, m =
+    4 microbatches, global batch 128 on every stage, HVDT_FLASH_SMALLSEQ=
+    on, DistributedOptimizer(fused_adam, axis="dp", pipeline="pp"): one
+    step's loss and gradients (every stage's, all-gathered) against one
+    card running all 24 layers on the batch; 3 steps: step ms, #12 / #13
+    launches; the priced bubble (p-1)/(m+p-1) against the observed one,
+    1 - m * t_stage / t_pipe, from the pipeline's forward and backward
+    (t_pipe) and one stage's on one microbatch without transfers
+    (t_stage), the slowest rank's each."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import (bubble_fraction, make_mesh,
+                                            pipeline_1f1b)
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, pp=n)
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), pp=n)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (PAR_PP_BATCH, SS_SEQ),
+                           generator=gen, device="cuda")
+    model = tt.transformer_init(0, cfg, pp_rank=r)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp", pipeline="pp")
+    loss = tt.transformer_loss(model, tokens, cfg, pp_group=mesh)
+    loss.backward()
+    opt.synchronize()
+    group = mesh.get_group("pp")
+    got = {}
+    for k, p in model.named_parameters():
+        g = p.grad.detach().float().contiguous()
+        if k.startswith("block."):
+            full = g.new_empty((n * g.shape[0], *g.shape[1:]))
+            dist.all_gather_into_tensor(full, g, group=group)
+            g = full
+        got[k] = g
+    model.zero_grad(set_to_none=True)
+    check = None
+    if r == 0:
+        ref = tt.transformer_init(0, lm_config(SS_SEQ))
+        ref_loss = tt.transformer_loss(ref, tokens, lm_config(SS_SEQ))
+        ref_loss.backward()
+        errs = {k: _rel_l2([got[k]], [p.grad]) for k, p in
+                ref.named_parameters()}
+        check = {"loss_pp": loss.item(), "loss_one_card": ref_loss.item(),
+                 "loss_rel_err": abs(loss.item() - ref_loss.item())
+                 / abs(ref_loss.item()),
+                 "grad_rel_l2": errs,
+                 "tolerances": [PAR_LOSS_TOL, PAR_GRAD_TOL]}
+        del ref, ref_loss
+        assert check["loss_rel_err"] <= PAR_LOSS_TOL, check
+        assert max(errs.values()) <= PAR_GRAD_TOL, errs
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times, losses = run_lm_steps(model, opt, tokens, cfg, 3, pp_group=mesh)
+    launches = counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert all(math.isfinite(x) for x in losses), losses
+    per = cfg.layers_per_stage * n          # layers x microbatches
+    assert launches["_smallseq_fwd_kernel"] == 2 * per * 3, launches
+    assert launches["_smallseq_bwd_kernel"] == per * 3, launches
+
+    # The bubble: the pipeline alone against one stage on one microbatch.
+    mb = PAR_PP_BATCH // n
+    acts = torch.randn((n, mb, SS_SEQ, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16).requires_grad_()
+    positions = torch.arange(SS_SEQ, device="cuda").expand(mb, SS_SEQ)
+    blocks = dict(model.block)
+
+    def stage_fn(p, a):
+        return tt._scan_blocks(p, a, positions, cfg)
+
+    def pipe():
+        out = pipeline_1f1b(stage_fn, blocks, acts, group=mesh)
+        out.float().square().mean().backward()
+
+    def stage():
+        stage_fn(blocks, acts[0]).float().square().mean().backward()
+
+    def slowest(fn, reps=3):
+        fn()
+        best = math.inf
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t1)
+        t = torch.tensor([best], device="cuda")
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return t.item()
+
+    t_pipe, t_stage = slowest(pipe), slowest(stage)
+    model.zero_grad(set_to_none=True)
+    observed = 1.0 - n * t_stage / t_pipe
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    if r == 0:
+        emit({"phase": "par_cards_pp", "cards": n, "model": "bert-large",
+              "pp": n, "layers_per_stage": cfg.layers_per_stage,
+              "microbatches": n, "batch": PAR_PP_BATCH, "seq": SS_SEQ,
+              "check_vs_one_card": check, "losses_rank0": losses,
+              "step_s_rank0": times, "steady_step_s": steady,
+              "tokens_per_s": PAR_PP_BATCH * SS_SEQ / steady,
+              "bubble_fraction_priced": bubble_fraction(n, n),
+              "bubble_fraction_observed": observed,
+              "t_pipe_s": t_pipe, "t_stage_s": t_stage,
+              "peak_mem_gb_rank0": peak, "launches_rank0": launches,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    del model, opt, tokens, acts, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _p4d_dense_loss(p, x, tgt):
+    """The battery's single-device reference: sequential stages, argmax
+    top-1 routing (at top_k 1 the renormalised gate is 1)."""
+    losses = []
+    for mb in range(P4D_MB):
+        h = x[mb]
+        for s in range(P4D_PP):
+            a = torch.tanh(h @ p["w"][s])
+            sel = torch.argmax(a @ p["rw"][s], -1)
+            outs = torch.stack([torch.tanh(a @ p["we"][s, e])
+                                for e in range(P4D_EP)])
+            h = h + outs.gather(0, sel[None, :, None].expand(
+                1, -1, P4D_DIM))[0]
+        losses.append(((h - tgt[mb]) ** 2).mean())
+    return torch.stack(losses).mean()
+
+
+def par_cards_4d(hvd, smi):
+    """par_cards_4d: the reference's 4D acceptance geometry at pp=2 x
+    ep=2 (f32): each stage an in-projection and an MoE layer over ep (one
+    expert a rank, top-1, capacity factor 4), pipeline_1f1b over pp,
+    DistributedOptimizer(SGD(0.1), axis="dp", pipeline="pp", expert=
+    "ep"): 5 steps' losses and every rank's parameters against the dense
+    one-card reference (rank 0) within rtol 2e-4."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.parallel import (make_mesh, mark_sharded,
+                                            moe_dispatch_combine,
+                                            pipeline_1f1b)
+
+    r = dist.get_rank()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, pp=P4D_PP, ep=P4D_EP)
+    s, e = mesh.get_local_rank("pp"), mesh.get_local_rank("ep")
+    gen = torch.Generator(device="cuda").manual_seed(42)
+    scale = 0.5 / math.sqrt(P4D_DIM)
+    full = {"w": torch.randn((P4D_PP, P4D_DIM, P4D_DIM), generator=gen,
+                             device="cuda") * scale,
+            "rw": torch.randn((P4D_PP, P4D_DIM, P4D_EP), generator=gen,
+                              device="cuda"),
+            "we": torch.randn((P4D_PP, P4D_EP, P4D_DIM, P4D_DIM),
+                              generator=gen, device="cuda") * scale}
+    x = torch.randn((P4D_MB, P4D_EP * P4D_TOK, P4D_DIM), generator=gen,
+                    device="cuda")
+    tgt = torch.randn((P4D_MB, P4D_EP * P4D_TOK, P4D_DIM), generator=gen,
+                      device="cuda") * 0.1
+    mine = [mark_sharded(full["w"][s].clone().requires_grad_(), "pp"),
+            mark_sharded(full["rw"][s].clone().requires_grad_(), "pp"),
+            mark_sharded(full["we"][s, e].clone().requires_grad_(), "pp",
+                         "ep")]
+    rows = slice(e * P4D_TOK, (e + 1) * P4D_TOK)
+
+    def stage_fn(p, h_in):
+        h = torch.tanh(h_in @ p[0])
+        y, _ = moe_dispatch_combine(
+            h, h @ p[1],
+            lambda blk: torch.tanh(torch.einsum("ecd,df->ecf", blk, p[2])),
+            group=mesh, experts_per_rank=1, capacity_factor=4.0, top_k=1)
+        return h_in + y
+
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(mine, lr=P4D_LR),
+                                   axis="dp", pipeline="pp", expert="ep")
+    losses = []
+    for _ in range(P4D_STEPS):
+        opt.zero_grad()
+        out = pipeline_1f1b(stage_fn, mine, x[:, rows], group=mesh)
+        loss = ((out - tgt[:, rows]) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(_world_mean(loss.detach()))
+    ref = {k: v.clone() for k, v in full.items()}
+    ref_losses = []
+    if r == 0:
+        for _ in range(P4D_STEPS):
+            p = {k: v.clone().requires_grad_() for k, v in ref.items()}
+            loss = _p4d_dense_loss(p, x, tgt)
+            loss.backward()
+            ref_losses.append(loss.item())
+            # The router gets no gradient through argmax: zero, as
+            # jax.grad gives it.
+            ref = {k: (p[k] - P4D_LR * p[k].grad).detach()
+                   if p[k].grad is not None else p[k].detach() for k in p}
+    for v in ref.values():
+        dist.broadcast(v, 0)
+    want = [ref["w"][s], ref["rw"][s], ref["we"][s, e]]
+    param_err = max(((m.detach() - w).abs()
+                     / (P4D_RTOL * w.abs() + 1e-6)).max().item()
+                    for m, w in zip(mine, want))
+    worst = torch.tensor([param_err], device="cuda")
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    if r == 0:
+        loss_err = max(abs(a - b) / (P4D_RTOL * abs(b) + 1e-6)
+                       for a, b in zip(losses, ref_losses))
+        emit({"phase": "par_cards_4d", "cards": dist.get_world_size(),
+              "pp": P4D_PP, "ep": P4D_EP, "dim": P4D_DIM, "steps": P4D_STEPS,
+              "losses": losses, "reference_losses": ref_losses,
+              "loss_err_over_tol": loss_err,
+              "param_err_over_tol_all_ranks": worst.item(),
+              "rtol": P4D_RTOL, "atol": 1e-6,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+        assert loss_err <= 1.0 and losses[-1] < losses[0], (losses,
+                                                            ref_losses)
+    assert worst.item() <= 1.0, worst.item()
+
+
+def par_cards_sweeps(hvd, smi):
+    """The bench's --moe and --pipeline sweeps over the 4-card world (as
+    ep, then as pp): their JSON, and each autotune seed reader on the
+    file the sweep wrote."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import autotune, bench
+
+    r = dist.get_rank()
+    root = tempfile.mkdtemp(prefix="hvdt-par-sweeps-")
+    for flag, run, key, reader, knob in (
+            ("--moe", bench.run_moe_bench, "capacity_factor_at_peak",
+             autotune._env_capacity_factor, "HVDT_AUTOTUNE_MOE_SEED"),
+            ("--pipeline", bench.run_pipeline_bench, "microbatches_at_peak",
+             autotune._env_microbatches, "HVDT_AUTOTUNE_PIPELINE_SEED")):
+        path = os.path.join(root, f"{flag[2:]}{r}.json")
+        t0 = time.perf_counter()
+        doc = run(bench._parse_args([flag, "--json-out", path]))
+        os.environ[knob] = path
+        try:
+            seeded = reader()
+        finally:
+            del os.environ[knob]
+        assert seeded == doc[key], (seeded, doc[key])
+        if r == 0:
+            emit({"phase": f"par_cards_{flag[2:]}_sweep", **doc,
+                  "autotune_seed": {knob: seeded},
+                  "wall_s": time.perf_counter() - t0, "card": smi})
+        dist.barrier()
+
+
+def parallel_cards_worker() -> None:
+    """One rank of ``--parallel-cards``: :func:`par_cards_moe`,
+    :func:`par_cards_pp`, :func:`par_cards_4d` and
+    :func:`par_cards_sweeps` in an NCCL world of one process a card.
+    Rank 0 prints the lines."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    smi = phase_device() if hvd.rank() == 0 else None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for knob in ("HVDT_MOE_CAPACITY_FACTOR", "HVDT_PIPELINE_MICROBATCHES",
+                 "HVDT_TRANSPORT"):
+        os.environ.pop(knob, None)
+    try:
+        for phase in (par_cards_moe, par_cards_pp, par_cards_4d,
+                      par_cards_sweeps):
+            phase(hvd, smi)
+            dist.barrier()
+    except BaseException:
+        # As dp_cards_worker: a failed rank exits at once so the parent
+        # stops the others.
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    hvd.shutdown()
+
+
+def parallel_cards(n: int) -> int:
+    """``python3 chip_smoke.py --parallel-cards 4``: build the kernels,
+    then run :func:`parallel_cards_worker` as 4 processes, one a card, in
+    an NCCL world (rank 0 prints the lines).  A rank that fails stops
+    them all."""
+    if n != PAR_CARDS or not torch.cuda.is_available() \
+            or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --parallel-cards takes {PAR_CARDS} and needs "
+              f"{PAR_CARDS} CUDA cards", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    rc = _spawn_ranks(n, "--parallel-worker", PAR_CARDS_TIMEOUT_S)
+    if rc:
+        return rc
+    emit({"phase": "parallel_cards_total",
+          "wall_s": time.perf_counter() - t0})
+    _last_lines(smi)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5598,6 +6409,9 @@ def main() -> int:
     flash.update(phase_smallseq_kernels(gen, smi))
     ss_launches, lm_shapes = phase_lm_smallseq(hvd, gen, smi)
     phase_fp8(hvd, gen, smi)
+    phase_moe_dispatch(hvd, smi)
+    phase_lm_moe(hvd, gen, smi)
+    phase_lm_dots(hvd, gen, smi)
     bench_mm_err = phase_bench(hvd, smi)
     conv["_mm_stats_kernel"]["max_abs_err"] = max(
         conv["_mm_stats_kernel"]["max_abs_err"], bench_mm_err)
@@ -5682,4 +6496,8 @@ if __name__ == "__main__":
         sys.exit(dp_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_cards_worker())
+    if sys.argv[1:2] == ["--parallel-cards"]:
+        sys.exit(parallel_cards(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        sys.exit(parallel_cards_worker())
     sys.exit(main())

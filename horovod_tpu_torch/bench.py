@@ -76,6 +76,38 @@ the trained model's state through ``checkpoint.CheckpointManager``,
 as ``checkpoint_stall_ms`` with ``sync`` and ``async``; unlike the
 reference's probe, a failure raises.
 
+The parallel-axes legs (the reference's ``bench.py:351-560``,
+``:799-806``):
+
+    python -m horovod_tpu_torch.bench --moe
+    python -m horovod_tpu_torch.bench --pipeline
+    python -m horovod_tpu_torch.bench --remat dots      # HVDT_REMAT
+
+``--moe`` and ``--pipeline`` run in the process, over the initialised
+world as ``ep`` or ``pp`` (a world of one when no launcher variables are
+set; gloo processes with ``--device cpu``, NCCL on the cards) where the
+reference runs them on its 8-device CPU simulation, and never touch the
+last-good cache.  ``--moe`` times ``parallel.moe_dispatch_combine``
+(both all-to-alls, one expert a rank, a skewed router, top-1) at each of
+the autotuner's capacity factors and prints the reference's keys:
+``rows``, ``capacity_factor_at_peak`` (the best goodput, tokens/s times
+the kept fraction), ``dropped_fraction`` and ``a2a_wire_bytes``.
+``--pipeline`` times ``parallel.pipeline_1f1b`` (one ``tanh(x @ w)``
+stage a rank, forward) at each of the autotuner's microbatch counts m,
+and at 2m for the per-tick slope, and prints ``rows``,
+``microbatches_at_peak``, ``bubble_fraction_priced`` (the clock's
+``(p-1)/(m+p-1)``; the reference's cost model waits for ROADMAP Queue 1
+item 8) and ``bubble_fraction_observed`` (the share of the step not
+spent on ticks).  ``HVDT_AUTOTUNE_MOE_SEED`` /
+``HVDT_AUTOTUNE_PIPELINE_SEED`` read these files (``--json-out``).
+Each rank's time is the slowest rank's.  ``--remat full|dots`` runs the
+ResNet-50 leg with its loss under ``torch.utils.checkpoint``
+(``models.transformer.remat_checkpoint``): ``dots`` saves the products
+without batch dimensions (the FC; convolutions are not dots) and
+recomputes the rest; the BatchNorm running statistics keep the values
+of the step's forward, as the reference's checkpointed function returns
+them once.  The JSON gains ``remat``.
+
 The reference's other legs are not ported yet: each flag raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -101,8 +133,6 @@ LAST_GOOD_PATH = os.path.join(_ROOT, ".bench_torch_last_good.json")
 
 # The reference's other legs (argparse dest -> ROADMAP Queue 1 item).
 _UNPORTED = {
-    "remat": "parallel axes",
-    "moe": "parallel axes", "pipeline": "parallel axes",
     "serve": "serving", "serve_llm": "serving",
     "controller": "control, analysis and the edges",
     "fleet": "control, analysis and the edges",
@@ -111,10 +141,16 @@ _UNPORTED = {
 # Keys of a JSON line that mark a variant, never the headline.
 _VARIANTS = ("fused_optimizer", "steps_per_call", "eager", "telemetry",
              "overlap", "transport", "fp8", "zero_stage",
-             "checkpoint_stall_ms")
+             "checkpoint_stall_ms", "remat")
 # The fp8 microbench: a bert-large projection (d_model 1024, d_ff 4096)
 # over 8192 tokens on the card; a small one on the CPU.
 FP8_SHAPE = {"cuda": (8192, 1024, 4096), "cpu": (64, 128, 256)}
+# The --moe leg's tokens a rank and width: a bert-large MoE layer's
+# (batch 32 x seq 512, d_model 1024) on the card, the reference's CPU-sim
+# shape on the CPU.
+MOE_SHAPE = {"cuda": (16384, 1024), "cpu": (256, 64)}
+# The --pipeline leg's rows a step and width.
+PIPELINE_SHAPE = {"cuda": (8192, 1024), "cpu": (128, 64)}
 
 
 def _save_last_good(line: str) -> None:
@@ -184,13 +220,28 @@ def _parse_args(argv=None):
                     help="time the commit-point checkpoint stall of the "
                          "trained state, sync against async "
                          "(HVDT_ASYNC_CKPT), as checkpoint_stall_ms")
-    for flag in ("serve", "serve-llm",
-                 "report", "controller", "moe", "pipeline"):
+    ap.add_argument("--moe", action="store_true",
+                    help="expert-capacity sweep of moe_dispatch_combine "
+                         "over the world as ep (JSON: rows, "
+                         "capacity_factor_at_peak, dropped_fraction, "
+                         "a2a_wire_bytes)")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="1F1B microbatch sweep of pipeline_1f1b over the "
+                         "world as pp (JSON: rows, microbatches_at_peak, "
+                         "bubble_fraction_priced / _observed)")
+    ap.add_argument("--json-out", default="",
+                    help="--moe / --pipeline: also write the JSON here "
+                         "(an HVDT_AUTOTUNE_*_SEED file)")
+    ap.add_argument("--remat", default="", choices=("", "none", "full",
+                                                   "dots"),
+                    help="the ResNet-50 loss under torch.utils.checkpoint "
+                         "(HVDT_REMAT): full saves the inputs, dots also "
+                         "the products without batch dims; JSON gains "
+                         "remat")
+    for flag in ("serve", "serve-llm", "report", "controller"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not ported yet (raises)")
-    for flag in ("remat", "fleet"):
-        ap.add_argument(f"--{flag}", default="",
-                        help="not ported yet (raises)")
+    ap.add_argument("--fleet", default="", help="not ported yet (raises)")
     ap.add_argument("--_child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.zero in ("states", "params"):
@@ -269,6 +320,8 @@ def measure(args) -> Leg:
         os.environ["HVDT_ZERO"] = args.zero
         os.environ.setdefault("HVDT_TELEMETRY", "1")
         os.environ.setdefault("HVDT_FUSION_THRESHOLD", str(8 * 1024 * 1024))
+    if args.remat:
+        os.environ.setdefault("HVDT_REMAT", args.remat)
 
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
@@ -303,13 +356,29 @@ def measure(args) -> Leg:
               f"{os.environ.get('HVDT_TRANSPORT')!r} threshold "
               f"{os.environ.get('HVDT_FUSION_THRESHOLD')}", file=sys.stderr)
 
+    from .models.transformer import checkpoint_policy, remat_checkpoint
+
+    remat = checkpoint_policy(args.remat) if args.remat else None
+    policy = "full" if remat == "full" else "dots"
+
     def step_fn(model, opt, images, labels):
         for _ in range(args.steps_per_call):
             opt.zero_grad(set_to_none=True)
             if args.zero == "params":
                 opt.gather_params()
-            loss, _ = resnet_loss(model, images, labels)
-            loss.backward()
+            if remat is None:
+                loss, _ = resnet_loss(model, images, labels)
+                loss.backward()
+            else:
+                loss, _ = remat_checkpoint(resnet_loss, model, images,
+                                           labels, policy=policy)
+                # The recompute updates the running statistics a second
+                # time: keep the forward's.
+                stats = [b.clone() for b in model.buffers()]
+                loss.backward()
+                with torch.no_grad():
+                    for b, v in zip(model.buffers(), stats):
+                        b.copy_(v)
             opt.step()
         return loss.detach()
 
@@ -390,6 +459,7 @@ def measure(args) -> Leg:
         **(_fp8_doc(device) if args.fp8 else {}),
         **(_zero_doc(args, opt, model) if args.zero else {}),
         **(_ckpt_stall_doc(model) if args.ckpt_stall else {}),
+        **({"remat": args.remat} if args.remat else {}),
         **({"telemetry": {**timer.snapshot(),
                           "goodput_fraction": round(ledger.fraction(), 4)}}
            if timer is not None else {}),
@@ -521,6 +591,191 @@ def _fp8_doc(device) -> dict:
     return doc
 
 
+def _sweep_world(args):
+    """(device, hvd) for the --moe / --pipeline sweeps: the initialised
+    world, on the card unless ``--device`` names another device."""
+    import horovod_tpu_torch as hvd
+
+    from .common.basics import resolve_device
+
+    device = resolve_device(args.device)
+    if not hvd.is_initialized():
+        hvd.init(device=device)
+    return device, hvd
+
+
+def _slowest_rank(seconds: float) -> float:
+    """The largest of every rank's ``seconds``."""
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return seconds
+    t = torch.tensor([seconds], dtype=torch.float64)
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _timed(fn, iters: int, warmup: int) -> float:
+    """The least seconds of one call of ``fn`` (which ends with a host
+    fetch) over ``iters`` timed calls after ``warmup``, the slowest
+    rank's."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return _slowest_rank(min(times))
+
+
+def _sweep_doc(device, doc: dict, args) -> dict:
+    import torch
+
+    on_card = device.type == "cuda"
+    doc.update(platform="gpu" if on_card else device.type,
+               device_kind=(torch.cuda.get_device_name(device) if on_card
+                            else device.type))
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(doc, f, indent=1)
+    return doc
+
+
+def run_moe_bench(args) -> dict:
+    """--moe: the capacity-factor sweep (module docstring); the
+    reference's ``_run_moe_bench`` with the world as ``ep``."""
+    import torch
+
+    from .autotune import ParameterManager
+    from .parallel.moe import (_wire, a2a_wire_bytes, moe_capacity,
+                               moe_dispatch_combine)
+
+    device, hvd = _sweep_world(args)
+    n, r = hvd.size(), hvd.rank()
+    tok, dim = MOE_SHAPE["cuda" if device.type == "cuda" else "cpu"]
+    n_experts = n                       # one expert a rank
+    x = torch.randn((tok, dim), device=device, generator=torch.Generator(
+        device=device).manual_seed(1 + r))
+    # A skewed router: realistic imbalance, so low capacity factors drop
+    # tokens and the sweep prices the trade.
+    rw = torch.randn((dim, n_experts), device=device,
+                     generator=torch.Generator(device=device).manual_seed(0)
+                     ) * 2.0
+    iters, warmup = max(3, args.num_iters), max(1, args.num_warmup)
+    rows = []
+    for cf in ParameterManager.MOE_CAPACITY_CANDIDATES:
+        dropped = [0.0]
+
+        def run_and_wait():
+            y, aux = moe_dispatch_combine(
+                x, x @ rw, lambda blk: blk * 2.0, experts_per_rank=1,
+                capacity_factor=cf, top_k=1)
+            float(y[..., :1].sum())
+            dropped[0] = float(aux.dropped_fraction)
+
+        secs = _timed(run_and_wait, iters, warmup)
+        cap = moe_capacity(tok, n_experts, top_k=1, capacity_factor=cf)
+        tps = n * tok / secs
+        rows.append({
+            "capacity_factor": cf,
+            "capacity": cap,
+            "seconds": secs,
+            "tokens_per_s": round(tps, 1),
+            "dropped_fraction": round(dropped[0], 6),
+            "goodput_tokens_per_s": round(tps * (1.0 - dropped[0]), 1),
+            # bytes one rank puts on the wire a step: the [ep, 1, cap,
+            # dim] dispatch block out and the combine back
+            "a2a_wire_bytes": 2 * a2a_wire_bytes((n, 1, cap, dim),
+                                                 x.dtype, _wire("ep")),
+        })
+        print(f"capacity_factor {cf:>4}  cap {cap:>5}  {secs*1e3:>8.2f}ms  "
+              f"dropped {dropped[0]:>7.4f}  goodput "
+              f"{rows[-1]['goodput_tokens_per_s']:>10.1f} tok/s",
+              file=sys.stderr)
+    peak = max(rows, key=lambda row: row["goodput_tokens_per_s"])
+    return _sweep_doc(device, {
+        "metric": "moe_capacity_sweep",
+        "value": peak["goodput_tokens_per_s"],
+        "unit": "goodput_tokens_per_s",
+        "n_devices": n,
+        "experts": n_experts,
+        "tokens_per_rank": tok,
+        "d_model": dim,
+        "capacity_factor_at_peak": peak["capacity_factor"],
+        "dropped_fraction": peak["dropped_fraction"],
+        "a2a_wire_bytes": peak["a2a_wire_bytes"],
+        "rows": rows,
+    }, args)
+
+
+def run_pipeline_bench(args) -> dict:
+    """--pipeline: the microbatch-count sweep (module docstring); the
+    reference's ``_run_pipeline_bench`` with the world as ``pp``."""
+    import torch
+
+    from .autotune import ParameterManager
+    from .parallel.pipeline import bubble_fraction, pipeline_1f1b
+
+    device, hvd = _sweep_world(args)
+    p, r = hvd.size(), hvd.rank()
+    total, dim = PIPELINE_SHAPE["cuda" if device.type == "cuda" else "cpu"]
+    w = torch.randn((dim, dim), device=device, generator=torch.Generator(
+        device=device).manual_seed(1 + r)) * dim ** -0.5
+    iters, warmup = max(3, args.num_iters), max(1, args.num_warmup)
+
+    def time_step(m, mb):
+        mbs = torch.randn((m, mb, dim), device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(2))
+
+        def run_and_wait():
+            with torch.no_grad():
+                out = pipeline_1f1b(lambda wl, xb: torch.tanh(xb @ wl), w,
+                                    mbs)
+            float(out[..., :1].sum())
+
+        return _timed(run_and_wait, iters, warmup)
+
+    rows = []
+    for lg in ParameterManager.PIPELINE_LOG2_MICROBATCH_CANDIDATES:
+        m = int(round(2 ** lg))
+        mb = max(1, total // m)
+        t_m = time_step(m, mb)
+        t_2m = time_step(2 * m, mb)
+        tick = max(0.0, (t_2m - t_m) / m)
+        observed = min(1.0, max(0.0, (t_m - m * tick) / t_m))
+        priced = bubble_fraction(p, m)
+        rows.append({
+            "microbatches": m,
+            "microbatch_rows": mb,
+            "seconds": t_m,
+            "tokens_per_s": round(m * mb / t_m, 1),
+            "tick_seconds": tick,
+            "bubble_fraction_priced": round(priced, 4),
+            "bubble_fraction_observed": round(observed, 4),
+        })
+        print(f"microbatches {m:>3}  {t_m*1e3:>8.2f}ms  "
+              f"{rows[-1]['tokens_per_s']:>10.1f} rows/s  bubble priced "
+              f"{priced:.3f} observed {observed:.3f}", file=sys.stderr)
+    peak = max(rows, key=lambda row: row["tokens_per_s"])
+    return _sweep_doc(device, {
+        "metric": "pipeline_microbatch_sweep",
+        "value": peak["tokens_per_s"],
+        "unit": "tokens_per_s",
+        "n_devices": p,
+        "stages": p,
+        "d_model": dim,
+        "microbatches_at_peak": peak["microbatches"],
+        "bubble_fraction_priced": peak["bubble_fraction_priced"],
+        "bubble_fraction_observed": peak["bubble_fraction_observed"],
+        "rows": rows,
+    }, args)
+
+
 def _spawn(child_args: List[str], timeout_s: int):
     """Run the measurement in a child; (ok, json_line or None, note)."""
     env = dict(os.environ)
@@ -549,6 +804,13 @@ def _spawn(child_args: List[str], timeout_s: int):
 def main(argv=None) -> int:
     args = _parse_args(argv)
     _refuse_unported(args)
+    if args.moe or args.pipeline:
+        import horovod_tpu_torch as hvd
+
+        doc = (run_moe_bench if args.moe else run_pipeline_bench)(args)
+        if hvd.rank() == 0:
+            print(json.dumps(doc))
+        return 0
     if args._child:
         print(json.dumps(measure(args).doc))
         return 0
@@ -566,6 +828,7 @@ def main(argv=None) -> int:
         + (["--fp8"] if args.fp8 else []) \
         + (["--zero", args.zero] if args.zero else []) \
         + (["--ckpt-stall"] if args.ckpt_stall else []) \
+        + (["--remat", args.remat] if args.remat else []) \
         + (["--device", args.device] if args.device else [])
     if args.device == "cpu":      # asked for: one attempt there
         timeouts = [int(os.environ.get("HVDT_BENCH_CPU_TIMEOUT", "600"))]

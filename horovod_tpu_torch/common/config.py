@@ -207,13 +207,26 @@ KNOBS: Dict[str, Knob] = {
              "when its measured rs_ag_speedup_vs_allreduce_at_peak exceeds "
              "1.0 the zero dimension starts on the sharded leg."),
         Knob("HVDT_MOE_CAPACITY_FACTOR", 1.25, float,
-             "Default expert capacity factor (the MoE autotune "
-             "dimension's starting point; parallel/moe is not ported "
-             "yet)."),
+             "Default expert capacity factor for "
+             "parallel.moe.moe_dispatch_combine: per-expert slots = "
+             "ceil(tokens * top_k / experts * factor).  Tokens over "
+             "capacity are dropped (residual passthrough); "
+             "hvdt_moe_dropped_fraction reports the realized drop rate."),
+        Knob("HVDT_MOE_TOPK", 1, int,
+             "Default experts-per-token for "
+             "parallel.moe.moe_dispatch_combine (gates renormalized "
+             "over the chosen k; 1 = switch routing).  Primary choices "
+             "claim capacity before secondary ones."),
+        Knob("HVDT_PEAK_FLOPS", 1e12, float,
+             "Nominal peak FLOP/s for parallel.pipeline."
+             "report_pipeline_mfu (per-chip peak x chips).  On the CPU "
+             "sim any consistent value works — MFU is a ratio; the "
+             "hvdt_pipeline_mfu gauge carries the result."),
         Knob("HVDT_PIPELINE_MICROBATCHES", 8, int,
              "Default 1F1B microbatch count (the pipeline autotune "
-             "dimension's starting point; parallel/pipeline is not "
-             "ported yet)."),
+             "dimension's starting point; bench.py --pipeline default). "
+             "More microbatches shrink the bubble fraction "
+             "(p-1)/(m+p-1) at the cost of smaller per-tick payloads."),
         Knob("HVDT_AUTOTUNE_MOE", False, _parse_bool,
              "Add an expert capacity-factor dimension to the autotune "
              "search space; builders accepting capacity_factor= are "

@@ -9,7 +9,10 @@ ResNet:
 Transformer: every leaf copied under its dotted name (``embed``,
 ``ln_f``, ``block.wq``, ...): the port keeps ``x @ w`` with ``w`` as
 [in, out] and the block leaves stacked [layers, ...], as the reference
-does.
+does, the MoE leaves too (``block.w_router`` [L, d, E], ``block.w_up``
+[L, E, d, f], ``block.w_down`` [L, E, f, d]).  ``pp=(rank, pp)`` /
+``ep=(rank, ep)`` keep one member's slice: its stage's layers, its
+experts.
 
 VGG-16: ``conv{i}.w`` HWIO → OIHW; ``fc{j}.w`` stays [in, out] (the
 port flattens in the reference's H, W, C order, so ``fc1``'s rows need
@@ -79,11 +82,32 @@ def resnet_params_from_jax(params_np: Dict, stats_np: Dict
     return sd
 
 
-def transformer_params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:
+def transformer_params_from_jax(params_np: Dict, *, pp=None, ep=None
+                                ) -> Dict[str, torch.Tensor]:
     """The JAX package's transformer ``params`` numpy pytree → a
     ``state_dict`` for :class:`horovod_tpu_torch.models.transformer.
-    Transformer` (copies, same layouts)."""
-    return _param_tensors(params_np)
+    Transformer` (copies, same layouts).  ``pp=(pp_rank, pp)`` keeps the
+    member's ``layers / pp`` layers of every block leaf and ``ep=(ep_rank,
+    ep)`` its ``E / ep`` experts of ``w_up`` / ``w_down``, so that the
+    module of member ``(pp_rank, ep_rank)`` holds exactly its part of
+    the global parameters."""
+    out = _param_tensors(params_np)
+    moe = "w_router" in params_np.get("block", {})
+    for name in list(out):
+        if not name.startswith("block."):
+            continue
+        leaf = out[name]
+        if pp is not None:
+            rank, n = pp
+            per = leaf.shape[0] // n
+            leaf = leaf[rank * per:(rank + 1) * per]
+        if ep is not None and moe and name in ("block.w_up",
+                                                "block.w_down"):
+            rank, n = ep
+            per = leaf.shape[1] // n
+            leaf = leaf[:, rank * per:(rank + 1) * per]
+        out[name] = leaf.contiguous().clone()
+    return out
 
 
 def vgg_params_from_jax(params_np: Dict) -> Dict[str, torch.Tensor]:

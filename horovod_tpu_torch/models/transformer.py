@@ -52,10 +52,45 @@ loss averaged over dp.  Under ``remat`` the recompute runs the forward
 ring again, with its transfers, on every member in the same order.
 
 ``HVDT_FP8=matmul`` runs every projection through the e4m3 product of
-``quant/fp8.py``.  Outside this slice, and raising
-``NotImplementedError`` naming their ROADMAP item: MoE (``num_experts >
-0``), ``pp``/``ep > 1``, ``remat_policy="dots"``, and the paged serving
-functions (not defined here yet).
+``quant/fp8.py``.
+
+MoE (``num_experts > 0``) makes every block's MLP a mixture of experts
+with the reference's stacked leaves ``w_router`` [L, d, E], ``w_up`` [L,
+E, d, f] and ``w_down`` [L, E, f, d].  With ``ep == 1`` it is the
+reference's dense fallback (argmax top-1, the gate the raw softmax
+probability, no capacity); with ``ep > 1`` the tokens go through
+``parallel.moe_dispatch_combine`` over ``ep_group=`` (a process group,
+or a mesh whose ``ep`` dimension is taken), the experts' two products as
+``torch.bmm``.  Each member of the ``ep`` group passes its own tokens
+(the tokens are sharded over ``ep``) and holds only its ``E / ep``
+experts.  An ``ep_group`` of one with ``ep == 1`` takes the routed path
+with every expert local (capacity and all), as ``moe_dispatch_combine``
+in a group of one does in the reference.  As in the reference, at
+``top_k = 1`` the ``ep > 1`` gate is identically 1 (the router gets no
+gradient from the loss), the load-balance loss is not added to the
+model's loss, and ``HVDT_MOE_TOPK`` is read at each call.
+
+``pp > 1`` runs the blocks as ``parallel.pipeline_1f1b`` over
+``pp_group=``: every stage embeds, the batch is cut into ``m = pp``
+microbatches, member s holds and runs layers ``[s * L / pp, (s + 1) * L
+/ pp)``, and every stage applies ``ln_f`` and the loss to the broadcast
+output.  ``parallel.mark_sharded`` records the leaves each member holds a
+slice of (every block leaf over ``pp``, the experts also over ``ep``),
+which ``DistributedOptimizer(axis=, pipeline=, expert=)`` reads.  On
+the card attention runs the port's kernels inside the pipeline and the
+MoE blocks; the reference falls back to XLA attention inside its
+``shard_map`` islands, which computes the same function.  ``sp > 1``
+together with ``ep > 1`` or ``pp > 1`` raises (parallel axes, part 2).
+
+``remat_policy="dots"`` (``HVDT_REMAT=dots``) is the reference's
+``dots_with_no_batch_dims_saveable``: ``torch.utils.checkpoint`` with a
+selective-checkpoint policy that saves the outputs of products without
+batch dimensions (``aten.mm`` / ``aten.addmm``, which ``x @ w`` reaches,
+and ``aten._scaled_mm`` under ``HVDT_FP8=matmul``) and recomputes the
+rest: norms, RoPE, SiLU, the batched products (``bmm``: the expert
+products, the materialized scores) and the attention kernels'
+autograd Functions.  The paged serving functions are not defined here
+yet (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -71,13 +106,17 @@ from torch.utils.checkpoint import checkpoint
 from ..common import config
 from ..common.basics import DeviceLike, resolve_device
 from ..ops.pallas_kernels import flash_attention, flash_attention_smallseq
+from ..parallel.mesh import mark_sharded
+from ..parallel.moe import moe_dispatch_combine
+from ..parallel.pipeline import pipeline_1f1b
 from ..parallel.ring_attention import _Ring, ring_attention
 from ..quant import fp8 as _fp8
 
 __all__ = [
     "TransformerConfig", "Transformer", "transformer_init",
     "transformer_hidden", "transformer_apply", "transformer_loss",
-    "transformer_flops_per_token", "remat_from_env", "checkpoint_policy",
+    "transformer_logical_axes", "transformer_flops_per_token",
+    "remat_from_env", "checkpoint_policy",
 ]
 
 _REMAT_MODES = ("none", "full", "dots")
@@ -95,92 +134,169 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16    # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
-    num_experts: int = 0         # MoE: not ported yet
+    # MoE: num_experts == 0 is the dense MLP; every block is MoE when on.
+    num_experts: int = 0
     capacity_factor: float = 1.25
     sp: int = 1                  # sequence-parallel degree (ring attention)
-    ep: int = 1                  # expert parallel: not ported yet
-    pp: int = 1                  # pipeline: not ported yet
+    ep: int = 1                  # expert-parallel degree
+    pp: int = 1                  # pipeline stages (layers % pp == 0)
     remat: bool = False          # torch.utils.checkpoint each block
-    remat_policy: str = "full"   # "dots" is not ported yet
+    remat_policy: str = "full"   # "full" or "dots" when remat
     loss_chunk: int = 0          # >0: chunked-vocab cross entropy
 
     @property
     def head_dim(self) -> int:
         return self.d_model // self.heads
 
+    @property
+    def layers_per_stage(self) -> int:
+        assert self.layers % max(self.pp, 1) == 0
+        return self.layers // max(self.pp, 1)
+
+
+def _moe_ep(cfg: TransformerConfig) -> bool:
+    """Whether the blocks route tokens over an ``ep`` group."""
+    return bool(cfg.num_experts) and cfg.ep > 1
+
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.num_experts:
+    if cfg.sp > 1 and (_moe_ep(cfg) or cfg.pp > 1):
         raise NotImplementedError(
-            "MoE blocks (num_experts > 0) are not ported yet (ROADMAP "
-            "Queue 1: parallel axes)")
-    for axis, n in (("pp", cfg.pp), ("ep", cfg.ep)):
-        if n > 1:
-            raise NotImplementedError(
-                f"{axis} > 1 is not ported yet (ROADMAP Queue 1: parallel "
-                "axes)")
-    if cfg.remat and cfg.remat_policy != "full":
-        if cfg.remat_policy == "dots":
-            raise NotImplementedError(
-                "remat_policy='dots' is not ported yet (ROADMAP Queue 1: "
-                "parallel axes)")
+            "sp > 1 together with ep > 1 or pp > 1 is not ported yet "
+            "(ROADMAP Queue 1: parallel axes, part 2)")
+    if cfg.layers % max(cfg.pp, 1):
+        raise ValueError(f"layers {cfg.layers} not divisible by pp {cfg.pp}")
+    if _moe_ep(cfg) and cfg.num_experts % cfg.ep:
+        raise ValueError(f"num_experts {cfg.num_experts} not divisible by "
+                         f"ep {cfg.ep}")
+    if cfg.remat and cfg.remat_policy not in ("full", "dots"):
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
                          "(expected 'full' or 'dots')")
+
+
+_EXPERT_LEAVES = ("w_up", "w_down")
+
+
+def local_slice(name: str, leaf, cfg: TransformerConfig, pp_rank: int = 0,
+                ep_rank: int = 0):
+    """The part of the global block leaf ``name`` (stacked [layers, ...])
+    that the member ``(pp_rank, ep_rank)`` holds: its stage's layers
+    under ``pp > 1`` and, for an expert leaf under ``ep > 1``, its
+    experts.  Works on tensors and numpy arrays."""
+    if cfg.pp > 1:
+        n = cfg.layers_per_stage
+        leaf = leaf[pp_rank * n:(pp_rank + 1) * n]
+    if _moe_ep(cfg) and name in _EXPERT_LEAVES:
+        e = cfg.num_experts // cfg.ep
+        leaf = leaf[:, ep_rank * e:(ep_rank + 1) * e]
+    return leaf
 
 
 class Transformer(nn.Module):
     """The LM's parameters with the reference's names: ``embed``
     [vocab, d], ``ln_f`` [d], and the stacked ``block.<name>``
-    [layers, ...] (``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``,
-    ``w_up``, ``w_gate``, ``w_down``).  ``forward`` returns f32 logits."""
+    [layers, ...] (``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, and
+    ``w_up``, ``w_gate``, ``w_down`` or, with experts, ``w_router``,
+    ``w_up``, ``w_down``).  Under ``pp`` / ``ep`` it holds the slice of
+    member ``(pp_rank, ep_rank)`` (:func:`local_slice`) of the global
+    parameters the same generator draws.  ``forward`` returns f32
+    logits."""
 
     def __init__(self, cfg: TransformerConfig,
                  generator: Optional[torch.Generator] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, *, pp_rank: int = 0,
+                 ep_rank: int = 0):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator()
-        self.cfg = cfg
+        self.cfg, self.pp_rank, self.ep_rank = cfg, pp_rank, ep_rank
         d, h, hk, dh, f = (cfg.d_model, cfg.heads, cfg.kv_heads,
                            cfg.head_dim, cfg.d_ff)
         n, pd = cfg.layers, cfg.param_dtype
 
-        def linear(fan_in, *shape):
-            return (torch.randn((n, *shape), generator=gen)
-                    * fan_in ** -0.5).to(pd)
+        def linear(name, fan_in, *shape):
+            # Drawn whole, so every layout holds slices of one model.
+            w = torch.randn((n, *shape), generator=gen) * fan_in ** -0.5
+            return local_slice(name, w, cfg, pp_rank, ep_rank).to(
+                pd, copy=cfg.pp > 1 or _moe_ep(cfg))
+
+        def ones(*shape):
+            return local_slice("ln", torch.ones((n, *shape), dtype=pd), cfg,
+                               pp_rank, ep_rank)
 
         self.embed = nn.Parameter(
             (torch.randn((cfg.vocab, d), generator=gen) * 0.02).to(pd))
         self.ln_f = nn.Parameter(torch.ones(d, dtype=pd))
-        self.block = nn.ParameterDict({
-            "ln1": torch.ones((n, d), dtype=pd),
-            "ln2": torch.ones((n, d), dtype=pd),
-            "wq": linear(d, d, h * dh),
-            "wk": linear(d, d, hk * dh),
-            "wv": linear(d, d, hk * dh),
-            "wo": linear(h * dh, h * dh, d),
-            "w_up": linear(d, d, f),
-            "w_gate": linear(d, d, f),
-            "w_down": linear(f, f, d),
-        })
+        block = {
+            "ln1": ones(d),
+            "ln2": ones(d),
+            "wq": linear("wq", d, d, h * dh),
+            "wk": linear("wk", d, d, hk * dh),
+            "wv": linear("wv", d, d, hk * dh),
+            "wo": linear("wo", h * dh, h * dh, d),
+        }
+        if cfg.num_experts:
+            e = cfg.num_experts
+            block["w_router"] = linear("w_router", d, d, e)
+            block["w_up"] = linear("w_up", d, e, d, f)
+            block["w_down"] = linear("w_down", f, e, f, d)
+        else:
+            block["w_up"] = linear("w_up", d, d, f)
+            block["w_gate"] = linear("w_gate", d, d, f)
+            block["w_down"] = linear("w_down", f, f, d)
+        self.block = nn.ParameterDict(block)
+        for name, leaf in self.block.items():
+            axes = (("pp",) if cfg.pp > 1 else ()) + (
+                ("ep",) if _moe_ep(cfg) and name in _EXPERT_LEAVES else ())
+            if axes:
+                mark_sharded(leaf, *axes)
         self.to(dev)
 
-    def forward(self, tokens: torch.Tensor, *,
-                sp_group=None) -> torch.Tensor:
-        return transformer_apply(self, tokens, self.cfg, sp_group=sp_group)
+    def forward(self, tokens: torch.Tensor, *, sp_group=None,
+                ep_group=None, pp_group=None) -> torch.Tensor:
+        return transformer_apply(self, tokens, self.cfg, sp_group=sp_group,
+                                 ep_group=ep_group, pp_group=pp_group)
 
 
 def transformer_init(seed: Union[int, torch.Generator],
                      cfg: TransformerConfig,
-                     device: DeviceLike = None) -> Transformer:
+                     device: DeviceLike = None, *, pp_rank: int = 0,
+                     ep_rank: int = 0) -> Transformer:
     """A :class:`Transformer` with random weights drawn on the CPU from
     ``seed`` (an int or a ``torch.Generator``) as the reference draws
     them (normal · fan_in^-0.5, embed normal · 0.02, norms 1), placed on
-    ``device`` (the card unless the caller names another)."""
+    ``device`` (the card unless the caller names another).  Under ``pp``
+    / ``ep`` the module holds member ``(pp_rank, ep_rank)``'s slice of
+    the model the same seed draws with ``pp = ep = 1``."""
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator().manual_seed(int(seed))
-    return Transformer(cfg, generator=gen, device=device)
+    return Transformer(cfg, generator=gen, device=device, pp_rank=pp_rank,
+                       ep_rank=ep_rank)
+
+
+def transformer_logical_axes(cfg: TransformerConfig) -> dict:
+    """The reference's logical axis names of each leaf (None: a
+    replicated dimension): the stacked-layers dimension is ``stages``
+    (sharded over ``pp``), the expert dimension ``experts`` (over
+    ``ep``)."""
+    block = {
+        "ln1": ("stages", None),
+        "ln2": ("stages", None),
+        "wq": ("stages", "embed", "heads"),
+        "wk": ("stages", "embed", "kv"),
+        "wv": ("stages", "embed", "kv"),
+        "wo": ("stages", "heads", "embed"),
+    }
+    if cfg.num_experts:
+        block["w_router"] = ("stages", "embed", None)
+        block["w_up"] = ("stages", "experts", "embed", "mlp")
+        block["w_down"] = ("stages", "experts", "mlp", "embed")
+    else:
+        block["w_up"] = ("stages", "embed", "mlp")
+        block["w_gate"] = ("stages", "embed", "mlp")
+        block["w_down"] = ("stages", "mlp", "embed")
+    return {"embed": ("vocab", "embed"), "ln_f": (None,), "block": block}
 
 
 def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -341,11 +457,63 @@ def _mlp(p, x):
     return _proj(up * gate, p["w_down"])
 
 
+def _moe_mlp(p, x, cfg: TransformerConfig, ep_group=None):
+    """The MoE MLP of one block: ``(out [b, l, d], MoEAux or None)``."""
+    b, l, d = x.shape
+    tokens = x.reshape(b * l, d)
+    logits = tokens @ p["w_router"].to(x.dtype)
+    w_up, w_down = p["w_up"].to(x.dtype), p["w_down"].to(x.dtype)
+    if _moe_ep(cfg) or ep_group is not None:
+        def expert_fn(toks):                     # [E_local, N, D]
+            return torch.bmm(torch.nn.functional.silu(torch.bmm(toks, w_up)),
+                             w_down)
+
+        out, aux = moe_dispatch_combine(
+            tokens, logits, expert_fn, group=ep_group, axis="ep",
+            experts_per_rank=cfg.num_experts // cfg.ep,
+            capacity_factor=cfg.capacity_factor)
+    else:
+        # The dense fallback: every expert on every token, exact, no
+        # capacity.  "nd,edf->enf" has no batch dimension, so it is one
+        # [N, d] x [d, E*f] product (a dot the "dots" policy saves, as
+        # the reference's does); "enf,efd->end" is batched over e.
+        e, f = w_up.shape[0], w_up.shape[2]
+        probs = torch.softmax(logits.float(), -1)
+        top = torch.argmax(probs, -1)
+        gate = probs.gather(1, top[:, None])[:, 0]
+        up = tokens @ w_up.permute(1, 0, 2).reshape(d, e * f)
+        hmid = torch.nn.functional.silu(up.reshape(-1, e, f).transpose(0, 1))
+        all_out = torch.bmm(hmid, w_down)                        # [E, N, d]
+        sel = all_out.gather(0, top[None, :, None].expand(1, -1, d))[0]
+        out = sel * gate[:, None].to(x.dtype)
+        aux = None
+    return out.reshape(b, l, d), aux
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: save the outputs of products
+    without batch dimensions, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default, aten._scaled_mm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def checkpoint_policy(mode: Optional[str] = None):
-    """Resolve an ``HVDT_REMAT`` mode: ``None`` (no remat) or ``"full"``
-    (``torch.utils.checkpoint`` per block).  ``mode=None`` reads the env
-    knob; unknown modes raise with the valid list; ``dots`` is not ported
-    yet and raises."""
+    """Resolve an ``HVDT_REMAT`` mode: ``None`` (no remat), ``"full"``
+    (``torch.utils.checkpoint`` per block, saving only its input) or, for
+    ``dots``, the selective-checkpoint policy function (``op -> save or
+    recompute``) that saves the products without batch dimensions.
+    ``mode=None`` reads the env knob; unknown modes raise with the valid
+    list."""
     if mode is None:
         mode = config.get_str("HVDT_REMAT")
     mode = (mode or "none").strip().lower() or "none"
@@ -353,41 +521,57 @@ def checkpoint_policy(mode: Optional[str] = None):
         raise ValueError(f"unknown HVDT_REMAT mode {mode!r}; valid: "
                          f"{', '.join(_REMAT_MODES)}")
     if mode == "dots":
-        raise NotImplementedError(
-            "HVDT_REMAT=dots is not ported yet (ROADMAP Queue 1: parallel "
-            "axes)")
+        return _dots_policy
     return None if mode == "none" else "full"
 
 
 def remat_from_env(cfg: TransformerConfig,
                    mode: Optional[str] = None) -> TransformerConfig:
-    """Apply the ``HVDT_REMAT`` knob (``none|full``) to a config."""
-    if checkpoint_policy(mode) is None:
+    """Apply the ``HVDT_REMAT`` knob (``none|full|dots``) to a config."""
+    pol = checkpoint_policy(mode)
+    if pol is None:
         return dataclasses.replace(cfg, remat=False)
-    return dataclasses.replace(cfg, remat=True, remat_policy="full")
+    return dataclasses.replace(cfg, remat=True,
+                               remat_policy="full" if pol == "full"
+                               else "dots")
 
 
-def _block(p, x, positions, cfg: TransformerConfig, sp_group=None):
+def remat_checkpoint(fn, *args, policy: str = "full"):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    ``"full"`` saves only the inputs, ``"dots"`` also the outputs of the
+    products without batch dimensions (:func:`checkpoint_policy`)."""
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _block(p, x, positions, cfg: TransformerConfig, sp_group=None,
+           ep_group=None):
     x = x + _attention(p, _rmsnorm(x, p["ln1"]), positions, cfg, sp_group)
-    return x + _mlp(p, _rmsnorm(x, p["ln2"]))
+    if cfg.num_experts:
+        y, _ = _moe_mlp(p, _rmsnorm(x, p["ln2"]), cfg, ep_group)
+    else:
+        y = _mlp(p, _rmsnorm(x, p["ln2"]))
+    return x + y
 
 
 def _scan_blocks(block_params: Mapping[str, torch.Tensor], x, positions,
-                 cfg: TransformerConfig, sp_group=None):
+                 cfg: TransformerConfig, sp_group=None, ep_group=None):
     """The reference's ``lax.scan`` over the stacked layers, as a loop:
     each stacked leaf is unbound once, and with ``cfg.remat`` every layer
-    runs under ``torch.utils.checkpoint`` (saving only its input)."""
+    runs under ``torch.utils.checkpoint`` (:func:`remat_checkpoint`)."""
     names = list(block_params)
     per_layer = list(zip(*(torch.unbind(block_params[n], 0)
                            for n in names)))
 
     def body(x, *leaves):
         return _block(dict(zip(names, leaves)), x, positions, cfg,
-                      sp_group)
+                      sp_group, ep_group)
 
     for leaves in per_layer:
         if cfg.remat:
-            x = checkpoint(body, x, *leaves, use_reentrant=False)
+            x = remat_checkpoint(body, x, *leaves, policy=cfg.remat_policy)
         else:
             x = body(x, *leaves)
     return x
@@ -410,28 +594,67 @@ def _sp_rank(cfg: TransformerConfig, sp_group) -> int:
     return ring.rank
 
 
+def _member(params: Transformer, n: int, group, axis: str) -> None:
+    """Check that ``group`` (required when ``n > 1``) has ``n`` members and
+    that this process is the one whose slice ``params`` holds."""
+    if n <= 1:
+        return
+    if group is None:
+        raise ValueError(f"cfg.{axis} = {n} needs {axis}_group= (a process "
+                         f"group or a mesh with an {axis!r} dimension)")
+    ring = _Ring(group, axis)
+    if ring.size != n:
+        raise ValueError(f"{axis}_group has {ring.size} members, cfg.{axis} "
+                         f"is {n}")
+    held = getattr(params, f"{axis}_rank", ring.rank)
+    if ring.rank != held:
+        raise ValueError(f"this process is member {ring.rank} of the "
+                         f"{axis} group but the module holds member "
+                         f"{held}'s slice")
+
+
 def transformer_hidden(params: Transformer, tokens: torch.Tensor,
-                       cfg: TransformerConfig, *,
-                       sp_group=None) -> torch.Tensor:
+                       cfg: TransformerConfig, *, sp_group=None,
+                       ep_group=None, pp_group=None) -> torch.Tensor:
     """Final-norm hidden states [batch, seq, d_model] (everything but the
     vocab projection).  tokens: [batch, seq] integer ids: this member's
     local shard of the sequence when ``cfg.sp > 1`` (positions offset by
-    ``sp_rank * seq``), the full sequence otherwise."""
+    ``sp_rank * seq``), the full sequence otherwise; this member's own
+    batch under ``ep``; the same batch on every ``pp`` stage."""
     _check_supported(cfg)
     b, l = tokens.shape
     offset = _sp_rank(cfg, sp_group) * l
+    _member(params, cfg.ep if cfg.num_experts else 1, ep_group, "ep")
+    _member(params, cfg.pp, pp_group, "pp")
     positions = offset + torch.arange(l, device=tokens.device).expand(b, l)
     x = params.embed.to(cfg.dtype)[tokens.long()]
-    x = _scan_blocks(params.block, x, positions, cfg, sp_group)
+    if cfg.pp > 1:
+        # m = pp microbatches over the batch (the least schedule); the
+        # positions are the same in every microbatch.
+        m = cfg.pp
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by pp {cfg.pp}")
+        mb = b // m
+
+        def stage_fn(stage_params, a):
+            return _scan_blocks(stage_params, a, positions[:mb], cfg,
+                                sp_group, ep_group)
+
+        x = pipeline_1f1b(stage_fn, dict(params.block),
+                          x.reshape(m, mb, l, cfg.d_model), group=pp_group,
+                          axis="pp").reshape(b, l, cfg.d_model)
+    else:
+        x = _scan_blocks(params.block, x, positions, cfg, sp_group, ep_group)
     return _rmsnorm(x, params.ln_f)
 
 
 def transformer_apply(params: Transformer, tokens: torch.Tensor,
-                      cfg: TransformerConfig, *,
-                      sp_group=None) -> torch.Tensor:
+                      cfg: TransformerConfig, *, sp_group=None,
+                      ep_group=None, pp_group=None) -> torch.Tensor:
     """Logits [batch, seq, vocab] f32 for next-token prediction (see
     :func:`transformer_hidden`)."""
-    x = transformer_hidden(params, tokens, cfg, sp_group=sp_group)
+    x = transformer_hidden(params, tokens, cfg, sp_group=sp_group,
+                           ep_group=ep_group, pp_group=pp_group)
     return (x @ params.embed.to(x.dtype).t()).float()
 
 
@@ -477,20 +700,20 @@ def _chunked_xent(x: torch.Tensor, embed: torch.Tensor,
 
 
 def transformer_loss(params: Transformer, tokens: torch.Tensor,
-                     cfg: TransformerConfig, *,
-                     sp_group=None) -> torch.Tensor:
+                     cfg: TransformerConfig, *, sp_group=None,
+                     ep_group=None, pp_group=None) -> torch.Tensor:
     """Causal LM loss (next-token cross entropy) over the local shard.
     The model runs on the FULL (local) sequence and the last position's
     prediction is dropped, so the attention length stays the caller's
     ``seq`` (which is what lets the flash gate's tiling check pass).
-    Under ``cfg.sp > 1`` the caller averages the members' losses."""
+    Under ``cfg.sp > 1`` or ``ep > 1`` the caller averages the members'
+    losses; every ``pp`` stage returns the same loss."""
     targets = tokens[:, 1:]
+    groups = dict(sp_group=sp_group, ep_group=ep_group, pp_group=pp_group)
     if cfg.loss_chunk:
-        x = transformer_hidden(params, tokens, cfg,
-                               sp_group=sp_group)[:, :-1]
+        x = transformer_hidden(params, tokens, cfg, **groups)[:, :-1]
         return _chunked_xent(x, params.embed, targets, cfg.loss_chunk)
-    logits = transformer_apply(params, tokens, cfg,
-                               sp_group=sp_group)[:, :-1]
+    logits = transformer_apply(params, tokens, cfg, **groups)[:, :-1]
     logp = torch.log_softmax(logits, -1)
     return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
 

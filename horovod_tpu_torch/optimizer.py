@@ -43,6 +43,34 @@ by construction, and a captured pass replays it.
 ``op=hvd.Adasum`` combines each fused bucket with Adasum
 (``ops/adasum.py``) instead of averaging it.
 
+``axis=`` (a dimension of the current mesh, ``parallel.make_mesh``, or a
+tuple of them), ``pipeline=`` and ``expert=`` are the reference's
+sharded-axis contract.  The exchange reduces over ``axis``'s group
+(default ``"dp"`` when ``pipeline`` or ``expert`` is given) instead of
+the world, and an ``axis`` that names the ``pipeline`` or ``expert``
+axis raises the reference's ``ValueError``: each member of such an axis
+owns different parameters (``parallel.mark_sharded`` records which), so
+averaging over it would mix them.  Every rank ends the step holding the
+reference's gradient, ``jax.grad`` of the loss averaged over the model
+axes (the reference's ``shard_map`` body takes ``lax.pmean`` over them).
+Before the exchange over ``axis`` each gradient is folded over the mesh's
+other dimensions:
+
+* a leaf replicated over ``ep`` (or ``sp``) is averaged over it: each
+  member's backward gave the gradient of its own tokens' loss;
+* an expert leaf (sharded over ``expert``) is divided by the axis size:
+  the all-to-all's transpose already summed every member's tokens into
+  it, and it is never averaged over the axis;
+* nothing is folded over ``pipeline``: the pipeline's backward
+  (``parallel/pipeline.py``) leaves every stage the reference's gradient
+  of its own leaves, and every member the same gradient of a leaf
+  replicated over ``pp``.
+
+ZeRO then shards state within ``axis``'s group only.  Under
+``HVDT_OVERLAP=on`` the fold runs after the hooked exchange (both are
+linear); the ZeRO ``states`` / ``params`` step with the hooks and a fold
+is not ported (parallel axes, part 2).
+
 ``HVDT_OVERLAP=on`` (``ops/overlap.py``) overlaps the exchange with the
 backward: a ``register_post_accumulate_grad_hook`` on every parameter
 issues each reverse-topological bucket's collective, on a communication
@@ -114,18 +142,106 @@ def allreduce_gradients(grads: Sequence[torch.Tensor],
                         threshold_bytes: Optional[int] = None,
                         prescale_factor: float = 1.0,
                         postscale_factor: float = 1.0,
-                        process_set: Optional[ProcessSet] = None
-                        ) -> List[torch.Tensor]:
+                        process_set: Optional[ProcessSet] = None,
+                        axis=None) -> List[torch.Tensor]:
     """Fused gradient allreduce for custom update loops: the reduced
     tensors, in input order.  ``compression=None`` reads the
-    environment (``Compression.from_env()``)."""
+    environment (``Compression.from_env()``); ``axis`` names the reduce
+    group a transport policy resolves (``ops.device.fused_allreduce``)."""
     _check_supported(op)
     if compression is None:
         compression = Compression.from_env()
     return dev.fused_allreduce(
         grads, op=op, threshold_bytes=threshold_bytes,
         prescale_factor=prescale_factor, postscale_factor=postscale_factor,
-        wire_dtype=compression.wire_dtype, process_set=process_set)
+        wire_dtype=compression.wire_dtype, process_set=process_set,
+        axis=axis)
+
+
+class _AxisPlan:
+    """What ``DistributedOptimizer(axis=, pipeline=, expert=)`` adds to
+    the exchange (module docstring): ``process_set``, the group of
+    ``axis``; ``axis``, its name(s); ``plan``, ``[(group or None, scale,
+    params)]``, the fold over the other mesh dimensions."""
+
+    def __init__(self, params: Sequence[torch.Tensor], axis, pipeline,
+                 expert):
+        import torch.distributed as dist
+
+        from .common.basics import current_mesh
+        from .common.process_sets import global_process_set
+        from .parallel.mesh import fiber_group, sharded_axes
+
+        reduce_axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        for kind, sharded in (("pipeline", pipeline), ("expert", expert)):
+            if sharded is not None and sharded in reduce_axes:
+                raise ValueError(
+                    f"{kind}={sharded!r} names a parameter-SHARDED mesh axis "
+                    f"but axis={axis!r} would reduce gradients over it — "
+                    f"every {sharded} rank owns different parameters, so "
+                    "averaging across it destroys them.  Drop it from the "
+                    "reduce group (ZeRO then shards state within the "
+                    "remaining data-parallel group).")
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("axis= names dimensions of the current mesh: "
+                             "build one with parallel.make_mesh")
+        names = tuple(mesh.mesh_dim_names)
+        size = dict(zip(names, mesh.mesh.shape))
+        unknown = [a for a in reduce_axes if a not in names]
+        if unknown:
+            raise ValueError(f"axis {unknown} not among the current mesh's "
+                             f"dimensions {names}")
+        self.axis = reduce_axes[0] if len(reduce_axes) == 1 else reduce_axes
+        gps = global_process_set()
+        if set(reduce_axes) == set(names):
+            self.process_set = gps
+        else:
+            group = fiber_group(mesh, reduce_axes)
+            self.process_set = ProcessSet(
+                dist.get_process_group_ranks(group), -1, gps._topo, group)
+        declared = {a for a in (pipeline, expert) if a is not None}
+        folded = [d for d in names if d not in reduce_axes
+                  and d != pipeline and size[d] > 1]
+        plan: Dict[tuple, List[torch.Tensor]] = {}
+        for p in params:
+            sharded = sharded_axes(p)
+            undeclared = [a for a in sharded if a not in declared]
+            if undeclared:
+                raise ValueError(
+                    f"a parameter of shape {tuple(p.shape)} is sharded over "
+                    f"{undeclared} (parallel.mark_sharded): name the axis "
+                    "as pipeline= or expert=")
+            dims = tuple(d for d in folded if d not in sharded)
+            scale = 1.0 / int(size[expert]) if expert in sharded else 1.0
+            if dims or scale != 1.0:
+                plan.setdefault((dims, scale), []).append(p)
+        self.plan = [(fiber_group(mesh, dims) if dims else None, scale, ps)
+                     for (dims, scale), ps in plan.items()]
+
+    @torch.no_grad()
+    def fold(self) -> None:
+        """Average each planned gradient over its group and scale it, in
+        place, one flat all-reduce a group and dtype."""
+        import torch.distributed as dist
+
+        for group, scale, params in self.plan:
+            if group is None:
+                for p in params:
+                    p.grad.mul_(scale)
+                continue
+            factor = scale / dist.get_world_size(group)
+            by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+            for p in params:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+            for grads in by_dtype.values():
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                dist.all_reduce(flat, group=group)
+                flat.mul_(factor)
+                offset = 0
+                for g in grads:
+                    g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                    offset += g.numel()
 
 
 def _tree_chunk(tree, i: int, k: int):
@@ -211,6 +327,9 @@ class _DistributedOptimizer:
         self._prescale = prescale_factor
         self._postscale = postscale_factor
         self._process_set = process_set
+        # DistributedOptimizer(axis=): the reduce axis and the fold.
+        self._axis = None
+        self._axis_plan: Optional[_AxisPlan] = None
         self._passes = 0
         self._acc: Dict[torch.Tensor, torch.Tensor] = {}
         # HVDT_OVERLAP=on: the hooked exchange, the parameters its hooks
@@ -269,15 +388,23 @@ class _DistributedOptimizer:
         _zero_fill(params)
         if self._hooked is not None:
             self._hooked.finish()
+            self._axis_fold()
             return
+        self._axis_fold()
         reduced = allreduce_gradients(
             [p.grad for p in params], op=self._op,
             compression=self._compression, threshold_bytes=self._threshold,
             prescale_factor=self._prescale,
-            postscale_factor=self._postscale, process_set=self._process_set)
+            postscale_factor=self._postscale, process_set=self._process_set,
+            axis=self._axis)
         with torch.no_grad():
             for p, r in zip(params, reduced):
                 p.grad.copy_(r)
+
+    def _axis_fold(self) -> None:
+        """The model-axis fold of ``axis=`` (module docstring)."""
+        if self._axis_plan is not None:
+            self._axis_plan.fold()
 
     def _fold(self, p: torch.Tensor, phase: int) -> None:
         """Fold ``p``'s gradient of pass ``phase`` into its f32
@@ -409,7 +536,9 @@ class _ZeroGradsOptimizer(_DistributedOptimizer):
         _zero_fill(params)
         if self._hooked is not None:
             self._hooked.finish()
+            self._axis_fold()
             return
+        self._axis_fold()
         from .ops import zero
 
         reduced = zero.rs_exchange(
@@ -494,6 +623,7 @@ class _ZeroStatesOptimizer(_DistributedOptimizer):
             # A parameter without a gradient steps as the wrapped
             # optimizer steps it on an explicit zero gradient.
             _zero_fill(self._zparams)
+            self._axis_fold()
             shards = (self._hooked.shards() if self._hooked is not None
                       else None)
             target = (self._zparams if self._zero_stage == "states"
@@ -562,7 +692,10 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                          prescale_factor: float = 1.0,
                          postscale_factor: float = 1.0,
                          process_set: Optional[ProcessSet] = None,
-                         zero: Optional[Any] = None):
+                         zero: Optional[Any] = None,
+                         axis=None,
+                         pipeline: Optional[str] = None,
+                         expert: Optional[str] = None):
     """Wrap a ``torch.optim.Optimizer`` so gradients are averaged across
     the world before each update::
 
@@ -587,6 +720,12 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
         ``"params"``, ``True`` (the env's stage or ``"states"``), a
         ``zero.ZeroSpec`` (its stage, reduce axis, shard count and
         threshold), or None (default) to read ``HVDT_ZERO``.
+      axis: the mesh dimension(s) to reduce over (module docstring);
+        None reduces over ``process_set``, or the world.
+      pipeline / expert: the mesh axes the parameters are sharded over
+        (``parallel.pipeline_1f1b`` stages, ``parallel.
+        moe_dispatch_combine`` experts); ``axis`` then defaults to
+        ``"dp"``.
     """
     from .ops import zero as _zero
 
@@ -594,17 +733,45 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
     stage = _zero.resolve_stage(zero)
     if compression is None:
         compression = Compression.from_env()
+    plan = None
+    if axis is None and (pipeline is not None or expert is not None):
+        axis = "dp"
+    if axis is not None:
+        if process_set is not None:
+            raise ValueError("pass either axis= or process_set=, not both")
+        plan = _AxisPlan([p for g in optimizer.param_groups
+                          for p in g["params"] if p.requires_grad],
+                         axis, pipeline, expert)
+        process_set = plan.process_set
+        if plan.plan and stage in ("states", "params"):
+            from .ops import overlap
+
+            if overlap.enabled():
+                raise NotImplementedError(
+                    "ZeRO states/params under HVDT_OVERLAP=on with a "
+                    "model-axis fold is not ported yet (ROADMAP Queue 1: "
+                    "parallel axes, part 2)")
     if stage is None:
-        return _DistributedOptimizer(optimizer, op, compression,
-                                     backward_passes_per_step,
-                                     threshold_bytes, prescale_factor,
-                                     postscale_factor, process_set)
-    if ReduceOp(op) not in (ReduceOp.SUM, ReduceOp.AVERAGE):
-        raise ValueError(f"ZeRO exchange supports SUM/AVERAGE, got {op}")
-    spec = zero if isinstance(zero, _zero.ZeroSpec) else None
-    if threshold_bytes is None and spec is not None:
-        threshold_bytes = spec.threshold_bytes
-    cls = _ZeroGradsOptimizer if stage == "grads" else _ZeroStatesOptimizer
-    return cls(optimizer, op, compression, backward_passes_per_step,
-               threshold_bytes, prescale_factor, postscale_factor,
-               process_set, stage=stage, spec=spec)
+        obj = _DistributedOptimizer(optimizer, op, compression,
+                                    backward_passes_per_step,
+                                    threshold_bytes, prescale_factor,
+                                    postscale_factor, process_set)
+    else:
+        if ReduceOp(op) not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+            raise ValueError(f"ZeRO exchange supports SUM/AVERAGE, got {op}")
+        spec = zero if isinstance(zero, _zero.ZeroSpec) else None
+        if plan is not None:
+            spec = _zero.ZeroSpec(stage=stage, axis=plan.axis,
+                                  num_shards=spec.num_shards if spec else None,
+                                  threshold_bytes=(spec.threshold_bytes
+                                                   if spec else None))
+        if threshold_bytes is None and spec is not None:
+            threshold_bytes = spec.threshold_bytes
+        cls = (_ZeroGradsOptimizer if stage == "grads"
+               else _ZeroStatesOptimizer)
+        obj = cls(optimizer, op, compression, backward_passes_per_step,
+                  threshold_bytes, prescale_factor, postscale_factor,
+                  process_set, stage=stage, spec=spec)
+    if plan is not None:
+        obj._axis, obj._axis_plan = plan.axis, plan
+    return obj

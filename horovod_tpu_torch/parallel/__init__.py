@@ -1,4 +1,5 @@
-"""Parallelism substrate of the port: mesh axes and sequence parallelism.
+"""Parallelism substrate of the port: mesh axes, sequence, expert and
+pipeline parallelism.
 
 The PyTorch counterpart of the JAX package's ``parallel/``.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the world's ranks in
@@ -8,11 +9,16 @@ dimension (``mesh.get_group("sp")``).
 Canonical axis names (any subset may be present, size-1 axes are free):
 
 * ``dp`` — data parallel (gradient allreduce over the whole world)
-* ``fsdp`` — fully-sharded data parallel (not ported yet)
-* ``pp`` — pipeline stages (not ported yet)
-* ``ep`` — expert parallel (not ported yet)
+* ``fsdp`` — fully-sharded data parallel (not ported yet: parallel axes,
+  part 2)
+* ``pp`` — pipeline stages (``pipeline_1f1b``)
+* ``ep`` — expert parallel (``moe_dispatch_combine``)
 * ``sp`` — sequence/context parallel (ring attention)
-* ``tp`` — tensor parallel within a layer (not ported yet)
+* ``tp`` — tensor parallel within a layer (not ported yet: parallel
+  axes, part 2)
+
+``mark_sharded`` records which of these axes a parameter is sharded
+over, for ``DistributedOptimizer(axis=, pipeline=, expert=)``.
 """
 
 from .mesh import (  # noqa: F401
@@ -31,5 +37,20 @@ from .mesh import (  # noqa: F401
     MeshSpec,
     make_mesh,
     mesh_shape_for,
+    mark_sharded,
+    sharded_axes,
+    fiber_group,
+)
+from .moe import (  # noqa: F401
+    MoEAux,
+    moe_capacity,
+    moe_dispatch_combine,
+    report_moe_aux,
+)
+from .pipeline import (  # noqa: F401
+    bubble_fraction,
+    pipeline_1f1b,
+    pipeline_spmd,
+    report_pipeline_mfu,
 )
 from .ring_attention import ring_attention  # noqa: F401

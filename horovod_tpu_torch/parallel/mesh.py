@@ -30,6 +30,8 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 import torch.distributed as dist
 
 AXIS_DP = "dp"
@@ -54,7 +56,8 @@ __all__ = [
     "AXIS_DP", "AXIS_FSDP", "AXIS_PP", "AXIS_TP", "AXIS_SP", "AXIS_EP",
     "CANONICAL_AXES", "TRANSPORT_ICI", "TRANSPORT_DCN",
     "TRANSPORT_CLASSES", "axis_transport_class", "split_transport_axes",
-    "MeshSpec", "make_mesh", "mesh_shape_for",
+    "MeshSpec", "make_mesh", "mesh_shape_for", "mark_sharded",
+    "sharded_axes", "fiber_group",
 ]
 
 
@@ -180,3 +183,46 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int):
     mesh = init_device_mesh(device_type, shape, mesh_dim_names=spec.names)
     set_mesh(mesh)
     return mesh
+
+
+def mark_sharded(tensor: torch.Tensor, *axes: str) -> torch.Tensor:
+    """Record that ``tensor`` (a parameter) is sharded over the mesh axes
+    ``axes``: each member of such an axis holds a different slice (its
+    experts under ``ep``, its stage's layers under ``pp``), so its
+    gradient must never be averaged over them.  This is what a
+    ``PartitionSpec`` naming the axis says in the reference;
+    ``DistributedOptimizer(axis=, pipeline=, expert=)`` reads it.
+    Returns ``tensor``."""
+    tensor.hvdt_sharded_axes = tuple(axes)
+    return tensor
+
+
+def sharded_axes(tensor: torch.Tensor) -> Tuple[str, ...]:
+    """The axes :func:`mark_sharded` recorded for ``tensor`` (none: it is
+    replicated over every axis)."""
+    return tuple(getattr(tensor, "hvdt_sharded_axes", ()))
+
+
+def fiber_group(mesh, dims: Sequence[str]):
+    """The process group of this rank's fiber of ``mesh`` over the
+    dimensions ``dims``: the ranks that differ from this one only in
+    those coordinates.  One dimension is ``mesh.get_group(dim)``; several
+    make one ``dist.new_group`` per fiber, collectively (every rank calls
+    this with the same arguments in the same order), kept on the mesh."""
+    dims = tuple(dims)
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    fibers = mesh.__dict__.setdefault("_hvdt_fibers", {})
+    if dims not in fibers:
+        names = tuple(mesh.mesh_dim_names)
+        layout = mesh.mesh
+        idx = [names.index(d) for d in dims]
+        rest = [i for i in range(layout.dim()) if i not in idx]
+        rows = layout.permute(*rest, *idx).reshape(
+            -1, math.prod(layout.shape[i] for i in idx))
+        me = dist.get_rank()
+        for row in rows.tolist():
+            group = dist.new_group(row)
+            if me in row:
+                fibers[dims] = group
+    return fibers[dims]

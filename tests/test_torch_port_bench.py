@@ -120,18 +120,59 @@ def test_fused_optimizer_leg_launches_no_kernel_on_cpu(monkeypatch):
     assert tcf.matmul_batch_stats.launches == tcf._mm_forward.launches == 0
 
 
+_LEG_IDS = [f"flag{i}-parallel axes" for i in range(3)] + [
+    "flag3-serving", "flag4-serving"] + [
+    f"flag{i}-control, analysis and the edges" for i in (5, 6, 7)]
+
+
+# --remat, --moe and --pipeline are ported (parallel axes, part 1): item
+# None, the leg prints its JSON.  The ids are the ones these cases had
+# while every leg raised.
 @pytest.mark.parametrize("flag,item", [
-    (["--remat", "full"], "parallel axes"),
-    (["--moe"], "parallel axes"), (["--pipeline"], "parallel axes"),
+    (["--remat", "full"], None), (["--moe"], None), (["--pipeline"], None),
     (["--serve"], "serving"), (["--serve-llm"], "serving"),
     (["--controller"], "control, analysis and the edges"),
     (["--fleet", "diurnal"], "control, analysis and the edges"),
-    (["--report"], "control, analysis and the edges")])
-def test_unported_legs_raise(flag, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"{flag[0]} is not ported yet .ROADMAP "
-                             f"Queue 1: {item}"):
-        bench.main(flag)
+    (["--report"], "control, analysis and the edges")], ids=_LEG_IDS)
+def test_unported_legs_raise(flag, item, tmp_path, monkeypatch):
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"{flag[0]} is not ported yet .ROADMAP "
+                                 f"Queue 1: {item}"):
+            bench.main(flag)
+        return
+    seed = tmp_path / "seed.json"
+    extra = (_SMALL if flag[0] == "--remat"
+             else ["--num-iters", "1", "--num-warmup", "1", "--json-out",
+                   str(seed)])
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.bench", *flag, "--device",
+         "cpu", *extra], env=_env(), capture_output=True, text=True,
+        timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-3000:]
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    if flag[0] == "--remat":
+        assert doc["remat"] == "full" and doc["value"] > 0
+        return
+    keys = ({"capacity_factor_at_peak", "dropped_fraction",
+             "a2a_wire_bytes"} if flag[0] == "--moe" else
+            {"microbatches_at_peak", "bubble_fraction_priced",
+             "bubble_fraction_observed"})
+    assert keys | {"rows", "metric", "value", "platform"} <= set(doc)
+    assert doc["platform"] == "cpu" and len(doc["rows"]) == 4
+    assert json.loads(seed.read_text()) == doc
+    # The autotuner's seed readers take the file.
+    from horovod_tpu_torch import autotune
+
+    for k in ("HVDT_MOE_CAPACITY_FACTOR", "HVDT_PIPELINE_MICROBATCHES"):
+        monkeypatch.delenv(k, raising=False)
+    if flag[0] == "--moe":
+        monkeypatch.setenv("HVDT_AUTOTUNE_MOE_SEED", str(seed))
+        assert autotune._env_capacity_factor() == \
+            doc["capacity_factor_at_peak"]
+    else:
+        monkeypatch.setenv("HVDT_AUTOTUNE_PIPELINE_SEED", str(seed))
+        assert autotune._env_microbatches() == doc["microbatches_at_peak"]
 
 
 def test_unported_leg_exits_nonzero():

@@ -423,7 +423,9 @@ _SLICE_MODULES = ("horovod_tpu_torch.bench", "horovod_tpu_torch.step_pipeline",
                   "horovod_tpu_torch.interop.torch",
                   "horovod_tpu_torch.interop.torch_optimizer",
                   "horovod_tpu_torch.interop.torch_sync_batch_norm",
-                  "horovod_tpu_torch.timeline")
+                  "horovod_tpu_torch.timeline",
+                  "horovod_tpu_torch.parallel.moe",
+                  "horovod_tpu_torch.parallel.pipeline")
 
 
 def test_import_loads_no_jax():
