@@ -186,6 +186,12 @@ Phases, one JSON line each:
    materialized-score attention: 2.1 GB of f32 scores stays under the 4
    GiB flash gate); the first step's gradients are held against the
    smallseq path's from the same state, and no attention kernel runs;
+16b. lm_tp1 — the bert-large preset at seq 512, batch 32, built through
+   the sharding rules (transformer_init with tp_rank / fsdp_rank) and
+   run with tp_group and fsdp_group of one (a mesh dp 1 x fsdp 1 x tp
+   1), HVDT_FLASH_SMALLSEQ=on: its parameters, one step's loss and every
+   gradient equal the dense model's in every byte; #12 48 / #13 24 /
+   #1 1 in the step under DistributedOptimizer(fused_adam, axis="dp");
 17b. fp8 — quant/fp8.py on the card: the e4m3 operands bit for bit
    against the plain version's (CPU), fp8_matmul (torch._scaled_mm)
    against the plain product and its straight-through backward against
@@ -326,10 +332,28 @@ of the exact wire's, #5/#6 144 each a step); par_cards_pp, bert-large
 with pp = 4 (6 layers a stage, m = 4, batch 128): one step against one
 card running 24 layers, 3 steps, #12/#13, the priced bubble 3/7 against
 the observed one; par_cards_4d, the reference's 4D battery at pp 2 x ep
-2 (f32, 5 SGD steps within rtol 2e-4 of the dense reference); the
-bench's --moe and --pipeline sweeps with their autotune seeds.  The
-multi-card modes end with the card's line and the last line of the
-one-card run.
+2 (f32, 5 SGD steps within rtol 2e-4 of the dense reference); then the
+phases over tp, fsdp and sp, bert-large at seq 512 (24 layers, d 1024,
+16 heads of 64, d_ff 4096, bf16, remat, HVDT_FLASH_SMALLSEQ=on) unless stated
+otherwise, each under DistributedOptimizer(fused_adam, axis="dp") and
+each held against one card (rank 0, the same seed) at the same loss
+and gradient bounds, every replicated leaf's gradient equal on every
+card: par_cards_tp, tp = 4 with the same 32 rows on every card (#12/#13
+on 4 local heads): one step, then 3 steps with step seconds, tokens/s
+and the tp all-reduces and all-gathers a step (bytes, and the device ms
+of one activation all-reduce); par_cards_fsdp, fsdp = 4 at 32 rows a
+card against the global batch of 128: parameter and Adam-state bytes a
+card against replicated, peak memory, 3 steps; par_cards_dp2_tp2, dp 2
+x tp 2 at 32 rows a dp member: 3 steps' losses, the first step's
+gradients and the parameters after 3 steps against one card running
+batch 64; par_cards_sp_dp, dp 2 x sp 2 at global seq 4096,
+HVDT_RING_PALLAS=1 (#9-#11 in every ring step), the members' loss
+(each shard's own targets) against one card's whole sequence, 3 steps
+with the ring's launches; par_cards_sp_pp, pp 2 x sp 2, the ring inside
+each pipeline stage, one step against one card.  Each phase runs under a
+watchdog that names it if it hangs.  Then the bench's --moe and
+--pipeline sweeps with their autotune seeds.  The multi-card modes end
+with the card's line and the last line of the one-card run.
 """
 
 import gc
@@ -2639,9 +2663,10 @@ def step_profile(step, steps: int = 5) -> dict:
 # match a kernel's name (lowercased) takes it.
 KERNEL_CLASSES = (
     ("port kernels", ("mm_stats_kernel", "mm_bn_relu_kernel",
-                      "optim_multi")),
+                      "optim_multi", "smallseq_", "flash_")),
+    ("nccl", ("nccl",)),
     ("convolutions and matmuls", ("conv", "cudnn", "xmma", "gemm",
-                                  "cutlass", "wgrad", "dgrad")),
+                                  "cutlass", "wgrad", "dgrad", "nvjet")),
     ("reductions", ("reduce_kernel",)),
     ("copies and casts", ("copy",)),
     ("elementwise", ("elementwise",)),
@@ -3026,6 +3051,76 @@ def phase_lm_moe(hvd, gen, smi):
     assert launches["_smallseq_bwd_kernel"] == 24 * 3, launches
     assert launches["_adam_kernel"] == 3, launches
     del model, opt, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+LM_TP1_BATCH = 32
+
+
+def phase_lm_tp1(hvd, gen, smi):
+    """lm_tp1: the bert-large preset at seq 512, batch 32, built through
+    the sharding rules with tp and fsdp degree 1 (transformer_init with
+    tp_rank / fsdp_rank, a mesh dp 1 x fsdp 1 x tp 1 whose groups go to
+    the loss as tp_group / fsdp_group), HVDT_FLASH_SMALLSEQ=on: one step's
+    loss and gradients against the dense model's (the same seed, no
+    groups), in every byte; the parameters equal too; then the step
+    under DistributedOptimizer(fused_adam, axis="dp").  Returns the
+    launches of the grouped step."""
+    import dataclasses
+
+    from horovod_tpu_torch.common.basics import set_mesh
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    t0 = time.perf_counter()
+    for knob in ("HVDT_FLASH_ATTENTION", "HVDT_FLASH_SMALLSEQ_HB",
+                 "HVDT_FLASH_BWD"):
+        os.environ.pop(knob, None)
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = lm_config(SS_SEQ)
+    tokens = torch.randint(0, cfg.vocab, (LM_TP1_BATCH, SS_SEQ),
+                           generator=gen, device="cuda")
+    dense = tt.transformer_init(0, cfg)
+    loss_d = tt.transformer_loss(dense, tokens, cfg)
+    loss_d.backward()
+    want = {n: p.grad for n, p in dense.named_parameters()}
+    params_d = dict(dense.named_parameters())
+
+    mesh = make_mesh(dp=1, fsdp=1, tp=1)
+    rules_cfg = dataclasses.replace(cfg, tp=1, fsdp=1)
+    model = tt.transformer_init(0, rules_cfg, tp_rank=0, fsdp_rank=0)
+    same_params = all(torch.equal(p, params_d[n])
+                      for n, p in model.named_parameters())
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp")
+    reset_counters()
+    loss = tt.transformer_loss(model, tokens, rules_cfg, tp_group=mesh,
+                               fsdp_group=mesh)
+    loss.backward()
+    grads_equal = {n: torch.equal(p.grad, want[n])
+                   for n, p in model.named_parameters()}
+    opt.step()
+    torch.cuda.synchronize()
+    launches = counters()
+    set_mesh(None)
+    emit({"phase": "lm_tp1", "model": "bert-large", "batch": LM_TP1_BATCH,
+          "seq": SS_SEQ, "tp": 1, "fsdp": 1,
+          "mesh": dict(zip(mesh.mesh_dim_names, list(mesh.mesh.shape))),
+          "loss": loss.item(), "loss_dense": loss_d.item(),
+          "params_equal": same_params,
+          "grads_equal_in_every_byte": all(grads_equal.values()),
+          "leaves": len(grads_equal), "launches": launches,
+          "wall_s": time.perf_counter() - t0, "card": smi})
+    assert same_params
+    assert loss.item() == loss_d.item(), (loss.item(), loss_d.item())
+    assert all(grads_equal.values()), grads_equal
+    assert launches["_smallseq_fwd_kernel"] == 48, launches
+    assert launches["_smallseq_bwd_kernel"] == 24, launches
+    assert launches["_adam_kernel"] == 1, launches
+    del dense, model, opt, want, params_d, tokens, loss, loss_d
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -6178,11 +6273,607 @@ def par_cards_sweeps(hvd, smi):
         dist.barrier()
 
 
+# ---- tp, fsdp and the sequence axis beside dp / pp across cards -----------
+
+PAR_TP_BATCH = 32              # the same rows on every tp member
+PAR_FSDP_BATCH = 32            # a card's rows (global 128)
+PAR_DPTP_BATCH = 32            # a dp member's rows (global 64)
+PAR_SPDP_SEQ, PAR_SPDP_BATCH = 4096, 4   # global seq; a dp member's rows
+PAR_SPPP_BATCH = 32            # every stage's rows (2 microbatches)
+PAR_PHASE_TIMEOUT_S = 300
+
+
+class _PhaseTimeout:
+    """A watchdog for one four-card phase: if the phase outlives
+    ``seconds`` (a collective issued in another order on another rank
+    hangs in NCCL, where no Python signal reaches), it names the phase
+    on stderr and ends this rank, so the parent stops the others."""
+
+    def __init__(self, name: str, seconds: float = PAR_PHASE_TIMEOUT_S):
+        import threading
+
+        self.name, self.seconds = name, seconds
+        self.done = threading.Event()
+        self.thread = threading.Thread(target=self._watch, daemon=True)
+
+    def _watch(self):
+        if not self.done.wait(self.seconds):
+            print(f"chip_smoke: phase {self.name} timed out after "
+                  f"{self.seconds} s", file=sys.stderr, flush=True)
+            os._exit(1)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+
+
+class _CollectiveCount:
+    """Counts the all-reduces and all-gathers issued on ``group`` while
+    active, with the bytes of each (torch.distributed is patched)."""
+
+    def __init__(self, group):
+        self.group, self.calls = group, {"all_reduce": [],
+                                         "all_gather_into_tensor": []}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.saved = {}
+        for name in self.calls:
+            orig = getattr(dist, name)
+            self.saved[name] = orig
+
+            def wrap(*args, _orig=orig, _name=name, **kw):
+                if kw.get("group") is self.group:
+                    t = args[0] if _name == "all_reduce" else args[1]
+                    self.calls[_name].append(t.numel() * t.element_size())
+                return _orig(*args, **kw)
+
+            setattr(dist, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, orig in self.saved.items():
+            setattr(dist, name, orig)
+
+
+def _whole_grads(model, cfg, mesh, grads: bool = True):
+    """Every leaf's gradient (or, with ``grads=False``, its value)
+    gathered whole over the mesh axes its spec shards it on, in f32
+    (collective: every rank calls it)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+
+    out = {}
+    for name, p in model.named_parameters():
+        g = (p.grad if grads else p).detach().float().contiguous()
+        for dim, entry in enumerate(tt.leaf_spec(name.split(".")[-1], cfg)):
+            for axis in ((entry,) if isinstance(entry, str) else entry or ()):
+                group = mesh.get_group(axis)
+                parts = [torch.empty_like(g)
+                         for _ in range(dist.get_world_size(group))]
+                dist.all_gather(parts, g, group=group)
+                g = torch.cat(parts, dim)
+        out[name] = g
+    return out
+
+
+def _replicated_equal(model) -> bool:
+    """Whether every leaf sharded over no axis holds the same gradient,
+    bit for bit, on every rank (rank 0's broadcast against each)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.parallel import sharded_axes
+
+    ok = True
+    for p in model.parameters():
+        if sharded_axes(p):
+            continue
+        mine = p.grad.detach()
+        theirs = mine.clone()
+        dist.broadcast(theirs, 0)
+        ok = ok and torch.equal(mine, theirs)
+    flag = torch.tensor([int(ok)], device="cuda")
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _sp_loss_one_card(model, tokens, cfg, sp):
+    """The mean of the sp members' local losses on one card: the whole
+    sequence's hidden states, then each shard's chunked loss (a shard's
+    last position has no target)."""
+    from horovod_tpu_torch.models import transformer as tt
+
+    x = tt.transformer_hidden(model, tokens, cfg)
+    n = tokens.shape[1] // sp
+    return sum(tt._chunked_xent(x[:, s * n:(s + 1) * n - 1], model.embed,
+                                tokens[:, s * n + 1:(s + 1) * n],
+                                cfg.loss_chunk) for s in range(sp)) / sp
+
+
+def _check_one_card(name, loss_mean, got, ref_cfg, ref_tokens, sp=1):
+    """Rank 0: one card runs the whole model on ``ref_tokens`` (the
+    same seed); the members' mean loss and the gathered gradients
+    against it.  Returns the check's dict."""
+    from horovod_tpu_torch.models import transformer as tt
+
+    ref = tt.transformer_init(0, ref_cfg)
+    ref_loss = (tt.transformer_loss(ref, ref_tokens, ref_cfg) if sp == 1
+                else _sp_loss_one_card(ref, ref_tokens, ref_cfg, sp))
+    ref_loss.backward()
+    errs = {k: _rel_l2([got[k]], [p.grad]) for k, p in
+            ref.named_parameters()}
+    check = {"loss_members": loss_mean, "loss_one_card": ref_loss.item(),
+             "loss_rel_err": abs(loss_mean - ref_loss.item())
+             / abs(ref_loss.item()),
+             "grad_rel_l2": errs, "grad_rel_l2_max": max(errs.values()),
+             "tolerances": [PAR_LOSS_TOL, PAR_GRAD_TOL]}
+    del ref, ref_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert check["loss_rel_err"] <= PAR_LOSS_TOL, (name, check)
+    assert max(errs.values()) <= PAR_GRAD_TOL, (name, errs)
+    return check
+
+
+def _steady(times):
+    return sorted(times[1:])[len(times[1:]) // 2]
+
+
+def _lm_tokens(seed, batch, seq, vocab):
+    """The same [batch, seq] tokens on every rank."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, vocab, (batch, seq), generator=gen,
+                         device="cuda")
+
+
+def _lm_step(model, opt, tokens, cfg, **groups):
+    from horovod_tpu_torch.models import transformer_loss
+
+    opt.zero_grad()
+    transformer_loss(model, tokens, cfg, **groups).backward()
+    opt.step()
+
+
+def _one_card_step(batch: int) -> dict:
+    """Rank 0 alone: the dense bert-large step at seq 512 on ``batch``
+    rows with fused_adam, 3 host-timed steps and a 2-step profile: the
+    yardstick of the tp and fsdp steps."""
+    from horovod_tpu_torch import fused_adam
+    from horovod_tpu_torch.models import transformer as tt
+
+    cfg = lm_config(SS_SEQ)
+    model = tt.transformer_init(0, cfg)
+    opt = fused_adam(model.parameters(), 3e-4, weight_decay=1e-4)
+    tokens = _lm_tokens(12, batch, SS_SEQ, cfg.vocab)
+    times, _ = run_lm_steps(model, opt, tokens, cfg, 3)
+    profile, _ = step_profile(lambda: _lm_step(model, opt, tokens, cfg),
+                              steps=2)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"batch": batch, "step_s": times, "steady_step_s": _steady(times),
+            "profile": profile}
+
+
+def par_cards_tp(hvd, smi):
+    """par_cards_tp: bert-large with tp = 4 (4 of 16 heads and 1024 of
+    4096 MLP columns a card), seq 512, the same batch of 32 on every
+    card, HVDT_FLASH_SMALLSEQ=on (#12/#13 on the 4 local heads),
+    DistributedOptimizer(fused_adam, axis="dp"): one step's loss and
+    gradients (gathered over tp) against one card running the whole
+    model on the batch, every replicated leaf's gradient equal on every
+    card; then 3 steps: step seconds, tokens/s, the tp all-reduces and
+    all-gathers a step with the bytes and device ms of one, launches, a
+    2-step profile (device ms by kernel class), and rank 0's dense step
+    on the same 32 rows (3 steps and a profile) as the yardstick."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, tp=n)
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), tp=n)
+    tokens = _lm_tokens(7, PAR_TP_BATCH, SS_SEQ, cfg.vocab)
+    model = tt.transformer_init(0, cfg, tp_rank=r)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp")
+    loss = tt.transformer_loss(model, tokens, cfg, tp_group=mesh)
+    loss.backward()
+    opt.synchronize()
+    replicated_equal = _replicated_equal(model)
+    got = _whole_grads(model, cfg, mesh)
+    check = (_check_one_card("par_cards_tp", loss.item(), got,
+                             lm_config(SS_SEQ), tokens)
+             if r == 0 else None)
+    del got
+    model.zero_grad(set_to_none=True)
+    dist.barrier()
+    assert replicated_equal
+
+    group = mesh.get_group("tp")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with _CollectiveCount(group) as calls:
+        times, losses = run_lm_steps(model, opt, tokens, cfg, 3,
+                                     tp_group=mesh)
+    launches = counters()
+    profile_tp, _ = step_profile(lambda: _lm_step(model, opt, tokens, cfg,
+                                                  tp_group=mesh), steps=2)
+    act = torch.randn((PAR_TP_BATCH, SS_SEQ, cfg.d_model), device="cuda",
+                      dtype=cfg.dtype)
+    ar_ms = cuda_ms(lambda: dist.all_reduce(act, group=group), iters=10,
+                    reps=3)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_smallseq_fwd_kernel"] == 48 * 3, launches
+    assert launches["_smallseq_bwd_kernel"] == 24 * 3, launches
+    assert launches["_adam_kernel"] == 3, launches
+    ar, ag = calls.calls["all_reduce"], calls.calls["all_gather_into_tensor"]
+    if r == 0:
+        one_card = _one_card_step(PAR_TP_BATCH)
+        steady = _steady(times)
+        emit({"phase": "par_cards_tp", "cards": n, "model": "bert-large",
+              "tp": n, "local_heads": cfg.heads // n, "seq": SS_SEQ,
+              "batch": PAR_TP_BATCH, "check_vs_one_card": check,
+              "replicated_grads_equal_on_every_card": replicated_equal,
+              "params_rank0": sum(p.numel() for p in model.parameters()),
+              "losses_rank0": losses, "step_s_rank0": times,
+              "steady_step_s": steady,
+              "tokens_per_s": PAR_TP_BATCH * SS_SEQ / steady,
+              "tp_all_reduce_per_step": len(ar) / 3,
+              "tp_all_reduce_bytes": sorted(set(ar)),
+              "tp_all_reduce_ms": ar_ms,
+              "tp_all_reduce_bytes_timed": act.numel() * act.element_size(),
+              "tp_all_gather_per_step": len(ag) / 3,
+              "tp_all_gather_bytes": sorted(set(ag)),
+              "peak_mem_gb_rank0": torch.cuda.max_memory_allocated() / 1e9,
+              "launches_rank0": launches, "profile_tp_rank0": profile_tp,
+              "one_card_same_batch": one_card,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    del model, opt, tokens, act
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def par_cards_fsdp(hvd, smi):
+    """par_cards_fsdp: bert-large with fsdp = 4 (every embed dimension a
+    quarter a card, each block's leaves gathered in the block and again
+    in its remat recompute), seq 512, batch 32 a card,
+    HVDT_FLASH_SMALLSEQ=on, DistributedOptimizer(fused_adam, axis="dp"):
+    one step's loss (the cards' mean) and gradients (gathered over fsdp)
+    against one card running the global batch of 128; parameter and
+    optimizer-state bytes a card against replicated, peak memory; 3
+    steps."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, fsdp=n)
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), fsdp=n)
+    tokens = _lm_tokens(8, n * PAR_FSDP_BATCH, SS_SEQ, cfg.vocab)
+    mine = tokens[r * PAR_FSDP_BATCH:(r + 1) * PAR_FSDP_BATCH]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = tt.transformer_init(0, cfg, fsdp_rank=r)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp")
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    loss = tt.transformer_loss(model, mine, cfg, fsdp_group=mesh)
+    loss.backward()
+    opt.synchronize()
+    replicated_equal = _replicated_equal(model)
+    loss_mean = _world_mean(loss.detach())
+    got = _whole_grads(model, cfg, mesh)
+    whole_params = sum(g.numel() for g in got.values())
+    check = (_check_one_card("par_cards_fsdp", loss_mean, got,
+                             lm_config(SS_SEQ), tokens)
+             if r == 0 else None)
+    del got
+    model.zero_grad(set_to_none=True)
+    dist.barrier()
+    assert replicated_equal
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with _CollectiveCount(mesh.get_group("fsdp")) as calls:
+        times, losses = run_lm_steps(model, opt, mine, cfg, 3,
+                                     fsdp_group=mesh)
+    launches = counters()
+    state_bytes = sum(t.numel() * t.element_size()
+                      for st in opt.optimizer.state.values()
+                      for t in st.values() if torch.is_tensor(t))
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_smallseq_fwd_kernel"] == 48 * 3, launches
+    assert launches["_smallseq_bwd_kernel"] == 24 * 3, launches
+    assert launches["_adam_kernel"] == 3, launches
+    if r == 0:
+        steady = _steady(times)
+        replicated = whole_params * 4
+        emit({"phase": "par_cards_fsdp", "cards": n, "model": "bert-large",
+              "fsdp": n, "seq": SS_SEQ, "batch_per_card": PAR_FSDP_BATCH,
+              "check_vs_one_card": check,
+              "replicated_grads_equal_on_every_card": replicated_equal,
+              "param_bytes_per_card": param_bytes,
+              "optimizer_state_bytes_per_card": state_bytes,
+              "param_bytes_replicated": replicated,
+              "optimizer_state_bytes_replicated": 2 * replicated,
+              "memory_allocated_model_and_state_gb":
+                  (torch.cuda.memory_allocated() - base) / 1e9,
+              "losses_rank0": losses, "step_s_rank0": times,
+              "steady_step_s": steady,
+              "tokens_per_s_per_card": PAR_FSDP_BATCH * SS_SEQ / steady,
+              "fsdp_all_gather_per_step":
+                  len(calls.calls["all_gather_into_tensor"]) / 3,
+              "peak_mem_gb_rank0": torch.cuda.max_memory_allocated() / 1e9,
+              "launches_rank0": launches,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    del model, opt, tokens, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def par_cards_dp2_tp2(hvd, smi):
+    """par_cards_dp2_tp2: bert-large on a dp 2 x tp 2 mesh, seq 512, 32
+    rows a dp member (global 64), HVDT_FLASH_SMALLSEQ=on,
+    DistributedOptimizer(fused_adam, axis="dp"): 3 steps against one card
+    running the global batch with fused_adam from the same seed: each
+    step's loss (the dp members' mean), the first step's gradients and
+    the parameters after 3 steps (gathered over tp)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r = dist.get_rank()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=2, tp=2)
+    d, t = mesh.get_local_rank("dp"), mesh.get_local_rank("tp")
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), tp=2)
+    tokens = _lm_tokens(9, 2 * PAR_DPTP_BATCH, SS_SEQ, cfg.vocab)
+    mine = tokens[d * PAR_DPTP_BATCH:(d + 1) * PAR_DPTP_BATCH]
+    model = tt.transformer_init(0, cfg, tp_rank=t)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp")
+    losses, first = [], None
+    times = []
+    reset_counters()
+    for step in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.zero_grad()
+        loss = tt.transformer_loss(model, mine, cfg, tp_group=mesh)
+        loss.backward()
+        opt.synchronize()
+        if step == 0:
+            replicated_equal = _replicated_equal(model)
+            first = _whole_grads(model, cfg, mesh)
+        opt.optimizer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(_world_mean(loss.detach()))
+    launches = counters()
+    params = _whole_grads(model, cfg, mesh, grads=False)
+    check = None
+    if r == 0:
+        one_cfg = lm_config(SS_SEQ)
+        ref = tt.transformer_init(0, one_cfg)
+        ref_opt = hvd.fused_adam(ref.parameters(), 3e-4, weight_decay=1e-4)
+        ref_losses, grad_errs = [], None
+        for step in range(3):
+            ref_opt.zero_grad()
+            ref_loss = tt.transformer_loss(ref, tokens, one_cfg)
+            ref_loss.backward()
+            if step == 0:
+                grad_errs = {k: _rel_l2([first[k]], [p.grad])
+                             for k, p in ref.named_parameters()}
+            ref_opt.step()
+            ref_losses.append(ref_loss.item())
+        param_errs = {k: _rel_l2([params[k]], [p.detach()])
+                      for k, p in ref.named_parameters()}
+        loss_errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+        check = {"losses_members": losses, "losses_one_card": ref_losses,
+                 "loss_rel_err": loss_errs,
+                 "grad_rel_l2_max_step1": max(grad_errs.values()),
+                 "param_rel_l2_max_step3": max(param_errs.values()),
+                 "param_rel_l2_step3": param_errs,
+                 "tolerances": [PAR_LOSS_TOL, PAR_GRAD_TOL]}
+        del ref, ref_opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "par_cards_dp2_tp2", "cards": dist.get_world_size(),
+              "model": "bert-large", "dp": 2, "tp": 2, "seq": SS_SEQ,
+              "batch_per_dp_member": PAR_DPTP_BATCH,
+              "check_vs_one_card": check,
+              "replicated_grads_equal_on_every_card": replicated_equal,
+              "step_s_rank0": times, "steady_step_s": _steady(times),
+              "tokens_per_s": 2 * PAR_DPTP_BATCH * SS_SEQ / _steady(times),
+              "launches_rank0": launches,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+        assert max(loss_errs) <= PAR_LOSS_TOL, check
+        assert max(grad_errs.values()) <= PAR_GRAD_TOL, grad_errs
+        assert max(param_errs.values()) <= PAR_GRAD_TOL, param_errs
+    assert replicated_equal
+    assert launches["_smallseq_fwd_kernel"] == 48 * 3, launches
+    assert launches["_smallseq_bwd_kernel"] == 24 * 3, launches
+    assert launches["_adam_kernel"] == 3, launches
+    del model, opt, tokens, mine, first, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def par_cards_sp_dp(hvd, smi):
+    """par_cards_sp_dp: bert-large on a dp 2 x sp 2 mesh at global seq
+    4096 (2048 a ring member), 4 rows a dp member, HVDT_RING_PALLAS=1
+    (#9-#11 in every ring step), DistributedOptimizer(fused_adam,
+    axis="dp") averaging over sp in its fold: one step's loss (the
+    members' mean) and gradients against one card running the global
+    batch on the whole sequence with the members' loss (each shard's own
+    targets); then 3 steps with the ring's launches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r = dist.get_rank()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=2, sp=2)
+    d, s = mesh.get_local_rank("dp"), mesh.get_local_rank("sp")
+    os.environ["HVDT_RING_PALLAS"] = "1"
+    cfg = dataclasses.replace(lm_config(PAR_SPDP_SEQ), sp=2)
+    tokens = _lm_tokens(10, 2 * PAR_SPDP_BATCH, PAR_SPDP_SEQ, cfg.vocab)
+    shard = PAR_SPDP_SEQ // 2
+    mine = tokens[d * PAR_SPDP_BATCH:(d + 1) * PAR_SPDP_BATCH,
+                  s * shard:(s + 1) * shard].contiguous()
+    try:
+        model = tt.transformer_init(0, cfg)
+        opt = hvd.DistributedOptimizer(
+            hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+            axis="dp")
+        loss = tt.transformer_loss(model, mine, cfg, sp_group=mesh)
+        loss.backward()
+        opt.synchronize()
+        replicated_equal = _replicated_equal(model)
+        loss_mean = _world_mean(loss.detach())
+        got = {k: p.grad.detach().float() for k, p in
+               model.named_parameters()}
+        check = (_check_one_card("par_cards_sp_dp", loss_mean, got,
+                                 lm_config(PAR_SPDP_SEQ), tokens, sp=2)
+                 if r == 0 else None)
+        del got
+        model.zero_grad(set_to_none=True)
+        dist.barrier()
+        assert replicated_equal
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        times, losses = run_lm_steps(model, opt, mine, cfg, 3,
+                                     sp_group=mesh)
+        launches = counters()
+    finally:
+        del os.environ["HVDT_RING_PALLAS"]
+    per = (s + 1) * cfg.layers          # ring steps a pass (causal)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_kernel"] == 2 * per * 3, launches
+    assert launches["_dq_kernel"] == per * 3, launches
+    assert launches["_dkv_kernel"] == per * 3, launches
+    assert launches["_adam_kernel"] == 3, launches
+    every = _gather_obj({"launches": launches, "step_s": times}, 4)
+    if r == 0:
+        steady = max(_steady(x["step_s"]) for x in every)
+        emit({"phase": "par_cards_sp_dp", "cards": 4, "model": "bert-large",
+              "dp": 2, "sp": 2, "global_seq": PAR_SPDP_SEQ,
+              "batch_per_dp_member": PAR_SPDP_BATCH,
+              "check_vs_one_card": check,
+              "replicated_grads_equal_on_every_card": replicated_equal,
+              "losses_rank0": losses, "step_s_by_rank":
+                  [x["step_s"] for x in every], "steady_step_s": steady,
+              "tokens_per_s": 2 * PAR_SPDP_BATCH * PAR_SPDP_SEQ / steady,
+              "peak_mem_gb_rank0": torch.cuda.max_memory_allocated() / 1e9,
+              "launches_by_rank": [x["launches"] for x in every],
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    del model, opt, tokens, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def par_cards_sp_pp(hvd, smi):
+    """par_cards_sp_pp: bert-large on a pp 2 x sp 2 mesh (12 layers a
+    stage, m = 2 microbatches, the ring of each stage's two cards inside
+    its layers: #9-#11 on bf16), seq 512 (256 a ring member), the same 32
+    rows on both stages, DistributedOptimizer(fused_adam, axis="dp",
+    pipeline="pp"): one step's loss and gradients (gathered over pp)
+    against one card running 24 layers on the whole sequence with the
+    members' loss; ring launches a step."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r = dist.get_rank()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, pp=2, sp=2)
+    stage, s = mesh.get_local_rank("pp"), mesh.get_local_rank("sp")
+    cfg = dataclasses.replace(lm_config(SS_SEQ), sp=2, pp=2)
+    tokens = _lm_tokens(11, PAR_SPPP_BATCH, SS_SEQ, cfg.vocab)
+    shard = SS_SEQ // 2
+    mine = tokens[:, s * shard:(s + 1) * shard].contiguous()
+    model = tt.transformer_init(0, cfg, pp_rank=stage)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp", pipeline="pp")
+    reset_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss = tt.transformer_loss(model, mine, cfg, sp_group=mesh,
+                               pp_group=mesh)
+    loss.backward()
+    opt.synchronize()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    launches = counters()
+    replicated_equal = _replicated_equal(model)
+    # The members' mean loss: every stage holds its ring member's.
+    loss_mean = _world_mean(loss.detach())
+    got = _whole_grads(model, cfg, mesh)
+    check = (_check_one_card("par_cards_sp_pp", loss_mean, got,
+                             lm_config(SS_SEQ), tokens, sp=2)
+             if r == 0 else None)
+    del got
+    per = (s + 1) * cfg.layers_per_stage * 2     # ring steps x microbatches
+    assert launches["_kernel"] == 2 * per, launches
+    assert launches["_dq_kernel"] == per, launches
+    assert launches["_dkv_kernel"] == per, launches
+    every = _gather_obj(launches, 4)
+    if r == 0:
+        emit({"phase": "par_cards_sp_pp", "cards": 4, "model": "bert-large",
+              "pp": 2, "sp": 2, "layers_per_stage": cfg.layers_per_stage,
+              "microbatches": 2, "seq": SS_SEQ, "batch": PAR_SPPP_BATCH,
+              "check_vs_one_card": check,
+              "replicated_grads_equal_on_every_card": replicated_equal,
+              "step_s_rank0": step_s, "launches_by_rank": every,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    assert replicated_equal
+    del model, opt, tokens, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
 def parallel_cards_worker() -> None:
     """One rank of ``--parallel-cards``: :func:`par_cards_moe`,
-    :func:`par_cards_pp`, :func:`par_cards_4d` and
-    :func:`par_cards_sweeps` in an NCCL world of one process a card.
-    Rank 0 prints the lines."""
+    :func:`par_cards_pp`, :func:`par_cards_4d`, :func:`par_cards_tp`,
+    :func:`par_cards_fsdp`, :func:`par_cards_dp2_tp2`,
+    :func:`par_cards_sp_dp`, :func:`par_cards_sp_pp` and
+    :func:`par_cards_sweeps` in an NCCL world of one process a card, each
+    under a watchdog that names it.  Rank 0 prints the lines."""
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -6196,9 +6887,11 @@ def parallel_cards_worker() -> None:
         os.environ.pop(knob, None)
     try:
         for phase in (par_cards_moe, par_cards_pp, par_cards_4d,
-                      par_cards_sweeps):
-            phase(hvd, smi)
-            dist.barrier()
+                      par_cards_tp, par_cards_fsdp, par_cards_dp2_tp2,
+                      par_cards_sp_dp, par_cards_sp_pp, par_cards_sweeps):
+            with _PhaseTimeout(phase.__name__):
+                phase(hvd, smi)
+                dist.barrier()
     except BaseException:
         # As dp_cards_worker: a failed rank exits at once so the parent
         # stops the others.
@@ -6408,6 +7101,7 @@ def main() -> int:
     lm_launches = phase_lm(hvd, gen, smi)
     flash.update(phase_smallseq_kernels(gen, smi))
     ss_launches, lm_shapes = phase_lm_smallseq(hvd, gen, smi)
+    phase_lm_tp1(hvd, gen, smi)
     phase_fp8(hvd, gen, smi)
     phase_moe_dispatch(hvd, smi)
     phase_lm_moe(hvd, gen, smi)

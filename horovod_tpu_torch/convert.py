@@ -11,8 +11,9 @@ Transformer: every leaf copied under its dotted name (``embed``,
 [in, out] and the block leaves stacked [layers, ...], as the reference
 does, the MoE leaves too (``block.w_router`` [L, d, E], ``block.w_up``
 [L, E, d, f], ``block.w_down`` [L, E, f, d]).  ``pp=(rank, pp)`` /
-``ep=(rank, ep)`` keep one member's slice: its stage's layers, its
-experts.
+``ep=(rank, ep)`` / ``tp=(rank, tp)`` / ``fsdp=(rank, fsdp)`` keep one
+member's part: its stage's layers, its experts, its heads and MLP
+columns, its part of the ``embed`` dimension.
 
 VGG-16: ``conv{i}.w`` HWIO → OIHW; ``fc{j}.w`` stays [in, out] (the
 port flattens in the reference's H, W, C order, so ``fc1``'s rows need
@@ -82,31 +83,34 @@ def resnet_params_from_jax(params_np: Dict, stats_np: Dict
     return sd
 
 
-def transformer_params_from_jax(params_np: Dict, *, pp=None, ep=None
+def transformer_params_from_jax(params_np: Dict, *, pp=None, ep=None,
+                                tp=None, fsdp=None
                                 ) -> Dict[str, torch.Tensor]:
     """The JAX package's transformer ``params`` numpy pytree → a
     ``state_dict`` for :class:`horovod_tpu_torch.models.transformer.
-    Transformer` (copies, same layouts).  ``pp=(pp_rank, pp)`` keeps the
-    member's ``layers / pp`` layers of every block leaf and ``ep=(ep_rank,
-    ep)`` its ``E / ep`` experts of ``w_up`` / ``w_down``, so that the
-    module of member ``(pp_rank, ep_rank)`` holds exactly its part of
-    the global parameters."""
+    Transformer` (copies, same layouts).  ``pp=(pp_rank, pp)``,
+    ``ep=(ep_rank, ep)``, ``tp=(tp_rank, tp)`` and ``fsdp=(fsdp_rank,
+    fsdp)`` keep one member's part of every leaf under the reference's
+    rules (``parallel.local_part``): its ``layers / pp`` layers, its ``E /
+    ep`` experts of ``w_up`` / ``w_down``, its ``heads`` / ``mlp`` columns
+    or rows under ``tp`` and its ``d_model / fsdp`` of every ``embed``
+    dimension, so that the module of that member holds exactly its part
+    of the global parameters."""
+    from .models.transformer import _logical_axes
+    from .parallel.sharding import local_part, transformer_rules
+
     out = _param_tensors(params_np)
     moe = "w_router" in params_np.get("block", {})
+    axes = _logical_axes(moe)
+    given = {"pp": pp, "ep": ep if moe else None, "tp": tp, "fsdp": fsdp}
+    sizes = {a: int(v[1]) for a, v in given.items() if v is not None}
+    coords = {a: int(v[0]) for a, v in given.items() if v is not None}
+    rules = transformer_rules(fsdp=fsdp is not None)
     for name in list(out):
-        if not name.startswith("block."):
-            continue
-        leaf = out[name]
-        if pp is not None:
-            rank, n = pp
-            per = leaf.shape[0] // n
-            leaf = leaf[rank * per:(rank + 1) * per]
-        if ep is not None and moe and name in ("block.w_up",
-                                                "block.w_down"):
-            rank, n = ep
-            per = leaf.shape[1] // n
-            leaf = leaf[:, rank * per:(rank + 1) * per]
-        out[name] = leaf.contiguous().clone()
+        logical = (axes["block"][name[6:]] if name.startswith("block.")
+                   else axes[name])
+        out[name] = local_part(out[name], logical, rules, sizes,
+                               coords).contiguous().clone()
     return out
 
 

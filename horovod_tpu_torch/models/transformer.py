@@ -79,8 +79,58 @@ slice of (every block leaf over ``pp``, the experts also over ``ep``),
 which ``DistributedOptimizer(axis=, pipeline=, expert=)`` reads.  On
 the card attention runs the port's kernels inside the pipeline and the
 MoE blocks; the reference falls back to XLA attention inside its
-``shard_map`` islands, which computes the same function.  ``sp > 1``
-together with ``ep > 1`` or ``pp > 1`` raises (parallel axes, part 2).
+``shard_map`` islands, which computes the same function.
+
+``sp > 1`` composes with ``dp``, ``ep`` and ``pp`` as in the reference,
+which builds all of them from one ``transformer_hidden`` (manual axes
+``sp`` and ``ep``, ``pipeline_spmd`` over ``pp``): with ``ep > 1`` the ring
+runs inside the MoE blocks (the member's tokens are its batch rows and
+its shard of the sequence; the all-to-all goes over ``ep`` between the
+members that hold the same shard), with ``pp > 1`` inside each stage (the
+stage's members form the ring; the pipeline moves activations between
+the members of one ``sp`` index).  ``DistributedOptimizer(axis="dp")``
+then averages a replicated leaf over ``sp`` (and ``ep``) before the
+exchange over ``dp``.
+
+Tensor parallelism (``cfg.tp > 1``, ``tp_group=``) is Megatron's layout
+under the reference's rules (``parallel.transformer_rules``: ``heads``
+and ``mlp`` over ``tp``, ``kv``, ``vocab`` and ``embed`` replicated):
+``wq`` and the MLP's ``w_up`` / ``w_gate`` are column-parallel (each
+member holds its heads' / its ``d_ff / tp`` columns), ``wo`` and
+``w_down`` row-parallel, with a sum over ``tp`` after each.  The two
+conjugate operations are autograd Functions: at the column entry the
+identity forward whose backward all-reduces the input's gradient
+(:class:`_TpEnter`), after the row product the all-reduce forward whose
+backward is the identity (:class:`_TpLeave`).  ``wk`` / ``wv`` stay whole
+on every member; each member takes its ``kv_heads / tp`` heads' columns
+through :class:`_TpColumns` (the slice forward, the all-gather of the
+slices' gradients backward), so every member ends the backward with the
+whole gradient of every replicated leaf (``embed``, the norms, ``wk`` /
+``wv``), equal on all of them.  Attention runs on the member's ``heads /
+tp`` local heads through the same :func:`_flash_fn` choice, taken on the
+local batch and heads (the reference's island plan).  The same tokens
+go to every ``tp`` member.
+
+Fully-sharded data parallelism (``cfg.fsdp > 1``, ``fsdp_group=``) follows
+``transformer_rules(fsdp=True)``: every leaf with an ``embed`` dimension
+holds ``d_model / fsdp`` of it on each member, the batch shards over
+(``dp``, ``fsdp``).  Each block all-gathers its leaves over ``fsdp`` just
+before use (:class:`_FsdpGather`: the all-gather forward, the
+reduce-scatter of the gradient backward) and drops the whole weights
+after it; the ``embed`` gather serves the lookup and the tied logits or
+chunked loss.  Under ``remat`` the gather is inside the checkpointed
+block, so the recompute gathers again and no layer's whole weights live
+across the step (without ``remat`` autograd keeps each layer's
+activation-dtype copy for the backward).  This is the port's per-layer
+ZeRO-3, the reference's ``fsdp_shardings`` path under GSPMD; the ZeRO
+``params`` stage (``ops/zero.py``) keeps its once-a-step gather, as the
+reference's ``shard_map`` path does.  ``fsdp`` and ``tp`` compose: the
+gather over ``fsdp`` gives the ``tp``-local weight.  A member's gradient
+of an ``fsdp``-sharded leaf is the sum over ``fsdp`` of the members'
+gradients of their own tokens' losses; ``DistributedOptimizer(axis=
+"dp")`` divides it by the ``fsdp`` size and averages the replicated
+leaves over ``fsdp``.  ``tp`` together with experts raises (parallel
+axes, part 3).
 
 ``remat_policy="dots"`` (``HVDT_REMAT=dots``) is the reference's
 ``dots_with_no_batch_dims_saveable``: ``torch.utils.checkpoint`` with a
@@ -100,6 +150,7 @@ import functools
 from typing import Mapping, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
@@ -110,6 +161,8 @@ from ..parallel.mesh import mark_sharded
 from ..parallel.moe import moe_dispatch_combine
 from ..parallel.pipeline import pipeline_1f1b
 from ..parallel.ring_attention import _Ring, ring_attention
+from ..parallel.sharding import (local_part, logical_to_mesh,
+                                 transformer_rules)
 from ..quant import fp8 as _fp8
 
 __all__ = [
@@ -140,6 +193,8 @@ class TransformerConfig:
     sp: int = 1                  # sequence-parallel degree (ring attention)
     ep: int = 1                  # expert-parallel degree
     pp: int = 1                  # pipeline stages (layers % pp == 0)
+    tp: int = 1                  # tensor-parallel degree (Megatron layers)
+    fsdp: int = 1                # fully-sharded degree (embed dims sharded)
     remat: bool = False          # torch.utils.checkpoint each block
     remat_policy: str = "full"   # "full" or "dots" when remat
     loss_chunk: int = 0          # >0: chunked-vocab cross entropy
@@ -160,10 +215,17 @@ def _moe_ep(cfg: TransformerConfig) -> bool:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.sp > 1 and (_moe_ep(cfg) or cfg.pp > 1):
+    if cfg.tp > 1 and cfg.num_experts:
         raise NotImplementedError(
-            "sp > 1 together with ep > 1 or pp > 1 is not ported yet "
-            "(ROADMAP Queue 1: parallel axes, part 2)")
+            "tp > 1 together with experts is not ported yet (ROADMAP "
+            "Queue 1: parallel axes, part 3)")
+    for what, n in (("heads", cfg.heads), ("kv_heads", cfg.kv_heads),
+                    ("d_ff", cfg.d_ff)):
+        if n % max(cfg.tp, 1):
+            raise ValueError(f"{what} {n} not divisible by tp {cfg.tp}")
+    if cfg.d_model % max(cfg.fsdp, 1):
+        raise ValueError(f"d_model {cfg.d_model} not divisible by fsdp "
+                         f"{cfg.fsdp}")
     if cfg.layers % max(cfg.pp, 1):
         raise ValueError(f"layers {cfg.layers} not divisible by pp {cfg.pp}")
     if _moe_ep(cfg) and cfg.num_experts % cfg.ep:
@@ -174,22 +236,65 @@ def _check_supported(cfg: TransformerConfig) -> None:
                          "(expected 'full' or 'dots')")
 
 
-_EXPERT_LEAVES = ("w_up", "w_down")
+def _logical_axes(moe: bool) -> dict:
+    """The reference's logical axes of each leaf (see
+    :func:`transformer_logical_axes`)."""
+    block = {
+        "ln1": ("stages", None),
+        "ln2": ("stages", None),
+        "wq": ("stages", "embed", "heads"),
+        "wk": ("stages", "embed", "kv"),
+        "wv": ("stages", "embed", "kv"),
+        "wo": ("stages", "heads", "embed"),
+    }
+    if moe:
+        block["w_router"] = ("stages", "embed", None)
+        block["w_up"] = ("stages", "experts", "embed", "mlp")
+        block["w_down"] = ("stages", "experts", "mlp", "embed")
+    else:
+        block["w_up"] = ("stages", "embed", "mlp")
+        block["w_gate"] = ("stages", "embed", "mlp")
+        block["w_down"] = ("stages", "mlp", "embed")
+    return {"embed": ("vocab", "embed"), "ln_f": (None,), "block": block}
+
+
+def _axis_sizes(cfg: TransformerConfig) -> dict:
+    """The sizes of the mesh axes that shard the parameters."""
+    return {"pp": cfg.pp, "ep": cfg.ep if cfg.num_experts else 1,
+            "tp": cfg.tp, "fsdp": cfg.fsdp}
+
+
+def _rules(cfg: TransformerConfig) -> dict:
+    return transformer_rules(fsdp=cfg.fsdp > 1)
+
+
+def _leaf_logical(name: str, cfg: TransformerConfig) -> tuple:
+    axes = _logical_axes(bool(cfg.num_experts))
+    if name in ("embed", "ln_f"):
+        return axes[name]
+    return axes["block"].get(name, ("stages", None))
+
+
+def leaf_spec(name: str, cfg: TransformerConfig) -> tuple:
+    """The mesh-axis spec (``parallel.logical_to_mesh``) of the leaf
+    ``name`` (``embed``, ``ln_f`` or a block leaf's name) under ``cfg``'s
+    ``pp`` / ``ep`` / ``tp`` / ``fsdp`` sizes and the reference's rules."""
+    return logical_to_mesh(_leaf_logical(name, cfg), _rules(cfg),
+                           _axis_sizes(cfg))
 
 
 def local_slice(name: str, leaf, cfg: TransformerConfig, pp_rank: int = 0,
-                ep_rank: int = 0):
-    """The part of the global block leaf ``name`` (stacked [layers, ...])
-    that the member ``(pp_rank, ep_rank)`` holds: its stage's layers
-    under ``pp > 1`` and, for an expert leaf under ``ep > 1``, its
-    experts.  Works on tensors and numpy arrays."""
-    if cfg.pp > 1:
-        n = cfg.layers_per_stage
-        leaf = leaf[pp_rank * n:(pp_rank + 1) * n]
-    if _moe_ep(cfg) and name in _EXPERT_LEAVES:
-        e = cfg.num_experts // cfg.ep
-        leaf = leaf[:, ep_rank * e:(ep_rank + 1) * e]
-    return leaf
+                ep_rank: int = 0, tp_rank: int = 0, fsdp_rank: int = 0):
+    """The part of the global leaf ``name`` (``embed``, ``ln_f`` or a block
+    leaf, stacked [layers, ...]) that the member ``(pp_rank, ep_rank,
+    tp_rank, fsdp_rank)`` holds under the reference's rules
+    (``parallel.local_part``): its stage's layers under ``pp > 1``, its
+    experts under ``ep > 1``, its heads' or MLP columns / rows under ``tp
+    > 1`` and its part of the ``embed`` dimension under ``fsdp > 1``.
+    Works on tensors (a view) and numpy arrays."""
+    return local_part(leaf, _leaf_logical(name, cfg), _rules(cfg),
+                      _axis_sizes(cfg), dict(pp=pp_rank, ep=ep_rank,
+                                             tp=tp_rank, fsdp=fsdp_rank))
 
 
 class Transformer(nn.Module):
@@ -197,36 +302,42 @@ class Transformer(nn.Module):
     [vocab, d], ``ln_f`` [d], and the stacked ``block.<name>``
     [layers, ...] (``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, and
     ``w_up``, ``w_gate``, ``w_down`` or, with experts, ``w_router``,
-    ``w_up``, ``w_down``).  Under ``pp`` / ``ep`` it holds the slice of
-    member ``(pp_rank, ep_rank)`` (:func:`local_slice`) of the global
-    parameters the same generator draws.  ``forward`` returns f32
-    logits."""
+    ``w_up``, ``w_down``).  Under ``pp`` / ``ep`` / ``tp`` / ``fsdp`` it
+    holds the part of member ``(pp_rank, ep_rank, tp_rank, fsdp_rank)``
+    (:func:`local_slice`) of the global parameters the same generator
+    draws, and ``parallel.mark_sharded`` records the axes each leaf is
+    sharded over.  ``forward`` returns f32 logits."""
 
     def __init__(self, cfg: TransformerConfig,
                  generator: Optional[torch.Generator] = None,
                  device: DeviceLike = None, *, pp_rank: int = 0,
-                 ep_rank: int = 0):
+                 ep_rank: int = 0, tp_rank: int = 0, fsdp_rank: int = 0):
         super().__init__()
         _check_supported(cfg)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator()
         self.cfg, self.pp_rank, self.ep_rank = cfg, pp_rank, ep_rank
+        self.tp_rank, self.fsdp_rank = tp_rank, fsdp_rank
         d, h, hk, dh, f = (cfg.d_model, cfg.heads, cfg.kv_heads,
                            cfg.head_dim, cfg.d_ff)
         n, pd = cfg.layers, cfg.param_dtype
+        ranks = dict(pp_rank=pp_rank, ep_rank=ep_rank, tp_rank=tp_rank,
+                     fsdp_rank=fsdp_rank)
+
+        def part(name, whole):
+            # Drawn whole, so every layout holds parts of one model.
+            mine = local_slice(name, whole, cfg, **ranks)
+            return mine.to(pd, copy=mine.numel() != whole.numel())
 
         def linear(name, fan_in, *shape):
-            # Drawn whole, so every layout holds slices of one model.
-            w = torch.randn((n, *shape), generator=gen) * fan_in ** -0.5
-            return local_slice(name, w, cfg, pp_rank, ep_rank).to(
-                pd, copy=cfg.pp > 1 or _moe_ep(cfg))
+            return part(name, torch.randn((n, *shape), generator=gen)
+                        * fan_in ** -0.5)
 
         def ones(*shape):
-            return local_slice("ln", torch.ones((n, *shape), dtype=pd), cfg,
-                               pp_rank, ep_rank)
+            return part("ln1", torch.ones((n, *shape), dtype=pd))
 
-        self.embed = nn.Parameter(
-            (torch.randn((cfg.vocab, d), generator=gen) * 0.02).to(pd))
+        self.embed = nn.Parameter(part(
+            "embed", torch.randn((cfg.vocab, d), generator=gen) * 0.02))
         self.ln_f = nn.Parameter(torch.ones(d, dtype=pd))
         block = {
             "ln1": ones(d),
@@ -246,57 +357,46 @@ class Transformer(nn.Module):
             block["w_gate"] = linear("w_gate", d, d, f)
             block["w_down"] = linear("w_down", f, f, d)
         self.block = nn.ParameterDict(block)
-        for name, leaf in self.block.items():
-            axes = (("pp",) if cfg.pp > 1 else ()) + (
-                ("ep",) if _moe_ep(cfg) and name in _EXPERT_LEAVES else ())
+        for name, leaf in self.named_parameters():
+            axes = [a for entry in leaf_spec(name.split(".")[-1], cfg)
+                    for a in ((entry,) if isinstance(entry, str)
+                              else entry or ())]
             if axes:
                 mark_sharded(leaf, *axes)
         self.to(dev)
 
     def forward(self, tokens: torch.Tensor, *, sp_group=None,
-                ep_group=None, pp_group=None) -> torch.Tensor:
+                ep_group=None, pp_group=None, tp_group=None,
+                fsdp_group=None) -> torch.Tensor:
         return transformer_apply(self, tokens, self.cfg, sp_group=sp_group,
-                                 ep_group=ep_group, pp_group=pp_group)
+                                 ep_group=ep_group, pp_group=pp_group,
+                                 tp_group=tp_group, fsdp_group=fsdp_group)
 
 
 def transformer_init(seed: Union[int, torch.Generator],
                      cfg: TransformerConfig,
                      device: DeviceLike = None, *, pp_rank: int = 0,
-                     ep_rank: int = 0) -> Transformer:
+                     ep_rank: int = 0, tp_rank: int = 0,
+                     fsdp_rank: int = 0) -> Transformer:
     """A :class:`Transformer` with random weights drawn on the CPU from
     ``seed`` (an int or a ``torch.Generator``) as the reference draws
     them (normal · fan_in^-0.5, embed normal · 0.02, norms 1), placed on
     ``device`` (the card unless the caller names another).  Under ``pp``
-    / ``ep`` the module holds member ``(pp_rank, ep_rank)``'s slice of
-    the model the same seed draws with ``pp = ep = 1``."""
+    / ``ep`` / ``tp`` / ``fsdp`` the module holds member ``(pp_rank,
+    ep_rank, tp_rank, fsdp_rank)``'s part of the model the same seed
+    draws with every degree 1."""
     gen = seed if isinstance(seed, torch.Generator) else \
         torch.Generator().manual_seed(int(seed))
     return Transformer(cfg, generator=gen, device=device, pp_rank=pp_rank,
-                       ep_rank=ep_rank)
+                       ep_rank=ep_rank, tp_rank=tp_rank, fsdp_rank=fsdp_rank)
 
 
 def transformer_logical_axes(cfg: TransformerConfig) -> dict:
     """The reference's logical axis names of each leaf (None: a
     replicated dimension): the stacked-layers dimension is ``stages``
     (sharded over ``pp``), the expert dimension ``experts`` (over
-    ``ep``)."""
-    block = {
-        "ln1": ("stages", None),
-        "ln2": ("stages", None),
-        "wq": ("stages", "embed", "heads"),
-        "wk": ("stages", "embed", "kv"),
-        "wv": ("stages", "embed", "kv"),
-        "wo": ("stages", "heads", "embed"),
-    }
-    if cfg.num_experts:
-        block["w_router"] = ("stages", "embed", None)
-        block["w_up"] = ("stages", "experts", "embed", "mlp")
-        block["w_down"] = ("stages", "experts", "mlp", "embed")
-    else:
-        block["w_up"] = ("stages", "embed", "mlp")
-        block["w_gate"] = ("stages", "embed", "mlp")
-        block["w_down"] = ("stages", "mlp", "embed")
-    return {"embed": ("vocab", "embed"), "ln_f": (None,), "block": block}
+    ``ep``); ``parallel.transformer_rules`` maps the rest."""
+    return _logical_axes(bool(cfg.num_experts))
 
 
 def _rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -328,21 +428,151 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def _qkv(p, x, positions, cfg: TransformerConfig):
-    """Rotated q/k/v projections [B, L, H(kv), D]."""
+# ---- the tp and fsdp collectives ---------------------------------------------
+
+
+def _all_gather_dim(t: torch.Tensor, ring: _Ring, dim: int) -> torch.Tensor:
+    """The members' ``t`` concatenated along ``dim``, in member order."""
+    t = t.contiguous()
+    out = t.new_empty((ring.size * t.numel(),))
+    dist.all_gather_into_tensor(out, t.reshape(-1), group=ring.group)
+    parts = out.view(ring.size, *t.shape)
+    if dim == 0:
+        return parts.reshape(ring.size * t.shape[0], *t.shape[1:])
+    return torch.cat(parts.unbind(0), dim)
+
+
+def _reduce_scatter_dim(t: torch.Tensor, ring: _Ring, dim: int
+                        ) -> torch.Tensor:
+    """The sum over the members of ``t``, cut along ``dim`` into
+    ``ring.size`` blocks: this member's block."""
+    n = ring.size
+    stacked = (t.contiguous() if dim == 0
+               else torch.stack(t.chunk(n, dim))).reshape(-1)
+    out = t.new_empty((t.numel() // n,))
+    dist.reduce_scatter_tensor(out, stacked, group=ring.group)
+    shape = list(t.shape)
+    shape[dim] //= n
+    return out.view(shape)
+
+
+class _FsdpGather(torch.autograd.Function):
+    """A leaf's whole weight from the members' shards along ``dim``: the
+    all-gather forward; backward, the reduce-scatter (sum) of its
+    gradient, which leaves each member the sum over ``fsdp`` of every
+    member's gradient of its shard."""
+
+    @staticmethod
+    def forward(ctx, shard, ring, dim):
+        ctx.ring, ctx.dim = ring, dim
+        return _all_gather_dim(shard, ring, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter_dim(grad, ctx.ring, ctx.dim), None, None
+
+
+class _TpEnter(torch.autograd.Function):
+    """The column-parallel entry: identity forward; backward, the sum
+    over ``tp`` of the members' gradients of the (replicated) input."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring = ring
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.ring.group)
+        return grad, None
+
+
+class _TpLeave(torch.autograd.Function):
+    """After a row-parallel product: the sum over ``tp`` of the members'
+    partial outputs forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, y, ring):
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=ring.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _TpColumns(torch.autograd.Function):
+    """A replicated weight's columns of this ``tp`` member (``1 / tp`` of
+    the last dimension): the slice forward; backward, the members'
+    gradients of their columns all-gathered into the whole gradient,
+    the same on every member."""
+
+    @staticmethod
+    def forward(ctx, w, ring):
+        ctx.ring = ring
+        c = w.shape[-1] // ring.size
+        return w[..., ring.rank * c:(ring.rank + 1) * c].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_dim(grad, ctx.ring, grad.dim() - 1), None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """The resolved ``tp`` / ``fsdp`` groups of one call (None: the axis
+    has one member) and, per block leaf, the dimension of its per-layer
+    slice that is sharded over ``fsdp`` (None: replicated)."""
+
+    tp: Optional[_Ring]
+    fsdp: Optional[_Ring]
+    fsdp_dims: Mapping[str, Optional[int]]
+
+
+def _fsdp_dim(name: str, cfg: TransformerConfig) -> Optional[int]:
+    for dim, entry in enumerate(leaf_spec(name, cfg)):
+        if entry == "fsdp" or (isinstance(entry, tuple) and "fsdp" in entry):
+            return dim
+    return None
+
+
+def _gather_block(p: Mapping[str, torch.Tensor], layout: Optional[_Layout]):
+    """One layer's leaves with the ``fsdp``-sharded ones gathered whole."""
+    if layout is None or layout.fsdp is None:
+        return p
+    out = {}
+    for name, w in p.items():
+        dim = layout.fsdp_dims.get(name)
+        # The stacked-layers dimension is gone from a layer's leaf.
+        out[name] = w if dim is None else _FsdpGather.apply(
+            w, layout.fsdp, dim - 1)
+    return out
+
+
+def _qkv(x, wq, wk, wv, positions, cfg: TransformerConfig):
+    """Rotated q/k/v projections [B, L, H(kv), D] (H, Hkv: the heads
+    whose columns ``wq`` / ``wk`` / ``wv`` hold)."""
     b, l, _ = x.shape
-    h, hk, dh = cfg.heads, cfg.kv_heads, cfg.head_dim
-    q = _proj(x, p["wq"]).reshape(b, l, h, dh)
-    k = _proj(x, p["wk"]).reshape(b, l, hk, dh)
-    v = _proj(x, p["wv"]).reshape(b, l, hk, dh)
+    dh = cfg.head_dim
+    q = _proj(x, wq).reshape(b, l, -1, dh)
+    k = _proj(x, wk).reshape(b, l, -1, dh)
+    v = _proj(x, wv).reshape(b, l, -1, dh)
     return (_rope(q, positions, cfg.rope_theta),
             _rope(k, positions, cfg.rope_theta), v)
 
 
-def _attention(p, x, positions, cfg: TransformerConfig, sp_group=None):
+def _attention(p, x, positions, cfg: TransformerConfig, sp_group=None,
+               tp: Optional[_Ring] = None):
     b, l, d = x.shape
-    h, hk, dh = cfg.heads, cfg.kv_heads, cfg.head_dim
-    q, k, v = _qkv(p, x, positions, cfg)
+    wk, wv = p["wk"], p["wv"]
+    if tp is not None:
+        x = _TpEnter.apply(x, tp)
+        wk, wv = _TpColumns.apply(wk, tp), _TpColumns.apply(wv, tp)
+    q, k, v = _qkv(x, p["wq"], wk, wv, positions, cfg)
+    # This member's heads (all of them without tp).
+    h, hk, dh = q.shape[2], k.shape[2], cfg.head_dim
     # The reference's mesh-island planner (_flash_plan) exists because
     # Mosaic kernels cannot be auto-partitioned by GSPMD; a process here
     # holds whole local tensors, so the plan is the ring (the sequence
@@ -362,7 +592,8 @@ def _attention(p, x, positions, cfg: TransformerConfig, sp_group=None):
         s = torch.where(mask, s, -1e30)
         w = torch.softmax(s, dim=-1).to(v.dtype)
         o = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    return _proj(o.reshape(b, l, h * dh), p["wo"])
+    out = _proj(o.reshape(b, l, h * dh), p["wo"])
+    return out if tp is None else _TpLeave.apply(out, tp)
 
 
 def _flash_enabled(seq_len: int, head_dim: int, *, batch: int = 1,
@@ -451,10 +682,13 @@ def _flash_fn(seq_len: int, head_dim: int, *, batch: int, heads: int,
     return None
 
 
-def _mlp(p, x):
+def _mlp(p, x, tp: Optional[_Ring] = None):
+    if tp is not None:
+        x = _TpEnter.apply(x, tp)
     up = _proj(x, p["w_up"])
     gate = torch.nn.functional.silu(_proj(x, p["w_gate"]))
-    return _proj(up * gate, p["w_down"])
+    out = _proj(up * gate, p["w_down"])
+    return out if tp is None else _TpLeave.apply(out, tp)
 
 
 def _moe_mlp(p, x, cfg: TransformerConfig, ep_group=None):
@@ -547,27 +781,32 @@ def remat_checkpoint(fn, *args, policy: str = "full"):
 
 
 def _block(p, x, positions, cfg: TransformerConfig, sp_group=None,
-           ep_group=None):
-    x = x + _attention(p, _rmsnorm(x, p["ln1"]), positions, cfg, sp_group)
+           ep_group=None, layout: Optional[_Layout] = None):
+    p = _gather_block(p, layout)
+    tp = layout.tp if layout is not None else None
+    x = x + _attention(p, _rmsnorm(x, p["ln1"]), positions, cfg, sp_group,
+                       tp)
     if cfg.num_experts:
         y, _ = _moe_mlp(p, _rmsnorm(x, p["ln2"]), cfg, ep_group)
     else:
-        y = _mlp(p, _rmsnorm(x, p["ln2"]))
+        y = _mlp(p, _rmsnorm(x, p["ln2"]), tp)
     return x + y
 
 
 def _scan_blocks(block_params: Mapping[str, torch.Tensor], x, positions,
-                 cfg: TransformerConfig, sp_group=None, ep_group=None):
+                 cfg: TransformerConfig, sp_group=None, ep_group=None,
+                 layout: Optional[_Layout] = None):
     """The reference's ``lax.scan`` over the stacked layers, as a loop:
     each stacked leaf is unbound once, and with ``cfg.remat`` every layer
-    runs under ``torch.utils.checkpoint`` (:func:`remat_checkpoint`)."""
+    runs under ``torch.utils.checkpoint`` (:func:`remat_checkpoint`),
+    its ``fsdp`` gathers inside."""
     names = list(block_params)
     per_layer = list(zip(*(torch.unbind(block_params[n], 0)
                            for n in names)))
 
     def body(x, *leaves):
         return _block(dict(zip(names, leaves)), x, positions, cfg,
-                      sp_group, ep_group)
+                      sp_group, ep_group, layout)
 
     for leaves in per_layer:
         if cfg.remat:
@@ -594,11 +833,14 @@ def _sp_rank(cfg: TransformerConfig, sp_group) -> int:
     return ring.rank
 
 
-def _member(params: Transformer, n: int, group, axis: str) -> None:
+def _member(params: Transformer, n: int, group, axis: str,
+            checked: bool = False) -> Optional[_Ring]:
     """Check that ``group`` (required when ``n > 1``) has ``n`` members and
-    that this process is the one whose slice ``params`` holds."""
-    if n <= 1:
-        return
+    that this process is the one whose slice ``params`` holds; returns
+    its ring when ``n > 1``.  ``checked``: a group given with ``n == 1``
+    must have one member too."""
+    if n <= 1 and not (checked and group is not None):
+        return None
     if group is None:
         raise ValueError(f"cfg.{axis} = {n} needs {axis}_group= (a process "
                          f"group or a mesh with an {axis!r} dimension)")
@@ -611,23 +853,36 @@ def _member(params: Transformer, n: int, group, axis: str) -> None:
         raise ValueError(f"this process is member {ring.rank} of the "
                          f"{axis} group but the module holds member "
                          f"{held}'s slice")
+    return ring if n > 1 else None
 
 
-def transformer_hidden(params: Transformer, tokens: torch.Tensor,
-                       cfg: TransformerConfig, *, sp_group=None,
-                       ep_group=None, pp_group=None) -> torch.Tensor:
-    """Final-norm hidden states [batch, seq, d_model] (everything but the
-    vocab projection).  tokens: [batch, seq] integer ids: this member's
-    local shard of the sequence when ``cfg.sp > 1`` (positions offset by
-    ``sp_rank * seq``), the full sequence otherwise; this member's own
-    batch under ``ep``; the same batch on every ``pp`` stage."""
+def _layout(params: Transformer, cfg: TransformerConfig, tp_group,
+            fsdp_group) -> Optional[_Layout]:
+    tp = _member(params, cfg.tp, tp_group, "tp", checked=True)
+    fsdp = _member(params, cfg.fsdp, fsdp_group, "fsdp", checked=True)
+    if tp is None and fsdp is None:
+        return None
+    dims = {name: _fsdp_dim(name, cfg) for name in params.block} \
+        if fsdp is not None else {}
+    return _Layout(tp, fsdp, dims)
+
+
+def _forward(params: Transformer, tokens: torch.Tensor,
+             cfg: TransformerConfig, sp_group=None, ep_group=None,
+             pp_group=None, tp_group=None, fsdp_group=None):
+    """(final-norm hidden states, the whole ``embed``): under ``fsdp`` the
+    one gather of ``embed`` serves the lookup and the logits."""
     _check_supported(cfg)
     b, l = tokens.shape
     offset = _sp_rank(cfg, sp_group) * l
     _member(params, cfg.ep if cfg.num_experts else 1, ep_group, "ep")
     _member(params, cfg.pp, pp_group, "pp")
+    layout = _layout(params, cfg, tp_group, fsdp_group)
     positions = offset + torch.arange(l, device=tokens.device).expand(b, l)
-    x = params.embed.to(cfg.dtype)[tokens.long()]
+    embed = params.embed
+    if layout is not None and layout.fsdp is not None:
+        embed = _FsdpGather.apply(embed, layout.fsdp, _fsdp_dim("embed", cfg))
+    x = embed.to(cfg.dtype)[tokens.long()]
     if cfg.pp > 1:
         # m = pp microbatches over the batch (the least schedule); the
         # positions are the same in every microbatch.
@@ -638,24 +893,42 @@ def transformer_hidden(params: Transformer, tokens: torch.Tensor,
 
         def stage_fn(stage_params, a):
             return _scan_blocks(stage_params, a, positions[:mb], cfg,
-                                sp_group, ep_group)
+                                sp_group, ep_group, layout)
 
         x = pipeline_1f1b(stage_fn, dict(params.block),
                           x.reshape(m, mb, l, cfg.d_model), group=pp_group,
                           axis="pp").reshape(b, l, cfg.d_model)
     else:
-        x = _scan_blocks(params.block, x, positions, cfg, sp_group, ep_group)
-    return _rmsnorm(x, params.ln_f)
+        x = _scan_blocks(params.block, x, positions, cfg, sp_group, ep_group,
+                         layout)
+    return _rmsnorm(x, params.ln_f), embed
+
+
+def transformer_hidden(params: Transformer, tokens: torch.Tensor,
+                       cfg: TransformerConfig, *, sp_group=None,
+                       ep_group=None, pp_group=None, tp_group=None,
+                       fsdp_group=None) -> torch.Tensor:
+    """Final-norm hidden states [batch, seq, d_model] (everything but the
+    vocab projection).  tokens: [batch, seq] integer ids: this member's
+    local shard of the sequence when ``cfg.sp > 1`` (positions offset by
+    ``sp_rank * seq``), the full sequence otherwise; this member's own
+    batch under ``ep`` and ``fsdp``; the same batch on every ``pp`` stage
+    and every ``tp`` member.  ``tp_group`` / ``fsdp_group`` (a process
+    group or a mesh; required when ``cfg.tp`` / ``cfg.fsdp`` > 1, of that
+    size) carry the tensor-parallel and fully-sharded collectives."""
+    return _forward(params, tokens, cfg, sp_group, ep_group, pp_group,
+                    tp_group, fsdp_group)[0]
 
 
 def transformer_apply(params: Transformer, tokens: torch.Tensor,
                       cfg: TransformerConfig, *, sp_group=None,
-                      ep_group=None, pp_group=None) -> torch.Tensor:
+                      ep_group=None, pp_group=None, tp_group=None,
+                      fsdp_group=None) -> torch.Tensor:
     """Logits [batch, seq, vocab] f32 for next-token prediction (see
     :func:`transformer_hidden`)."""
-    x = transformer_hidden(params, tokens, cfg, sp_group=sp_group,
-                           ep_group=ep_group, pp_group=pp_group)
-    return (x @ params.embed.to(x.dtype).t()).float()
+    x, embed = _forward(params, tokens, cfg, sp_group, ep_group, pp_group,
+                        tp_group, fsdp_group)
+    return (x @ embed.to(x.dtype).t()).float()
 
 
 def _xent_chunk(m, s, tl, xf, wc, tgt, base: int, vocab: int):
@@ -701,19 +974,21 @@ def _chunked_xent(x: torch.Tensor, embed: torch.Tensor,
 
 def transformer_loss(params: Transformer, tokens: torch.Tensor,
                      cfg: TransformerConfig, *, sp_group=None,
-                     ep_group=None, pp_group=None) -> torch.Tensor:
+                     ep_group=None, pp_group=None, tp_group=None,
+                     fsdp_group=None) -> torch.Tensor:
     """Causal LM loss (next-token cross entropy) over the local shard.
     The model runs on the FULL (local) sequence and the last position's
     prediction is dropped, so the attention length stays the caller's
     ``seq`` (which is what lets the flash gate's tiling check pass).
-    Under ``cfg.sp > 1`` or ``ep > 1`` the caller averages the members'
-    losses; every ``pp`` stage returns the same loss."""
+    Under ``cfg.sp > 1``, ``ep > 1`` or ``fsdp > 1`` the caller averages
+    the members' losses; every ``pp`` stage and every ``tp`` member
+    returns the same loss."""
     targets = tokens[:, 1:]
-    groups = dict(sp_group=sp_group, ep_group=ep_group, pp_group=pp_group)
+    x, embed = _forward(params, tokens, cfg, sp_group, ep_group, pp_group,
+                        tp_group, fsdp_group)
     if cfg.loss_chunk:
-        x = transformer_hidden(params, tokens, cfg, **groups)[:, :-1]
-        return _chunked_xent(x, params.embed, targets, cfg.loss_chunk)
-    logits = transformer_apply(params, tokens, cfg, **groups)[:, :-1]
+        return _chunked_xent(x[:, :-1], embed, targets, cfg.loss_chunk)
+    logits = (x @ embed.to(x.dtype).t()).float()[:, :-1]
     logp = torch.log_softmax(logits, -1)
     return -logp.gather(-1, targets[..., None].long())[..., 0].mean()
 

@@ -64,12 +64,25 @@ other dimensions:
 * nothing is folded over ``pipeline``: the pipeline's backward
   (``parallel/pipeline.py``) leaves every stage the reference's gradient
   of its own leaves, and every member the same gradient of a leaf
-  replicated over ``pp``.
+  replicated over ``pp``;
+* nothing is folded over ``tp``: every ``tp`` member computes the same
+  loss, and the transformer's conjugate operations leave each member
+  the whole gradient of its ``tp``-sharded slice and of every replicated
+  leaf, equal on all members;
+* ``fsdp`` is a data axis: a leaf replicated over it is averaged over
+  it, and a leaf sharded over it (the gather's backward already summed
+  every member's gradient of the shard) is divided by its size, as an
+  expert leaf is.
+
+Leaves sharded over ``tp`` or ``fsdp`` need no keyword: GSPMD owns those
+axes in the reference, whose ``DistributedOptimizer`` has only
+``pipeline=`` and ``expert=``.  An ``axis`` that names ``tp`` or ``fsdp``
+raises, as one naming ``pipeline`` or ``expert`` does.
 
 ZeRO then shards state within ``axis``'s group only.  Under
 ``HVDT_OVERLAP=on`` the fold runs after the hooked exchange (both are
 linear); the ZeRO ``states`` / ``params`` step with the hooks and a fold
-is not ported (parallel axes, part 2).
+is not ported (parallel axes, part 3).
 
 ``HVDT_OVERLAP=on`` (``ops/overlap.py``) overlaps the exchange with the
 backward: a ``register_post_accumulate_grad_hook`` on every parameter
@@ -170,7 +183,8 @@ class _AxisPlan:
 
         from .common.basics import current_mesh
         from .common.process_sets import global_process_set
-        from .parallel.mesh import fiber_group, sharded_axes
+        from .parallel.mesh import (AXIS_FSDP, AXIS_TP, fiber_group,
+                                    sharded_axes)
 
         reduce_axes = (axis,) if isinstance(axis, str) else tuple(axis)
         for kind, sharded in (("pipeline", pipeline), ("expert", expert)):
@@ -192,6 +206,15 @@ class _AxisPlan:
         if unknown:
             raise ValueError(f"axis {unknown} not among the current mesh's "
                              f"dimensions {names}")
+        for sharded in (AXIS_TP, AXIS_FSDP):
+            if sharded in reduce_axes:
+                raise ValueError(
+                    f"axis={axis!r} names {sharded!r}, a parameter-SHARDED "
+                    "mesh axis (the model's tensor-parallel or fully-sharded "
+                    f"dimension): every {sharded} rank owns a different part "
+                    "of the sharded parameters, so averaging across it "
+                    "destroys them.  Reduce over the data-parallel axes; the "
+                    f"fold handles {sharded}.")
         self.axis = reduce_axes[0] if len(reduce_axes) == 1 else reduce_axes
         gps = global_process_set()
         if set(reduce_axes) == set(names):
@@ -201,8 +224,9 @@ class _AxisPlan:
             self.process_set = ProcessSet(
                 dist.get_process_group_ranks(group), -1, gps._topo, group)
         declared = {a for a in (pipeline, expert) if a is not None}
+        declared |= {AXIS_TP, AXIS_FSDP}
         folded = [d for d in names if d not in reduce_axes
-                  and d != pipeline and size[d] > 1]
+                  and d not in (pipeline, AXIS_TP) and size[d] > 1]
         plan: Dict[tuple, List[torch.Tensor]] = {}
         for p in params:
             sharded = sharded_axes(p)
@@ -213,7 +237,10 @@ class _AxisPlan:
                     f"{undeclared} (parallel.mark_sharded): name the axis "
                     "as pipeline= or expert=")
             dims = tuple(d for d in folded if d not in sharded)
-            scale = 1.0 / int(size[expert]) if expert in sharded else 1.0
+            scale = 1.0
+            for a in (expert, AXIS_FSDP):
+                if a in sharded and a in size:
+                    scale /= int(size[a])
             if dims or scale != 1.0:
                 plan.setdefault((dims, scale), []).append(p)
         self.plan = [(fiber_group(mesh, dims) if dims else None, scale, ps)
@@ -750,7 +777,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                 raise NotImplementedError(
                     "ZeRO states/params under HVDT_OVERLAP=on with a "
                     "model-axis fold is not ported yet (ROADMAP Queue 1: "
-                    "parallel axes, part 2)")
+                    "parallel axes, part 3)")
     if stage is None:
         obj = _DistributedOptimizer(optimizer, op, compression,
                                     backward_passes_per_step,

@@ -1,5 +1,5 @@
-"""Parallelism substrate of the port: mesh axes, sequence, expert and
-pipeline parallelism.
+"""Parallelism substrate of the port: mesh axes, sharding rules, and
+tensor, fully-sharded, sequence, expert and pipeline parallelism.
 
 The PyTorch counterpart of the JAX package's ``parallel/``.  A mesh is a
 ``torch.distributed.device_mesh.DeviceMesh`` over the world's ranks in
@@ -9,14 +9,16 @@ dimension (``mesh.get_group("sp")``).
 Canonical axis names (any subset may be present, size-1 axes are free):
 
 * ``dp`` — data parallel (gradient allreduce over the whole world)
-* ``fsdp`` — fully-sharded data parallel (not ported yet: parallel axes,
-  part 2)
+* ``fsdp`` — fully-sharded data parallel (the transformer's per-layer
+  all-gather of its ``embed``-sharded leaves over ``fsdp_group=``)
 * ``pp`` — pipeline stages (``pipeline_1f1b``)
 * ``ep`` — expert parallel (``moe_dispatch_combine``)
 * ``sp`` — sequence/context parallel (ring attention)
-* ``tp`` — tensor parallel within a layer (not ported yet: parallel
-  axes, part 2)
+* ``tp`` — tensor (Megatron-style) parallel within a layer (the
+  transformer's ``tp_group=``)
 
+``sharding.py`` holds the logical-axis rule table and its mapping
+(``transformer_rules``, ``logical_to_mesh``, ``local_part``, ...).
 ``mark_sharded`` records which of these axes a parameter is sharded
 over, for ``DistributedOptimizer(axis=, pipeline=, expert=)``.
 """
@@ -40,6 +42,15 @@ from .mesh import (  # noqa: F401
     mark_sharded,
     sharded_axes,
     fiber_group,
+)
+from .sharding import (  # noqa: F401
+    batch_spec,
+    fsdp_shardings,
+    local_part,
+    logical_to_mesh,
+    named_sharding,
+    pcast_to_union,
+    transformer_rules,
 )
 from .moe import (  # noqa: F401
     MoEAux,

@@ -188,11 +188,12 @@ def make_mesh(spec: Optional[MeshSpec] = None, **sizes: int):
 def mark_sharded(tensor: torch.Tensor, *axes: str) -> torch.Tensor:
     """Record that ``tensor`` (a parameter) is sharded over the mesh axes
     ``axes``: each member of such an axis holds a different slice (its
-    experts under ``ep``, its stage's layers under ``pp``), so its
-    gradient must never be averaged over them.  This is what a
-    ``PartitionSpec`` naming the axis says in the reference;
-    ``DistributedOptimizer(axis=, pipeline=, expert=)`` reads it.
-    Returns ``tensor``."""
+    experts under ``ep``, its stage's layers under ``pp``, its heads or
+    MLP columns under ``tp``, its part of the ``embed`` dimension under
+    ``fsdp``), so its gradient must never be averaged over them.  This is
+    what a ``PartitionSpec`` naming the axis says in the reference;
+    ``DistributedOptimizer(axis=, pipeline=, expert=)`` reads it (``tp``
+    and ``fsdp`` need no keyword there).  Returns ``tensor``."""
     tensor.hvdt_sharded_axes = tuple(axes)
     return tensor
 

@@ -195,7 +195,7 @@ def pipeline_1f1b(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     if graphs.capturing():
         raise RuntimeError(
             "pipeline_1f1b cannot run inside a CUDA-graph capture: its "
-            "transfers are ordered by the host (parallel axes, part 2)")
+            "transfers are ordered by the host (parallel axes, part 3)")
     leaves, spec = pytree.tree_flatten(stage_params)
     if not all(isinstance(t, torch.Tensor) for t in leaves):
         raise TypeError("stage_params must be a tensor or a list / tuple / "

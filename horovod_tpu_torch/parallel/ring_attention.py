@@ -421,7 +421,8 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if graphs.capturing():
         raise RuntimeError(
             "ring_attention cannot run inside a CUDA-graph capture: its "
-            "transfers and the host's choice of step are not captured")
+            "transfers and the host's choice of step are not captured "
+            "(parallel axes, part 3)")
     b, lq, h, d = q.shape
     if h % k.shape[2]:
         raise ValueError(

@@ -401,11 +401,13 @@ def test_make_mesh_world_of_one(world1):
 
 # ep = 2 without experts and num_experts = 4 at ep = 1 run in a world of
 # one since parallel axes, part 1 (exc None: the loss is finite); sp with
-# pp still raises, naming part 2.  The ids are the ones these cases had
-# while all of them raised.
+# pp builds since part 2, and in a world of one its loss asks for the
+# ring's group (tests/test_torch_port_tensor_parallel.py runs it across
+# 4 processes).  The ids are the ones these cases had while all of them
+# raised.
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(sp=2), ValueError, "needs sp_group"),
-    (dict(sp=2, pp=2), NotImplementedError, "Queue 1: parallel axes, part 2"),
+    (dict(sp=2, pp=2), ValueError, "needs sp_group"),
     (dict(ep=2), None, None),
     (dict(num_experts=4), None, None)],
     ids=["kw0-ValueError-needs sp_group"] + [

@@ -243,13 +243,14 @@ def test_smallseq_on_raises_and_streaming_overrides(monkeypatch, jax_side):
                                     device=_CUDA)
 
 
-# Parallel axes, part 1 ported MoE, ep, pp and dots: those configs
-# build (tests/test_torch_port_transformer_parallel.py holds them to the
-# reference); sp together with pp still raises, naming part 2.  The ids
-# are the ones these cases had while all of them raised.
+# Parallel axes, part 1 ported MoE, ep, pp and dots, part 2 sp together
+# with pp: those configs build (tests/test_torch_port_transformer_parallel.py
+# and tests/test_torch_port_tensor_parallel.py hold them to the
+# reference).  The ids are the ones these cases had while all of them
+# raised.
 @pytest.mark.parametrize("kw,match", [
     (dict(num_experts=4), None),
-    (dict(sp=2, pp=2), "Queue 1: parallel axes, part 2"),
+    (dict(sp=2, pp=2), None),
     (dict(pp=2), None),
     (dict(ep=2), None),
     (dict(remat=True, remat_policy="dots"), None)],

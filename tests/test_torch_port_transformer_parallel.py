@@ -450,12 +450,30 @@ def test_optimizer_contract(monkeypatch):
         hvd.shutdown()
 
 
+# sp together with pp or ep builds since parallel axes, part 2 (match
+# None): the member's module holds its part, and its loss asks for the
+# ring's group; tests/test_torch_port_tensor_parallel.py runs both layouts
+# in a world of 4 against the reference.  The ids are the ones these
+# cases had while they raised.
 @pytest.mark.parametrize("kw,match", [
-    (dict(sp=2, pp=2), "parallel axes, part 2"),
-    (dict(sp=2, ep=2, num_experts=2), "parallel axes, part 2"),
+    (dict(sp=2, pp=2), None),
+    (dict(sp=2, ep=2, num_experts=2), None),
     (dict(pp=3), "not divisible by pp"),
-    (dict(num_experts=3, ep=2), "not divisible by ep")])
+    (dict(num_experts=3, ep=2), "not divisible by ep")],
+    ids=["kw0-parallel axes, part 2", "kw1-parallel axes, part 2",
+         "kw2-not divisible by pp", "kw3-not divisible by ep"])
 def test_config_checks(kw, match):
+    if match is None:
+        cfg = _tcfg(**kw)
+        model = tt.transformer_init(0, cfg, device="cpu", pp_rank=1,
+                                    ep_rank=1 if cfg.ep > 1 else 0)
+        assert model.block["wq"].shape[0] == _KW["layers"] // cfg.pp
+        if cfg.num_experts:
+            assert model.block["w_up"].shape[1] == 1
+        with pytest.raises(ValueError, match="needs sp_group"):
+            tt.transformer_loss(model, torch.zeros((2, 8), dtype=torch.long),
+                                cfg)
+        return
     with pytest.raises((NotImplementedError, ValueError), match=match):
         tt.transformer_init(0, _tcfg(**kw), device="cpu")
 
