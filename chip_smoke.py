@@ -233,7 +233,32 @@ Phases, one JSON line each:
    against 3 eager steps of two copies
    from one state under DistributedOptimizer in the NCCL world of one,
    with fused_sgd and then fused_adam and deterministic cuDNN: losses,
-   parameters, BN statistics and optimizer state bit-identical;
+   parameters, BN statistics and optimizer state bit-identical; the
+   bench line adds the default leg's img/s beside PR 13's recorded one
+   (PR13_LEG_D_IMG_S, a constant) and the chaos-audit mode, leg D for 20 steps with
+   HVDT_FAULT_PLAN=exc@step=5,exc@step=15: the JSON's recovered_faults
+   and injected_faults are 2;
+18b. elastic — the runtime plane's in-process retry loop in the NCCL
+   world of one: ResNet-50 (224x224, bf16 compute, f32 params, batch 64,
+   HVDT_FUSED_CONV1X1=1, deterministic cuDNN) through
+   interop.torch.DistributedOptimizer(fused_sgd(0.01, momentum 0.9))
+   under hvd.elastic.run with TorchState(model, optimizer,
+   sampler=ElasticSampler, batch), a commit every 5 steps, 20 steps;
+   then again with HVDT_FAULT_PLAN=exc@step=12 (the step loop fires the
+   point before each step): restore of the batch-10 commit, _reset
+   (shutdown + init), sync, steps 11-20 again.  Final parameters and BN
+   statistics equal the uninterrupted run's in every byte; #2 launches
+   21 times (#4 26 a step); the recovery's ms (restore, re-init,
+   re-sync, first step);
+18c. elastic_launch — the port's launcher on this card: python -m
+   horovod_tpu_torch.runner.launch with a discovery script printing
+   localhost:1, --fault-plan crash@step=12, --blacklist-cooldown 1 and a
+   disk state path, running this script's --elastic-worker: the worker
+   dies before step 12, the driver respawns the generation, the new
+   process resumes from the batch-10 commit, and its final parameters
+   and BN statistics equal 18b's uninterrupted run's in every byte; the
+   restart's ms split into detection and respawn, imports, init(),
+   building the model and data, the resume and the first step;
 19. optim_lm — #1 as the LM steps call it, one FusedAdam(3e-4,
    weight_decay=1e-4) step over clones of the bert-large leaves (11
    leaves, 434.0M parameters), held bit-identical to the plain version,
@@ -352,21 +377,44 @@ HVDT_RING_PALLAS=1 (#9-#11 in every ring step), the members' loss
 with the ring's launches; par_cards_sp_pp, pp 2 x sp 2, the ring inside
 each pipeline stage, one step against one card.  Each phase runs under a
 watchdog that names it if it hangs.  Then the bench's --moe and
---pipeline sweeps with their autotune seeds.  The multi-card modes end
-with the card's line and the last line of the one-card run.
+--pipeline sweeps with their autotune seeds.
+
+    python3 chip_smoke.py --elastic-cards 4
+
+runs the port's launcher with --elastic across 4 cards (one worker
+process a card, an NCCL world made afresh each generation; ResNet-50 at
+batch 64 a card under the port's DistributedOptimizer(fused_sgd), whose
+fixed buckets keep NCCL's reduction order from run to run): an
+uninterrupted 20-step run of 4 slots; elastic_cards_crash, the same
+with crash@step=10:rank=3 and a 1 s blacklist cooldown (the driver
+terminates the survivors, respawns the world of 4, which resumes from
+the batch-5 commit), its final parameters and BN statistics against the
+uninterrupted run's, and the restart's ms; elastic_cards_shrink,
+localhost:4 then localhost:2 once batch 7 is logged, and
+elastic_cards_grow, localhost:2 then localhost:4, each holding the
+reference's log contract (the new world resumes past batch 1, every
+rank of it logs, the LR is 0.01 x the world size, batch 30 is reached)
+with the recovery's ms.  Each scenario runs under a watchdog that names
+it if it hangs.  The multi-card modes end with the card's line and the
+last line of the one-card run.
 """
 
 import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+# When this process started (an elastic worker's restart is split from
+# here), before the imports below.
+_T_START = time.time()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 # Published peaks of one H100 SXM (dense): bf16 tensor cores and HBM.
 PEAK_BF16_FLOPS = 989e12
@@ -2744,6 +2792,28 @@ def bench_leg(bench, name: str, smi: str):
     return leg, row
 
 
+def bench_chaos(bench, smi) -> dict:
+    """The bench's chaos-audit mode: leg D (one iteration of 20 steps)
+    with HVDT_FAULT_PLAN=exc@step=5,exc@step=15 — the step loop absorbs
+    both injected faults and its JSON reports them; the images/s beside
+    the leg's without a plan."""
+    os.environ["HVDT_FUSED_CONV1X1"] = "0"
+    os.environ["HVDT_FAULT_PLAN"] = "exc@step=5,exc@step=15"
+    try:
+        leg = bench.measure(bench._parse_args(
+            ["--num-iters", "1", "--num-batches-per-iter", "20"]))
+    finally:
+        del os.environ["HVDT_FAULT_PLAN"]
+    doc = leg.doc
+    assert doc["recovered_faults"] == 2 and doc["injected_faults"] == 2, doc
+    assert doc["fault_plan"] == "exc@step=5,exc@step=15", doc
+    del leg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: doc[k] for k in ("value", "fault_plan", "recovered_faults",
+                                "injected_faults", "emergency_checkpoints")}
+
+
 def graphed_equals_eager(hvd, make_opt, images, labels, steps: int = 3,
                          before_call=None):
     """Two ResNet-50 copies from one state (broadcast_parameters in the
@@ -2862,6 +2932,7 @@ def phase_bench(hvd, smi):
         torch.backends.cudnn.deterministic = False
     gc.collect()
     torch.cuda.empty_cache()
+    chaos = bench_chaos(bench, smi)
     by = {}
     for row in rows:
         by.setdefault(row["leg"], []).append(row["images_per_s"])
@@ -2871,6 +2942,9 @@ def phase_bench(hvd, smi):
           "images_per_s": by, "graphed_over_eager": [
               g / e for g, e in zip(by["G"], by["E"])],
           "remat_dots_over_default": by["R"][0] / by["D"][0],
+          "default_leg_images_per_s": by["D"][0],
+          "default_leg_pr13_images_per_s": PR13_LEG_D_IMG_S,
+          "chaos_leg": chaos,
           "launches": main_launches, "mm_stats_vs_plain": mm_stats,
           "graphed_equals_eager": checks, "tolerance": 0.0,
           "wall_s": time.perf_counter() - t0, "card": smi})
@@ -6929,6 +7003,545 @@ def parallel_cards(n: int) -> int:
     return 0
 
 
+# ---- slice 19: the runtime plane (elastic state, the launcher) -------------
+
+ELASTIC_STEPS = 20
+ELASTIC_COMMIT = 5
+ELASTIC_LR = 0.01               # a card's share: the LR is this x size
+ELASTIC_PLAN = "exc@step=12"
+ELASTIC_LAUNCH_PLAN = "crash@step=12"
+ELASTIC_CARDS_PLAN = "crash@step=10:rank=3"
+ELASTIC_RESIZE_STEPS = 30
+ELASTIC_SCENARIO_TIMEOUT_S = 420
+# The default bench leg's img/s as PR 13's chip run recorded it (PERF.md
+# section 5: leg D on an NVIDIA H100 80GB HBM3 at 700 W), a constant: no
+# run of this script measures it.
+PR13_LEG_D_IMG_S = 1110.84
+
+
+def _elastic_dataset(samples: int, device="cuda"):
+    """``samples`` bf16 images (224x224) and labels, made on the device
+    from one seed: every process of a job holds the same data."""
+    g = torch.Generator(device=device).manual_seed(19)
+    images = torch.randn((samples, IMAGE, IMAGE, 3), generator=g,
+                         device=device, dtype=torch.bfloat16)
+    labels = torch.randint(0, 1000, (samples,), generator=g, device=device)
+    return images, labels
+
+
+def _elastic_setup():
+    """The knobs every elastic run shares (in-process and each worker):
+    fused convs (#4), TF32 off, deterministic cuDNN, no plan left over
+    from an earlier phase."""
+    os.environ["HVDT_FUSED_CONV1X1"] = "1"
+    for knob in ("HVDT_OVERLAP", "HVDT_ZERO", "HVDT_TRANSPORT",
+                 "HVDT_COMPRESSION", "HVDT_QUANT", "HVDT_REMAT"):
+        os.environ.pop(knob, None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def elastic_job(hvd, steps: int, *, fused: bool, samples: int,
+                path=None, log=None, device="cuda"):
+    """ResNet-50 (224x224, bf16 compute, f32 params, batch 64 a card)
+    under ``hvd.elastic.run`` with ``TorchState(model, optimizer,
+    sampler=ElasticSampler, batch)``, committed every ELASTIC_COMMIT
+    steps; the LR is ELASTIC_LR x the world size at every (re)entry.
+    The optimizer is interop.torch.DistributedOptimizer(fused_sgd) or,
+    with ``fused``, the port's DistributedOptimizer(fused_sgd): its fixed
+    bucket plan keeps NCCL's reduction order from run to run (the
+    interop hooks fuse what each cycle finds ready).  The step loop fires
+    the fault plan's ``step`` point before each step, as bench.py's
+    does.  Returns (model, optimizer, state, marks): host times of the
+    first entry, the faulted step and the first step after a re-entry."""
+    from horovod_tpu_torch.data import ElasticSampler
+    from horovod_tpu_torch.interop.torch_elastic import TorchState
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.resilience import faults
+
+    model = resnet50_init(0, ResNetConfig())
+    opt = _fused_opt(hvd, model) if fused else _interop_opt(hvd, model)
+    images, labels = _elastic_dataset(samples, device)
+    marks = {"built": time.time()}
+    state = TorchState(model, opt, sampler=ElasticSampler(
+        samples, shuffle=True, seed=5), batch=0, path=path)
+    marks["resumed"] = time.time()
+    marks["restored_from"] = state.restored_from
+    marks["start_batch"] = state.batch
+    entries = []
+
+    @hvd.elastic.run
+    def train(state):
+        entries.append(time.time())
+        lr = ELASTIC_LR * hvd.size()
+        for group in opt.param_groups:
+            group["lr"] = lr
+        inj = faults.get_injector()
+        order = torch.tensor(list(state.sampler), device=images.device)
+        k = 0
+        while state.batch < steps:
+            if inj is not None:
+                t_fire = time.time()
+                try:
+                    inj.fire("step", step=state.batch + 1)
+                except faults.InjectedFault:
+                    marks["fault"] = t_fire
+                    raise
+            idx = order[k * BATCH:(k + 1) * BATCH]
+            k += 1
+            _resnet_step(model, opt, images[idx], labels[idx])
+            state.sampler.record_batch(state.batch, BATCH)
+            state.batch += 1
+            if k == 1:
+                torch.cuda.synchronize()
+                marks.setdefault("first_steps", []).append(time.time())
+            if log is not None:
+                torch.cuda.synchronize()
+                with open(log, "a") as f:
+                    f.write(f"{hvd.rank()} {hvd.size()} {state.batch} "
+                            f"{round(lr * 1000)} "
+                            f"{int(time.time() * 1000)}\n")
+            if state.batch % ELASTIC_COMMIT == 0:
+                state.commit()
+        marks["end"] = time.time()
+
+    train(state)
+    torch.cuda.synchronize()
+    marks["entries"] = entries
+    return model, opt, state, marks
+
+
+def _model_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _state_diff(got: dict, want: dict) -> dict:
+    """Bytes equal, the largest absolute difference and whether every
+    value is finite, over a model's parameters and BN statistics."""
+    assert got.keys() == want.keys()
+    equal = all(torch.equal(_bits(got[k].cpu()), _bits(want[k].cpu()))
+                for k in got)
+    floats = [k for k in got if got[k].is_floating_point()]
+    err = max(_bit_err(got[k], want[k].to(got[k].device)) for k in floats)
+    finite = all(bool(torch.isfinite(got[k]).all()) for k in floats)
+    return {"equal_bytes": equal, "max_abs_err": err, "finite": finite,
+            "tensors": len(got)}
+
+
+def phase_elastic(hvd, smi):
+    """elastic — the in-process retry loop in the NCCL world of one: an
+    uninterrupted ELASTIC_STEPS run, then the same run with
+    HVDT_FAULT_PLAN=exc@step=12 (restore the batch-10 commit, _reset:
+    shutdown + init, sync, steps 11-20 again).  Final parameters and BN
+    statistics equal in every byte; the recovery's ms (restore,
+    re-init, re-sync, first step; no step is captured, so nothing is
+    recaptured); #2's launches.  Returns the uninterrupted state (the
+    yardstick of elastic_launch)."""
+    from horovod_tpu_torch.telemetry import step_stats
+
+    t0 = time.perf_counter()
+    _elastic_setup()
+    samples = ELASTIC_STEPS * BATCH
+    reset_counters()
+    model, opt, _, base_marks = elastic_job(hvd, ELASTIC_STEPS, fused=False,
+                                            samples=samples)
+    base_launches = counters()
+    base = _model_state(model)
+    opt._hvdt.remove()
+    del model, opt
+    _free()
+    assert base_launches["_sgd_kernel"] == ELASTIC_STEPS, base_launches
+
+    os.environ["HVDT_FAULT_PLAN"] = ELASTIC_PLAN
+    os.environ["HVDT_TELEMETRY"] = "1"
+    step_stats.reset_recovery_ledger()
+    try:
+        reset_counters()
+        model, opt, state, marks = elastic_job(hvd, ELASTIC_STEPS,
+                                               fused=False, samples=samples)
+        launches = counters()
+        phases = step_stats.recovery_ledger().recovery_snapshot()
+    finally:
+        del os.environ["HVDT_FAULT_PLAN"]
+        del os.environ["HVDT_TELEMETRY"]
+        step_stats.reset_recovery_ledger()
+    diff = _state_diff(_model_state(model), base)
+    opt._hvdt.remove()
+    del model, opt, state
+    _free()
+    assert hvd.is_initialized() and hvd.size() == 1
+    # 11 steps before the fault, 10 after the restore to batch 10.
+    want_steps = ELASTIC_STEPS + 1
+    assert launches["_sgd_kernel"] == want_steps, launches
+    assert launches["_mm_stats_kernel"] == 26 * want_steps, launches
+    assert len(marks["entries"]) == 2, marks
+    assert diff["equal_bytes"] and diff["finite"], diff
+    restore_ms = 1e3 * phases["restore"]
+    reinit_ms = 1e3 * phases["rendezvous"]
+    total_ms = 1e3 * (marks["first_steps"][1] - marks["fault"])
+    first_ms = 1e3 * (marks["first_steps"][1] - marks["entries"][1])
+    emit({"phase": "elastic", "model": "resnet50", "batch": BATCH,
+          "image": IMAGE, "steps": ELASTIC_STEPS, "commit_every":
+          ELASTIC_COMMIT, "fault_plan": ELASTIC_PLAN,
+          "optimizer": "interop.torch.DistributedOptimizer(fused_sgd)",
+          "final_vs_uninterrupted": diff, "launches": launches,
+          "uninterrupted_launches": base_launches,
+          "recovery_ms": {"total": total_ms, "restore": restore_ms,
+                          "reinit": reinit_ms,
+                          "resync": total_ms - restore_ms - reinit_ms
+                          - first_ms,
+                          "first_step": first_ms, "recapture": None},
+          "uninterrupted_step_ms": 1e3 * (base_marks["end"]
+                                          - base_marks["first_steps"][0])
+          / (ELASTIC_STEPS - 1),
+          "wall_s": time.perf_counter() - t0, "card": smi})
+    return base
+
+
+def _discovery_script(path: str, control: str, before: str, after: str):
+    """A discovery script printing ``before`` until ``control`` exists,
+    then ``after`` (the reference's scripted schedule)."""
+    with open(path, "w") as f:
+        f.write(f"#!/bin/sh\nif [ -f {control} ]; then echo {after}; "
+                f"else echo {before}; fi\n")
+    os.chmod(path, 0o755)
+    return path
+
+
+def _rows(log: str) -> list:
+    if not os.path.exists(log):
+        return []
+    with open(log) as f:
+        return [tuple(map(int, ln.split())) for ln in f if ln.strip()]
+
+
+def _kill_workers(workdir: str) -> None:
+    """Kill what is left of this run's launcher: the processes whose
+    environment holds ``CHIP_SMOKE_ELASTIC_DIR=workdir``, this run's own
+    temporary directory (the workers run in sessions of their own)."""
+    import signal
+
+    mark = f"CHIP_SMOKE_ELASTIC_DIR={workdir}".encode()
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if mark in env:
+            try:
+                os.kill(int(pid), signal.SIGKILL)
+            except OSError:
+                pass
+
+
+def run_launcher(name: str, workdir: str, launcher_args: list,
+                 worker_args: list, env: dict, flip=None,
+                 timeout_s: float = ELASTIC_SCENARIO_TIMEOUT_S) -> str:
+    """One ``python -m horovod_tpu_torch.runner.launch`` run of this
+    script's ``--elastic-worker`` under a watchdog that names ``name``
+    if it hangs.  ``flip``: (control file, predicate over the log rows),
+    the control file made once the predicate holds.  Returns the run's
+    output; raises unless it exits 0."""
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    tag = f"--elastic-worker={name}"
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+           "--coordinator-port", str(port), "--reset-limit", "3",
+           *launcher_args, "--", sys.executable,
+           os.path.abspath(__file__), tag, *worker_args]
+    full_env = dict(os.environ, **env,
+                    PYTHONPATH=here + os.pathsep
+                    + os.environ.get("PYTHONPATH", ""))
+    for knob in ("HVDT_FAULT_PLAN", "HVDT_RANK", "HVDT_SIZE",
+                 "HVDT_LOCAL_RANK", "HVDT_LOCAL_SIZE",
+                 "HVDT_COORDINATOR_ADDR", "HVDT_TELEMETRY"):
+        if knob not in env:
+            full_env.pop(knob, None)
+    out_path = os.path.join(workdir, f"{name}.out")
+    with open(out_path, "wb") as out:
+        proc = subprocess.Popen(cmd, env=full_env, cwd=here, stdout=out,
+                                stderr=subprocess.STDOUT)
+        deadline = time.time() + timeout_s
+        try:
+            while proc.poll() is None:
+                if flip is not None and not os.path.exists(flip[0]) \
+                        and flip[1](_rows(env["CHIP_SMOKE_ELASTIC_LOG"])):
+                    open(flip[0], "w").close()
+                if time.time() > deadline:
+                    print(f"chip_smoke: elastic phase {name} timed out "
+                          f"after {timeout_s} s", file=sys.stderr,
+                          flush=True)
+                    break
+                time.sleep(0.2)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            _kill_workers(workdir)
+    with open(out_path) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        print(text[-6000:], file=sys.stderr)
+        raise RuntimeError(f"elastic phase {name}: the launcher exited "
+                           f"{proc.returncode}")
+    return text
+
+
+def _worker_env(workdir: str, name: str, **extra) -> dict:
+    return {"CHIP_SMOKE_ELASTIC_DIR": workdir,
+            "CHIP_SMOKE_ELASTIC_LOG": os.path.join(workdir, f"{name}.log"),
+            "HVDT_FAULT_JOURNAL": os.path.join(workdir, f"{name}.journal"),
+            **extra}
+
+
+def elastic_worker(name: str, steps: int, fused: bool) -> int:
+    """One slot of an elastic launcher run (``--elastic-worker=NAME``):
+    init on the slot's card, :func:`elastic_job` with its commits
+    persisted to the run's state file, one JSON line of host times per
+    process (start, imports done, init, data and model built, resumed,
+    first step) and, on rank 0, the final model state."""
+    import horovod_tpu_torch as hvd
+
+    t_imported = time.time()
+    workdir = os.environ["CHIP_SMOKE_ELASTIC_DIR"]
+    _elastic_setup()
+    hvd.init()
+    t_init = time.time()
+    try:
+        world = int(os.environ.get("CHIP_SMOKE_ELASTIC_MAX_WORLD",
+                                   hvd.size()))
+        reset_counters()
+        model, _, state, marks = elastic_job(
+            hvd, steps, fused=fused, samples=steps * world * BATCH,
+            # A path a rank: each rank's BN statistics are its own.
+            path=os.path.join(workdir, f"{name}.state.rank{hvd.rank()}.pt"),
+            log=os.environ["CHIP_SMOKE_ELASTIC_LOG"])
+        doc = {"rank": hvd.rank(), "size": hvd.size(),
+               "generation": int(os.environ.get("HVDT_GENERATION", 0)),
+               "start": _T_START, "imported": t_imported, "init": t_init,
+               "built": marks["built"], "resumed": marks["resumed"],
+               "restored_from": marks["restored_from"],
+               "start_batch": marks["start_batch"],
+               "first_step": marks["first_steps"][0],
+               "launches": counters()}
+        with open(os.path.join(workdir, f"{name}.marks"), "a") as f:
+            f.write(json.dumps(doc) + "\n")
+        if hvd.rank() == 0:
+            torch.save(_model_state(model),
+                       os.path.join(workdir, f"{name}.final.pt"))
+        hvd.shutdown()
+    except BaseException:
+        # A failed rank leaves its peers blocked in a collective: exit at
+        # once (the driver ends the generation).
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    return 0
+
+
+def _marks(workdir: str, name: str) -> list:
+    with open(os.path.join(workdir, f"{name}.marks")) as f:
+        return [json.loads(ln) for ln in f if ln.strip()]
+
+
+def _restart_split(rows: list, marks: list) -> dict:
+    """Host ms of a process restart: from the last step the dead
+    generation logged to the (first) respawned process's start, its
+    imports, init(), building the model and data, the resume from the
+    persisted commit, and its first step."""
+    m = min((x for x in marks if x["generation"] > 1),
+            key=lambda x: x["start"])
+    t_dead = max(ts for *_, ts in rows if ts < 1e3 * m["start"]) / 1e3
+    return {"detect_and_respawn": 1e3 * (m["start"] - t_dead),
+            "imports": 1e3 * (m["imported"] - m["start"]),
+            "init": 1e3 * (m["init"] - m["imported"]),
+            "build": 1e3 * (m["built"] - m["init"]),
+            "resume": 1e3 * (m["resumed"] - m["built"]),
+            "first_step": 1e3 * (m["first_step"] - m["resumed"]),
+            "total": 1e3 * (m["first_step"] - t_dead)}
+
+
+def phase_elastic_launch(smi, base: dict):
+    """elastic_launch — the port's hvdtrun --elastic on one card: a
+    discovery script printing localhost:1, crash@step=12 (the worker dies
+    before step 12; its last persisted commit is batch 10), a disk
+    state, a 1 s blacklist cooldown.  The driver respawns the generation,
+    the new process resumes from the commit, and the final parameters
+    and BN statistics equal the in-process uninterrupted run's in every
+    byte.  The restart's ms split into its parts."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    _free()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        _elastic_launch_run(smi, base, workdir, t0)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _elastic_launch_run(smi, base: dict, workdir: str, t0: float):
+    name = "launch"
+    disc = _discovery_script(os.path.join(workdir, "discover.sh"),
+                             os.path.join(workdir, "never"),
+                             "localhost:1", "localhost:1")
+    env = _worker_env(workdir, name)
+    out = run_launcher(name, workdir,
+                       ["--host-discovery-script", disc, "--min-np", "1",
+                        "--max-np", "1", "--blacklist-cooldown", "1",
+                        "--fault-plan", ELASTIC_LAUNCH_PLAN],
+                       [str(ELASTIC_STEPS), "interop"], env)
+    rows = _rows(env["CHIP_SMOKE_ELASTIC_LOG"])
+    marks = _marks(workdir, name)
+    final = torch.load(os.path.join(workdir, f"{name}.final.pt"),
+                       map_location="cuda")
+    diff = _state_diff(final, base)
+    # The crashed process wrote no marks (os._exit); its successor did.
+    gens = sorted({m["generation"] for m in marks})
+    batches = [b for _, _, b, _, _ in rows]
+    assert gens == [2], (gens, out[-2000:])
+    assert "rendezvous generation 3" not in out, out[-2000:]
+    assert batches == list(range(1, 12)) + list(range(11, 21)), batches
+    assert marks[-1]["restored_from"] == "disk"
+    assert marks[-1]["start_batch"] == 10, marks[-1]
+    assert diff["equal_bytes"] and diff["finite"], diff
+    emit({"phase": "elastic_launch", "fault_plan": ELASTIC_LAUNCH_PLAN,
+          "generations": 2, "batches_logged": len(batches),
+          "final_vs_uninterrupted": diff,
+          "restart_ms": _restart_split(rows, marks),
+          "driver": [ln for ln in out.splitlines()
+                     if ln.startswith("elastic:")],
+          "respawned_worker_launches": marks[-1]["launches"],
+          "wall_s": time.perf_counter() - t0, "card": smi})
+
+
+def _resize(name: str, workdir: str, before: int, after: int, smi):
+    """A discovery schedule from ``localhost:before`` to
+    ``localhost:after`` once the old world logged a batch past its first
+    commit: the reference's log contract (the new world resumes past
+    batch 1, every rank of it logs, the LR is rescaled with the world,
+    the target is reached) and the recovery's ms."""
+    control = os.path.join(workdir, f"{name}.flip")
+    disc = _discovery_script(os.path.join(workdir, f"{name}.sh"), control,
+                             f"localhost:{before}", f"localhost:{after}")
+    env = _worker_env(workdir, name, CHIP_SMOKE_ELASTIC_MAX_WORLD=str(
+        max(before, after)))
+    out = run_launcher(
+        name, workdir,
+        ["--host-discovery-script", disc, "--min-np", str(min(before, after)),
+         "--max-np", str(max(before, after))],
+        [str(ELASTIC_RESIZE_STEPS), "fused"], env,
+        flip=(control, lambda rows: any(b > ELASTIC_COMMIT + 1
+                                        for _, _, b, _, _ in rows)))
+    rows = _rows(env["CHIP_SMOKE_ELASTIC_LOG"])
+    marks = _marks(workdir, name)
+    sizes = {s for _, s, _, _, _ in rows}
+    first_new = next(b for _, s, b, _, _ in rows if s == after)
+    lrs = {s: {lr for _, s2, _, lr, _ in rows if s2 == s} for s in sizes}
+    last_old = max(ts for _, s, _, _, ts in rows if s == before)
+    t_new = min(ts for _, s, _, _, ts in rows if s == after)
+    assert sizes == {before, after}, (sizes, out[-2000:])
+    assert first_new > 1, rows
+    assert max(b for _, _, b, _, _ in rows) == ELASTIC_RESIZE_STEPS
+    assert {r for r, s, _, _, _ in rows if s == after} == set(range(after))
+    assert lrs == {s: {round(ELASTIC_LR * s * 1000)} for s in sizes}, lrs
+    new = [m for m in marks if m["size"] == after]
+    assert {m["rank"] for m in new} == set(range(after))
+    split = {k: max(1e3 * (m[k] - m["start"]) for m in new)
+             for k in ("imported", "init", "built", "resumed",
+                       "first_step")}
+    emit({"phase": f"elastic_cards_{name}", "world": [before, after],
+          "first_batch_of_new_world": first_new,
+          "lr_milli_by_world": {str(k): sorted(v) for k, v in lrs.items()},
+          "recovery_ms": t_new - last_old,
+          "new_world_ms_from_process_start": split,
+          "driver": [ln for ln in out.splitlines()
+                     if ln.startswith("elastic:")], "card": smi})
+
+
+def elastic_cards(n: int) -> int:
+    """``python3 chip_smoke.py --elastic-cards 4``: the port's hvdtrun
+    --elastic across 4 cards (one worker process a card, an NCCL world
+    made afresh each generation), ResNet-50 at batch 64 a card under the
+    port's DistributedOptimizer(fused_sgd): an uninterrupted 4-slot run;
+    the same with crash@step=10:rank=3 (the driver terminates the
+    survivors, respawns the world of 4, which resumes from the batch-5
+    commit), its final parameters against the uninterrupted run's;
+    localhost:4 then localhost:2 (shrink) and localhost:2 then
+    localhost:4 (grow), each with the reference's log contract.  Each
+    scenario runs under a watchdog that names it."""
+    import tempfile
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --elastic-cards {n} needs {n} CUDA cards",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import horovod_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_cards_")
+    try:
+        _elastic_cards_run(n, smi, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit({"phase": "elastic_cards_total", "wall_s": time.perf_counter() - t0})
+    _last_lines(smi)
+    return 0
+
+
+def _elastic_cards_run(n: int, smi, workdir: str):
+    """The four scenarios of :func:`elastic_cards` in ``workdir``."""
+    disc = _discovery_script(os.path.join(workdir, "four.sh"),
+                             os.path.join(workdir, "never"),
+                             f"localhost:{n}", f"localhost:{n}")
+    fixed = ["--host-discovery-script", disc, "--min-np", str(n),
+             "--max-np", str(n)]
+    run_launcher("uninterrupted", workdir, fixed,
+                 [str(ELASTIC_STEPS), "fused"],
+                 _worker_env(workdir, "uninterrupted"))
+    env = _worker_env(workdir, "crash")
+    out = run_launcher("crash", workdir,
+                       [*fixed, "--blacklist-cooldown", "1",
+                        "--fault-plan", ELASTIC_CARDS_PLAN],
+                       [str(ELASTIC_STEPS), "fused"], env)
+    rows = _rows(env["CHIP_SMOKE_ELASTIC_LOG"])
+    marks = _marks(workdir, "crash")
+    want = torch.load(os.path.join(workdir, "uninterrupted.final.pt"),
+                      map_location="cuda:0")
+    got = torch.load(os.path.join(workdir, "crash.final.pt"),
+                     map_location="cuda:0")
+    diff = _state_diff(got, want)
+    respawned = [m for m in marks if m["generation"] > 1]
+    assert {m["rank"] for m in respawned} == set(range(n)), marks
+    assert all(m["start_batch"] == ELASTIC_COMMIT for m in respawned), marks
+    assert "terminating generation 1 after rank 3 failed" in out
+    # The same buckets and communicator layout reduce in the same order:
+    # the respawned world's parameters equal the uninterrupted run's.
+    assert diff["equal_bytes"] and diff["finite"], diff
+    emit({"phase": "elastic_cards_crash", "fault_plan": ELASTIC_CARDS_PLAN,
+          "final_vs_uninterrupted": diff,
+          "restart_ms": _restart_split(rows, marks),
+          "driver": [ln for ln in out.splitlines()
+                     if ln.startswith("elastic:")], "card": smi})
+    _resize("shrink", workdir, n, n // 2, smi)
+    _resize("grow", workdir, n // 2, n, smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7109,6 +7722,10 @@ def main() -> int:
     bench_mm_err = phase_bench(hvd, smi)
     conv["_mm_stats_kernel"]["max_abs_err"] = max(
         conv["_mm_stats_kernel"]["max_abs_err"], bench_mm_err)
+    elastic_base = phase_elastic(hvd, smi)
+    phase_elastic_launch(smi, elastic_base)
+    del elastic_base
+    _free()
     hvd.shutdown()
     phase_optim_lm(gen, smi, lm_shapes)
 
@@ -7194,4 +7811,9 @@ if __name__ == "__main__":
         sys.exit(parallel_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--parallel-worker"]:
         sys.exit(parallel_cards_worker())
+    if sys.argv[1:2] == ["--elastic-cards"]:
+        sys.exit(elastic_cards(int(sys.argv[2])))
+    if sys.argv[1:2] and sys.argv[1].startswith("--elastic-worker="):
+        sys.exit(elastic_worker(sys.argv[1].split("=", 1)[1],
+                                int(sys.argv[2]), sys.argv[3] == "fused"))
     sys.exit(main())

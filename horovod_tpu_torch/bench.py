@@ -141,7 +141,7 @@ _UNPORTED = {
 # Keys of a JSON line that mark a variant, never the headline.
 _VARIANTS = ("fused_optimizer", "steps_per_call", "eager", "telemetry",
              "overlap", "transport", "fp8", "zero_stage",
-             "checkpoint_stall_ms", "remat")
+             "checkpoint_stall_ms", "remat", "fault_plan")
 # The fp8 microbench: a bert-large projection (d_model 1024, d_ff 4096)
 # over 8192 tokens on the card; a small one on the CPU.
 FP8_SHAPE = {"cuda": (8192, 1024, 4096), "cpu": (64, 128, 256)}
@@ -414,11 +414,33 @@ def measure(args) -> Leg:
     loss.item()
     print(f"warmup: {time.perf_counter() - t0:.1f}s", file=sys.stderr)
 
+    # Chaos-audit mode (the reference's bench.py:1037-1062): with
+    # HVDT_FAULT_PLAN set, the step loop carries the 'step' injection
+    # point and a preemption guard, and the JSON reports how many
+    # injected faults the loop absorbed.  Without a plan this is a no-op
+    # (inj is None).
+    from .resilience import faults
+    from .resilience.preempt import PreemptionGuard
+
+    inj = faults.get_injector()
+    recovered_faults = 0
+    guard = PreemptionGuard().install() if inj is not None else None
+
     rates = []
     steps_per_iter = args.num_batches_per_iter * args.steps_per_call
+    step_idx = 0
     for _ in range(args.num_iters):
         t0 = time.perf_counter()
         for _ in range(args.num_batches_per_iter):
+            if inj is not None:
+                step_idx += 1
+                try:
+                    inj.fire("step", step=step_idx)
+                except faults.InjectedFault as e:
+                    print(f"bench: recovered injected fault: {e}",
+                          file=sys.stderr)
+                    recovered_faults += 1
+                guard.check(step=step_idx)
             loss = call()
         final_loss = loss.item()
         dt = time.perf_counter() - t0
@@ -463,7 +485,14 @@ def measure(args) -> Leg:
         **({"telemetry": {**timer.snapshot(),
                           "goodput_fraction": round(ledger.fraction(), 4)}}
            if timer is not None else {}),
+        **({"fault_plan": os.environ.get("HVDT_FAULT_PLAN", ""),
+            "recovered_faults": recovered_faults,
+            "injected_faults": inj.fired_total(),
+            "emergency_checkpoints": PreemptionGuard.emergency_checkpoints}
+           if inj is not None else {}),
     }
+    if guard is not None:
+        guard.uninstall()
     return Leg(doc, rates, call)
 
 

@@ -40,11 +40,12 @@ storages), so :meth:`CheckpointManager.save_async` copies every tensor
 to the host before it returns (timed against
 ``HVDT_CKPT_SNAPSHOT_BUDGET_S``); the writer only serializes.
 
-Not ported: the reference's fault-injection points (``resilience/
-faults``) and the recovery ledger's phase charges (``telemetry/
-step_stats.recovery_ledger``, ROADMAP Queue 1 item 6):
-:func:`_recovery_ledger` returns None, as the reference's does with
-telemetry off.
+The reference's fault-injection points are here too: ``checkpoint.write``
+at the manifest's write/fsync seam (``slow_disk``) and
+``checkpoint.save`` after the manifest, before ``LAST_GOOD`` advances
+(``corrupt_ckpt``); and the snapshot and background-write seconds are
+charged to the recovery ledger (``telemetry/step_stats.
+recovery_ledger``, None with telemetry off).
 """
 
 from __future__ import annotations
@@ -61,6 +62,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
+
+from .resilience import faults
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "CheckpointManager",
            "save_zero_state", "restore_zero_state",
@@ -498,6 +501,11 @@ class CheckpointManager:
         with open(tmp, "w") as f:
             json.dump({"step": step, "files": files}, f)
             f.flush()
+            # The write/fsync seam: slow_disk@step=N:secs=S sleeps here,
+            # in whichever thread performs the durable write.
+            inj = faults.get_injector()
+            if inj is not None:
+                inj.fire("checkpoint.write", step=step)
             os.fsync(f.fileno())
         os.replace(tmp, self._manifest_path(step))
         _fsync_dir(self.directory)
@@ -550,8 +558,14 @@ class CheckpointManager:
 
     def _finalize_step(self, step: int) -> None:
         """The durability tail of the sync save and the async writer:
-        manifest, ``LAST_GOOD``, keep-N pruning."""
+        manifest, the ``checkpoint.save`` fault point, ``LAST_GOOD``,
+        keep-N pruning."""
         self._write_manifest(step)
+        inj = faults.get_injector()
+        if inj is not None:
+            inj.fire("checkpoint.save", step=step,
+                     path=self._step_dir(step),
+                     manifest=self._manifest_path(step))
         self._advance_last_good(step)
         steps = self.all_steps()
         for old in steps[:-self.max_to_keep]:
@@ -714,10 +728,11 @@ class CheckpointManager:
 
 
 def _recovery_ledger():
-    """The process-wide recovery ledger: None until the runtime plane's
-    ``telemetry/step_stats.recovery_ledger`` is ported (ROADMAP Queue 1
-    item 6), as the reference returns None with telemetry off."""
-    return None
+    """The process-wide recovery ledger, or None with telemetry off
+    (the zero-overhead contract of ``step_stats.recovery_ledger``)."""
+    from .telemetry import step_stats
+
+    return step_stats.recovery_ledger()
 
 
 class _AsyncCheckpointWriter:

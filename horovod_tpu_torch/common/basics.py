@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
+import datetime
 import os
 import threading
 from typing import List, Optional, Sequence, Union
@@ -190,6 +191,14 @@ def init(*, device: DeviceLike = None,
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         backend = "nccl" if dev.type == "cuda" else "gloo"
+        # Failure detection is bounded: a collective on a dead peer fails
+        # after HVDT_CONTROL_PLANE_TIMEOUT_S, and NCCL's watchdog then
+        # aborts the communicator and raises (mode 2, "clean up only")
+        # rather than killing the process, so elastic.run can restore.
+        pg_timeout = datetime.timedelta(
+            seconds=config.get_float("HVDT_CONTROL_PLANE_TIMEOUT_S"))
+        if backend == "nccl":
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "2")
 
         owns = False
         if dist.is_initialized():
@@ -215,12 +224,12 @@ def init(*, device: DeviceLike = None,
                                   is_master=proc_id == 0,
                                   timeout=dist.constants.default_pg_timeout)
             dist.init_process_group(backend, store=store, rank=proc_id,
-                                    world_size=n_proc)
+                                    world_size=n_proc, timeout=pg_timeout)
             owns = True
         else:
             store = dist.HashStore()
             dist.init_process_group(backend, store=store, rank=0,
-                                    world_size=1)
+                                    world_size=1, timeout=pg_timeout)
             owns = True
 
         topo = Topology(rank=proc_id, size=n_proc, local_rank=local_rank_,

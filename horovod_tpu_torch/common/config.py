@@ -289,13 +289,64 @@ KNOBS: Dict[str, Knob] = {
              "instead of hanging forever.  0 = disabled."),
         Knob("HVDT_STALL_RESET_TIME_SECONDS", 0, int,
              "Stall-escalation reset rung: past this age a worker "
-             "additionally asks the elastic driver for a re-rendezvous.  "
-             "0 = disabled.  No effect yet: the elastic launcher is not "
-             "ported (ROADMAP Queue 1, item 6), so the rung only logs."),
+             "additionally publishes READY to the elastic driver's "
+             "registry, requesting a full re-rendezvous.  0 = disabled."),
+        Knob("HVDT_FAULT_PLAN", "", str,
+             "Declarative chaos-testing fault plan (resilience/faults.py), "
+             "e.g. 'crash@step=12:rank=1,hang@step=30:secs=20,"
+             "corrupt_ckpt@step=40,kv_drop@p=0.1'.  Empty (default) "
+             "compiles every injection point to a no-op."),
+        Knob("HVDT_FAULT_SEED", 0, int,
+             "RNG seed for probabilistic fault-plan entries (kv_drop@p=...) "
+             "so chaos runs are reproducible."),
+        Knob("HVDT_FAULT_JOURNAL", "", str,
+             "Path prefix for the fired-fault journal (per rank: "
+             "<path>.rank<N>).  Elastic recovery respawns processes; the "
+             "journal carries each fault's fired count across restarts so "
+             "'times' bounds fires per JOB, not per process life.  Empty "
+             "= per-process counting."),
+        Knob("HVDT_ELASTIC_BLACKLIST_COOLDOWN_S", 0.0, float,
+             "Blacklist cooldown for failed hosts in elastic discovery: 0 "
+             "(default) = permanent blacklist; >0 = the host re-enters "
+             "discovery after the cooldown, doubling per repeated failure "
+             "(capped 8x).  Set for single-host chaos runs, where a "
+             "permanent blacklist would strand the job."),
+        Knob("HVDT_POD", "", str,
+             "Pod id this worker belongs to.  Set per slot by the elastic "
+             "launcher from the discovery script's 'host[:slots][@pod]' "
+             "column (or the host itself); read by pod-scoped fault-plan "
+             "entries (pod_crash/pod_partition)."),
+        Knob("HVDT_POD_SIZE", 0, int,
+             "Slots per pod.  Driver side: chunk undeclared discovery "
+             "hosts (in order) into pods of this many slots — the "
+             "alternative to the @pod discovery column.  0 = per-host "
+             "pods (the flat semantics)."),
+        Knob("HVDT_POD_EXIT_WINDOW_S", 10.0, float,
+             "Pod exit-correlation window: failure exits of one pod's "
+             "ranks within this many seconds collapse into ONE pod-"
+             "removal event — one blacklist entry, one cooldown clock."),
+        Knob("HVDT_POD_DRAIN_GRACE_S", 60.0, float,
+             "How long a preemption-drained pod stays excluded from pod "
+             "assignment while waiting for the platform to reclaim its "
+             "hosts; after the grace it becomes placeable again."),
+        Knob("HVDT_POD_STRAGGLER_EVICT", 0, int,
+             "Pod-straggler eviction rung (consecutive telemetry windows "
+             "a pod is slow before it is evicted).  0 "
+             "= disabled.  Any other value makes the elastic driver raise "
+             "NotImplementedError: the telemetry snapshots it reads are "
+             "not ported (ROADMAP Queue 1, item 6, part 2)."),
+        Knob("HVDT_PEER_STORE", False, _parse_bool,
+             "In-memory peer-replicated snapshot tier.  Not ported yet "
+             "(ROADMAP Queue 1, item 6, part 2): on, it makes "
+             "resilience.get_peer_store() and elastic state raise "
+             "NotImplementedError."),
+        Knob("HVDT_ELASTIC", False, _parse_bool,
+             "Elastic (fault-tolerant) mode."),
         Knob("HVDT_CONTROL_PLANE_TIMEOUT_S", 300.0, float,
              "Eager control-plane gather/broadcast timeout — the failure-"
              "detection latency bound: a dead peer surfaces as this timeout "
-             "firing, converted to HorovodInternalError."),
+             "firing, converted to HorovodInternalError.  Also the process "
+             "group's collective timeout (init_process_group(timeout=))."),
         Knob("HVDT_DISABLE_PROFILER_RANGES", False, _parse_bool,
              "Disable the torch.profiler record_function ranges around "
              "eager ops."),
@@ -307,8 +358,13 @@ KNOBS: Dict[str, Knob] = {
              "Processes on this host (set by launcher)."),
         Knob("HVDT_CROSS_RANK", -1, int, "Host index (set by launcher)."),
         Knob("HVDT_CROSS_SIZE", -1, int, "Number of hosts (set by launcher)."),
+        Knob("HVDT_HOSTNAME", "", str, "Logical hostname assigned by launcher."),
         Knob("HVDT_COORDINATOR_ADDR", "", str,
              "host:port of the rendezvous (torch.distributed TCP store)."),
+        Knob("HVDT_RENDEZVOUS_ADDR", "", str,
+             "Rendezvous HTTP KV server address."),
+        Knob("HVDT_RENDEZVOUS_PORT", 0, int,
+             "Rendezvous HTTP KV server port."),
     ]
 }
 

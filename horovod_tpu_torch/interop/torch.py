@@ -64,10 +64,15 @@ def __getattr__(name):
         from .. import functions
 
         return getattr(functions, name)
-    if name in ("elastic", "TorchState"):
-        raise NotImplementedError(
-            f"interop.torch.{name} needs the port's elastic.py, which is "
-            "not ported yet (ROADMAP Queue 1, item 6: runtime plane)")
+    if name == "elastic":
+        # ref: horovod.torch.elastic submodule (TorchState, run)
+        from . import torch_elastic
+
+        return torch_elastic
+    if name == "TorchState":
+        from .torch_elastic import TorchState
+
+        return TorchState
     from . import core_attr
 
     found = core_attr(name)

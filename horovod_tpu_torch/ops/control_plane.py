@@ -20,6 +20,9 @@ from typing import List, Optional
 
 import torch.distributed as dist
 
+from ..resilience import faults
+from ..resilience.retry import Backoff, retry
+
 __all__ = ["ControlPlane", "LocalControlPlane", "StoreControlPlane",
            "default_control_plane"]
 
@@ -95,8 +98,22 @@ class StoreControlPlane(ControlPlane):
         # while the main thread's own store calls (a new_group's
         # rendezvous) must go through.
         clone = getattr(store, "clone", None)
-        self._store = dist.PrefixStore("hvdt/ctl",
-                                       clone() if clone else store)
+
+        def connect():
+            # The counterpart of the reference's ``tcp.connect`` fault
+            # point (its socket-mesh bootstrap): a kv_drop@...:point=
+            # tcp.connect plan makes a connect fail and be retried.
+            inj = faults.get_injector()
+            if inj is not None:
+                inj.fire("tcp.connect", rank=rank)
+            return clone() if clone else store
+
+        client = retry(connect, deadline_s=timeout_s,
+                       retry_on=(ConnectionError, OSError),
+                       backoff=Backoff(first=0.2, cap=5.0,
+                                       deadline_s=timeout_s),
+                       describe="eager control-plane connect")
+        self._store = dist.PrefixStore("hvdt/ctl", client)
         self._rank = rank
         self._size = size
         self._timeout = datetime.timedelta(seconds=timeout_s)

@@ -8,9 +8,8 @@ reset (a copy of the JAX package's ``resilience/escalation.py``).
    and their ``synchronize()`` raises ``HorovodInternalError`` instead of
    hanging forever.
 3. **reset** (``HVDT_STALL_RESET_TIME_SECONDS``) — under the elastic
-   launcher, additionally ask for a re-rendezvous
-   (:func:`request_elastic_reset`).  Not wired yet: the elastic launcher
-   is not ported (ROADMAP Queue 1, item 6), so the rung only logs.
+   launcher, additionally publish READY to the driver's registry so the
+   whole generation is re-rendezvoused (:func:`request_elastic_reset`).
 
 Each level fires at most once per stall episode per tensor
 (``resolve()`` re-arms).  Levels set to 0 are disabled.
@@ -121,14 +120,23 @@ class Escalator:
 
 
 def request_elastic_reset(reason: str = "stall escalation") -> bool:
-    """Ask the elastic driver for a re-rendezvous.  Best-effort: returns
-    False outside an elastic launch (no ``HVDT_RENDEZVOUS_ADDR``), as in
-    the JAX package; the abort rung already unwedged the job.  Inside
-    one it also returns False, with a warning: the elastic launcher's
-    worker registry is not ported yet (ROADMAP Queue 1, item 6)."""
+    """Ask the elastic driver for a re-rendezvous by publishing READY to
+    its worker registry (the key ``/registry/<generation>/<rank>`` the
+    driver polls, ``runner/elastic/driver.py`` ``_poll_worker_registry``;
+    the reference's KV contract, byte for byte).  Best-effort: returns
+    False outside elastic mode or when the KV is unreachable (the abort
+    rung already unwedged the job; reset is an optimization)."""
     if "HVDT_RENDEZVOUS_ADDR" not in os.environ:
         return False
-    log.warning("elastic reset not requested (%s): the elastic driver's "
-                "registry is not ported yet (ROADMAP Queue 1, item 6)",
-                reason)
-    return False
+    try:
+        from ..runner.http_kv import KVClient
+
+        client = KVClient.from_env()
+        gen = int(os.environ.get("HVDT_GENERATION", 0))
+        rank = int(os.environ.get("HVDT_RANK", 0))
+        client.put(f"/registry/{gen}/{rank}", b"READY")
+        log.warning("requested elastic reset (%s)", reason)
+        return True
+    except (ConnectionError, OSError, KeyError, ValueError) as e:
+        log.warning("elastic reset request failed: %r", e)
+        return False

@@ -1,0 +1,74 @@
+"""Launcher package: the port's ``hvdtrun`` CLI, hosts/slots, rendezvous
+KV, elastic driver.
+
+The port's counterpart of the JAX package's ``runner/`` (Horovod's
+horovod/runner/): ``python -m horovod_tpu_torch.runner.launch`` starts
+one worker process a slot with the ``HVDT_*`` env contract that
+``horovod_tpu_torch.init()`` reads.  The programmatic API mirrors
+Horovod's ``hvd.run()`` (runner/__init__.py:210).
+"""
+
+from .hosts import HostInfo, SlotInfo, parse_hosts, get_host_assignments  # noqa: F401
+from .http_kv import RendezvousServer, KVClient, new_secret  # noqa: F401
+
+
+def run(func, np: int = 1, hosts=None, verbose: bool = False,
+        device=None, **kwargs):
+    """Programmatic launch: run ``func`` on ``np`` local worker processes
+    and return their results ordered by rank (ref: runner/__init__.py
+    hvd.run — same contract, cloudpickle over the rendezvous KV).  Each
+    slot drives a card; ``device="cpu"`` launches CPU workers instead
+    (``func`` then calls ``init(device="cpu")``)."""
+    import pickle
+    import sys
+
+    from . import launch as launch_mod
+    from .http_kv import RendezvousServer, new_secret
+
+    try:
+        import cloudpickle
+        dumps = cloudpickle.dumps
+    except ImportError:   # plain pickle works for module-level functions
+        dumps = pickle.dumps
+
+    server = RendezvousServer(secret=new_secret())
+    port = server.start()
+    server.put_local("/runfunc/fn", dumps(func))
+    try:
+        argv = ["-np", str(np)]
+        if hosts:
+            argv += ["-H", hosts]
+        if verbose:
+            argv += ["--verbose"]
+        argv += ["--", sys.executable, "-m",
+                 "horovod_tpu_torch.runner.run_task"]
+        if device is not None:
+            argv += ["--device", str(device)]
+        args = launch_mod.parse_args(argv)
+        # Point workers at *this* server so they fetch fn and post results.
+        import os
+
+        env_patch = {
+            "HVDT_RUNFUNC_ADDR": "127.0.0.1",
+            "HVDT_RUNFUNC_PORT": str(port),
+            "HVDT_RUNFUNC_SECRET": server.secret.hex(),
+        }
+        old = {k: os.environ.get(k) for k in env_patch}
+        os.environ.update(env_patch)
+        try:
+            code = launch_mod.run_static(args)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if code != 0:
+            raise RuntimeError(f"hvd.run failed with exit code {code}")
+        results = []
+        for rank in range(np):
+            blob = server.get_local(f"/runfunc/result/{rank}")
+            results.append(pickle.loads(blob) if blob is not None else None)
+        return results
+    finally:
+        server.stop()

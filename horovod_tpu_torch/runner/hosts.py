@@ -1,0 +1,167 @@
+"""Host parsing and rank/slot assignment.
+
+The port's copy of the JAX package's ``runner/hosts.py`` (Horovod's
+runner/common/util/hosts.py: parse_hosts, get_host_assignments →
+SlotInfo{rank, local_rank, cross_rank, sizes}).  On a GPU host a slot is
+one process driving one card: ``HVDT_LOCAL_RANK`` picks the card
+(``common/basics.init``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, List, Optional, Sequence
+
+__all__ = ["HostInfo", "SlotInfo", "parse_hosts", "parse_host_files",
+           "get_host_assignments", "rank_env_from_hosts"]
+
+
+@dataclasses.dataclass(frozen=True)
+class HostInfo:
+    hostname: str
+    slots: int
+    pod: Optional[str] = None
+
+    @classmethod
+    def from_string(cls, s: str) -> "HostInfo":
+        """Parse ``host[:slots][@pod]`` — the optional ``@pod`` column is
+        how a discovery script declares which pod (a group of hosts) a host
+        belongs to; hosts sharing a pod fail, resize, and blacklist as
+        one unit (runner/elastic/pods.py)."""
+        m = re.match(r"^(?P<host>[^:@]+)(:(?P<slots>\d+))?"
+                     r"(@(?P<pod>[A-Za-z0-9._-]+))?$", s.strip())
+        if not m:
+            raise ValueError(f"bad host string: {s!r}")
+        return cls(m.group("host"), int(m.group("slots") or 1),
+                   m.group("pod"))
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotInfo:
+    hostname: str
+    rank: int
+    local_rank: int
+    cross_rank: int
+    size: int
+    local_size: int
+    cross_size: int
+    # Pod (two-level) topology: filled by the elastic driver's pod-aware
+    # assignment (runner/elastic/pods.py).  ``pod`` empty = the flat,
+    # pod-less contract (static launch) — to_env then omits HVDT_POD*.
+    pod: str = ""
+    pod_index: int = 0
+    pod_rank: int = 0
+    num_pods: int = 1
+    pod_size: int = 0
+
+    def to_env(self) -> Dict[str, str]:
+        """The launcher→worker env contract (analog of the reference's
+        HOROVOD_RANK/... set at runner/gloo_run.py:65-76)."""
+        env = {
+            "HVDT_HOSTNAME": self.hostname,
+            "HVDT_RANK": str(self.rank),
+            "HVDT_SIZE": str(self.size),
+            "HVDT_LOCAL_RANK": str(self.local_rank),
+            "HVDT_LOCAL_SIZE": str(self.local_size),
+            "HVDT_CROSS_RANK": str(self.cross_rank),
+            "HVDT_CROSS_SIZE": str(self.cross_size),
+        }
+        if self.pod:
+            env.update({
+                "HVDT_POD": self.pod,
+                "HVDT_POD_INDEX": str(self.pod_index),
+                "HVDT_POD_RANK": str(self.pod_rank),
+                "HVDT_NUM_PODS": str(self.num_pods),
+                "HVDT_POD_SIZE": str(self.pod_size),
+            })
+        return env
+
+
+def parse_hosts(hosts_string: str) -> List[HostInfo]:
+    """Parse "host1:2,host2:4" (ref: hosts.py parse_hosts)."""
+    return [HostInfo.from_string(part)
+            for part in hosts_string.split(",") if part.strip()]
+
+
+def parse_host_files(filename: str) -> List[HostInfo]:
+    """Parse a hostfile with "hostname slots=N" lines (mpirun-style)."""
+    hosts = []
+    with open(filename) as f:
+        for line in f:
+            line = line.split("#")[0].strip()
+            if not line:
+                continue
+            m = re.match(r"^(\S+)(\s+slots\s*=\s*(\d+))?", line)
+            if m:
+                hosts.append(HostInfo(m.group(1), int(m.group(3) or 1)))
+    return hosts
+
+
+def get_host_assignments(hosts: Sequence[HostInfo], min_np: int,
+                         max_np: int = 0) -> List[SlotInfo]:
+    """Round-robin-free contiguous rank assignment: fill each host's slots
+    in order (ref: hosts.py get_host_assignments — same contiguous layout,
+    which keeps local ranks adjacent for hierarchical collectives).
+
+    Raises if fewer than ``min_np`` slots are available; assigns at most
+    ``max_np`` (default: min_np) slots.
+    """
+    total = sum(h.slots for h in hosts)
+    if total < min_np:
+        raise ValueError(
+            f"requested {min_np} processes but only {total} slots available "
+            f"on {len(hosts)} hosts")
+    want = min(max_np or min_np, total)
+    assignments: List[SlotInfo] = []
+    rank = 0
+    cross_size = 0
+    for h in hosts:
+        if rank >= want:
+            break
+        cross_size += 1
+        for local_rank in range(min(h.slots, want - rank)):
+            assignments.append(SlotInfo(
+                hostname=h.hostname, rank=rank, local_rank=local_rank,
+                cross_rank=cross_size - 1, size=want,
+                local_size=0, cross_size=0))
+            rank += 1
+    # Fix up local/cross sizes now that the layout is known.
+    local_sizes: Dict[str, int] = {}
+    for a in assignments:
+        local_sizes[a.hostname] = local_sizes.get(a.hostname, 0) + 1
+    return [dataclasses.replace(a, local_size=local_sizes[a.hostname],
+                                cross_size=cross_size)
+            for a in assignments]
+
+
+def rank_env_from_hosts(rank: int, hosts: Sequence[str],
+                        base: "dict | None" = None,
+                        extra: "dict | None" = None) -> dict:
+    """Per-rank HVDT_* env contract from an already-placed host list.
+
+    ``hosts[i]`` is rank i's hostname/IP (as reported by the
+    orchestrator — Spark barrier task addresses, Ray actor node IPs).
+    Ranks sharing a host get consecutive local ranks; hosts are
+    cross-ranked in first-appearance order — the same layout rule as
+    ``get_host_assignments`` (ref: runner/common/util/hosts.py), applied
+    post hoc to an externally scheduled set."""
+    my_host = hosts[rank]
+    host_order: list = []
+    for h in hosts:
+        if h not in host_order:
+            host_order.append(h)
+    env = dict(base or {})
+    env.update({
+        "HVDT_RANK": str(rank),
+        "HVDT_SIZE": str(len(hosts)),
+        "HVDT_LOCAL_RANK": str(sum(1 for h in hosts[:rank]
+                                   if h == my_host)),
+        "HVDT_LOCAL_SIZE": str(hosts.count(my_host)),
+        "HVDT_CROSS_RANK": str(host_order.index(my_host)),
+        "HVDT_CROSS_SIZE": str(len(host_order)),
+        "HVDT_HOSTNAME": my_host,
+    })
+    if extra:
+        env.update(extra)
+    return env

@@ -1,0 +1,312 @@
+"""Rendezvous key-value HTTP server + client.
+
+The port's copy of the JAX package's ``runner/http_kv.py`` (Horovod's
+runner/http/http_server.py and http_client.py): the same paths, verbs,
+digest header and HMAC-SHA256 over the body, so a client of either
+package talks to a server of the other.  Used by the launcher to publish
+slot assignments and by elastic workers to discover re-rendezvous
+info.
+
+Security note: like the reference, requests carry an HMAC digest derived
+from a per-launch secret key (ref: common/util/secret.py, network.py:58-99
+Wire) so stray processes can't join the job.
+
+Resilience: client polls use the shared exponential-backoff-with-jitter
+primitive (``resilience.retry.Backoff``) instead of fixed-interval
+sleeps, client ops carry the ``kv`` fault-injection point
+(``HVDT_FAULT_PLAN=kv_drop@p=...``), and server shutdown is
+deterministic (socket closed before the join; a leaked serve thread is
+reported, not silently abandoned).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import hmac
+import http.client
+import http.server
+import os
+import secrets as _secrets
+import socketserver
+import threading
+import time
+import urllib.parse
+from typing import Dict, Optional
+
+from ..resilience import faults
+from ..resilience.retry import Backoff
+
+__all__ = ["RendezvousServer", "KVClient", "new_secret"]
+
+_DIGEST_HEADER = "X-HVDT-Digest"
+
+# KV-client observability: with telemetry on, hvdt_kv_errors_total{op}
+# counts every failed client op and hvdt_kv_retries_total counts the
+# bootstrap-wait retries that papered over them, in the default
+# registry.  Telemetry off keeps the zero-overhead contract
+# (_kv_metrics() is None — no registry, no counters, no labels).
+_kv_metrics_cache = None
+
+
+def _kv_metrics():
+    global _kv_metrics_cache
+    from .. import telemetry
+    from ..telemetry.metrics import default_registry
+
+    if not telemetry.enabled():
+        _kv_metrics_cache = None
+        return None
+    if _kv_metrics_cache is None:
+        reg = default_registry()
+        _kv_metrics_cache = (
+            reg.counter(
+                "hvdt_kv_retries_total",
+                "Rendezvous-KV bootstrap-wait retries after a failed or "
+                "empty probe (KVClient.wait backoff loop)"),
+            reg.counter(
+                "hvdt_kv_errors_total",
+                "Rendezvous-KV client op failures, labelled op="
+                "put|get|delete (connection refused/reset, non-200, "
+                "injected kv_drop faults)"))
+    return _kv_metrics_cache
+
+
+def _count_kv_error(op: str) -> None:
+    m = _kv_metrics()
+    if m is not None:
+        m[1].inc(op=op)
+
+
+def new_secret() -> bytes:
+    return _secrets.token_bytes(32)
+
+
+def _digest(secret: bytes, payload: bytes) -> str:
+    return hmac.new(secret, payload, hashlib.sha256).hexdigest()
+
+
+class _Handler(http.server.BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    server: "RendezvousServer"
+
+    def log_message(self, *args):   # silence default stderr noise
+        pass
+
+    def _check_auth(self, payload: bytes) -> bool:
+        want = _digest(self.server.secret, payload)
+        got = self.headers.get(_DIGEST_HEADER, "")
+        return hmac.compare_digest(want, got)
+
+    def do_PUT(self):
+        length = int(self.headers.get("Content-Length", 0))
+        payload = self.rfile.read(length)
+        if not self._check_auth(payload):
+            self.send_error(403)
+            return
+        key = urllib.parse.unquote(self.path)
+        with self.server.lock:
+            self.server.store[key] = payload
+            self.server.cond.notify_all()
+        self.send_response(200)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+    def do_GET(self):
+        if not self._check_auth(b""):
+            self.send_error(403)
+            return
+        key = urllib.parse.unquote(self.path)
+        with self.server.lock:
+            val = self.server.store.get(key)
+        if val is None:
+            self.send_response(404)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+            return
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(val)))
+        self.end_headers()
+        self.wfile.write(val)
+
+    def do_DELETE(self):
+        if not self._check_auth(b""):
+            self.send_error(403)
+            return
+        key = urllib.parse.unquote(self.path)
+        with self.server.lock:
+            removed = self.server.store.pop(key, None)
+        self.send_response(200 if removed is not None else 404)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+
+class RendezvousServer(socketserver.ThreadingMixIn, http.server.HTTPServer):
+    """Threaded in-memory KV over HTTP (ref: RendezvousServer
+    http_server.py:112-218).  start() binds an ephemeral (or given) port;
+    the launcher passes addr/port to workers via HVDT_RENDEZVOUS_ADDR/PORT.
+    """
+
+    daemon_threads = True
+    allow_reuse_address = True
+
+    def __init__(self, secret: Optional[bytes] = None, port: int = 0,
+                 addr: str = "0.0.0.0"):
+        super().__init__((addr, port), _Handler)
+        self.secret = secret if secret is not None else new_secret()
+        self.store: Dict[str, bytes] = {}
+        self.lock = threading.Lock()
+        self.cond = threading.Condition(self.lock)
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self.server_address[1]
+
+    def start(self) -> int:
+        self._thread = threading.Thread(target=self.serve_forever,
+                                        name="hvdt-rendezvous", daemon=True)
+        self._thread.start()
+        return self.port
+
+    def stop(self) -> bool:
+        """Deterministic teardown: stop the serve loop, close the listen
+        socket FIRST (so no handler can block on a fresh accept), then
+        join the serve thread.  Returns False — loudly — if the thread
+        outlived the join instead of leaking it silently."""
+        self.shutdown()
+        self.server_close()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=10)
+            if t.is_alive():
+                import sys
+
+                print("hvdt-rendezvous thread leaked past shutdown",
+                      file=sys.stderr)
+                return False
+        return True
+
+    # Server-side convenience for the in-process driver.
+    def put_local(self, key: str, value: bytes) -> None:
+        with self.lock:
+            self.store[key] = value
+            self.cond.notify_all()
+
+    def get_local(self, key: str) -> Optional[bytes]:
+        with self.lock:
+            return self.store.get(key)
+
+    def wait_for(self, key: str, timeout: float) -> Optional[bytes]:
+        deadline = time.monotonic() + timeout
+        with self.lock:
+            while key not in self.store:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return None
+                self.cond.wait(remaining)
+            return self.store[key]
+
+
+class KVClient:
+    """Worker-side client (ref: http/http_client.py read/write_data_from_kvstore)."""
+
+    def __init__(self, addr: str, port: int, secret: bytes,
+                 timeout: float = 30.0):
+        self.addr, self.port, self.secret = addr, port, secret
+        self.timeout = timeout
+
+    @classmethod
+    def from_env(cls, env: Optional[Dict[str, str]] = None) -> "KVClient":
+        e = env or os.environ
+        return cls(e["HVDT_RENDEZVOUS_ADDR"],
+                   int(e["HVDT_RENDEZVOUS_PORT"]),
+                   bytes.fromhex(e["HVDT_SECRET"]))
+
+    def _conn(self) -> http.client.HTTPConnection:
+        return http.client.HTTPConnection(self.addr, self.port,
+                                          timeout=self.timeout)
+
+    @staticmethod
+    def _fault(point: str) -> None:
+        inj = faults.get_injector()
+        if inj is not None:
+            inj.fire(point)
+
+    def put(self, key: str, value: bytes) -> None:
+        try:
+            self._fault("kv")
+            c = self._conn()
+            try:
+                c.request("PUT", urllib.parse.quote(key), body=value,
+                          headers={_DIGEST_HEADER: _digest(self.secret,
+                                                           value)})
+                r = c.getresponse()
+                r.read()
+                if r.status != 200:
+                    raise ConnectionError(f"KV put {key}: HTTP {r.status}")
+            finally:
+                c.close()
+        except (ConnectionError, OSError):
+            _count_kv_error("put")
+            raise
+
+    def get(self, key: str) -> Optional[bytes]:
+        try:
+            self._fault("kv")
+            c = self._conn()
+            try:
+                c.request("GET", urllib.parse.quote(key),
+                          headers={_DIGEST_HEADER: _digest(self.secret,
+                                                           b"")})
+                r = c.getresponse()
+                body = r.read()
+                if r.status == 404:
+                    return None
+                if r.status != 200:
+                    raise ConnectionError(f"KV get {key}: HTTP {r.status}")
+                return body
+            finally:
+                c.close()
+        except (ConnectionError, OSError):
+            _count_kv_error("get")
+            raise
+
+    def delete(self, key: str) -> None:
+        try:
+            c = self._conn()
+            try:
+                c.request("DELETE", urllib.parse.quote(key),
+                          headers={_DIGEST_HEADER: _digest(self.secret,
+                                                           b"")})
+                c.getresponse().read()
+            finally:
+                c.close()
+        except (ConnectionError, OSError):
+            _count_kv_error("delete")
+            raise
+
+    def wait(self, key: str, timeout: float = 60.0,
+             poll: float = 0.5) -> bytes:
+        """Poll until the key appears (bootstrap barrier helper).
+
+        Backoff-with-jitter polling, not a fixed interval: every worker
+        of a large job waits on the same bootstrap keys, and fixed-period
+        polls synchronize into request storms on the single rendezvous
+        server.  ``poll`` caps the delay between probes.  Transient
+        connection errors (server restarting, injected ``kv_drop``
+        faults) are retried within the same deadline instead of aborting
+        the bootstrap."""
+        b = Backoff(first=0.02, cap=max(poll, 0.02), deadline_s=timeout)
+        while True:
+            try:
+                val = self.get(key)
+            except (ConnectionError, OSError):
+                val = None
+            if val is not None:
+                return val
+            m = _kv_metrics()
+            if m is not None:
+                m[0].inc()
+            if not b.sleep():
+                raise TimeoutError(f"KV key {key!r} not published "
+                                   f"within {timeout}s")

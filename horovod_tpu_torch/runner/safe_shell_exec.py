@@ -1,0 +1,101 @@
+"""Process execution with process-group cleanup and output streaming.
+
+The port's copy of the JAX package's ``runner/safe_shell_exec.py``
+(Horovod's runner/common/util/safe_shell_exec.py) —
+spawn in its own process group/session, stream stdout/stderr with an
+optional per-line prefix (rank tagging), event-driven termination with a
+graceful SIGTERM→SIGKILL window.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+from typing import Dict, IO, Optional
+
+__all__ = ["safe_execute", "GRACEFUL_TERMINATION_TIME_S"]
+
+GRACEFUL_TERMINATION_TIME_S = 5.0
+
+
+def _stream(pipe: IO[bytes], out: IO, prefix: str) -> None:
+    try:
+        for line in iter(pipe.readline, b""):
+            text = line.decode("utf-8", errors="replace")
+            out.write(f"{prefix}{text}" if prefix else text)
+            out.flush()
+    except ValueError:
+        pass  # pipe closed
+    finally:
+        try:
+            pipe.close()
+        except OSError:
+            pass
+
+
+def safe_execute(command: str,
+                 env: Optional[Dict[str, str]] = None,
+                 stdout: Optional[IO] = None,
+                 stderr: Optional[IO] = None,
+                 prefix: str = "",
+                 terminate_event: Optional[threading.Event] = None,
+                 graceful_s: float = GRACEFUL_TERMINATION_TIME_S) -> int:
+    """Run ``command`` in a shell in its own session; return exit code.
+
+    If ``terminate_event`` fires, the whole process group gets SIGTERM,
+    then SIGKILL after ``graceful_s`` (ref: safe_shell_exec.py
+    GRACEFUL_TERMINATION_TIME semantics).
+    """
+    proc = subprocess.Popen(
+        command, shell=True, env=env, start_new_session=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    threads = [
+        threading.Thread(target=_stream,
+                         args=(proc.stdout, stdout or sys.stdout, prefix),
+                         daemon=True),
+        threading.Thread(target=_stream,
+                         args=(proc.stderr, stderr or sys.stderr, prefix),
+                         daemon=True),
+    ]
+    for t in threads:
+        t.start()
+
+    def _killer():
+        terminate_event.wait()
+        if proc.poll() is None:
+            _terminate_group(proc, graceful_s)
+
+    if terminate_event is not None:
+        threading.Thread(target=_killer, daemon=True).start()
+
+    proc.wait()
+    for t in threads:
+        t.join(timeout=1.0)
+    return proc.returncode
+
+
+def _terminate_group(proc: subprocess.Popen, graceful_s: float) -> None:
+    try:
+        pgid = os.getpgid(proc.pid)
+    except ProcessLookupError:
+        return
+    try:
+        os.killpg(pgid, signal.SIGTERM)
+    except ProcessLookupError:
+        return
+    from ..resilience.retry import Backoff
+
+    grace = Backoff(first=0.02, cap=0.25, deadline_s=graceful_s)
+    while proc.poll() is None:
+        if not grace.sleep():   # grace window exhausted -> SIGKILL
+            break
+    if proc.poll() is not None:
+        return
+    try:
+        os.killpg(pgid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass

@@ -20,9 +20,12 @@ from .metrics import (  # noqa: F401
 )
 from .step_stats import (  # noqa: F401
     PEAK_BY_DEVICE_KIND,
+    RECOVERY_PHASES,
     GoodputLedger,
     StepTimer,
     peak_flops_for,
+    recovery_ledger,
+    reset_recovery_ledger,
     tree_bytes,
 )
 

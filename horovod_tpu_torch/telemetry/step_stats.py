@@ -16,15 +16,20 @@ A :class:`GoodputLedger` charges wall-clock lost to recompiles, restores
 and recovered faults against total elapsed time and publishes
 ``hvdt_goodput_fraction``.
 
+The recovery-time budget rides on the ledger: :meth:`GoodputLedger.
+charge_phase` books seconds against one of :data:`RECOVERY_PHASES`
+(``hvdt_recovery_seconds{phase=...}``), and :func:`recovery_ledger` is
+the process-wide instance the elastic loop, the checkpoint writer and
+the loaders' ``seek`` charge (None with telemetry off).
+
 Not ported yet: the deviation tracker and ``PerfExpectation`` (ROADMAP
-Queue 1: control, analysis and the edges), the recovery-time budget
-(``charge_phase`` and the process-wide recovery ledger), the resilience
-gauges and the memory-accounting gauges (ROADMAP Queue 1: runtime
-plane).
+Queue 1, item 8: control, analysis and the edges), the resilience and
+memory-accounting gauges (item 6, part 2: the telemetry modules).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, Optional
@@ -32,7 +37,8 @@ from typing import Dict, Optional
 from .metrics import Gauge, MetricsRegistry, default_registry
 
 __all__ = ["StepTimer", "GoodputLedger", "peak_flops_for", "tree_bytes",
-           "PEAK_BY_DEVICE_KIND"]
+           "PEAK_BY_DEVICE_KIND", "RECOVERY_PHASES", "recovery_ledger",
+           "reset_recovery_ledger"]
 
 # bf16 peak FLOP/s and memory byte/s by device (device-kind substring,
 # lowercase).  The TPU rows are the JAX package's.  The one GPU row is
@@ -189,6 +195,13 @@ class _StepScope:
         return False
 
 
+# The recovery-time budget's phase vocabulary: every non-training
+# second of a detect→restore→resume cycle is attributed to exactly one
+# of these (the reference's names).
+RECOVERY_PHASES = ("checkpoint_snapshot", "checkpoint_write", "rendezvous",
+                   "compile", "restore", "replay")
+
+
 class GoodputLedger:
     """Wall-clock accounting: where did the non-training time go?
 
@@ -197,8 +210,12 @@ class GoodputLedger:
     ``hvdt_goodput_fraction`` gauge is ``(elapsed - lost) / elapsed``
     live-probed at scrape time, and
     ``hvdt_goodput_lost_seconds_total{reason=...}`` itemizes the bill.
-    (The reference's per-phase recovery budget on the same ledger waits
-    for the recovery paths that charge it.)
+
+    The recovery-time budget rides on top: :meth:`charge_phase` books
+    seconds against one of :data:`RECOVERY_PHASES` and publishes them as
+    ``hvdt_recovery_seconds{phase=...}``.  A phase marked ``overlapped``
+    (the async checkpoint write, which runs under training) is attributed
+    but not charged against goodput.
     """
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
@@ -213,9 +230,15 @@ class GoodputLedger:
         self._start = clock() - max(0.0, float(already_elapsed))
         self._lock = threading.Lock()
         self._lost: Dict[str, float] = {}
+        self._phases: Dict[str, float] = {}
         self._lost_counter = reg.counter(
             "hvdt_goodput_lost_seconds_total",
             "Wall-clock seconds lost to non-training work, by reason")
+        self._phase_counter = reg.counter(
+            "hvdt_recovery_seconds",
+            "Non-training wall-clock attributed to the recovery-time "
+            "budget, by phase (checkpoint_snapshot | checkpoint_write | "
+            "rendezvous | compile | restore | replay)")
         reg.gauge(
             "hvdt_goodput_fraction",
             "(elapsed - lost) / elapsed since ledger start"
@@ -226,6 +249,49 @@ class GoodputLedger:
         with self._lock:
             self._lost[reason] = self._lost.get(reason, 0.0) + s
         self._lost_counter.inc(s, reason=str(reason))
+
+    def charge_phase(self, phase: str, seconds: float,
+                     overlapped: bool = False) -> None:
+        """Attribute ``seconds`` to a recovery phase.  Unknown phases
+        raise — a typo'd phase would silently fall out of the budget
+        audit.  ``overlapped`` phases (background checkpoint writes)
+        appear in ``hvdt_recovery_seconds`` but do NOT reduce the
+        goodput fraction: training kept running under them."""
+        if phase not in RECOVERY_PHASES:
+            raise ValueError(
+                f"unknown recovery phase {phase!r}; valid: "
+                f"{', '.join(RECOVERY_PHASES)}")
+        s = max(0.0, float(seconds))
+        with self._lock:
+            self._phases[phase] = self._phases.get(phase, 0.0) + s
+        self._phase_counter.inc(s, phase=phase)
+        if not overlapped:
+            self.charge(phase, s)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, overlapped: bool = False):
+        """Context manager timing one recovery phase::
+
+            with ledger.phase("restore"):
+                state.restore()
+        """
+        t0 = self._clock()
+        try:
+            yield
+        finally:
+            self.charge_phase(name, self._clock() - t0,
+                              overlapped=overlapped)
+
+    def recovery_seconds(self, phase: Optional[str] = None) -> float:
+        with self._lock:
+            if phase is not None:
+                return self._phases.get(phase, 0.0)
+            return sum(self._phases.values())
+
+    def recovery_snapshot(self) -> Dict[str, float]:
+        """Per-phase totals (the bench JSON / scenario-test handle)."""
+        with self._lock:
+            return dict(self._phases)
 
     def lost_seconds(self, reason: Optional[str] = None) -> float:
         with self._lock:
@@ -241,6 +307,39 @@ class GoodputLedger:
         if elapsed <= 0:
             return 1.0
         return max(0.0, (elapsed - self.lost_seconds()) / elapsed)
+
+
+# ---------------------------------------------------------------------------
+# Process-wide recovery ledger (the instance elastic.py / checkpoint.py
+# charge into; None when telemetry is off — the zero-overhead contract)
+# ---------------------------------------------------------------------------
+
+_recovery_lock = threading.Lock()
+_recovery: Optional[GoodputLedger] = None
+
+
+def recovery_ledger() -> Optional[GoodputLedger]:
+    """The process-wide ledger recovery phases are charged into, created
+    on first use — or None when telemetry is off (``HVDT_TELEMETRY``),
+    so the steady-state cost at every charge site is one None-check."""
+    from . import enabled
+
+    if not enabled():
+        return None
+    global _recovery
+    with _recovery_lock:
+        if _recovery is None:
+            _recovery = GoodputLedger()
+        return _recovery
+
+
+def reset_recovery_ledger() -> None:
+    """Drop the process-wide recovery ledger (tests; pairs with
+    ``metrics.reset_default_registry``, which orphans the old instance's
+    metric objects)."""
+    global _recovery
+    with _recovery_lock:
+        _recovery = None
 
 
 def tree_bytes(tree) -> int:

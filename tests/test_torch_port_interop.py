@@ -502,9 +502,10 @@ def test_every_name_of_the_reference(worlds):
     assert tit.SyncBatchNorm.__module__.startswith("horovod_tpu_torch.")
     assert tit.rank() == 0 and tit.size() == 1
     assert tit.Average is hvd.Average
-    for name in ("elastic", "TorchState"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(tit, name)
+    from horovod_tpu_torch.interop import torch_elastic
+
+    assert tit.elastic is torch_elastic
+    assert tit.TorchState is torch_elastic.TorchState
     import horovod_tpu_torch.interop as interop
 
     for name in ("tf", "mxnet"):
