@@ -2951,6 +2951,243 @@ def phase_bench(hvd, smi):
     return max(r["max_abs_err"] for r in mm_stats)
 
 
+# ---- slice 20: the telemetry plane on the main path (one card) -------------
+
+# Calls of the graphed DistributedOptimizer step whose collective counters
+# must be this many times one eager call's.
+TELEMETRY_CALLS = 10
+TELEMETRY_KNOBS = ("HVDT_TELEMETRY", "HVDT_TRACE_DIR", "HVDT_FLIGHT_RECORDER",
+                   "HVDT_HISTORY", "HVDT_HISTORY_SAMPLE_S",
+                   "HVDT_METRICS_PORT")
+
+
+def _telemetry_knobs(on: bool, trace_dir: str) -> None:
+    """Turn the recorders, the tracer, the flight recorder and the history
+    on or off, with fresh registries and recorders either way."""
+    from horovod_tpu_torch.telemetry import (exporter, flight_recorder,
+                                             history, instrument, metrics,
+                                             trace)
+
+    values = {"HVDT_TELEMETRY": "1", "HVDT_TRACE_DIR": trace_dir,
+              "HVDT_FLIGHT_RECORDER": "1", "HVDT_HISTORY": "1",
+              "HVDT_HISTORY_SAMPLE_S": "0", "HVDT_METRICS_PORT": "0"}
+    for k in TELEMETRY_KNOBS:
+        if on:
+            os.environ[k] = values[k]
+        else:
+            os.environ.pop(k, None)
+    exporter.stop_exporter()
+    metrics.reset_default_registry()
+    for mod in (instrument, trace, flight_recorder, history):
+        mod.reset()
+
+
+def _collective_counts() -> dict:
+    """The collective counters of the default registry by label set."""
+    from horovod_tpu_torch.telemetry import metrics
+
+    reg = metrics.default_registry()
+    out = {}
+    for name in ("hvdt_collectives_total", "hvdt_collective_bytes_total"):
+        m = reg.get(name)
+        out[name] = ({",".join(f"{k}={v}" for k, v in sorted(lb.items())): v
+                      for lb, v in m.items()} if m is not None else {})
+    return out
+
+
+def _prometheus_names(text: str) -> list:
+    """Metric family names of a Prometheus text page (a summary's _sum
+    and _count lines fold into their family)."""
+    names = set()
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        name = ln.split("{")[0].split(" ")[0]
+        for suffix in ("_sum", "_count"):
+            if name.endswith(suffix) and f"# TYPE {name[:-len(suffix)]} " \
+                    f"summary" in text:
+                name = name[:-len(suffix)]
+        names.add(name)
+    return sorted(names)
+
+
+def phase_telemetry(hvd, smi):
+    """telemetry — the recorders, the tracer, the flight recorder and the
+    history on the main path.  Bench leg G (graphed, #2 and #4), 3 x 20
+    steps, in turns without and with HVDT_TELEMETRY=1 HVDT_TRACE_DIR
+    HVDT_FLIGHT_RECORDER=1 HVDT_HISTORY=1: img/s of each side, #2/#4
+    launches a replay on each side (torch.profiler; must be equal: the
+    recorders add no kernel to a replay), and on the telemetry side the
+    trace file's train.step spans with consecutive trace ids.  Then the
+    DistributedOptimizer(fused_sgd) ResNet-50 step under donated_step
+    with the recorders on: after TELEMETRY_CALLS calls (one eager, one
+    capture + replay, replays) hvdt_collectives_total and
+    hvdt_collective_bytes_total must be TELEMETRY_CALLS x one eager
+    call's, and the flight recorder must hold TELEMETRY_CALLS x its
+    events; /metrics scraped over HTTP from the exporter, every family
+    declared in the catalog; the HBM gauge against
+    torch.cuda.memory_allocated(); /timeseries.  Then one eager int8
+    step under the recorders: #5/#6 launches and the quantized flight
+    events; last, 3 graphed ZeRO states steps over fused_adam (#1): the
+    hvdt_optimizer_state_bytes gauge holds the plan's per-rank bytes."""
+    import tempfile
+    import urllib.request
+
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.models import ResNetConfig, resnet50_init
+    from horovod_tpu_torch.step_pipeline import donated_step
+    from horovod_tpu_torch.telemetry import (StepTimer, exporter,
+                                             flight_recorder, metrics)
+
+    t0 = time.perf_counter()
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    legs = []
+    try:
+        for on in (False, True, True, False):
+            _telemetry_knobs(on, trace_dir)
+            leg, row = bench_leg(bench, "G", smi)
+            _, launches_of = step_profile(leg.step)
+            out = {"telemetry": on, "images_per_s": row["images_per_s"],
+                   "rates": row["rates"],
+                   "launches_per_replay": {
+                       "_mm_stats_kernel": launches_of("mm_stats_kernel"),
+                       "_sgd_kernel": launches_of("optim_multi<false>")}}
+            if on:
+                doc = leg.doc["telemetry"]
+                with open(doc["trace_file"]) as f:
+                    events = json.load(f)["traceEvents"]
+                spans = [e for e in events if e["name"] == "train.step"]
+                ids = [e["args"]["trace_id"] for e in spans]
+                assert ids == [f"step-{k:08d}" for k in range(len(ids))], ids
+                assert len(spans) >= 60, len(spans)
+                out.update(trace_step_spans=len(spans),
+                           trace_ids=[ids[0], ids[-1]],
+                           trace_events=len(events),
+                           metrics_port=doc.get("metrics_port"),
+                           flight_recorder_events=doc.get(
+                               "flight_recorder_events"),
+                           step_dispatch_ms_p50=1e3 * metrics
+                           .default_registry().get(
+                               "hvdt_step_dispatch_seconds")
+                           .percentiles()[0.5])
+            legs.append(out)
+            del leg
+            _free()
+        assert all(x["launches_per_replay"] == legs[0]["launches_per_replay"]
+                   for x in legs), legs
+        assert legs[0]["launches_per_replay"] == {"_mm_stats_kernel": 26,
+                                                  "_sgd_kernel": 1}, legs
+        off = [x["images_per_s"] for x in legs if not x["telemetry"]]
+        on_ = [x["images_per_s"] for x in legs if x["telemetry"]]
+        emit({"phase": "telemetry_bench", "leg": "G", "order": [
+            "on" if x["telemetry"] else "off" for x in legs],
+            "legs": legs, "images_per_s_off": off, "images_per_s_on": on_,
+            "overhead_pct": 100.0 * (1.0 - (sum(on_) / len(on_))
+                                     / (sum(off) / len(off))),
+            "card": smi})
+
+        # The graphed DistributedOptimizer step: counters per replay.
+        _telemetry_knobs(True, trace_dir)
+        exp = exporter.maybe_start_exporter(topology=hvd.topology())
+        assert exp is not None and exp.port > 0
+        os.environ["HVDT_FUSED_CONV1X1"] = "1"
+        model = resnet50_init(0, ResNetConfig())
+        opt = _fused_opt(hvd, model)
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        images = torch.randn((BATCH, IMAGE, IMAGE, 3), generator=gen,
+                             device="cuda", dtype=torch.bfloat16)
+        labels = torch.randint(0, 1000, (BATCH,), generator=gen,
+                               device="cuda")
+        fr = flight_recorder.get_flight_recorder()
+        timer = StepTimer(examples_per_step=BATCH)
+        step = donated_step(_resnet_step)
+        reset_counters()
+        times = []
+        for k in range(TELEMETRY_CALLS):
+            t1 = time.perf_counter()
+            step(model, opt, images, labels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            timer.observe(times[-1])
+            if k == 0:
+                unit = _collective_counts()
+                unit_events = len(fr.events())
+        assert step.graphed
+        got = _collective_counts()
+        buckets = len(hvd.device.fused_allreduce_buckets(
+            [p for p in model.parameters()], None))
+        want = {name: {lb: TELEMETRY_CALLS * v for lb, v in series.items()}
+                for name, series in unit.items()}
+        assert got == want, (got, want)
+        assert sum(unit["hvdt_collectives_total"].values()) == len(
+            list(model.parameters())), unit
+        assert unit_events == buckets, (unit_events, buckets)
+        assert len(fr.events()) == TELEMETRY_CALLS * buckets, len(
+            fr.events())
+        base = f"http://127.0.0.1:{exp.port}"
+        text = urllib.request.urlopen(base + "/metrics", timeout=10).read() \
+            .decode()
+        names = _prometheus_names(text)
+        undeclared = [n for n in names if not metrics.declared_metric(n)]
+        assert not undeclared, undeclared
+        hbm = metrics.default_registry().get("hvdt_hbm_bytes_in_use").value()
+        allocated = torch.cuda.memory_allocated()
+        assert hbm == float(allocated), (hbm, allocated)
+        series = json.loads(urllib.request.urlopen(
+            base + "/timeseries", timeout=10).read())["series"]
+        assert len(series["step_time"]) == TELEMETRY_CALLS, series
+        # One eager int8 step under the recorders: #5/#6 and the
+        # quantized flight events.
+        int8_opt = hvd.DistributedOptimizer(
+            hvd.fused_sgd(model.parameters(), 0.01, momentum=0.9),
+            compression=hvd.Compression.int8)
+        reset_counters()
+        run_steps(model, int8_opt, images, labels, 1)
+        q_launches = counters()
+        q_events = [e for e in fr.events() if e["name"] == "quantized.flat"]
+        assert q_launches["_quant_kernel"] == 2 * buckets, q_launches
+        assert q_launches["_dequant_kernel"] == buckets, q_launches
+        assert len(q_events) == buckets, q_events
+        assert all(e["wire"] == "int8_blockwise" for e in q_events)
+        del int8_opt, opt, model, step
+        _free()
+        # ZeRO states over fused_adam (#1) under the recorders: the
+        # memory gauge holds the plan's per-rank optimizer-state bytes.
+        reset_counters()
+        zm, zo, zstep, _ = _zero_run(hvd, "adam", "states",
+                                     [(images, labels)], 3)
+        z_launches = counters()
+        dopt = _zero_inner(zo)
+        z_bytes = dopt.transform.state_bytes_per_rank(dopt._zparams)
+        z_gauge = metrics.default_registry().get(
+            "hvdt_optimizer_state_bytes").value()
+        assert z_launches["_adam_kernel"] >= 2, z_launches
+        assert z_gauge == float(z_bytes), (z_gauge, z_bytes)
+        del zm, zo, zstep, dopt
+        emit({"phase": "telemetry", "calls": TELEMETRY_CALLS,
+              "buckets": buckets,
+              "collectives_one_call": unit,
+              "collectives_after_calls": got,
+              "flight_recorder_events": len(fr.events()),
+              "metrics_families": len(names), "metrics_bytes": len(text),
+              "hbm_gauge_bytes": hbm, "memory_allocated": allocated,
+              "timeseries": sorted(series),
+              "step_s": times,
+              "int8_launches": {k: v for k, v in q_launches.items() if v},
+              "int8_flight_events": [{k: e[k] for k in (
+                  "seq", "name", "nbytes", "wire", "path", "status")}
+                  for e in q_events],
+              "zero_states_launches": {k: v for k, v in z_launches.items()
+                                       if v},
+              "zero_states_state_bytes_gauge": z_gauge,
+              "wall_s": time.perf_counter() - t0, "card": smi})
+        del images, labels
+    finally:
+        _telemetry_knobs(False, trace_dir)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        _free()
+
+
 # ---- slice 17: parallel axes, part 1 (one card) -----------------------------
 
 # One bert-large MoE layer's shape: 32 x 512 tokens, d_model 1024, d_ff
@@ -4253,8 +4490,141 @@ def eager_cards(n: int) -> int:
     rc = _spawn_ranks(n, "--eager-worker", EAGER_CARDS_TIMEOUT_S)
     if rc:
         return rc
+    rc = eager_desync(n)
+    if rc:
+        return rc
     emit({"phase": "eager_cards_total", "wall_s": time.perf_counter() - t0})
     _last_lines(smi)
+    return 0
+
+
+# The desync case: stall knobs short enough for a run, and the bound on the
+# seconds from the skipped collective's enqueue to each rank's report.
+EAGER_DESYNC_ABORT_S = 3
+EAGER_DESYNC_BOUND_S = 15.0
+EAGER_DESYNC_TIMEOUT_S = 180
+
+
+def eager_desync(n: int) -> int:
+    """The desync case of ``--eager-cards``: N fresh ranks, one a card,
+    with the flight recorder and the telemetry exporter on
+    (HVDT_TELEMETRY_PUBLISH_S=0.5 over a rendezvous KV this process
+    serves) and HVDT_STALL_ABORT_TIME_SECONDS=EAGER_DESYNC_ABORT_S; the
+    last rank skips the named allreduce ``d.skipped``
+    (:func:`eager_desync_worker`)."""
+    import tempfile
+
+    from horovod_tpu_torch.runner.http_kv import RendezvousServer
+
+    server = RendezvousServer(addr="127.0.0.1")
+    server.start()
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_desync_")
+    knobs = {"HVDT_FLIGHT_RECORDER": "1", "HVDT_TELEMETRY": "1",
+             "HVDT_TELEMETRY_PUBLISH_S": "0.5", "HVDT_METRICS_PORT": "0",
+             "HVDT_TRACE_DIR": trace_dir,
+             "HVDT_STALL_CHECK_TIME_SECONDS": "1",
+             "HVDT_STALL_ABORT_TIME_SECONDS": str(EAGER_DESYNC_ABORT_S),
+             "HVDT_RENDEZVOUS_ADDR": "127.0.0.1",
+             "HVDT_RENDEZVOUS_PORT": str(server.port),
+             "HVDT_SECRET": server.secret.hex()}
+    saved = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        return _spawn_ranks(n, "--eager-desync-worker",
+                            EAGER_DESYNC_TIMEOUT_S)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        server.stop()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+
+def eager_desync_worker() -> int:
+    """One rank of the desync case: three named allreduces on every rank,
+    then ``d.skipped`` on every rank but the last, which sleeps past the
+    abort.  The coordinator's abort rung writes its desync report
+    (HVDT_TRACE_DIR/desync_report_rank0.json); then every rank publishes
+    its flight recorder, and after a barrier each one emits the report
+    over the KV.  Every report must name the same first divergent
+    collective (seq and name, the last rank missing), and each rank's
+    within EAGER_DESYNC_BOUND_S of its enqueue.  Rank 0 prints the
+    line."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner.http_kv import KVClient
+    from horovod_tpu_torch.telemetry import flight_recorder as fr
+
+    try:
+        hvd.init()
+        r, n = hvd.rank(), hvd.size()
+        dev = hvd.topology().device
+        skipper = n - 1
+        dist.barrier()
+        for k in range(3):
+            hvd.allreduce(torch.ones(1024, device=dev), name=f"d.grad.{k}")
+        t0 = time.perf_counter()
+        if r != skipper:
+            try:
+                hvd.allreduce(torch.ones(1024, device=dev), name="d.skipped")
+                outcome = "completed"
+            except hvd.HorovodInternalError as e:
+                outcome = str(e)
+        else:
+            time.sleep(EAGER_DESYNC_ABORT_S + 2.0)
+            outcome = "never issued"
+        abort_s = time.perf_counter() - t0
+        rec = fr.get_flight_recorder()
+        kv = KVClient.from_env()
+        rec.publish(kv)
+        dist.barrier()
+        report = fr.emit_desync_report(
+            stalled="d.skipped", kv_client=kv, size=n,
+            out_dir=os.path.join(os.environ["HVDT_TRACE_DIR"], "ranks"))
+        report_s = time.perf_counter() - t0
+        head = {"rank": r, "outcome": outcome, "abort_s": abort_s,
+                "report_s": report_s,
+                "first_divergent_seq": report["first_divergent_seq"],
+                "name": report["divergent_event"]["name"],
+                "missing_ranks": report["missing_ranks"],
+                "mismatches": len(report["mismatches"])}
+        heads = [None] * n
+        dist.all_gather_object(heads, head)
+        if r == 0:
+            with open(os.path.join(os.environ["HVDT_TRACE_DIR"],
+                                   "desync_report_rank0.json")) as f:
+                auto = json.load(f)
+            first = {(h["first_divergent_seq"], h["name"],
+                      tuple(h["missing_ranks"])) for h in heads}
+            first.add((auto["first_divergent_seq"],
+                       auto["divergent_event"]["name"],
+                       tuple(auto["missing_ranks"])))
+            assert first == {(4, "d.skipped", (skipper,))}, (first, heads)
+            assert all(h["outcome"].startswith(
+                "collective d.skipped aborted") for h in heads
+                if h["rank"] != skipper), heads
+            assert max(h["report_s"] for h in heads) <= \
+                EAGER_DESYNC_BOUND_S, heads
+            emit({"phase": "eager_cards_desync", "cards": n,
+                  "skipped_by_rank": skipper,
+                  "abort_after_s": EAGER_DESYNC_ABORT_S,
+                  "bound_s": EAGER_DESYNC_BOUND_S, "ranks": heads,
+                  "coordinator_report": {
+                      "first_divergent_seq": auto["first_divergent_seq"],
+                      "name": auto["divergent_event"]["name"],
+                      "missing_ranks": auto["missing_ranks"],
+                      "stall_age_s": auto["stall_age_s"]}})
+        hvd.shutdown()
+    except BaseException:
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
     return 0
 
 
@@ -7071,6 +7441,12 @@ def elastic_job(hvd, steps: int, *, fused: bool, samples: int,
     marks["restored_from"] = state.restored_from
     marks["start_batch"] = state.batch
     entries = []
+    from horovod_tpu_torch import telemetry
+
+    # Under HVDT_TELEMETRY a StepTimer feeds the history (HVDT_HISTORY)
+    # that the workers' KV snapshots carry to the driver's roll-up.
+    timer = (telemetry.StepTimer(examples_per_step=BATCH)
+             if telemetry.enabled() else None)
 
     @hvd.elastic.run
     def train(state):
@@ -7091,6 +7467,7 @@ def elastic_job(hvd, steps: int, *, fused: bool, samples: int,
                     raise
             idx = order[k * BATCH:(k + 1) * BATCH]
             k += 1
+            t_step = time.perf_counter()
             _resnet_step(model, opt, images[idx], labels[idx])
             state.sampler.record_batch(state.batch, BATCH)
             state.batch += 1
@@ -7099,6 +7476,8 @@ def elastic_job(hvd, steps: int, *, fused: bool, samples: int,
                 marks.setdefault("first_steps", []).append(time.time())
             if log is not None:
                 torch.cuda.synchronize()
+                if timer is not None:
+                    timer.observe(time.perf_counter() - t_step)
                 with open(log, "a") as f:
                     f.write(f"{hvd.rank()} {hvd.size()} {state.batch} "
                             f"{round(lr * 1000)} "
@@ -7320,11 +7699,14 @@ def elastic_worker(name: str, steps: int, fused: bool) -> int:
         world = int(os.environ.get("CHIP_SMOKE_ELASTIC_MAX_WORLD",
                                    hvd.size()))
         reset_counters()
+        # A path a rank: each rank's BN statistics are its own.  The
+        # peer-store run keeps no disk commit at all.
+        path = (None if os.environ.get("CHIP_SMOKE_ELASTIC_NO_DISK")
+                else os.path.join(workdir,
+                                  f"{name}.state.rank{hvd.rank()}.pt"))
         model, _, state, marks = elastic_job(
             hvd, steps, fused=fused, samples=steps * world * BATCH,
-            # A path a rank: each rank's BN statistics are its own.
-            path=os.path.join(workdir, f"{name}.state.rank{hvd.rank()}.pt"),
-            log=os.environ["CHIP_SMOKE_ELASTIC_LOG"])
+            path=path, log=os.environ["CHIP_SMOKE_ELASTIC_LOG"])
         doc = {"rank": hvd.rank(), "size": hvd.size(),
                "generation": int(os.environ.get("HVDT_GENERATION", 0)),
                "start": _T_START, "imported": t_imported, "init": t_init,
@@ -7332,7 +7714,7 @@ def elastic_worker(name: str, steps: int, fused: bool) -> int:
                "restored_from": marks["restored_from"],
                "start_batch": marks["start_batch"],
                "first_step": marks["first_steps"][0],
-               "launches": counters()}
+               "launches": counters(), "peer": _peer_counts()}
         with open(os.path.join(workdir, f"{name}.marks"), "a") as f:
             f.write(json.dumps(doc) + "\n")
         if hvd.rank() == 0:
@@ -7349,6 +7731,16 @@ def elastic_worker(name: str, steps: int, fused: bool) -> int:
         sys.stderr.flush()
         os._exit(1)
     return 0
+
+
+def _peer_counts() -> dict:
+    """This process's peer-tier counters (empty with the tier off)."""
+    from horovod_tpu_torch.telemetry import metrics
+
+    reg = metrics.default_registry()
+    return {name: reg.get(name).total() for name in (
+        "hvdt_peer_restore_total", "hvdt_peer_commit_total",
+        "hvdt_peer_miss_total") if reg.get(name) is not None}
 
 
 def _marks(workdir: str, name: str) -> list:
@@ -7533,13 +7925,85 @@ def _elastic_cards_run(n: int, smi, workdir: str):
     # The same buckets and communicator layout reduce in the same order:
     # the respawned world's parameters equal the uninterrupted run's.
     assert diff["equal_bytes"] and diff["finite"], diff
+    disk_split = _restart_split(rows, marks)
     emit({"phase": "elastic_cards_crash", "fault_plan": ELASTIC_CARDS_PLAN,
           "final_vs_uninterrupted": diff,
-          "restart_ms": _restart_split(rows, marks),
+          "restart_ms": disk_split,
           "driver": [ln for ln in out.splitlines()
                      if ln.startswith("elastic:")], "card": smi})
+    _elastic_cards_peer(n, smi, workdir, fixed, want, disk_split)
     _resize("shrink", workdir, n, n // 2, smi)
     _resize("grow", workdir, n // 2, n, smi)
+
+
+def _elastic_cards_peer(n: int, smi, workdir: str, fixed: list, want: dict,
+                        disk_split: dict):
+    """The crash run again with the telemetry plane and the peer tier on
+    (HVDT_TELEMETRY, HVDT_PEER_STORE, HVDT_TRACE_DIR,
+    HVDT_FLIGHT_RECORDER, HVDT_HISTORY, HVDT_EVENT_LOG) and no disk
+    commit: every respawned rank restores its batch-5 commit from the
+    peer tier over the driver's KV (hvdt_peer_restore_total 1, no state
+    file), the final state equals the uninterrupted run's in every byte,
+    the driver merges 4 ranks' traces into trace_merged.json and prints
+    its roll-up over the 4 ranks' KV snapshots.  ``disk_split`` is the
+    disk tier's restart split of this call's crash run, printed beside
+    the peer tier's."""
+    name = "peer"
+    trace_dir = os.path.join(workdir, "trace")
+    events = os.path.join(workdir, "events.jsonl")
+    env = _worker_env(workdir, name, HVDT_TELEMETRY="1", HVDT_PEER_STORE="1",
+                      HVDT_TRACE_DIR=trace_dir, HVDT_FLIGHT_RECORDER="1",
+                      HVDT_EVENT_LOG=events, HVDT_HISTORY="1",
+                      HVDT_HISTORY_SAMPLE_S="0",
+                      HVDT_TELEMETRY_PUBLISH_S="1", HVDT_METRICS_PORT="0",
+                      CHIP_SMOKE_ELASTIC_NO_DISK="1")
+    out = run_launcher(name, workdir,
+                       [*fixed, "--blacklist-cooldown", "1",
+                        "--fault-plan", ELASTIC_CARDS_PLAN],
+                       [str(ELASTIC_STEPS), "fused"], env)
+    rows = _rows(env["CHIP_SMOKE_ELASTIC_LOG"])
+    marks = _marks(workdir, name)
+    got = torch.load(os.path.join(workdir, f"{name}.final.pt"),
+                     map_location="cuda:0")
+    diff = _state_diff(got, want)
+    respawned = [m for m in marks if m["generation"] > 1]
+    assert {m["rank"] for m in respawned} == set(range(n)), marks
+    assert all(m["restored_from"] == "peer"
+               and m["start_batch"] == ELASTIC_COMMIT
+               and m["peer"].get("hvdt_peer_restore_total") == 1
+               for m in respawned), respawned
+    assert not [f for f in os.listdir(workdir)
+                if f.startswith(f"{name}.state")], os.listdir(workdir)
+    assert diff["equal_bytes"] and diff["finite"], diff
+    with open(os.path.join(trace_dir, "trace_merged.json")) as f:
+        merged = json.load(f)
+    pids = sorted({e["pid"] for e in merged["traceEvents"]})
+    assert pids == list(range(n)), pids
+    lines = [ln for ln in out.splitlines() if ln.startswith("elastic:")]
+    roll = json.loads(next(ln for ln in lines if ln.startswith(
+        "elastic: telemetry roll-up "))[len("elastic: telemetry roll-up "):])
+    assert roll["ranks"] == list(range(n)), roll
+    split = _restart_split(rows, marks)
+    emit({"phase": "elastic_cards_peer", "fault_plan": ELASTIC_CARDS_PLAN,
+          "final_vs_uninterrupted": diff,
+          "peer_counters": [m["peer"] for m in respawned],
+          "restart_ms": split,
+          "disk_restart_ms": disk_split,
+          "merged_trace": {"pids": pids,
+                           "events": len(merged["traceEvents"])},
+          "rollup": {"ranks": roll["ranks"],
+                     "unaligned_ranks": roll["unaligned_ranks"],
+                     "aligned_steps": roll["aligned_steps"],
+                     "per_pod": roll["per_pod"],
+                     "wire_bytes_by_axis": roll["cluster"][
+                         "wire_bytes_by_axis"],
+                     "goodput_fraction_mean": roll["cluster"][
+                         "goodput_fraction_mean"]},
+          "event_log_lines": len(open(events).readlines())
+          if os.path.exists(events) else 0,
+          "driver": [ln for ln in lines
+                     if not ln.startswith("elastic: telemetry roll-up")],
+          "card": smi})
 
 
 def main() -> int:
@@ -7722,6 +8186,7 @@ def main() -> int:
     bench_mm_err = phase_bench(hvd, smi)
     conv["_mm_stats_kernel"]["max_abs_err"] = max(
         conv["_mm_stats_kernel"]["max_abs_err"], bench_mm_err)
+    phase_telemetry(hvd, smi)
     elastic_base = phase_elastic(hvd, smi)
     phase_elastic_launch(smi, elastic_base)
     del elastic_base
@@ -7803,6 +8268,8 @@ if __name__ == "__main__":
         sys.exit(eager_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--eager-worker"]:
         sys.exit(eager_cards_worker())
+    if sys.argv[1:2] == ["--eager-desync-worker"]:
+        sys.exit(eager_desync_worker())
     if sys.argv[1:2] == ["--dp-cards"]:
         sys.exit(dp_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--dp-worker"]:

@@ -125,6 +125,7 @@ from .ops.sparse import (  # noqa: F401,E402
 )
 from .timeline import start_timeline, stop_timeline  # noqa: F401,E402
 from . import elastic  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
 from .common.util import (  # noqa: F401,E402
     ccl_built,
     cuda_built,

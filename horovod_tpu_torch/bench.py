@@ -482,8 +482,7 @@ def measure(args) -> Leg:
         **(_zero_doc(args, opt, model) if args.zero else {}),
         **(_ckpt_stall_doc(model) if args.ckpt_stall else {}),
         **({"remat": args.remat} if args.remat else {}),
-        **({"telemetry": {**timer.snapshot(),
-                          "goodput_fraction": round(ledger.fraction(), 4)}}
+        **({"telemetry": _telemetry_doc(timer, ledger)}
            if timer is not None else {}),
         **({"fault_plan": os.environ.get("HVDT_FAULT_PLAN", ""),
             "recovered_faults": recovered_faults,
@@ -572,20 +571,50 @@ def _overlap_doc() -> dict:
             "overlap_schedule": overlap.last_schedule()}
 
 
+def _telemetry_doc(timer, ledger) -> dict:
+    """The telemetry doc (``HVDT_TELEMETRY``): the StepTimer snapshot,
+    the goodput fraction, and the reference's forensics handles — the
+    exporter's port, where the span dump landed (``HVDT_TRACE_DIR``)
+    and how many events the flight recorder holds."""
+    from .telemetry import exporter, flight_recorder, trace
+
+    doc = {**timer.snapshot(), "goodput_fraction": round(ledger.fraction(),
+                                                         4)}
+    exp = exporter.get_exporter()
+    if exp is not None:
+        doc["metrics_port"] = exp.port
+    if trace.get_tracer() is not None:
+        doc["trace_file"] = trace.flush(publish=False)
+    fr = flight_recorder.get_flight_recorder()
+    if fr is not None:
+        doc["flight_recorder_events"] = len(fr.events())
+    return doc
+
+
 def _transport_doc(spec: str) -> dict:
-    """The --transport leg's JSON fields: the policy and what it resolves
-    to for the step's reduce group.  The reference's per-axis wire-byte
-    counters come with the telemetry recorder (ROADMAP Queue 1 item 6)."""
+    """The --transport leg's JSON fields: the policy, what it resolves
+    to for the step's reduce group, and (telemetry on) the per-axis
+    ``hvdt_wire_bytes_total`` counters, keyed as the reference keys
+    them."""
     import dataclasses as dc
 
     from .ops import device as dev
+    from .telemetry.instrument import get_recorder
     from .transport import get_policy
 
     pol = get_policy()
     res, _ = dev.resolve_transport()
-    return {"transport": spec,
-            "transport_policy": pol.describe() if pol else None,
-            "transport_resolved": dc.asdict(res) if res else None}
+    doc = {"transport": spec,
+           "transport_policy": pol.describe() if pol else None,
+           "transport_resolved": dc.asdict(res) if res else None}
+    rec = get_recorder()
+    if rec is not None:
+        wb = rec.registry.get("hvdt_wire_bytes_total")
+        if wb is not None:
+            doc["wire_bytes_by_axis"] = {
+                ",".join(f"{k}={v}" for k, v in key): val
+                for key, val in sorted(wb._values.items())}
+    return doc
 
 
 def _fp8_doc(device) -> dict:

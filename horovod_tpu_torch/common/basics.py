@@ -245,12 +245,31 @@ def init(*, device: DeviceLike = None,
             _state.process_set_table.add(list(ranks))
         _state.initialized = True
 
+        # Telemetry exporter (HVDT_TELEMETRY=1): per-worker /metrics +
+        # /healthz on HVDT_METRICS_PORT + local_rank.  No-op when the
+        # subsystem is off; never raises (observability must not sink
+        # init).
+        from ..telemetry.exporter import maybe_start_exporter
+
+        maybe_start_exporter(topology=topo)
+
 
 def shutdown() -> None:
-    """Tear down: stops the eager controller, then destroys the process
-    group if ``init`` made it."""
+    """Tear down: flushes the span trace (``HVDT_TRACE_DIR``), stops the
+    telemetry exporter and the eager controller, then destroys the
+    process group if ``init`` made it."""
     from ..ops.eager import shutdown_controller
+    from ..telemetry import trace as _trace
+    from ..telemetry.exporter import stop_exporter
 
+    try:
+        # Final span flush: the per-rank Chrome-trace file into
+        # HVDT_TRACE_DIR and the KV publish for the driver-side merge
+        # (no-op when tracing is off; never sinks shutdown).
+        _trace.flush()
+    except Exception:
+        pass
+    stop_exporter()
     shutdown_controller()
     with _state.lock:
         if not _state.initialized:

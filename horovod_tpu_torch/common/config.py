@@ -249,9 +249,69 @@ KNOBS: Dict[str, Knob] = {
              "ported yet: any value but off raises NotImplementedError "
              "when a starting leg is chosen."),
         Knob("HVDT_TELEMETRY", False, _parse_bool,
-             "Step statistics in the bench's JSON line (the StepTimer "
-             "snapshot and the goodput fraction).  The exporter, traces "
-             "and the flight recorder are not ported yet."),
+             "Enable the telemetry subsystem (horovod_tpu_torch/telemetry): "
+             "per-collective bytes/latency metrics, step stats "
+             "(examples/s, MFU, goodput), straggler detection, and the "
+             "per-worker /metrics HTTP exporter (started by hvd.init()).  "
+             "Off (default) installs no wrapper object on the hot paths "
+             "(telemetry.instrument.get_recorder() is None)."),
+        Knob("HVDT_METRICS_PORT", 9090, int,
+             "Base port for the per-worker /metrics + /healthz exporter; "
+             "each worker binds base + local_rank (0 = ephemeral port).  "
+             "A taken slot falls back to ephemeral with a logged warning."),
+        Knob("HVDT_STRAGGLER_WINDOW", 64, int,
+             "Steps between cross-rank step-duration allgathers for "
+             "straggler detection (telemetry/straggler.py).  0 disables "
+             "the cross-rank check."),
+        Knob("HVDT_STRAGGLER_THRESHOLD", 2.0, float,
+             "A rank is flagged as a straggler when its mean step time "
+             "over the last window exceeds this multiple of the median."),
+        Knob("HVDT_TELEMETRY_PUBLISH_S", 30.0, float,
+             "Seconds between worker snapshot publishes to the rendezvous "
+             "KV (/telemetry/<rank>) for driver-side aggregation; only "
+             "active under the elastic launcher.  0 disables publishing."),
+        Knob("HVDT_HISTORY", False, _parse_bool,
+             "Keep bounded per-metric time series (telemetry/history.py: "
+             "step time, examples/s, MFU, goodput fraction, per-axis wire "
+             "bytes), served as /timeseries on the per-worker exporter, "
+             "published in the KV telemetry snapshot for driver-side "
+             "step-aligned roll-ups, and fed to the windowed anomaly "
+             "detectors.  Requires HVDT_TELEMETRY.  Off (default) = zero "
+             "overhead (telemetry.history.get_history() is None)."),
+        Knob("HVDT_HISTORY_WINDOW", 512, int,
+             "Max samples retained per time series (ring buffer)."),
+        Knob("HVDT_HISTORY_SAMPLE_S", 1.0, float,
+             "Minimum seconds between time-series samples (steps arriving "
+             "faster are coalesced into one sample carrying their mean "
+             "step time).  0 = sample every observed step."),
+        Knob("HVDT_EVENT_LOG", "", str,
+             "Path of the structured JSONL anomaly event log "
+             "(telemetry/anomaly.py): each detector firing appends one "
+             "JSON line; the elastic driver writes its cluster-scoped "
+             "events to the same file.  Empty (default) = off "
+             "(telemetry.anomaly.get_event_log() is None)."),
+        Knob("HVDT_EVENT_LOG_MAX_BYTES", 0, int,
+             "Size bound for the HVDT_EVENT_LOG file: an append that "
+             "would pass it rotates the file to <path>.1 (keep-1).  0 "
+             "(default) = unbounded."),
+        Knob("HVDT_TRACE_DIR", "", str,
+             "Enable distributed span tracing (telemetry/trace.py) and "
+             "write per-rank Chrome-trace dumps (trace_rank<N>.json) and "
+             "desync reports into this directory; under the elastic "
+             "launcher the driver also merges the per-rank dumps from the "
+             "rendezvous KV into trace_merged.json (rank as pid).  Empty "
+             "(default) = off (telemetry.trace.get_tracer() is None)."),
+        Knob("HVDT_TRACE_BUFFER", 65536, int,
+             "Max spans retained per rank by the trace buffer (ring)."),
+        Knob("HVDT_FLIGHT_RECORDER", False, _parse_bool,
+             "Enable the collective flight recorder "
+             "(telemetry/flight_recorder.py): a ring of the last N "
+             "collective events per rank, dumped on stall-abort (with a "
+             "cross-rank desync report), on preemption, and on demand "
+             "via the exporter's /flightrecorder endpoint.  Off (default) "
+             "= zero overhead (get_flight_recorder() is None)."),
+        Knob("HVDT_FLIGHT_RECORDER_EVENTS", 256, int,
+             "Ring capacity (events) of the collective flight recorder."),
         Knob("HVDT_COMPILATION_CACHE", "", str,
              "Directory for what the port compiles at run time "
              "(step_pipeline.enable_compilation_cache: the torch inductor "
@@ -330,16 +390,20 @@ KNOBS: Dict[str, Knob] = {
              "assignment while waiting for the platform to reclaim its "
              "hosts; after the grace it becomes placeable again."),
         Knob("HVDT_POD_STRAGGLER_EVICT", 0, int,
-             "Pod-straggler eviction rung (consecutive telemetry windows "
-             "a pod is slow before it is evicted).  0 "
-             "= disabled.  Any other value makes the elastic driver raise "
-             "NotImplementedError: the telemetry snapshots it reads are "
-             "not ported (ROADMAP Queue 1, item 6, part 2)."),
+             "Pod-straggler eviction rung: a pod whose median step time "
+             "exceeds HVDT_STRAGGLER_THRESHOLD x the cross-pod median for "
+             "this many consecutive telemetry windows is evicted "
+             "(cooldown blacklist + pod-granular resize down).  0 = "
+             "disabled.  Needs HVDT_TELEMETRY on the workers (the driver "
+             "aggregates their KV snapshots)."),
         Knob("HVDT_PEER_STORE", False, _parse_bool,
-             "In-memory peer-replicated snapshot tier.  Not ported yet "
-             "(ROADMAP Queue 1, item 6, part 2): on, it makes "
-             "resilience.get_peer_store() and elastic state raise "
-             "NotImplementedError."),
+             "In-memory peer-replicated snapshot tier "
+             "(resilience/peer_store.py): at every commit each rank "
+             "publishes its committed snapshot (host copies) over the "
+             "rendezvous KV and mirrors peer (rank+1) % n's newest "
+             "snapshot in host RAM, so a lost rank restores without the "
+             "filesystem (disk stays the fallback tier).  Needs the "
+             "elastic rendezvous env (HVDT_RENDEZVOUS_ADDR)."),
         Knob("HVDT_ELASTIC", False, _parse_bool,
              "Elastic (fault-tolerant) mode."),
         Knob("HVDT_CONTROL_PLANE_TIMEOUT_S", 300.0, float,
@@ -350,6 +414,10 @@ KNOBS: Dict[str, Knob] = {
         Knob("HVDT_DISABLE_PROFILER_RANGES", False, _parse_bool,
              "Disable the torch.profiler record_function ranges around "
              "eager ops."),
+        Knob("HVDT_LOG_LEVEL", "warning", str,
+             "trace|debug|info|warning|error|fatal"),
+        Knob("HVDT_LOG_HIDE_TIME", False, _parse_bool,
+             "Hide timestamps in log lines."),
         Knob("HVDT_RANK", -1, int, "Global process rank (set by launcher)."),
         Knob("HVDT_SIZE", -1, int, "Global process count (set by launcher)."),
         Knob("HVDT_LOCAL_RANK", -1, int,

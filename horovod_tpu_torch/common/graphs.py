@@ -30,7 +30,7 @@ from typing import Callable, Iterator, List, Optional
 import torch
 
 __all__ = ["capturing", "on_replay", "collect_replay_hooks",
-           "capture_lock"]
+           "capture_lock", "replay_hooks_open"]
 
 # Held across a donated_step capture, and by a thread other than the
 # capturing one around each piece of CUDA work it issues.
@@ -60,6 +60,12 @@ def on_replay(hook: Callable[[], None]) -> None:
             "not advance; capture it with horovod_tpu_torch.step_pipeline."
             "donated_step, which updates that state before each replay")
     _hooks.append(hook)
+
+
+def replay_hooks_open() -> bool:
+    """Whether :func:`on_replay` would take a hook now (a
+    ``donated_step`` capture is open)."""
+    return _hooks is not None
 
 
 @contextlib.contextmanager

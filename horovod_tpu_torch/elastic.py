@@ -170,13 +170,51 @@ class ObjectState(State):
         self.save()
 
 
+class _HostCopy:
+    """A tensor of a peer-tier payload: its CPU copy and the device it
+    came from (a payload carries host copies, never CUDA tensors)."""
+
+    __slots__ = ("tensor", "device")
+
+    def __init__(self, tensor: torch.Tensor, device: str):
+        self.tensor, self.device = tensor, device
+
+
+def _to_host(obj: Any) -> Any:
+    """``obj`` with every tensor (in dicts, lists, tuples) replaced by a
+    :class:`_HostCopy`."""
+    if isinstance(obj, torch.Tensor):
+        return _HostCopy(obj.detach().to("cpu", copy=True), str(obj.device))
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _from_host(obj: Any) -> Any:
+    """Inverse of :func:`_to_host`: each tensor back on its device."""
+    if isinstance(obj, _HostCopy):
+        return obj.tensor.to(obj.device)
+    if isinstance(obj, dict):
+        return {k: _from_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_from_host(v) for v in obj)
+    return obj
+
+
 class _Persistent:
-    """Disk commits for a state: ``persist()`` writes the committed
-    snapshot to ``path`` atomically (a temporary file, then a rename),
-    and ``_resume()`` at construction restores a freshly spawned worker
-    from it.  Used by :class:`TensorState` and ``interop.torch_elastic.
-    TorchState``; the snapshot format is the subclass's
-    (``_persisted`` / ``_load_persisted``)."""
+    """Commit tiers for a state: ``persist()`` writes the committed
+    snapshot to ``path`` atomically (a temporary file, then a rename);
+    with ``HVDT_PEER_STORE`` set every commit also publishes it to the
+    peer-replicated RAM tier (``resilience/peer_store.py``) as host
+    copies; and ``_resume()`` at construction restores a freshly spawned
+    worker from whichever tier holds the newer commit — ties go to the
+    peer tier, so a healthy recovery never uses the disk copy.  Used by
+    :class:`TensorState` and ``interop.torch_elastic.TorchState``; the
+    snapshot format is the subclass's (``_persisted`` /
+    ``_load_persisted``), and the step a commit is filed under is the
+    state's ``batch`` attribute (0 without one)."""
 
     _state_path: Optional[str] = None
     restored_from: Optional[str] = None
@@ -187,6 +225,19 @@ class _Persistent:
     def _load_persisted(self, saved: Any) -> None:
         self._saved = saved
 
+    def _commit_step(self) -> int:
+        step = getattr(self, "batch", None)
+        return step if isinstance(step, int) else 0
+
+    @staticmethod
+    def _saved_step(saved: Any) -> Optional[int]:
+        """The ``batch`` a persisted snapshot was committed at, or None."""
+        if not isinstance(saved, dict):
+            return None
+        inner = saved.get("saved", saved.get("objects", saved))
+        step = inner.get("batch") if isinstance(inner, dict) else None
+        return step if isinstance(step, int) else None
+
     def persist(self) -> None:
         """Write the committed snapshot to ``path`` (atomic rename)."""
         if not self._state_path:
@@ -196,31 +247,52 @@ class _Persistent:
         os.replace(tmp, self._state_path)
 
     def _resume(self) -> None:
-        """Boot-time restore from the disk commit, charged to the
-        recovery ledger's ``restore`` phase."""
+        """Boot-time restore: the newest of {peer RAM tier, disk commit},
+        charged to the recovery ledger's ``restore`` phase."""
         import time
 
         from .resilience import get_peer_store
         from .telemetry import step_stats
 
-        get_peer_store()   # raises while HVDT_PEER_STORE is on
-        if not (self._state_path and os.path.exists(self._state_path)):
-            return
         t0 = time.perf_counter()
-        # This program's own file (persist above): weights_only=False
-        # admits the arbitrary picklable attributes a state carries.
-        saved = torch.load(self._state_path, weights_only=False)
-        self._load_persisted(saved)
-        self.restore()
-        self.restored_from = "disk"
-        log.info("elastic state resumed from %s", self._state_path)
+        disk_saved = None
+        if self._state_path and os.path.exists(self._state_path):
+            # This program's own file (persist above): weights_only=False
+            # admits the arbitrary picklable attributes a state carries.
+            disk_saved = torch.load(self._state_path, weights_only=False)
+        ps = get_peer_store()
+        peer = ps.restore() if ps is not None else None
+        if peer is not None:
+            peer_saved, peer_step = peer
+            disk_step = self._saved_step(disk_saved)
+            if disk_step is None or peer_step >= disk_step:
+                self._load_persisted(_from_host(peer_saved))
+                self.restore()
+                self.restored_from = "peer"
+                log.info("elastic state resumed from the peer RAM tier "
+                         "at step %s", peer_step)
+                disk_saved = None
+        if disk_saved is not None:
+            self._load_persisted(disk_saved)
+            self.restore()
+            self.restored_from = "disk"
+            log.info("elastic state resumed from %s", self._state_path)
         ledger = step_stats.recovery_ledger()
-        if ledger is not None:
+        if ledger is not None and self.restored_from is not None:
             ledger.charge_phase("restore", time.perf_counter() - t0)
 
     def commit(self) -> None:
         self.save()
         self.persist()
+        # The peer tier rides the same commit point: publish this
+        # commit's snapshot (host copies) over the rendezvous KV and
+        # refresh the watched peer's RAM replica (one None-check when
+        # HVDT_PEER_STORE is unset).
+        from .resilience import get_peer_store
+
+        ps = get_peer_store()
+        if ps is not None:
+            ps.commit(self._commit_step(), _to_host(self._persisted()))
         # After persist: an injected crash or a preemption exit at the
         # commit point leaves this commit restorable on disk.
         self._resilience_check()
@@ -274,9 +346,10 @@ class TensorState(_Persistent, ObjectState):
     outlive the process: with ``path`` set every commit also writes the
     snapshot there atomically, and a freshly spawned worker finding the
     file resumes from it (rank consistency comes from the usual sync()
-    broadcast).  ``restored_from`` records which tier served
-    (``"disk"`` or None); the reference's peer RAM tier
-    (``HVDT_PEER_STORE``) is not ported and raises.
+    broadcast).  With ``HVDT_PEER_STORE`` set, every commit also goes to
+    the peer-replicated RAM tier, and a respawned worker restores from
+    whichever tier holds the newer commit.  ``restored_from`` records
+    which tier served (``"peer"``, ``"disk"`` or None).
     """
 
     def __init__(self, path: Optional[str] = None, **kwargs: Any):

@@ -15,7 +15,11 @@ The snapshots stay on the tensors' devices (a ``state_dict`` deepcopy,
 as in the reference), so an in-process restore is a device copy.  With
 ``path=`` every commit is also written to disk atomically and a freshly
 spawned worker resumes from it, as ``elastic.TensorState`` does: the
-launcher's process-restart re-rendezvous needs it.
+launcher's process-restart re-rendezvous needs it.  With
+``HVDT_PEER_STORE`` set every commit also goes to the peer-replicated RAM
+tier as host copies (``resilience/peer_store.py``), and a respawned
+worker restores from the newer of the two tiers, each tensor back on its
+device.
 """
 
 from __future__ import annotations

@@ -443,6 +443,54 @@ class _BucketRoute:
         # The quantized path owns the wire format.
         self.wire_dtype = None if self.quant_leg is not None else wire_dtype
         self.pre, self.post = prescale_factor, postscale_factor
+        self._axis, self._mesh_arg = axis, mesh
+        self._label: Optional[str] = None
+
+    def axis_label(self) -> str:
+        """The reduce group's mesh axes joined by ``+`` (the telemetry
+        ``axis`` label, as the reference labels its device path)."""
+        if self._label is None:
+            axes, _ = _reduce_group(self._axis, self._mesh_arg, self.ps)
+            self._label = "+".join(axes)
+        return self._label
+
+    def _record(self, flat: torch.Tensor, orig_dtype: torch.dtype,
+                count: int, index: int, floating: bool) -> None:
+        """Telemetry for one bucket as it is reduced: the fusion fill,
+        and — for a bucket that the quantized or hierarchical path does
+        not book itself — the collective counters and one flight-recorder
+        event (``path="jit"``, the reference's label for this path).
+        Each executed bucket counts once; inside a CUDA-graph capture the
+        recorders book once per replay (``telemetry/instrument``)."""
+        from ..telemetry import flight_recorder as _frm
+        from ..telemetry import instrument as _ti
+
+        rec = _ti.get_recorder()
+        flight = _frm.get_flight_recorder()
+        if rec is None and flight is None:
+            return
+        hier_bucket = self.hier and floating
+        quant_bucket = self.quant_leg is not None and floating
+        nbytes = flat.numel() * flat.element_size()
+        if (self.wire_dtype is not None and floating and not hier_bucket):
+            nbytes = flat.numel() * self.wire_dtype.itemsize
+            wire = _dtype_name(self.wire_dtype)
+        else:
+            wire = _dtype_name(flat.dtype)
+        dtype, axis = _dtype_name(orig_dtype), self.axis_label()
+        if rec is not None:
+            rec.observe_fusion_fill(nbytes / float(self.threshold))
+            if not quant_bucket and not hier_bucket:
+                rec.record_collective("allreduce", dtype, wire, nbytes,
+                                      count=count, path="jit", axis=axis)
+        if flight is not None and not quant_bucket:
+            flight.record(
+                op="allreduce",
+                name=f"hier.b{index}" if hier_bucket else f"fused.b{index}",
+                dtype=dtype, shape=(flat.numel(),), nbytes=nbytes,
+                wire=(f"{self.res.fast.wire}/{self.res.slow.wire}"
+                      if hier_bucket else wire),
+                path="jit", count=count, axis=axis)
 
     def wire_bytes(self, flat: torch.Tensor) -> int:
         """The bytes a rank puts on the wire for bucket ``flat``."""
@@ -463,12 +511,16 @@ class _BucketRoute:
             return flat.numel() * self.wire_dtype.itemsize
         return flat.numel() * flat.element_size()
 
-    def start(self, flat: torch.Tensor, async_op: bool = False) -> _Bucket:
+    def start(self, flat: torch.Tensor, async_op: bool = False,
+              count: int = 1, index: int = 0) -> _Bucket:
         """Start reducing the flat bucket ``flat`` (which it may consume).
         ``async_op``: a plain all-reduce is issued with ``async_op=True``
-        and waited in :meth:`finish`; otherwise it completes here."""
+        and waited in :meth:`finish`; otherwise it completes here.
+        ``count`` (the bucket's tensors) and ``index`` (its place in the
+        exchange) label its telemetry."""
         b = _Bucket(flat.dtype)
         floating = flat.is_floating_point()
+        self._record(flat, flat.dtype, count, index, floating)
         if self.hier and floating:
             from ..transport.hierarchy import hierarchical_allreduce_start
 
@@ -481,7 +533,8 @@ class _BucketRoute:
             b.kind = "quant"
             b.state = quantized_allreduce_start(
                 flat, self.op, prescale_factor=self.pre,
-                wire=self.quant_leg, process_set=self.ps)
+                wire=self.quant_leg, process_set=self.ps,
+                axis=self.axis_label())
         else:
             if (self.wire_dtype is not None and floating
                     and flat.dtype != self.wire_dtype):
@@ -563,16 +616,23 @@ def fused_allreduce(tensors: Sequence[torch.Tensor],
     reference's ``hvd.mesh()``), when the process set is the world; with
     no mesh it is the single axis ``"dp"``.  With ``HVDT_TRANSPORT``
     unset neither argument is read and the flat path runs as it did
-    without the policy layer."""
+    without the policy layer.
+
+    Telemetry (``HVDT_TELEMETRY``, ``HVDT_FLIGHT_RECORDER``): each bucket
+    records its fusion fill and, unless the quantized or hierarchical
+    path books it, one ``path="jit"`` collective series entry and flight
+    event, each time it is reduced (a CUDA-graph replay included)."""
     tensors = list(tensors)
     if not tensors:
         return []
     route = _BucketRoute(op, threshold_bytes, prescale_factor,
                          postscale_factor, wire_dtype, process_set, axis, mesh)
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
-    for bucket in fused_allreduce_buckets(tensors, route.threshold):
+    for bi, bucket in enumerate(fused_allreduce_buckets(tensors,
+                                                        route.threshold)):
         parts = [tensors[i] for i in bucket]
-        b = route.start(torch.cat([p.detach().reshape(-1) for p in parts]))
+        b = route.start(torch.cat([p.detach().reshape(-1) for p in parts]),
+                        count=len(parts), index=bi)
         route.finish_comm(b)
         red = route.finish(b)
         offset = 0

@@ -86,14 +86,22 @@ _SHUTDOWN = "shutdown"
 class _Entry:
     """Local in-flight tensor."""
 
-    __slots__ = ("request", "tensor", "handle", "np_dtype", "ready")
+    __slots__ = ("request", "tensor", "handle", "np_dtype", "ready",
+                 "enqueue_ts", "announce_ts", "fr_seq")
 
     def __init__(self, request: Request, tensor: Optional[torch.Tensor],
                  handle: int, np_dtype: Optional[np.dtype] = None,
-                 ready: Optional[torch.cuda.Event] = None):
+                 ready: Optional[torch.cuda.Event] = None,
+                 fr_seq: Optional[int] = None):
         self.request = request
         self.tensor = tensor
         self.handle = handle
+        # Telemetry: enqueue -> announce -> execute latencies
+        # (announce_ts is stamped only while the recorder is on) and the
+        # flight-recorder event opened at enqueue.
+        self.enqueue_ts = time.monotonic()
+        self.announce_ts: Optional[float] = None
+        self.fr_seq = fr_seq
         # The input's numpy dtype when it was a numpy array (the result is
         # one too); None for a torch tensor.
         self.np_dtype = np_dtype
@@ -166,6 +174,15 @@ class _MessageTable:
         self.pending.setdefault(key, {})[req.request_rank] = req
 
 
+def _dtype_label(tensor_type: int) -> str:
+    """numpy-style dtype name of a wire tensor type ("float32"), the
+    telemetry label the reference uses."""
+    try:
+        return str(torch_dtype_of(tensor_type)).rsplit(".", 1)[-1]
+    except (ValueError, KeyError):
+        return "unknown"
+
+
 def _itemsize(tensor_type: int) -> int:
     try:
         return torch_dtype_of(tensor_type).itemsize
@@ -233,20 +250,41 @@ class EagerController:
         """Enqueue (request, tensor, np_dtype, ready) items at once: one
         cycle announces them all (a group is then negotiated in one
         cycle, not re-gated in each cycle while it is being enqueued)."""
+        from ..telemetry import flight_recorder as _frm
+
+        flight = _frm.get_flight_recorder()
+        seqs: List[Optional[int]] = [None] * len(items)
+        if flight is not None:
+            # Begin at enqueue, end at completion: a hung rank's peers
+            # show its collectives stuck "inflight".
+            for i, (request, *_) in enumerate(items):
+                shape = tuple(request.tensor_shape or ())
+                seqs[i] = flight.record_begin(
+                    op=RequestType(request.request_type).name.lower(),
+                    name=request.tensor_name,
+                    dtype=_dtype_label(request.tensor_type), shape=shape,
+                    nbytes=math.prod(shape) * _itemsize(request.tensor_type),
+                    path="eager")
         with self._lock:
+            error = None
             if not self._running:
-                raise HorovodInternalError("controller is shut down")
+                error = HorovodInternalError("controller is shut down")
             for request, *_ in items:
-                if (request.process_set_id, request.tensor_name) in \
-                        self._entries:
-                    raise ValueError(DUPLICATE_NAME_ERROR +
-                                     f" (tensor: {request.tensor_name})")
+                if error is None and (request.process_set_id,
+                                      request.tensor_name) in self._entries:
+                    error = ValueError(DUPLICATE_NAME_ERROR +
+                                       f" (tensor: {request.tensor_name})")
+            if error is not None:
+                if flight is not None:
+                    for seq in seqs:
+                        flight.record_end(seq, status="error")
+                raise error
             handles = []
-            for request, tensor, np_dtype, ready in items:
+            for (request, tensor, np_dtype, ready), seq in zip(items, seqs):
                 handle = self.handles.allocate()
                 self._entries[(request.process_set_id,
                                request.tensor_name)] = _Entry(
-                    request, tensor, handle, np_dtype, ready)
+                    request, tensor, handle, np_dtype, ready, fr_seq=seq)
                 self._to_announce.append(request)
                 handles.append(handle)
         tl = _timeline.current()
@@ -320,10 +358,19 @@ class EagerController:
                 idle_sleep = 0.0001
 
     def _run_cycle(self) -> bool:
+        from ..telemetry import instrument as _ti
+
         with self._lock:
             to_send = self._to_announce
             self._to_announce = []
             stop = self._stop_requested
+            if to_send and _ti.get_recorder() is not None:
+                now = time.monotonic()
+                for req in to_send:
+                    e = self._entries.get(
+                        (req.process_set_id, req.tensor_name))
+                    if e is not None:
+                        e.announce_ts = now
         multi = self.cp.size() > 1
         if not multi:
             if stop:
@@ -606,6 +653,7 @@ class EagerController:
         if rt == RequestType.BARRIER:
             for entry in self._pop_entries(resp):
                 if entry is not None:
+                    self._fr_close([entry])
                     self.handles.mark_done(entry.handle, Status.ok(), None)
             return
         if resp.error_message:
@@ -619,6 +667,31 @@ class EagerController:
                 tl.end_activity(name)
                 tl.start_activity(name, f"EXEC_{rt.name}",
                                   {"fused": len(resp.tensor_names)})
+        from ..telemetry import instrument as _ti
+        from ..telemetry import trace as _trace
+
+        rec = _ti.get_recorder()
+        tracer = _trace.get_tracer()
+        t_exec0 = time.monotonic() if (rec is not None or
+                                       tracer is not None) else 0.0
+        if rec is not None:
+            # Queue (enqueue -> announce), negotiate (announce ->
+            # response) and execute summaries, and the response's bytes.
+            item = _itemsize(resp.tensor_type)
+            nbytes = sum(math.prod(shape) * item
+                         for shape in (resp.tensor_shapes or []))
+            dname = _dtype_label(resp.tensor_type)
+            rec.record_collective(rt.name, dname, dname, nbytes,
+                                  count=len(resp.tensor_names),
+                                  path="eager")
+            for entry in entries:
+                if entry is None:
+                    continue
+                if entry.announce_ts is not None:
+                    rec.observe_queue(entry.announce_ts - entry.enqueue_ts)
+                    rec.observe_negotiate(t_exec0 - entry.announce_ts)
+                else:
+                    rec.observe_negotiate(t_exec0 - entry.enqueue_ts)
         try:
             with torch.profiler.record_function(
                     f"hvdt.{rt.name}.{resp.tensor_names[0]}"
@@ -629,13 +702,24 @@ class EagerController:
             # Entries are already popped here, so the outer
             # _fail_response cannot find them: fail their handles
             # directly or the callers' synchronize() would hang forever.
+            self._fr_close(entries, status="error")
             for entry in entries:
                 if entry is not None and not self.handles.poll(entry.handle):
                     self.handles.mark_done(
                         entry.handle,
                         Status.unknown(f"{type(e).__name__}: {e}"))
             raise
+        else:
+            self._fr_close(entries)
         finally:
+            if rec is not None:
+                rec.observe_execute(time.monotonic() - t_exec0)
+            if tracer is not None:
+                tracer.complete(
+                    f"EXEC_{rt.name}:{resp.tensor_names[0]}",
+                    time.monotonic() - t_exec0, cat="collective",
+                    args={"fused": len(resp.tensor_names),
+                          "tensors": list(resp.tensor_names[:4])})
             if tl is not None:
                 for name, shape in zip(resp.tensor_names,
                                        resp.tensor_shapes or
@@ -782,9 +866,23 @@ class EagerController:
         want = entry.tensor.device
         return out if out.device == want else out.to(want)
 
+    def _fr_close(self, entries, status: str = "done") -> None:
+        """Close the flight-recorder events opened at enqueue for these
+        entries (no-op when the recorder is off)."""
+        from ..telemetry import flight_recorder as _frm
+
+        flight = _frm.get_flight_recorder()
+        if flight is None:
+            return
+        for e in entries:
+            if e is not None and e.fr_seq is not None:
+                flight.record_end(e.fr_seq, status=status)
+                e.fr_seq = None
+
     def _fail_response(self, resp: Response, message: str) -> None:
         for entry in self._pop_entries(resp):
             if entry is not None:
+                self._fr_close([entry], status="error")
                 self.handles.mark_done(entry.handle,
                                        Status.unknown(message))
         tl = _timeline.current()
@@ -797,6 +895,7 @@ class EagerController:
             self._running = False
             entries = list(self._entries.values())
             self._entries.clear()
+        self._fr_close(entries, status="error")
         for e in entries:
             self.handles.mark_done(e.handle, Status.unknown(message))
         self.handles.abort_all(message)

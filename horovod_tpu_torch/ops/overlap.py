@@ -152,6 +152,11 @@ def _account(bucket_bytes: List[int], wire: str) -> None:
             "hidden_buckets": max(0, len(bucket_bytes) - 1),
             "wire": wire,
         }
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    if rec is not None:
+        rec.observe_overlap(hidden, total)
 
 
 def overlap_fraction() -> Optional[float]:
@@ -268,7 +273,10 @@ class _Pipeline:
             flat = torch.cat([p.detach().reshape(-1) for p in parts])
             self.bucket_bytes.append(self.route.wire_bytes(flat))
             self.issued.append(_Issued(list(ids), list(parts),
-                                       self.route.start(flat, async_op=True)))
+                                       self.route.start(
+                                           flat, async_op=True,
+                                           count=len(parts),
+                                           index=len(self.issued))))
             # The previous bucket's finish half goes after this start.
             self._finish_comm(len(self.issued) - 1)
 

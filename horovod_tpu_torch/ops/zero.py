@@ -80,8 +80,9 @@ None, :func:`exchange_fn` returns ``overlap.exchange_fn()``'s result
 
 Not ported: the reference's "unvarying leaf" pre-scale (a shard_map
 artifact: a rank's ``.grad`` is its own local gradient) and its
-telemetry records (``record_state_gauges`` is a no-op until the memory
-gauges of ``telemetry/step_stats`` are ported, ROADMAP Queue 1 item 6).
+per-bucket collective records of the sharded exchange.
+:func:`record_state_gauges` feeds the per-rank optimizer-state bytes
+into the telemetry memory gauges.
 """
 
 from __future__ import annotations
@@ -738,10 +739,12 @@ class ZeroTransformation(NamedTuple):
 
 
 def record_state_gauges(spec_bytes_per_rank: int, zero_stage: str) -> None:
-    """The reference feeds the per-rank optimizer-state bytes into the
-    telemetry memory gauges here.  A no-op until the memory gauges of
-    ``telemetry/step_stats`` are ported (ROADMAP Queue 1 item 6)."""
-    del spec_bytes_per_rank, zero_stage
+    """Feed the per-rank post-sharding optimizer-state accounting into
+    the telemetry memory gauges (no-op with telemetry off)."""
+    from ..telemetry.step_stats import record_memory_accounting
+
+    record_memory_accounting(optimizer_state_bytes=spec_bytes_per_rank,
+                             zero_stage=zero_stage)
 
 
 def _state_stacks(state) -> List[Tuple[str, Tuple[torch.Tensor, ...]]]:

@@ -778,6 +778,20 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                     "ZeRO states/params under HVDT_OVERLAP=on with a "
                     "model-axis fold is not ported yet (ROADMAP Queue 1: "
                     "parallel axes, part 3)")
+    from .telemetry.instrument import get_recorder
+
+    _rec = get_recorder()
+    if _rec is not None:
+        # Construction-time config record: which wire format / reduce op
+        # the job trains with is the label every collective series gets
+        # joined against.
+        _rec.registry.counter(
+            "hvdt_distributed_optimizer_builds_total",
+            "DistributedOptimizer constructions, labelled op/compression"
+        ).inc(op=ReduceOp(op).name.lower(),
+              compression=getattr(compression, "__name__", "none"),
+              backward_passes=str(backward_passes_per_step),
+              pipeline=pipeline or "off", expert=expert or "off")
     if stage is None:
         obj = _DistributedOptimizer(optimizer, op, compression,
                                     backward_passes_per_step,

@@ -32,10 +32,12 @@ through its int8 wire differs: the cast to int8 passes no cotangent, so
 element a block: its absolute maximum); the port's is the quantized
 cotangent everywhere (``tests/test_torch_port_moe.py``).
 
-The reference books each all-to-all and the capacity gauges on its
-telemetry recorder; the port's recorders wait for ROADMAP Queue 1 item
-6, so :func:`report_moe_aux` and the gauges are no-ops, as
-``ops.zero.record_state_gauges`` is.
+Telemetry, as in the reference: each all-to-all books the collective
+counters (``op="alltoall"``, ``path="jit"``, the ``ep`` axis, the wire's
+payload bytes) and one flight-recorder event, each time it runs (the
+backward's all-to-alls too, named ``<name>.grad``; once per replay
+inside a ``donated_step`` capture); each call sets the capacity gauges,
+and :func:`report_moe_aux` the per-step routing gauges.
 """
 
 from __future__ import annotations
@@ -139,18 +141,48 @@ def _a2a_on_wire(block: torch.Tensor, ring: _Ring, wire: Optional[str]
     return out.reshape(block.shape).to(dtype)
 
 
+def _record_a2a(block: torch.Tensor, wire: Optional[str], axis: str,
+                name: str) -> None:
+    """Telemetry for one all-to-all: the collective counters and one
+    flight-recorder event (no-op with both off)."""
+    from ..telemetry import flight_recorder as _frm
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    flight = _frm.get_flight_recorder()
+    if rec is None and flight is None:
+        return
+    dname = str(block.dtype).rsplit(".", 1)[-1]
+    floating = block.dtype.is_floating_point
+    label = ("int8_blockwise" if wire == "int8" and floating
+             else {"bf16": "bfloat16", "fp16": "float16"}.get(wire, dname)
+             if floating else dname)
+    nbytes = a2a_wire_bytes(block.shape, block.dtype, wire)
+    if rec is not None:
+        rec.record_collective("alltoall", dname, label, nbytes, count=1,
+                              path="jit", axis=axis)
+    if flight is not None:
+        flight.record(op="alltoall", name=name, dtype=dname,
+                      shape=tuple(int(s) for s in block.shape),
+                      nbytes=nbytes, wire=label, path="jit", count=1,
+                      axis=axis)
+
+
 class _AllToAll(torch.autograd.Function):
     """The all-to-all over the wire; its backward is the same all-to-all
     of the cotangent over the same wire."""
 
     @staticmethod
-    def forward(ctx, block, ring, wire):
-        ctx.opts = (ring, wire)
+    def forward(ctx, block, ring, wire, axis, name):
+        ctx.opts = (ring, wire, axis, name)
+        _record_a2a(block, wire, axis, name)
         return _a2a_on_wire(block, ring, wire)
 
     @staticmethod
     def backward(ctx, grad):
-        return _a2a_on_wire(grad, *ctx.opts), None, None
+        ring, wire, axis, name = ctx.opts
+        _record_a2a(grad, wire, axis, f"{name}.grad")
+        return _a2a_on_wire(grad, ring, wire), None, None, None, None
 
 
 def _mean_over(x: torch.Tensor, ring: _Ring) -> torch.Tensor:
@@ -256,12 +288,13 @@ def moe_dispatch_combine(tokens: torch.Tensor,
     dispatch = flat.index_copy(0, slot, tokens_f)[:-1]
     wire = _wire(axis)
     block = dispatch.reshape(ep, experts_per_rank, cap, d)
-    recv = _AllToAll.apply(block, ring, wire)
+    recv = _AllToAll.apply(block, ring, wire, axis, "moe.dispatch")
     recv = recv.transpose(0, 1).reshape(experts_per_rank, ep * cap, d)
     processed = expert_fn(recv)
     processed = processed.reshape(experts_per_rank, ep, cap, d).transpose(
         0, 1)
-    back = _AllToAll.apply(processed, ring, wire).reshape(e_total * cap, d)
+    back = _AllToAll.apply(processed, ring, wire, axis,
+                           "moe.combine").reshape(e_total * cap, d)
     back = torch.cat([back, back.new_zeros((1, d))])
 
     slots = back[slot] * gate_f.to(tokens.dtype)[:, None]         # [K*T, D]
@@ -275,11 +308,45 @@ def moe_dispatch_combine(tokens: torch.Tensor,
     aux = MoEAux(
         load_balance_loss=e_total * (f * p_mean).sum(),
         dropped_fraction=_group_mean(1.0 - kept.float().mean(), ring))
+
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    if rec is not None:
+        # Static routing geometry: slot count and the slot/token
+        # expansion the capacity factor buys.
+        rec.registry.gauge(
+            "hvdt_moe_capacity_slots",
+            "Per-expert dispatch slots of the last traced MoE layer "
+            "(ceil(T*k/E * capacity_factor))").set(float(cap))
+        rec.registry.gauge(
+            "hvdt_moe_expansion_ratio",
+            "Dispatch slots / routed assignments of the last traced "
+            "MoE layer (capacity head-room; <1 guarantees drops)"
+        ).set(float(cap * e_total) / float(t * k))
     return out, aux
 
 
 def report_moe_aux(aux: MoEAux, *, step: Optional[int] = None) -> None:
-    """The reference sets its ``hvdt_moe_load_balance_loss`` and
-    ``hvdt_moe_dropped_fraction`` gauges here.  A no-op until the
-    telemetry recorder is ported (ROADMAP Queue 1 item 6)."""
-    del aux, step
+    """Host-side per-step reporter for the routing aux outputs.
+
+    The step returns ``MoEAux`` as tensors; the train loop calls this
+    after the step to surface them as ``hvdt_moe_*`` gauges (the
+    history and anomaly layers pick the gauges up from the registry).
+    Reading them waits for the device.  No-op when telemetry is off."""
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    if rec is None:
+        return
+    del step
+    rec.registry.gauge(
+        "hvdt_moe_load_balance_loss",
+        "Switch-transformer load-balance aux loss of the last "
+        "reported step (E * sum_e f_e * P_e)").set(
+        float(aux.load_balance_loss))
+    rec.registry.gauge(
+        "hvdt_moe_dropped_fraction",
+        "Fraction of routed token assignments dropped over expert "
+        "capacity in the last reported step").set(
+        float(aux.dropped_fraction))

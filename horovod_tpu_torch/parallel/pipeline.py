@@ -35,10 +35,12 @@ each one ends the backward holding the reference's gradient: the whole
 gradient of the microbatches (and of whatever is replicated before the
 pipeline) and the slice of it that belongs to its stage's parameters.
 
-The reference books per-stage phase histograms and flight-recorder
-events on its telemetry recorder; the port's recorders wait for ROADMAP
-Queue 1 item 6.  The P2P waits are host-ordered, so the pipeline runs
-eagerly: not inside a CUDA-graph capture.
+Telemetry, as in the reference: each forward books the schedule's
+per-stage phase histograms (in tick units), the clock's ``ppermute``
+bytes (``path="jit"``, the ``pp`` axis) and one flight-recorder event
+per clock segment; :func:`report_pipeline_mfu` sets
+``hvdt_pipeline_mfu``.  The P2P waits are host-ordered, so the pipeline
+runs eagerly: not inside a CUDA-graph capture.
 """
 
 from __future__ import annotations
@@ -66,6 +68,45 @@ def bubble_fraction(num_stages: int, num_microbatches: int) -> float:
     if p < 1 or m < 1:
         raise ValueError(f"need p >= 1 and m >= 1, got ({p}, {m})")
     return (p - 1) / (m + p - 1)
+
+
+def _record_schedule(axis: str, p: int, m: int, tick_bytes: int,
+                     dtype: str = "float32") -> None:
+    """Booking of one pipeline schedule: per-stage phase histograms in
+    tick units + one flight-recorder send/recv event per clock
+    segment (no-op with both recorders off)."""
+    from ..telemetry import flight_recorder as _frm
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    flight = _frm.get_flight_recorder()
+    if rec is None and flight is None:
+        return
+    ticks = m + p - 1
+    warmup = p - 1
+    steady = max(0, m - (p - 1))
+    cooldown = ticks - warmup - steady
+    if rec is not None:
+        for s in range(p):
+            # Tick units: the idle/total ratio (the observed bubble
+            # fraction) is unit-free.
+            rec.observe_phase(f"PIPELINE_STAGE{s}_WARMUP", float(s))
+            rec.observe_phase(f"PIPELINE_STAGE{s}_ACTIVE", float(m))
+            rec.observe_phase(f"PIPELINE_STAGE{s}_COOLDOWN",
+                              float(p - 1 - s))
+        rec.record_collective(
+            "ppermute", dtype, "exact", tick_bytes * ticks,
+            count=ticks, path="jit", axis=axis)
+    if flight is not None:
+        for seg, n in (("warmup", warmup), ("steady", steady),
+                       ("cooldown", cooldown)):
+            if n <= 0:
+                continue
+            flight.record(
+                op="ppermute", name=f"pipeline.{seg}",
+                dtype=dtype, shape=(int(tick_bytes),),
+                nbytes=tick_bytes * n, wire="exact", path="jit",
+                count=n, axis=axis)
 
 
 def _recv(like: torch.Tensor, src: int, ring: _Ring) -> torch.Tensor:
@@ -204,7 +245,11 @@ def pipeline_1f1b(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     # keep no graph.
     graph = torch.is_grad_enabled() and (
         microbatches.requires_grad or any(t.requires_grad for t in leaves))
-    return _Pipeline.apply(microbatches, _Ring(group, axis), stage_fn, spec,
+    ring = _Ring(group, axis)
+    _record_schedule(axis, ring.size, microbatches.shape[0],
+                     microbatches[0].numel() * microbatches.element_size(),
+                     dtype=str(microbatches.dtype).rsplit(".", 1)[-1])
+    return _Pipeline.apply(microbatches, ring, stage_fn, spec,
                            bool(broadcast_out), graph, *leaves)
 
 
@@ -224,11 +269,20 @@ def pipeline_spmd(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
 def report_pipeline_mfu(flops_per_step: float, step_seconds: float,
                         peak_flops_per_sec: Optional[float] = None
                         ) -> float:
-    """Model FLOPs utilization: achieved FLOP/s ÷ peak.  The peak
-    defaults to ``HVDT_PEAK_FLOPS`` (the reference's nominal 1e12).  The
-    reference also sets its ``hvdt_pipeline_mfu`` gauge, which waits for
-    the telemetry recorder (ROADMAP Queue 1 item 6)."""
+    """Model FLOPs utilization: achieved FLOP/s ÷ peak, as the
+    ``hvdt_pipeline_mfu`` gauge.  The peak defaults to
+    ``HVDT_PEAK_FLOPS`` (the reference's nominal 1e12).  Returns the
+    computed MFU; no gauge write when telemetry is off."""
     if peak_flops_per_sec is None:
         peak_flops_per_sec = config.get_float("HVDT_PEAK_FLOPS")
-    return float(flops_per_step) / (float(step_seconds)
-                                    * float(peak_flops_per_sec))
+    mfu = float(flops_per_step) / (float(step_seconds)
+                                   * float(peak_flops_per_sec))
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    if rec is not None:
+        rec.registry.gauge(
+            "hvdt_pipeline_mfu",
+            "Model FLOPs utilization of the last reported pipeline "
+            "step (achieved model FLOP/s / peak FLOP/s)").set(mfu)
+    return mfu

@@ -17,8 +17,11 @@ over a process set's ``torch.distributed`` group instead of a mesh axis:
 5. a final dequantize, postscale, unpad, and the input dtype.
 
 A world of one runs every stage too (the collectives copy), so one card
-launches all four kernels.  The telemetry and flight-recorder calls of
-the reference are not ported (``telemetry/`` is not ported yet).
+launches all four kernels.  Telemetry: :func:`quantized_allreduce_start`
+books the wire-format payload under the quantized wire label
+(``path="jit"``) and one flight-recorder event, each time it runs (once
+per replay inside a ``donated_step`` capture); the eager path books its
+packed all-gather as ``path="eager"`` with a begin/end flight event.
 """
 
 from __future__ import annotations
@@ -99,6 +102,31 @@ class InflightQuantized:
     wire: str = "int8"
 
 
+def _record_wire(dtype: torch.dtype, wire: str, size: int, block: int,
+                 axis: str) -> None:
+    """Telemetry for one quantized bucket: the wire-format payload the
+    bucket moves per hop (1 B/elem int8 or 0.5 B/elem int4, + f32 block
+    scales) under the quantized wire label, and one flight event."""
+    from ..telemetry import flight_recorder as _frm
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    flight = _frm.get_flight_recorder()
+    if rec is None and flight is None:
+        return
+    sentinel = wire_sentinel(wire)
+    payload = int(qk.wire_bytes_int4(size, block) if wire == "int4"
+                  else qk.wire_bytes(size, block))
+    dname = str(dtype).rsplit(".", 1)[-1]
+    if rec is not None:
+        rec.record_collective("allreduce", dname, sentinel, payload,
+                              path="jit", axis=axis)
+    if flight is not None:
+        flight.record(op="allreduce", name="quantized.flat", dtype=dname,
+                      shape=(int(size),), nbytes=payload, wire=sentinel,
+                      path="jit", axis=axis)
+
+
 def _all_to_all(rows: torch.Tensor, ps: ProcessSet) -> torch.Tensor:
     """[n, k] -> [n, k]: row j goes to rank j; row r of the result came
     from rank r."""
@@ -118,11 +146,13 @@ def quantized_allreduce_start(flat: torch.Tensor,
                               block_size: Optional[int] = None,
                               prescale_factor: float = 1.0,
                               wire: str = "int8",
-                              process_set: Optional[ProcessSet] = None
+                              process_set: Optional[ProcessSet] = None,
+                              axis: str = "dp"
                               ) -> InflightQuantized:
     """Stages 1-2: pad, quantize locally and run the wire-format
     reduce-scatter.  ``finish(start(x))`` is
-    :func:`quantized_allreduce_flat`."""
+    :func:`quantized_allreduce_flat`.  ``axis`` labels the telemetry
+    (the mesh axes of the reduce group)."""
     op = _check_op(op)
     wire = _check_wire(wire)
     ps = process_set or global_process_set()
@@ -134,6 +164,7 @@ def quantized_allreduce_start(flat: torch.Tensor,
     size = flat.numel()
     shard = -(-size // (n * block)) * block
     total = shard * n
+    _record_wire(flat.dtype, wire, size, block, axis)
 
     x = flat.detach().to(torch.float32)
     if prescale_factor != 1.0:
@@ -280,11 +311,9 @@ def eager_quantized_allreduce(tensor: torch.Tensor,
     """Quantized allreduce as one ``all_gather`` of each rank's packed
     int8 wire bytes (payload ‖ f32 scales); each rank then
     dequantize-accumulates every rank's copy locally, in rank order.
-    Per-rank traffic ``(n-1)·size·(1+4/block)`` bytes.  ``name`` is
-    accepted for the reference's signature (it names the negotiated
-    eager op there).  Returns a new tensor in the input's shape and
-    dtype."""
-    del name
+    Per-rank traffic ``(n-1)·size·(1+4/block)`` bytes.  ``name`` names
+    the flight-recorder event (the negotiated eager op in the
+    reference).  Returns a new tensor in the input's shape and dtype."""
     op = _check_op(op)
     ps = process_set or global_process_set()
     block = block_size or qk.quant_block_size()
@@ -296,7 +325,30 @@ def eager_quantized_allreduce(tensor: torch.Tensor,
     nq = q.numel()
     packed = torch.cat([q.view(torch.uint8), scales.view(torch.uint8)])
     n = ps.size()
-    per_rank = _all_gather(packed, n, ps).view(n, packed.numel())
+    from ..telemetry import flight_recorder as _frm
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    dname = str(tensor.dtype).rsplit(".", 1)[-1]
+    if rec is not None:
+        rec.record_collective("allreduce", dname, INT8_WIRE,
+                              packed.numel(), path="eager")
+    flight = _frm.get_flight_recorder()
+    fr_seq = None
+    if flight is not None:
+        fr_seq = flight.record_begin(
+            op="allreduce", name=name or "quantized.eager", dtype=dname,
+            shape=tuple(tensor.shape), nbytes=int(packed.numel()),
+            wire=INT8_WIRE, path="eager")
+    try:
+        gathered = _all_gather(packed, n, ps)
+    except Exception:
+        if flight is not None:
+            flight.record_end(fr_seq, status="error")
+        raise
+    if flight is not None:
+        flight.record_end(fr_seq)
+    per_rank = gathered.view(n, packed.numel())
     acc = torch.zeros(nq, dtype=torch.float32, device=flat.device)
     for r in range(n):
         payload = per_rank[r, :nq].view(torch.int8)

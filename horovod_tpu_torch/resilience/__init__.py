@@ -10,16 +10,16 @@ preemption-safe shutdown and stall escalation (the JAX package's
 * :mod:`.preempt` — SIGTERM/SIGINT → emergency checkpoint → exit code
   83, which the elastic driver treats as host removal, not failure.
 * :mod:`.escalation` — the stall ladder (warn → abort → elastic reset).
-
-The peer-replicated RAM tier (``peer_store.py``, ``HVDT_PEER_STORE``)
-is not ported yet (ROADMAP Queue 1, item 6, part 2): setting the knob
-makes :func:`get_peer_store` raise.
+* :mod:`.peer_store` — the peer-replicated RAM snapshot tier
+  (``HVDT_PEER_STORE``): commit-point snapshots over the rendezvous KV,
+  restored before the disk tier is consulted.
 """
 
 from .escalation import (ABORT, RESET, WARN, EscalationPolicy, Escalator,
                          request_elastic_reset)
 from .faults import (FaultInjector, FaultSpec, InjectedFault, configure,
                      get_injector, instrument, parse_plan)
+from .peer_store import PeerStore, get_peer_store
 from .preempt import PREEMPT_EXIT_CODE, Preempted, PreemptionGuard
 from .retry import Backoff, RetriesExhausted, retry
 
@@ -29,17 +29,6 @@ __all__ = [
     "Backoff", "retry", "RetriesExhausted",
     "PreemptionGuard", "Preempted", "PREEMPT_EXIT_CODE",
     "Escalator", "EscalationPolicy", "WARN", "ABORT", "RESET",
-    "request_elastic_reset", "get_peer_store",
+    "request_elastic_reset", "PeerStore", "get_peer_store",
 ]
 
-
-def get_peer_store():
-    """None while ``HVDT_PEER_STORE`` is off, as in the reference; the
-    peer store itself is not ported, so turning the knob on raises."""
-    from ..common import config
-
-    if not config.get_bool("HVDT_PEER_STORE"):
-        return None
-    raise NotImplementedError(
-        "HVDT_PEER_STORE: the peer-replicated snapshot tier is not ported "
-        "yet (ROADMAP Queue 1, item 6, part 2: peer store)")

@@ -6,7 +6,8 @@ reset (a copy of the JAX package's ``resilience/escalation.py``).
 2. **abort** (``HVDT_STALL_ABORT_TIME_SECONDS``) — the coordinator
    aborts the stalled negotiation: pending ranks get an error response
    and their ``synchronize()`` raises ``HorovodInternalError`` instead of
-   hanging forever.
+   hanging forever.  With ``HVDT_FLIGHT_RECORDER`` on, the rung first
+   emits the cross-rank desync report (``telemetry/flight_recorder``).
 3. **reset** (``HVDT_STALL_RESET_TIME_SECONDS``) — under the elastic
    launcher, additionally publish READY to the driver's registry so the
    whole generation is re-rendezvoused (:func:`request_elastic_reset`).
@@ -97,6 +98,8 @@ class Escalator:
         for lv in fired:
             log.warning("stall escalation: %s -> %s (stalled %.0fs)",
                         name, _LEVEL_NAMES[lv], age_s)
+            if lv == ABORT:
+                _abort_forensics(name, age_s)
         return target
 
     def resolve(self, name: str) -> None:
@@ -117,6 +120,20 @@ class Escalator:
         with self._lock:
             out, self._reset_pending = self._reset_pending, False
             return out
+
+
+def _abort_forensics(name: str, age_s: float) -> None:
+    """Abort-rung forensics: when the flight recorder is on, gather every
+    rank's recent collective sequence over the rendezvous KV and emit the
+    structured desync report (telemetry/flight_recorder.py).  A no-op
+    when the recorder is off; never raises — forensics must not worsen
+    the failure being diagnosed."""
+    try:
+        from ..telemetry.flight_recorder import emit_desync_report
+
+        emit_desync_report(stalled=name, age_s=age_s)
+    except Exception as e:
+        log.debug("stall-abort forensics failed: %r", e)
 
 
 def request_elastic_reset(reason: str = "stall escalation") -> bool:

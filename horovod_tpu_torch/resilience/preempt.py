@@ -133,10 +133,12 @@ class PreemptionGuard:
         log.warning("preemption signal %s received — emergency checkpoint"
                     "%s", sig_name, f" at step {step}" if step is not None
                     else "")
-        # The reference dumps its collective flight recorder here, inside
-        # the grace window.  The port has no flight recorder yet (ROADMAP
-        # Queue 1, item 6: the telemetry modules), so there is nothing to
-        # dump and this step is a no-op.
+        # Forensics first, inside the grace window: persist the
+        # collective flight recorder before the host disappears (no-op
+        # when the recorder is off; never raises).
+        from ..telemetry.flight_recorder import dump_on_preempt
+
+        dump_on_preempt()
         if self._on_preempt is not None:
             try:
                 self._on_preempt()

@@ -93,15 +93,8 @@ __all__ = ["KNOB_FLAGS", "add_knob_arguments", "load_config_file",
 
 # The flags whose knob the port does not register yet, by env name, with
 # the ROADMAP Queue 1 item that ports it.
-_TELEMETRY = "item 6, part 2: the telemetry modules"
 _CONTROL = "item 8: control, analysis and the edges"
 UNPORTED_KNOBS: Dict[str, str] = {
-    "HVDT_METRICS_PORT": _TELEMETRY,
-    "HVDT_STRAGGLER_WINDOW": _TELEMETRY,
-    "HVDT_TRACE_DIR": _TELEMETRY,
-    "HVDT_FLIGHT_RECORDER": _TELEMETRY,
-    "HVDT_LOG_LEVEL": "item 6, part 2: logging",
-    "HVDT_LOG_HIDE_TIME": "item 6, part 2: logging",
     "HVDT_SERVE_REPLICAS": "item 7: serving",
     "HVDT_SERVE_MAX_REPLICAS": "item 7: serving",
     "HVDT_SERVE_AUTOSCALE": "item 7: serving",

@@ -29,11 +29,15 @@ Where the port differs from the reference:
   generation before may still be exiting (its shell is gone, its SIGTERM
   handler runs) and hold the old listener.  A remote coordinator keeps
   ``--coordinator-port`` in every generation, as in the reference.
-* The telemetry, trace-merge, anomaly, controller and fleet hooks are not
-  ported: with their knob set (``HVDT_POD_STRAGGLER_EVICT`` > 0,
-  ``HVDT_TRACE_DIR``, ``HVDT_EVENT_LOG``, ``HVDT_CONTROLLER``,
-  ``HVDT_FLEET``) the driver raises ``NotImplementedError``; unset they
-  do nothing, as in the reference.
+* The telemetry hooks are the reference's: the workers' KV snapshots
+  (:meth:`ElasticDriver.telemetry_snapshots`, ``telemetry_rollup``),
+  trace dumps and flight-recorder events; the cluster anomaly rules
+  (``HVDT_EVENT_LOG``); the merged trace at the end of the run
+  (``HVDT_TRACE_DIR``); and the pod-straggler eviction rung
+  (``HVDT_POD_STRAGGLER_EVICT``).  The controller and fleet hooks are not
+  ported: with their knob set (``HVDT_CONTROLLER``, ``HVDT_FLEET``) the
+  driver raises ``NotImplementedError``; unset they do nothing, as in
+  the reference.
 """
 
 from __future__ import annotations
@@ -63,8 +67,6 @@ _DISCOVERY_INTERVAL_S = 1.0
 # The reference's driver hooks the port has not ported, by the knob that
 # turns each on and the ROADMAP Queue 1 item that ports it.
 _UNPORTED_HOOKS = {
-    "HVDT_TRACE_DIR": "item 6, part 2: the telemetry modules (trace merge)",
-    "HVDT_EVENT_LOG": "item 6, part 2: the telemetry modules (anomalies)",
     "HVDT_CONTROLLER": "item 8: control, analysis and the edges",
     "HVDT_FLEET": "item 8: control, analysis and the edges",
 }
@@ -126,7 +128,7 @@ class ElasticDriver:
         self._interval = discovery_interval
         self._elastic_timeout = elastic_timeout
         # Pod-granular control plane (runner/elastic/pods.py): exit
-        # correlation and preemption drains.  With no
+        # correlation, preemption drains, straggler eviction.  With no
         # declared pods and pod_slots=0 everything degenerates to the
         # flat per-host semantics.
         self._pod_slots = pod_slots
@@ -150,12 +152,11 @@ class ElasticDriver:
         self._terminate: Dict[int, threading.Event] = {}
         self._terminated: Dict[int, set] = {}
         self._failed_world_resets = 0
-        if config.get_int("HVDT_POD_STRAGGLER_EVICT") > 0:
-            raise NotImplementedError(
-                "HVDT_POD_STRAGGLER_EVICT: the pod-straggler rung reads "
-                "the workers' telemetry snapshots, which are not ported "
-                "yet (ROADMAP Queue 1, item 6, part 2: the telemetry "
-                "modules)")
+        # Cluster anomaly correlation (telemetry/anomaly.py): created
+        # lazily on the first discovery tick that finds HVDT_EVENT_LOG
+        # configured — cluster events (a pod-wide step-time shift is
+        # ONE event) land in the driver's JSONL event log.
+        self._cluster_anomalies = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -199,6 +200,8 @@ class ElasticDriver:
             if changed:
                 self._notify_hosts_updated()
             self._poll_worker_registry()
+            self._check_pod_stragglers()
+            self._check_cluster_anomalies()
 
     def _poll_worker_registry(self) -> None:
         """Feed KV-reported worker states (workers put
@@ -231,27 +234,115 @@ class ElasticDriver:
         self.registry.record_ready(rank)
 
     def telemetry_snapshots(self):
-        """The reference aggregates the workers' telemetry snapshots from
-        the rendezvous KV; the exporter that publishes them is not
-        ported."""
-        raise NotImplementedError(
-            "ElasticDriver.telemetry_snapshots: the telemetry exporter is "
-            "not ported yet (ROADMAP Queue 1, item 6, part 2)")
+        """Aggregate worker telemetry snapshots from the rendezvous KV
+        (workers publish /telemetry/<rank> every
+        HVDT_TELEMETRY_PUBLISH_S when HVDT_TELEMETRY is on).  Returns
+        {rank: snapshot_dict}; empty when no KV or nothing published —
+        the driver-side half of the observability subsystem
+        (telemetry/exporter.collect_driver_snapshots).  Each snapshot
+        carries the worker's pod id plus its kv_retries_total /
+        kv_errors_total counters, so control-plane flakiness is visible
+        fleet-wide from the driver; the snapshots also feed the
+        pod-straggler eviction rung (_check_pod_stragglers)."""
+        if self._kv is None:
+            return {}
+        from ...telemetry.exporter import collect_driver_snapshots
+
+        return collect_driver_snapshots(self._kv)
 
     def trace_dumps(self):
-        raise NotImplementedError(
-            "ElasticDriver.trace_dumps: span tracing is not ported yet "
-            "(ROADMAP Queue 1, item 6, part 2)")
+        """Per-rank Chrome-trace dumps published to the rendezvous KV
+        (workers publish /trace/<rank> when HVDT_TRACE_DIR is set —
+        merged into one rank-as-pid trace by telemetry.trace.merge_dumps
+        / write_merged; run_elastic writes trace_merged.json under
+        --trace-dir).  Returns {rank: dump}; empty without a KV."""
+        if self._kv is None:
+            return {}
+        from ...telemetry.trace import collect_server_dumps
+
+        return collect_server_dumps(self._kv)
 
     def flight_recorder_events(self):
-        raise NotImplementedError(
-            "ElasticDriver.flight_recorder_events: the flight recorder is "
-            "not ported yet (ROADMAP Queue 1, item 6, part 2)")
+        """Per-rank collective flight-recorder event lists from the
+        rendezvous KV (/flightrecorder/<rank>) — the raw material of
+        telemetry.flight_recorder.analyze_desync."""
+        if self._kv is None:
+            return {}
+        from ...telemetry.flight_recorder import collect_server_events
+
+        return collect_server_events(self._kv)
 
     def telemetry_rollup(self):
-        raise NotImplementedError(
-            "ElasticDriver.telemetry_rollup: the telemetry aggregation is "
-            "not ported yet (ROADMAP Queue 1, item 6, part 2)")
+        """Step-aligned fleet roll-up over the latest KV snapshots
+        (telemetry/aggregate.rollup): per-pod median/p99 step time,
+        cluster wire-bytes-by-axis, goodput series, worst pod.  Ranks
+        publishing the old snapshot schema (no step id / time series)
+        are skipped and counted, never failed."""
+        snaps = self.telemetry_snapshots()
+        if not snaps:
+            return {}
+        from ...telemetry import aggregate as _aggregate
+
+        return _aggregate.rollup(snaps)
+
+    def _check_cluster_anomalies(self):
+        """Run the cluster anomaly rules over the fleet snapshots each
+        discovery tick (active only when HVDT_EVENT_LOG names a driver-
+        side event log — the zero-overhead gate).  Returns the events
+        that newly fired this tick — the controller's input."""
+        if self._kv is None:
+            return []
+        events = []
+        try:
+            from ...telemetry import anomaly as _anomaly
+
+            if self._cluster_anomalies is None:
+                if _anomaly.get_event_log() is None:
+                    return []
+                self._cluster_anomalies = _anomaly.ClusterAnomalyMonitor()
+            snaps = self.telemetry_snapshots()
+            if not snaps:
+                return []
+            events = self._cluster_anomalies.observe(snaps)
+            for ev in events:
+                print(f"elastic: anomaly {ev.get('kind')} "
+                      f"({ev.get('scope')}): {ev.get('message')}",
+                      file=sys.stderr)
+        except Exception as e:   # detection must never sink the driver
+            print(f"elastic: cluster anomaly check failed: {e}",
+                  file=sys.stderr)
+        return events
+
+    def _check_pod_stragglers(self) -> None:
+        """The pod-granular escalation rung over the straggler
+        gauges: aggregate per-rank step-time medians from the telemetry
+        snapshots into per-pod medians; a pod slower than threshold x
+        the cross-pod median for HVDT_POD_STRAGGLER_EVICT consecutive
+        windows is EVICTED — blacklisted (cooldown applies, so a
+        recovered pod can rejoin) and the run resizes down to the
+        remaining pod multiple instead of limping at the slow pod's
+        pace."""
+        if self._pods.evict_windows <= 0 or self._kv is None:
+            return
+        snaps = self.telemetry_snapshots()
+        if not snaps or not self._pods.snapshots_fingerprint(snaps):
+            return
+        rank_pod = {s.rank: s.pod for s in self.assignments}
+        by_pod: Dict[str, List[float]] = {}
+        for rank, snap in snaps.items():
+            ms = snap.get("step_time_p50_ms")
+            pod = snap.get("pod") or rank_pod.get(rank)
+            if ms and pod:
+                by_pod.setdefault(pod, []).append(float(ms))
+        medians = {p: sorted(v)[(len(v) - 1) // 2]
+                   for p, v in by_pod.items()}
+        for pod in self._pods.observe_step_medians(medians):
+            print(f"elastic: pod {pod} evicted as straggler "
+                  f"(median step {medians[pod]:.1f} ms over "
+                  f"{self._pods.evict_windows} windows)", file=sys.stderr)
+            self._hm.blacklist_pod(pod)
+            self._hm.update_available_hosts()
+            self._notify_hosts_updated()
 
     def _notify_hosts_updated(self) -> None:
         with self._cond:
@@ -555,15 +646,26 @@ def run_elastic(args) -> int:
         return safe_execute(cmd, env=env, prefix=prefix,
                             terminate_event=driver.terminate_event(gen))
 
-    # kv_server wires the driver-side KV consumer: worker state
-    # publishes (/registry).
+    def _int_knob(name: str) -> int:
+        raw = knob_env.get(name) or os.environ.get(name) or "0"
+        try:
+            return int(raw)
+        except ValueError:
+            return 0
+
+    tracker = pods_mod.PodTracker(
+        evict_windows=_int_knob("HVDT_POD_STRAGGLER_EVICT") or None)
+    # kv_server wires the driver-side KV consumers: worker state
+    # publishes (/registry), telemetry snapshot aggregation, and the
+    # pod-straggler eviction rung those snapshots feed.
     driver = ElasticDriver(hm, min_np, max_np, spawn_fn,
                            reset_limit=args.reset_limit,
                            kv_server=server,
                            hosts_updated_cb=hosts_updated_cb,
                            elastic_timeout=getattr(args, "elastic_timeout",
                                                    600.0),
-                           pod_slots=config.get_int("HVDT_POD_SIZE"))
+                           pod_slots=config.get_int("HVDT_POD_SIZE"),
+                           pod_tracker=tracker)
     try:
         driver.start(rendezvous_cb)
         code = driver.wait()
@@ -572,4 +674,31 @@ def run_elastic(args) -> int:
         driver.stop()
         for gen in range(1, driver.generation + 1):
             driver.terminate_event(gen).set()
+        try:
+            # The fleet view over the workers' last KV snapshots (none
+            # unless they run with HVDT_TELEMETRY on), as one line.
+            rollup = driver.telemetry_rollup()
+            if rollup:
+                import json as _json
+
+                print("elastic: telemetry roll-up "
+                      + _json.dumps(rollup, sort_keys=True),
+                      file=sys.stderr)
+        except Exception as e:
+            print(f"elastic: telemetry roll-up failed: {e}", file=sys.stderr)
+        trace_dir = knob_env.get("HVDT_TRACE_DIR") or \
+            os.environ.get("HVDT_TRACE_DIR", "")
+        if trace_dir:
+            # Driver-side merge (hvdtrun --trace-dir): pull every rank's
+            # published dump from the KV before the server dies and emit
+            # the single rank-as-pid Chrome trace.
+            try:
+                from ...telemetry.trace import write_merged
+
+                merged = write_merged(server, trace_dir)
+                if merged:
+                    print(f"elastic: merged trace written to {merged}",
+                          file=sys.stderr)
+            except Exception as e:
+                print(f"elastic: trace merge failed: {e}", file=sys.stderr)
         server.stop()

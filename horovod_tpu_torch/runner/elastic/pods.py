@@ -22,9 +22,9 @@ module gives it the pod view:
 * :class:`PodTracker` — the driver-side failure correlator: exits of one
   pod's ranks within ``HVDT_POD_EXIT_WINDOW_S`` collapse into ONE
   pod-removal event (one blacklist entry, one cooldown clock),
-  and preemption of any rank drains the whole pod.  The reference's
-  straggler-eviction rung reads the workers' telemetry snapshots and
-  waits for them (ROADMAP Queue 1, item 6, part 2).
+  and preemption of any rank drains the whole pod; and the
+  straggler-eviction rung over the per-pod step-time medians the driver
+  aggregates from the workers' telemetry snapshots.
 """
 
 from __future__ import annotations
@@ -211,20 +211,31 @@ def pod_layout(slots: Sequence[SlotInfo]) -> Dict[str, object]:
 
 
 class PodTracker:
-    """Driver-side pod state: exit correlation and preemption drains."""
+    """Driver-side pod state: exit correlation, preemption drains and
+    straggler eviction."""
 
     def __init__(self,
                  exit_window_s: Optional[float] = None,
-                 drain_grace_s: Optional[float] = None):
+                 drain_grace_s: Optional[float] = None,
+                 evict_windows: Optional[int] = None,
+                 threshold: Optional[float] = None):
         self._exit_window_s = (
             exit_window_s if exit_window_s is not None
             else config.get_float("HVDT_POD_EXIT_WINDOW_S"))
         self._drain_grace_s = (
             drain_grace_s if drain_grace_s is not None
             else config.get_float("HVDT_POD_DRAIN_GRACE_S"))
+        self.evict_windows = (
+            evict_windows if evict_windows is not None
+            else config.get_int("HVDT_POD_STRAGGLER_EVICT"))
+        self.threshold = (
+            threshold if threshold is not None
+            else config.get_float("HVDT_STRAGGLER_THRESHOLD"))
         self._lock = threading.Lock()
         self._failure_events: Dict[str, float] = {}   # pod -> opened at
         self._drained: Dict[str, float] = {}          # pod -> drained at
+        self._slow_windows: Dict[str, int] = {}       # pod -> consecutive
+        self._last_fingerprint: Optional[tuple] = None
         self.removal_events = 0   # audit: collapsed pod-removal count
 
     # -- exit correlation ---------------------------------------------------
@@ -266,3 +277,44 @@ class PodTracker:
             self._drained = {p: t for p, t in self._drained.items()
                              if now - t < self._drain_grace_s}
             return set(self._drained)
+
+    # -- straggler eviction -------------------------------------------------
+
+    def observe_step_medians(self, pod_medians: Dict[str, float]
+                             ) -> List[str]:
+        """Feed one window of per-pod median step times (driver-side,
+        from the aggregated telemetry snapshots).  A pod whose median
+        exceeds ``threshold`` x the cross-pod median for
+        ``evict_windows`` consecutive windows is returned for eviction
+        (at most once per streak).  Empty unless the rung is armed."""
+        if self.evict_windows <= 0 or len(pod_medians) < 2:
+            return []
+        ordered = sorted(pod_medians.values())
+        # Lower median, matching telemetry/straggler.py: with half the
+        # pods slow the upper median can BE the straggler.
+        baseline = ordered[(len(ordered) - 1) // 2]
+        if baseline <= 0:
+            return []
+        evict: List[str] = []
+        with self._lock:
+            for pod, med in pod_medians.items():
+                if med / baseline > self.threshold:
+                    n = self._slow_windows.get(pod, 0) + 1
+                    self._slow_windows[pod] = n
+                    if n == self.evict_windows:
+                        evict.append(pod)
+                else:
+                    self._slow_windows.pop(pod, None)
+        return evict
+
+    def snapshots_fingerprint(self, snaps: Dict[int, dict]) -> bool:
+        """True when ``snaps`` carries NEW step data since the last call
+        — the discovery loop ticks every second, but a straggler window
+        should only be counted when workers actually published fresh
+        step statistics."""
+        fp = tuple(sorted((r, s.get("steps")) for r, s in snaps.items()))
+        with self._lock:
+            if fp == self._last_fingerprint:
+                return False
+            self._last_fingerprint = fp
+            return True

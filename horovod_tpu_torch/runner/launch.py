@@ -42,12 +42,11 @@ __all__ = ["main", "parse_args", "run_static"]
 
 _LOCAL_NAMES = {"localhost", "127.0.0.1", "::1"}
 
-# The reference's subcommands, by the ROADMAP Queue 1 item that ports
-# them: the serving plane, the live terminal view over the telemetry
-# exporter, the fleet simulator and the static-analysis gate.
+# The reference's subcommands the port lacks, by the ROADMAP Queue 1 item
+# that ports them: the serving plane, the fleet simulator and the
+# static-analysis gate.
 _UNPORTED_SUBCOMMANDS = {
     "serve": "item 7: serving",
-    "top": "item 6, part 2: the telemetry modules",
     "fleet": "item 8: control, analysis and the edges",
     "lint": "item 8: control, analysis and the edges",
 }
@@ -378,6 +377,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError(
             f"hvdtrun {argv[0]} is not ported yet (ROADMAP Queue 1, "
             f"{_UNPORTED_SUBCOMMANDS[argv[0]]})")
+    if argv and argv[0] == "top":
+        # `hvdtrun top ...` — live terminal view over worker /timeseries
+        # endpoints (telemetry/top.py).  Flags after `top` are the top
+        # CLI's (--endpoints/--interval/--once/--event-log).
+        from ..telemetry.top import main as top_main
+
+        return top_main(argv[1:])
     args = parse_args(argv)
     if args.version or args.check_build:
         _print_check_build()

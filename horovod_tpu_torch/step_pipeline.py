@@ -281,7 +281,7 @@ class _GraphedStep:
 
 
 def donated_step(fn: Callable, *, donate_argnums: Sequence[int] = (0, 1),
-                 compile_cache: Optional[str] = None) -> _GraphedStep:
+                 compile_cache: Optional[str] = None) -> Callable:
     """A train step ``fn(*args)`` captured as one CUDA graph.
 
     ``fn`` is one step (or several): it updates the state arguments in
@@ -337,9 +337,18 @@ def donated_step(fn: Callable, *, donate_argnums: Sequence[int] = (0, 1),
     does every later call.  ``compile_cache`` engages
     :func:`enable_compilation_cache` (env-transparent: a no-op unless it
     or the knob names a directory).
+
+    With telemetry on (``HVDT_TELEMETRY=1``) the graphed step is wrapped
+    so each call's host duration feeds ``hvdt_step_dispatch_seconds``;
+    with distributed tracing on (``HVDT_TRACE_DIR``) the same wrapper
+    records a ``train.step`` span and advances the per-step trace id
+    (``telemetry/trace.py``).  Attribute access forwards to the graphed
+    step; with both off the graphed step itself is returned.
     """
+    from .telemetry.instrument import wrap_step
+
     enable_compilation_cache(compile_cache)
-    return _GraphedStep(fn, donate_argnums)
+    return wrap_step(_GraphedStep(fn, donate_argnums))
 
 
 class _OverlapStep:

@@ -1,0 +1,456 @@
+"""Collective flight recorder + cross-rank desync forensics.
+
+The port's copy of the JAX package's ``telemetry/flight_recorder.py``
+(which imports no JAX), without the report's expected-schedule section
+(see :func:`emit_desync_report`).  An analog of a NCCL flight recorder: an **always-cheap ring
+buffer** of the last N collective events on each rank — monotonic
+sequence number, op/name/dtype/shape, bytes and wire format, start/end
+timestamps, in-flight vs done status.  When a run wedges, the question
+at pod scale is never "what does rank 0's log say" but *which
+collective, on which rank, diverged first* ("Exploring the limits of
+Concurrency in ML Training on Google TPUs", PAPERS.md) — and the ring
+holds exactly the evidence needed to answer it after the fact.
+
+Feeds: the eager negotiated path records begin-at-enqueue /
+end-at-completion (a hung rank's peers therefore show its collectives
+stuck ``inflight``), and the fused device path
+(``ops/device.fused_allreduce``, ``quant/collectives``,
+``parallel/moe``, ``parallel/pipeline``) records one one-shot event per
+bucket it reduces, labelled ``path="jit"`` and ``status="traced"`` as
+in the reference.  Where the reference records a bucket once at trace
+time, the port records it each time the device executes it: inside a
+``donated_step`` capture :meth:`FlightRecorder.record` registers a
+replay hook instead (``telemetry/instrument.deferred_to_replay``).
+
+Dump triggers:
+
+* the resilience :class:`~horovod_tpu.resilience.escalation.Escalator`
+  **abort rung** — the coordinator gathers every rank's recent sequence
+  over the rendezvous KV and emits a structured *desync report* naming
+  the first divergent seq, the ranks missing from it, and any
+  shape/dtype mismatches (:func:`analyze_desync` /
+  :func:`emit_desync_report`);
+* :class:`~horovod_tpu.resilience.preempt.PreemptionGuard` firing
+  (:func:`dump_on_preempt` — the ring is on disk before the host dies);
+* on demand via the exporter's ``/flightrecorder`` endpoint.
+
+Sequence numbers are per-process counters: they align across ranks
+exactly when every rank issues the same collectives in the same order —
+the same determinism contract the eager auto-naming scheme
+(``allreduce.noname.N``) already relies on, so a misalignment IS the
+divergence being hunted.
+
+Zero-overhead contract: with ``HVDT_FLIGHT_RECORDER`` unset,
+:func:`get_flight_recorder` returns ``None`` (one env read + compare)
+and every feed site skips on ``is None``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence
+
+from ..common import config
+from ..common.logging_util import get_logger
+
+__all__ = ["FlightRecorder", "get_flight_recorder", "reset",
+           "analyze_desync", "emit_desync_report", "dump_on_preempt",
+           "collect_server_events", "FLIGHT_KV_PREFIX"]
+
+log = get_logger(__name__)
+
+FLIGHT_KV_PREFIX = "/flightrecorder/"
+
+_TRUTHY = ("1", "true", "yes", "on")
+
+INFLIGHT, DONE, ERROR, TRACED = "inflight", "done", "error", "traced"
+
+
+def enabled() -> bool:
+    return os.environ.get("HVDT_FLIGHT_RECORDER",
+                          "").strip().lower() in _TRUTHY
+
+
+def _env_rank() -> int:
+    try:
+        return max(0, int(os.environ.get("HVDT_RANK", 0)))
+    except ValueError:
+        return 0
+
+
+class FlightRecorder:
+    """Bounded ring of recent collective events (one per rank).
+
+    ``record_begin`` → ``record_end`` brackets an eager collective's
+    lifetime (enqueue → handle completion); ``record`` books a one-shot
+    event (a device-path bucket, or externally-driven sequences in tests
+    and harnesses).  Everything is a dict append / field update under one
+    lock — cheap enough to leave on for whole runs, which is the point
+    of a flight recorder.
+    """
+
+    def __init__(self, capacity: Optional[int] = None,
+                 rank: Optional[int] = None):
+        cap = int(capacity if capacity is not None
+                  else config.get_int("HVDT_FLIGHT_RECORDER_EVENTS"))
+        self.capacity = max(8, cap)
+        self.rank = _env_rank() if rank is None else int(rank)
+        self._lock = threading.Lock()
+        self._ring: "deque[Dict[str, Any]]" = deque(maxlen=self.capacity)
+        self._by_seq: Dict[int, Dict[str, Any]] = {}
+        self._next_seq = 1
+
+    # -- recording ----------------------------------------------------------
+    def _new_event(self, op: str, name: str, dtype: str, shape, nbytes: int,
+                   wire: str, path: str, count: int,
+                   status: str, axis: str = "") -> Dict[str, Any]:
+        ev = {
+            "seq": 0,                       # assigned under the lock
+            "op": str(op).lower(),
+            "name": str(name),
+            "dtype": str(dtype),
+            "shape": list(shape) if shape is not None else None,
+            "nbytes": int(nbytes),
+            "wire": str(wire) if wire else str(dtype),
+            "path": str(path),
+            "count": int(count),
+            # Mesh axis / tier the collective reduces over (device path;
+            # "" on the eager negotiated path, whose group is a process
+            # set) — lets a desync report say WHICH interconnect tier
+            # the divergent collective was crossing.
+            "axis": str(axis),
+            "start_ts": time.time(),
+            "end_ts": None,
+            "status": status,
+        }
+        return ev
+
+    def _append(self, ev: Dict[str, Any]) -> int:
+        with self._lock:
+            ev["seq"] = self._next_seq
+            self._next_seq += 1
+            if len(self._ring) == self.capacity:
+                evicted = self._ring[0]
+                self._by_seq.pop(evicted["seq"], None)
+            self._ring.append(ev)
+            if ev["status"] == INFLIGHT:
+                self._by_seq[ev["seq"]] = ev
+            return ev["seq"]
+
+    def record_begin(self, op: str, name: str, dtype: str = "",
+                     shape: Optional[Sequence[int]] = None,
+                     nbytes: int = 0, wire: str = "", path: str = "eager",
+                     count: int = 1, axis: str = "") -> int:
+        """Open an in-flight collective event; returns its seq."""
+        return self._append(self._new_event(op, name, dtype, shape, nbytes,
+                                            wire, path, count, INFLIGHT,
+                                            axis))
+
+    def record_end(self, seq: Optional[int], status: str = DONE) -> None:
+        """Close an in-flight event (no-op for evicted/unknown seqs)."""
+        if seq is None:
+            return
+        with self._lock:
+            ev = self._by_seq.pop(int(seq), None)
+            if ev is not None:
+                ev["end_ts"] = time.time()
+                ev["status"] = status
+
+    def record(self, op: str, name: str, dtype: str = "",
+               shape: Optional[Sequence[int]] = None, nbytes: int = 0,
+               wire: str = "", path: str = "jit", count: int = 1,
+               status: str = TRACED, axis: str = "") -> int:
+        """One-shot event (device-path buckets, external sequences).
+        Inside a ``donated_step`` capture the event is booked before each
+        replay instead, and the call returns 0."""
+        from .instrument import deferred_to_replay
+
+        def book() -> int:
+            ev = self._new_event(op, name, dtype, shape, nbytes, wire, path,
+                                 count, status, axis)
+            ev["end_ts"] = ev["start_ts"]
+            return self._append(ev)
+
+        if deferred_to_replay(book):
+            return 0
+        return book()
+
+    # -- export -------------------------------------------------------------
+    def events(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [dict(ev) for ev in self._ring]
+
+    def last_seq(self) -> int:
+        with self._lock:
+            return self._next_seq - 1
+
+    def dump(self) -> Dict[str, Any]:
+        return {"rank": self.rank, "capacity": self.capacity,
+                "events": self.events(), "ts": time.time()}
+
+    def publish(self, kv, rank: Optional[int] = None) -> bool:
+        """Best-effort dump publish to the rendezvous KV."""
+        r = self.rank if rank is None else int(rank)
+        try:
+            kv.put(f"{FLIGHT_KV_PREFIX}{r}", json.dumps(self.dump()).encode())
+            return True
+        except Exception as e:
+            log.debug("flight recorder KV publish failed: %s", e)
+            return False
+
+    def write(self, directory: str) -> str:
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory,
+                            f"flightrecorder_rank{self.rank}.json")
+        with open(path, "w") as fh:
+            json.dump(self.dump(), fh, indent=2)
+        return path
+
+
+# ---------------------------------------------------------------------------
+# Process-wide recorder (env-gated, cached — instrument.get_recorder idiom)
+# ---------------------------------------------------------------------------
+
+_lock = threading.Lock()
+_cached_env: Optional[str] = "\0unset"
+_cached: Optional[FlightRecorder] = None
+
+
+def get_flight_recorder() -> Optional[FlightRecorder]:
+    """The process-wide flight recorder, or ``None`` when
+    ``HVDT_FLIGHT_RECORDER`` is unset — feed sites branch on ``is None``
+    and touch nothing else."""
+    global _cached_env, _cached
+    raw = os.environ.get("HVDT_FLIGHT_RECORDER")
+    if raw != _cached_env:
+        with _lock:
+            if raw != _cached_env:
+                _cached = FlightRecorder() if enabled() else None
+                _cached_env = raw
+    return _cached
+
+
+def reset() -> None:
+    """Drop the cached recorder (test isolation)."""
+    global _cached_env, _cached
+    with _lock:
+        _cached_env = "\0unset"
+        _cached = None
+
+
+# ---------------------------------------------------------------------------
+# Desync analysis
+# ---------------------------------------------------------------------------
+
+_MISMATCH_FIELDS = ("op", "name", "dtype", "shape")
+
+
+def analyze_desync(events_by_rank: Dict[int, List[Dict[str, Any]]],
+                   expected_ranks: Optional[Sequence[int]] = None
+                   ) -> Dict[str, Any]:
+    """Cross-rank event-sequence comparison → structured desync report.
+
+    Scans the overlapping seq window (ring eviction means early seqs may
+    be gone on long-running ranks) and reports:
+
+    * ``first_divergent_seq`` — the first seq some-but-not-all ranks
+      recorded (None when sequences agree);
+    * ``missing_ranks`` — ranks with no event at that seq (the hung /
+      diverged suspects; a rank with NO events at all is missing from
+      the start);
+    * ``mismatches`` — seqs where ranks recorded *different* op / name /
+      dtype / shape (host-side control-flow divergence, the classic
+      "mismatched collective" failure);
+    * ``per_rank_last_seq`` and ``inflight_by_rank`` — how far each rank
+      got, and what it still had in flight.
+    """
+    ranks = sorted(int(r) for r in (expected_ranks if expected_ranks
+                                    else events_by_rank.keys()))
+    by_seq: Dict[int, Dict[int, Dict[str, Any]]] = {
+        r: {int(e["seq"]): e for e in events_by_rank.get(r, [])}
+        for r in ranks}
+    nonempty = {r: s for r, s in by_seq.items() if s}
+    report: Dict[str, Any] = {
+        "ranks": ranks,
+        "per_rank_last_seq": {str(r): (max(by_seq[r]) if by_seq[r]
+                                       else None) for r in ranks},
+        "inflight_by_rank": {
+            str(r): [e["seq"] for e in events_by_rank.get(r, [])
+                     if e.get("status") == INFLIGHT] for r in ranks},
+        "first_divergent_seq": None,
+        "missing_ranks": [],
+        "mismatches": [],
+    }
+    if not nonempty:
+        report["missing_ranks"] = ranks
+        return report
+    # Overlap window: start where every *reporting* rank still has
+    # history; a rank with zero events is divergent from the window
+    # start by definition.
+    start = max(min(s) for s in nonempty.values())
+    end = max(max(s) for s in nonempty.values())
+    mismatches: List[Dict[str, Any]] = []
+    for seq in range(start, end + 1):
+        have = [r for r in ranks if seq in by_seq[r]]
+        absent = [r for r in ranks if seq not in by_seq[r]]
+        if absent and report["first_divergent_seq"] is None:
+            report["first_divergent_seq"] = seq
+            report["missing_ranks"] = absent
+            ref = by_seq[have[0]][seq] if have else None
+            if ref is not None:
+                report["divergent_event"] = {
+                    k: ref.get(k) for k in
+                    ("op", "name", "dtype", "shape", "nbytes", "status")}
+        if len(have) > 1:
+            vals = {f: {r: by_seq[r][seq].get(f) for r in have}
+                    for f in _MISMATCH_FIELDS}
+            for field, per_rank in vals.items():
+                if len({json.dumps(v) for v in per_rank.values()}) > 1:
+                    mismatches.append({
+                        "seq": seq, "field": field,
+                        "values": {str(r): per_rank[r] for r in have}})
+    report["mismatches"] = mismatches
+    if report["first_divergent_seq"] is None and mismatches:
+        # Everyone recorded every seq but disagreed on what it was: the
+        # first mismatching seq is the divergence point.
+        report["first_divergent_seq"] = mismatches[0]["seq"]
+    return report
+
+
+def _gather_events(kv_client, size: int, self_rank: int,
+                   local_events: List[Dict[str, Any]]
+                   ) -> Dict[int, List[Dict[str, Any]]]:
+    out: Dict[int, List[Dict[str, Any]]] = {self_rank: local_events}
+    for r in range(size):
+        if r == self_rank:
+            continue
+        try:
+            raw = kv_client.get(f"{FLIGHT_KV_PREFIX}{r}")
+        except Exception:
+            raw = None
+        if raw:
+            try:
+                out[r] = json.loads(raw.decode()).get("events", [])
+            except (ValueError, UnicodeDecodeError):
+                continue
+    return out
+
+
+def emit_desync_report(stalled: Optional[str] = None,
+                       age_s: Optional[float] = None,
+                       kv_client=None, size: Optional[int] = None,
+                       out_dir: Optional[str] = None
+                       ) -> Optional[Dict[str, Any]]:
+    """Stall-abort forensics: gather every rank's recent event sequence
+    over the rendezvous KV, analyze, and persist the report.
+
+    Called by the resilience ``Escalator`` when its abort rung fires (the
+    coordinator side of a hung negotiation) and usable on demand.  Writes
+    ``desync_report_rank<N>.json`` into ``HVDT_TRACE_DIR`` (when set),
+    publishes ``/desync/report`` to the KV, and logs the headline.  (The
+    reference's ``expected_schedule`` section, which compares the events
+    against a fingerprint exported by its static analyzer, is not in the
+    port's report: that analyzer is ROADMAP Queue 1, item 8, and
+    ``HVDT_EXPECTED_SCHEDULE`` is not read.)  Best effort end to end: returns None (recording nothing) when the flight
+    recorder is off, and never raises."""
+    fr = get_flight_recorder()
+    if fr is None:
+        return None
+    rank = fr.rank
+    try:
+        if size is None:
+            try:
+                size = int(os.environ.get("HVDT_SIZE", 0) or 0)
+            except ValueError:
+                size = 0
+        client = kv_client
+        if client is None and os.environ.get("HVDT_RENDEZVOUS_ADDR"):
+            try:
+                from ..runner.http_kv import KVClient
+
+                client = KVClient.from_env()
+            except Exception as e:
+                log.debug("desync KV client unavailable: %s", e)
+        local = fr.events()
+        if client is not None:
+            fr.publish(client, rank)
+            by_rank = _gather_events(client, max(size, rank + 1), rank,
+                                     local)
+        else:
+            by_rank = {rank: local}
+        expected = list(range(size)) if size > 0 else sorted(by_rank)
+        report = analyze_desync(by_rank, expected_ranks=expected)
+        report.update({
+            "stalled_collective": stalled,
+            "stall_age_s": (round(float(age_s), 3)
+                            if age_s is not None else None),
+            "reporting_rank": rank,
+            "ts": time.time(),
+        })
+        d = out_dir or config.get_str("HVDT_TRACE_DIR")
+        if d:
+            try:
+                os.makedirs(d, exist_ok=True)
+                path = os.path.join(d, f"desync_report_rank{rank}.json")
+                with open(path, "w") as fh:
+                    json.dump(report, fh, indent=2)
+                report["report_path"] = path
+            except OSError as e:
+                log.warning("desync report not written: %r", e)
+        if client is not None:
+            try:
+                client.put("/desync/report", json.dumps(report).encode())
+            except Exception as e:
+                log.debug("desync report KV publish failed: %s", e)
+        log.warning(
+            "DESYNC REPORT: stalled=%s first_divergent_seq=%s "
+            "missing_ranks=%s mismatches=%d (last seq by rank: %s)",
+            stalled, report["first_divergent_seq"],
+            report["missing_ranks"], len(report["mismatches"]),
+            report["per_rank_last_seq"])
+        return report
+    except Exception as e:   # forensics must never worsen the failure
+        log.warning("desync report failed: %r", e)
+        return None
+
+
+def dump_on_preempt() -> Optional[str]:
+    """Preemption-grace-window dump: persist the ring to
+    ``HVDT_TRACE_DIR`` before the host disappears (called by
+    ``PreemptionGuard.check``).  Never raises."""
+    fr = get_flight_recorder()
+    if fr is None:
+        return None
+    try:
+        d = config.get_str("HVDT_TRACE_DIR")
+        if not d:
+            log.info("flight recorder holds %d events at preemption "
+                     "(set HVDT_TRACE_DIR to persist them)",
+                     len(fr.events()))
+            return None
+        path = fr.write(d)
+        log.warning("flight recorder dumped to %s at preemption", path)
+        return path
+    except Exception as e:
+        log.warning("flight recorder preemption dump failed: %r", e)
+        return None
+
+
+def collect_server_events(kv_server) -> Dict[int, List[Dict[str, Any]]]:
+    """Driver-side: read every worker's published flight-recorder events
+    out of the rendezvous KV store."""
+    out: Dict[int, List[Dict[str, Any]]] = {}
+    with kv_server.lock:
+        items = {k: v for k, v in kv_server.store.items()
+                 if k.startswith(FLIGHT_KV_PREFIX)}
+    for key, raw in items.items():
+        try:
+            rank = int(key[len(FLIGHT_KV_PREFIX):])
+            out[rank] = json.loads(raw.decode()).get("events", [])
+        except (ValueError, UnicodeDecodeError):
+            continue
+    return out

@@ -1,0 +1,294 @@
+"""Per-collective instrumentation hooks — zero-overhead when disabled.
+
+The port's copy of the JAX package's ``telemetry/instrument.py``: the
+recording surface the data planes call into.  The eager negotiated path
+(``ops/eager.py``) records per-execution bytes and latency; the fused
+device path (``ops/device.fused_allreduce``, the overlapped exchange,
+``quant/collectives``, ``transport/hierarchy``) records one series entry
+per bucket it reduces, labelled ``path="jit"`` as in the reference; and
+the timeline writer double-records its spans into latency summaries.
+
+What a count means.  The reference counts its jit-path collectives once,
+at trace time (one record per compiled bucket program).  The port counts
+each collective the device executes: an eager call records its buckets
+on every call, and a step captured as a CUDA graph
+(``step_pipeline.donated_step``) records nothing while it is captured
+and instead registers one replay hook (``common/graphs.on_replay``) that
+books the captured buckets' counts and bytes before each replay.  A
+replay therefore runs no recording code on the device and adds no
+kernel.  A graph captured by other means than ``donated_step`` cannot
+take the hook, and its collectives are not counted.
+
+Zero-overhead contract (same pattern as ``resilience/faults.get_injector``):
+with ``HVDT_TELEMETRY`` unset/0, :func:`get_recorder` returns ``None`` —
+one env read and a string compare — and :func:`wrap_step` returns its
+argument **unchanged** (``wrap_step(fn) is fn``), so hot paths carry no
+wrapper objects and no metric lookups.
+
+Metrics (the catalog in ``telemetry/metrics.py``):
+
+* ``hvdt_collective_bytes_total{op,dtype,wire,path[,axis]}`` — bytes on
+  the wire (the device path labels the reduce group's mesh axes;
+  hierarchical transport records one series per tier hop)
+* ``hvdt_collectives_total{op,dtype,wire,path[,axis]}`` — collective count
+* ``hvdt_wire_bytes_total{axis,wire}`` — per-mesh-axis wire bytes
+* ``hvdt_collective_negotiate_seconds`` — announce → response (eager)
+* ``hvdt_collective_queue_seconds``     — enqueue → announce (eager)
+* ``hvdt_collective_execute_seconds``   — dispatch duration (eager)
+* ``hvdt_fusion_fill_ratio``            — fused-bucket bytes / threshold
+* ``hvdt_step_dispatch_seconds``        — ``donated_step`` call duration
+* ``hvdt_phase_<PHASE>_seconds``        — timeline span durations
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+from typing import Callable, Optional
+
+from .metrics import MetricsRegistry, default_registry
+
+__all__ = ["enabled", "get_recorder", "CollectiveRecorder", "wrap_step",
+           "reset", "deferred_to_replay"]
+
+_TRUTHY = ("1", "true", "yes", "on")
+
+
+def enabled() -> bool:
+    """Whether the telemetry subsystem is on (``HVDT_TELEMETRY``)."""
+    return os.environ.get("HVDT_TELEMETRY", "").strip().lower() in _TRUTHY
+
+
+def deferred_to_replay(record: Callable[[], None]) -> bool:
+    """Route one device-executed record through the CUDA-graph capture
+    state: outside a capture return False (the caller records now);
+    inside a ``donated_step`` capture register ``record`` to run before
+    each replay and return True; inside any other capture return True
+    (nothing can count its replays)."""
+    from ..common import graphs
+
+    if not graphs.capturing():
+        return False
+    if graphs.replay_hooks_open():
+        graphs.on_replay(record)
+    return True
+
+
+_phase_re = re.compile(r"[^a-zA-Z0-9_]")
+
+
+class CollectiveRecorder:
+    """Bound metric handles for the instrumentation hot paths.
+
+    Constructed once per (enable-cycle, registry); every method is a
+    couple of attribute loads plus one locked float update — cheap
+    enough for the eager controller's execution path and for a replay
+    hook.
+    """
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None):
+        reg = registry if registry is not None else default_registry()
+        self.registry = reg
+        self._bytes = reg.counter(
+            "hvdt_collective_bytes_total",
+            "Bytes on the wire per collective, labelled op/dtype/wire/path "
+            "(path=eager: negotiated ops; path=jit: the fused device "
+            "path; both count executed collectives)")
+        self._count = reg.counter(
+            "hvdt_collectives_total",
+            "Collectives recorded, labelled op/dtype/wire/path")
+        self._wire_bytes = reg.counter(
+            "hvdt_wire_bytes_total",
+            "Bytes on the wire per mesh axis (axis/wire labels) — the "
+            "per-tier view of hierarchical transport policies")
+        self._negotiate = reg.summary(
+            "hvdt_collective_negotiate_seconds",
+            "Eager-path announce -> negotiated-response latency")
+        self._queue = reg.summary(
+            "hvdt_collective_queue_seconds",
+            "Eager-path enqueue -> announce latency (time spent waiting "
+            "for the background cycle)")
+        self._execute = reg.summary(
+            "hvdt_collective_execute_seconds",
+            "Eager-path response dispatch duration")
+        self._fusion_fill = reg.summary(
+            "hvdt_fusion_fill_ratio",
+            "Fused-allreduce bucket occupancy: bucket bytes / "
+            "HVDT_FUSION_THRESHOLD")
+        self._step_dispatch = reg.summary(
+            "hvdt_step_dispatch_seconds",
+            "donated_step call duration (host dispatch interval, not "
+            "device step time — see hvdt_step_time_seconds for the "
+            "host-fenced number)")
+        self._overlap_hidden = reg.counter(
+            "hvdt_overlap_hidden_bytes_total",
+            "Collective bytes issued with compute still scheduled under "
+            "their flight window by the overlap scheduler (ops/overlap)")
+        self._overlap_total = reg.counter(
+            "hvdt_overlap_bytes_total",
+            "Total collective bytes scheduled by the overlap scheduler")
+        self._overlap_fraction = reg.gauge(
+            "hvdt_overlap_fraction",
+            "Hidden ÷ total collective bytes across overlapped exchange "
+            "schedules (byte-weighted proxy for collective-seconds "
+            "hidden ÷ total)")
+
+    # -- collectives --------------------------------------------------------
+    def record_collective(self, op: str, dtype: str, wire: str,
+                          nbytes: float, count: int = 1,
+                          path: str = "eager", axis: str = "") -> None:
+        """``axis`` (when known — the device path passes the mesh axes
+        the collective reduces over) adds an axis label to the main
+        counters AND books the per-axis ``hvdt_wire_bytes_total``
+        series; empty (the eager negotiated path, where the reduce group
+        is a process set, not a mesh axis) keeps the legacy label set.
+        A device-path record (``path != "eager"``) made inside a
+        CUDA-graph capture books once per replay
+        (:func:`deferred_to_replay`); eager records come from the
+        controller's thread, which never captures, and skip that query
+        (a capture-status query on another thread's legacy stream can
+        disturb a capture in progress)."""
+        labels = dict(op=str(op).lower(), dtype=str(dtype),
+                      wire=str(wire), path=path)
+        if axis:
+            labels["axis"] = str(axis)
+
+        def book() -> None:
+            if axis:
+                self._wire_bytes.inc(float(nbytes), axis=str(axis),
+                                     wire=str(wire))
+            self._bytes.inc(float(nbytes), **labels)
+            self._count.inc(float(count), **labels)
+
+        if path == "eager" or not deferred_to_replay(book):
+            book()
+
+    def observe_queue(self, seconds: float) -> None:
+        self._queue.observe(seconds)
+
+    def observe_negotiate(self, seconds: float) -> None:
+        self._negotiate.observe(seconds)
+
+    def observe_execute(self, seconds: float) -> None:
+        self._execute.observe(seconds)
+
+    def observe_fusion_fill(self, ratio: float) -> None:
+        """One reduced bucket's occupancy (once per replay when called
+        inside a capture)."""
+        if not deferred_to_replay(lambda: self._fusion_fill.observe(ratio)):
+            self._fusion_fill.observe(ratio)
+
+    def observe_overlap(self, hidden_bytes: float,
+                        total_bytes: float) -> None:
+        """One overlapped exchange's byte accounting (once per replay
+        when called inside a capture); the gauge tracks the cumulative
+        hidden/total ratio."""
+
+        def book() -> None:
+            self._overlap_hidden.inc(float(hidden_bytes))
+            self._overlap_total.inc(float(total_bytes))
+            total = self._overlap_total.value()
+            if total > 0:
+                self._overlap_fraction.set(
+                    self._overlap_hidden.value() / total)
+
+        if not deferred_to_replay(book):
+            book()
+
+    def observe_step_dispatch(self, seconds: float) -> None:
+        self._step_dispatch.observe(seconds)
+
+    # -- timeline double-record --------------------------------------------
+    def observe_phase(self, phase: str, seconds: float) -> None:
+        """Record a timeline span (NEGOTIATE_ALLREDUCE, EXEC_ALLGATHER, ...)
+        into a per-phase latency summary."""
+        name = _phase_re.sub("_", str(phase)).strip("_") or "unnamed"
+        self.registry.summary(
+            f"hvdt_phase_{name}_seconds",
+            f"Timeline span duration for phase {phase}").observe(seconds)
+
+
+# ---------------------------------------------------------------------------
+# Process-wide recorder (env-gated, cached on the raw env string so per-test
+# monkeypatching rebuilds it — same idiom as resilience/faults.get_injector)
+# ---------------------------------------------------------------------------
+
+_lock = threading.Lock()
+_cached_env: Optional[str] = "\0unset"   # sentinel != any real env value
+_cached_recorder: Optional[CollectiveRecorder] = None
+
+
+def get_recorder() -> Optional[CollectiveRecorder]:
+    """The process-wide recorder, or ``None`` when telemetry is disabled.
+
+    The disabled steady state costs one environ read and a string
+    compare; instrumentation sites branch on ``is None`` and touch
+    nothing else."""
+    global _cached_env, _cached_recorder
+    raw = os.environ.get("HVDT_TELEMETRY")
+    if raw != _cached_env:
+        with _lock:
+            if raw != _cached_env:
+                _cached_recorder = (CollectiveRecorder()
+                                    if enabled() else None)
+                _cached_env = raw
+    return _cached_recorder
+
+
+def reset() -> None:
+    """Drop the cached recorder so the next :func:`get_recorder` rebinds
+    against the (possibly reset) default registry — test isolation."""
+    global _cached_env, _cached_recorder
+    with _lock:
+        _cached_env = "\0unset"
+        _cached_recorder = None
+
+
+def wrap_step(fn: Callable) -> Callable:
+    """Wrap a step callable so each call's dispatch duration is recorded
+    (metric summary, and a span + step-counter advance when the
+    distributed tracer is on — trace.py derives the deterministic
+    per-step trace ids from that counter).
+
+    Zero-overhead contract: with both ``HVDT_TELEMETRY`` and
+    ``HVDT_TRACE_DIR`` unset this returns ``fn`` ITSELF (no wrapper
+    object).  The wrapper forwards attribute access (``.graphed`` of a
+    ``donated_step``) so it stays a drop-in.  The duration is the host's
+    call, not device time: a graphed step returns once its replay is
+    enqueued."""
+    from . import trace as _trace
+
+    if get_recorder() is None and _trace.get_tracer() is None:
+        return fn
+    return _TimedStep(fn)
+
+
+class _TimedStep:
+    """Attribute-forwarding timing shim around a step callable."""
+
+    __slots__ = ("_fn",)
+
+    def __init__(self, fn: Callable):
+        self._fn = fn
+
+    def __call__(self, *args, **kwargs):
+        from . import trace as _trace
+
+        rec = get_recorder()
+        tracer = _trace.get_tracer()
+        if rec is None and tracer is None:
+            return self._fn(*args, **kwargs)
+        import time
+
+        t0 = time.perf_counter()
+        out = self._fn(*args, **kwargs)
+        dur = time.perf_counter() - t0
+        if rec is not None:
+            rec.observe_step_dispatch(dur)
+        if tracer is not None:
+            tracer.step_span(dur)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)

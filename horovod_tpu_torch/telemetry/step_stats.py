@@ -22,9 +22,16 @@ charge_phase` books seconds against one of :data:`RECOVERY_PHASES`
 the process-wide instance the elastic loop, the checkpoint writer and
 the loaders' ``seek`` charge (None with telemetry off).
 
-Not ported yet: the deviation tracker and ``PerfExpectation`` (ROADMAP
-Queue 1, item 8: control, analysis and the edges), the resilience and
-memory-accounting gauges (item 6, part 2: the telemetry modules).
+:func:`bind_resilience_gauges` publishes the fault injector's and the
+preemption guard's counters as live gauges, and
+:func:`record_memory_accounting` feeds the per-rank memory gauges
+(``hvdt_param_bytes`` / ``hvdt_optimizer_state_bytes``).  A StepTimer
+also feeds an optional :class:`~.straggler.StragglerMonitor` and the
+metric history (``HVDT_HISTORY``).
+
+Not ported yet: the deviation tracker, ``PerfExpectation`` and the
+expected-cost publisher, which price with the cost model (ROADMAP
+Queue 1, item 8: control, analysis and the edges).
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ from .metrics import Gauge, MetricsRegistry, default_registry
 
 __all__ = ["StepTimer", "GoodputLedger", "peak_flops_for", "tree_bytes",
            "PEAK_BY_DEVICE_KIND", "RECOVERY_PHASES", "recovery_ledger",
-           "reset_recovery_ledger"]
+           "reset_recovery_ledger", "bind_resilience_gauges",
+           "record_memory_accounting"]
 
 # bf16 peak FLOP/s and memory byte/s by device (device-kind substring,
 # lowercase).  The TPU rows are the JAX package's.  The one GPU row is
@@ -89,8 +97,10 @@ class StepTimer:
                 run_one_step(batch)   # must end with a host fence
 
     or call :meth:`observe` with externally measured durations (the
-    bench times whole iterations and divides).  (The reference's
-    straggler chaining waits for the straggler monitor.)
+    bench times whole iterations and divides).  ``straggler`` optionally
+    chains a :class:`~horovod_tpu_torch.telemetry.straggler.
+    StragglerMonitor` so the cross-rank skew check rides the same
+    observation stream.
     """
 
     def __init__(self, examples_per_step: int = 0,
@@ -98,7 +108,8 @@ class StepTimer:
                  peak_flops: Optional[float] = None,
                  device_kind: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
-                 ewma_alpha: float = 0.2):
+                 ewma_alpha: float = 0.2,
+                 straggler=None):
         reg = registry if registry is not None else default_registry()
         self.registry = reg
         self.examples_per_step = int(examples_per_step)
@@ -109,6 +120,7 @@ class StepTimer:
         if peak_flops is None and device_kind:
             peak_flops, _ = peak_flops_for(device_kind)
         self.peak_flops = _positive_or_none(peak_flops)
+        self.straggler = straggler
         self._alpha = float(ewma_alpha)
         self._ewma: Optional[float] = None
         self._lock = threading.Lock()
@@ -147,6 +159,15 @@ class StepTimer:
             if self._mfu is not None:
                 self._mfu.set(
                     self.flops_per_step / (ewma * self.peak_flops))
+        if self.straggler is not None:
+            self.straggler.observe(s)
+        # The history layer records the time-series sample (None when
+        # off — one module lookup).
+        from . import history as _history
+
+        h = _history.get_history()
+        if h is not None:
+            h.observe_step(self._summary.count, s)
 
     @property
     def count(self) -> int:
@@ -322,9 +343,9 @@ def recovery_ledger() -> Optional[GoodputLedger]:
     """The process-wide ledger recovery phases are charged into, created
     on first use — or None when telemetry is off (``HVDT_TELEMETRY``),
     so the steady-state cost at every charge site is one None-check."""
-    from . import enabled
+    from . import instrument
 
-    if not enabled():
+    if not instrument.enabled():
         return None
     global _recovery
     with _recovery_lock:
@@ -362,3 +383,85 @@ def tree_bytes(tree) -> int:
     itemsize = (dtype.itemsize if isinstance(dtype, torch.dtype)
                 else np.dtype(dtype).itemsize)
     return int(np.prod(tuple(shape) or (1,))) * int(itemsize)
+
+
+def bind_resilience_gauges(registry: Optional[MetricsRegistry] = None
+                           ) -> None:
+    """Publish the resilience subsystem's ad-hoc counters as live gauges.
+
+    Live probes (``set_function``) rather than shadow copies: the fault
+    injector and preemption guard keep their own state; a scrape reads
+    it at scrape time.  Safe to call repeatedly (gauges are
+    get-or-create and rebinding the probe is idempotent)."""
+    reg = registry if registry is not None else default_registry()
+
+    def _injected() -> float:
+        from ..resilience import faults
+
+        inj = faults.get_injector()
+        return float(inj.fired_total()) if inj is not None else 0.0
+
+    def _emergency() -> float:
+        from ..resilience.preempt import PreemptionGuard
+
+        return float(PreemptionGuard.emergency_checkpoints)
+
+    reg.gauge(
+        "hvdt_injected_faults",
+        "Faults the HVDT_FAULT_PLAN injector has fired in this process"
+    ).set_function(_injected)
+    reg.gauge(
+        "hvdt_emergency_checkpoints",
+        "Preemption-guard emergency checkpoints taken in this process"
+    ).set_function(_emergency)
+
+
+_MEMORY_GAUGE_DOCS = {
+    "hvdt_param_bytes":
+        "Per-rank parameter bytes (post-sharding: the replicated full "
+        "tree, or 1/n of it under HVDT_ZERO=params)",
+    "hvdt_optimizer_state_bytes":
+        "Per-rank optimizer-state bytes (post-sharding: ~1/n of the "
+        "replicated moments under HVDT_ZERO=states/params — the "
+        "ZeRO memory win, observable from one scrape)",
+}
+
+
+def record_memory_accounting(param_bytes: Optional[float] = None,
+                             optimizer_state_bytes: Optional[float] = None,
+                             *, params=None, opt_state=None,
+                             num_shards: int = 1,
+                             zero_stage: str = "off",
+                             registry: Optional[MetricsRegistry] = None
+                             ) -> None:
+    """Feed the per-rank memory-accounting gauges (``hvdt_param_bytes``,
+    ``hvdt_optimizer_state_bytes``).
+
+    Callers pass either precomputed byte counts or the live structures
+    (``params=`` / ``opt_state=``, measured with :func:`tree_bytes` and
+    divided by ``num_shards`` for sharded layouts).  No-op when the
+    telemetry subsystem is off — the gauges themselves are registered
+    (NaN) by ``hvd.init()``'s :func:`..telemetry.exporter.
+    bind_process_gauges` so they always appear on /metrics."""
+    from . import instrument
+
+    if instrument.get_recorder() is None and registry is None:
+        return
+    reg = registry if registry is not None else default_registry()
+    n = max(1, int(num_shards))
+    if param_bytes is None and params is not None:
+        param_bytes = tree_bytes(params)
+        if zero_stage == "params":
+            param_bytes //= n
+    if optimizer_state_bytes is None and opt_state is not None:
+        optimizer_state_bytes = tree_bytes(opt_state)
+        if zero_stage in ("states", "params"):
+            optimizer_state_bytes //= n
+    if param_bytes is not None:
+        reg.gauge("hvdt_param_bytes",
+                  _MEMORY_GAUGE_DOCS["hvdt_param_bytes"]).set(
+                      float(param_bytes))
+    if optimizer_state_bytes is not None:
+        reg.gauge("hvdt_optimizer_state_bytes",
+                  _MEMORY_GAUGE_DOCS["hvdt_optimizer_state_bytes"]).set(
+                      float(optimizer_state_bytes))

@@ -1,0 +1,226 @@
+"""Cross-rank straggler detection from step-duration skew.
+
+The port's copy of the JAX package's ``telemetry/straggler.py``; the
+default gather rides the port's eager negotiated allgather.
+
+The pod scaling study's observation: at scale the binding question
+is often *which rank* is slow — one throttled host drags every
+synchronous collective.  The stall inspector (``stall.py``) only sees a
+rank that stopped *submitting*; a straggler submits fine, just late, and
+is invisible to it.  This monitor closes that gap with data: every
+``HVDT_STRAGGLER_WINDOW`` locally-observed steps it allgathers each
+rank's mean step duration over the eager negotiated path (itself
+instrumented, so the probe's wire cost is visible in the same registry),
+compares ranks against the median, and
+
+* logs the outlier ranks with their slowdown ratios,
+* publishes ``hvdt_straggler_rank`` (worst offender, -1 = none) and
+  ``hvdt_step_time_skew`` (max/median ratio) gauges,
+* invokes ``on_straggler(rank, ratio)`` — the hook that feeds the stall
+  escalation ladder (or a scheduler's drain list) a real signal instead
+  of a timeout guess.
+
+Single-process runs (size 1, or hvd not initialized) skip the gather and
+publish skew 1.0 — the monitor is safe to leave on everywhere.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, List, Optional
+
+from ..common import config
+from ..common.logging_util import get_logger
+from .metrics import MetricsRegistry, default_registry
+
+__all__ = ["StragglerMonitor"]
+
+log = get_logger(__name__)
+
+
+class StragglerMonitor:
+    def __init__(self, window: Optional[int] = None,
+                 threshold: Optional[float] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 allgather_fn: Optional[Callable[[float], Optional[List[float]]]] = None,
+                 rank: Optional[int] = None,
+                 on_straggler: Optional[Callable[[int, float], None]] = None,
+                 pod_size: Optional[int] = None,
+                 on_pod_straggler: Optional[Callable[[int, float],
+                                                     None]] = None):
+        """``allgather_fn(local_mean) -> per-rank means or None`` is
+        injectable for tests and custom transports; the default rides
+        the eager negotiated allgather when hvd is initialized.
+
+        ``pod_size`` (default: the launcher's ``HVDT_POD_SIZE`` env
+        contract) adds the pod dimension: ranks are contiguous within a
+        pod (runner/elastic/pods.py layout), so rank r belongs to pod
+        index r // pod_size, and every check also compares per-pod mean
+        step times — the signal the driver's pod-eviction rung consumes
+        (``hvdt_straggler_pod`` / ``hvdt_pod_step_time_skew`` gauges,
+        ``on_pod_straggler(pod_index, ratio)`` hook)."""
+        self.window = int(window if window is not None
+                          else config.get_int("HVDT_STRAGGLER_WINDOW"))
+        self.threshold = float(
+            threshold if threshold is not None
+            else config.get_float("HVDT_STRAGGLER_THRESHOLD"))
+        if pod_size is None:
+            pod_size = config.get_int("HVDT_POD_SIZE")
+        self.pod_size = int(pod_size or 0)
+        reg = registry if registry is not None else default_registry()
+        self.registry = reg
+        self._allgather = allgather_fn or self._eager_allgather
+        self._rank_override = rank
+        self.on_straggler = on_straggler
+        self.on_pod_straggler = on_pod_straggler
+        self._lock = threading.Lock()
+        self._durations: List[float] = []
+        self._round = 0
+        self.straggler_rank_gauge = reg.gauge(
+            "hvdt_straggler_rank",
+            "Rank whose mean step time most exceeds threshold x median "
+            "over the last window (-1 = no straggler)")
+        self.skew_gauge = reg.gauge(
+            "hvdt_step_time_skew",
+            "max(rank mean step time) / median over the last window")
+        self.checks_counter = reg.counter(
+            "hvdt_straggler_checks_total",
+            "Cross-rank straggler checks performed")
+        self.flagged_counter = reg.counter(
+            "hvdt_straggler_flags_total",
+            "Straggler detections, labelled by offending rank (and pod "
+            "when the pod contract is present)")
+        self.straggler_rank_gauge.set(-1)
+        self.skew_gauge.set(1.0)
+        self.straggler_pod_gauge = reg.gauge(
+            "hvdt_straggler_pod",
+            "Pod index whose mean step time most exceeds threshold x "
+            "the cross-pod median over the last window (-1 = none; "
+            "ranks are contiguous per pod, pod = rank // HVDT_POD_SIZE)")
+        self.pod_skew_gauge = reg.gauge(
+            "hvdt_pod_step_time_skew",
+            "max(pod mean step time) / cross-pod median over the last "
+            "window")
+        self.straggler_pod_gauge.set(-1)
+        self.pod_skew_gauge.set(1.0)
+
+    # -- observation stream -------------------------------------------------
+    def observe(self, step_seconds: float) -> None:
+        """Feed one local step duration; triggers a cross-rank check every
+        ``window`` observations (window <= 0 disables)."""
+        if self.window <= 0:
+            return
+        with self._lock:
+            self._durations.append(float(step_seconds))
+            if len(self._durations) < self.window:
+                return
+            durations, self._durations = self._durations, []
+        self.check(sum(durations) / len(durations))
+
+    # -- the cross-rank check ----------------------------------------------
+    def check(self, local_mean: float) -> Optional[int]:
+        """Allgather per-rank means and flag outliers.  Returns the worst
+        straggler rank, or None."""
+        with self._lock:
+            self._round += 1
+        try:
+            means = self._allgather(float(local_mean))
+        except Exception as e:  # a flaky probe must not sink training
+            log.debug("straggler allgather failed: %s", e)
+            return None
+        self.checks_counter.inc()
+        if not means or len(means) < 2:
+            self.skew_gauge.set(1.0)
+            self.straggler_rank_gauge.set(-1)
+            return None
+        self._pod_check(means)
+        ordered = sorted(means)
+        # Lower median: with few ranks (or half the fleet slow) the upper
+        # median can BE the straggler, hiding it behind skew 1.0 — biasing
+        # the baseline toward the fast half is the conservative choice
+        # for a detector.
+        median = ordered[(len(ordered) - 1) // 2]
+        worst_rank = max(range(len(means)), key=lambda r: means[r])
+        worst = means[worst_rank]
+        skew = (worst / median) if median > 0 else 1.0
+        self.skew_gauge.set(skew)
+        if skew <= self.threshold:
+            self.straggler_rank_gauge.set(-1)
+            return None
+        outliers = [(r, m / median) for r, m in enumerate(means)
+                    if median > 0 and m / median > self.threshold]
+        log.warning(
+            "straggler detected: rank %d mean step %.4fs is %.2fx the "
+            "median %.4fs (all outliers: %s)",
+            worst_rank, worst, skew,
+            median, [(r, round(x, 2)) for r, x in outliers])
+        self.straggler_rank_gauge.set(worst_rank)
+        pod_of = (lambda r: str(r // self.pod_size)) \
+            if self.pod_size > 1 else (lambda r: "")
+        for r, _ in outliers:
+            if self.pod_size > 1:
+                self.flagged_counter.inc(rank=str(r), pod=pod_of(r))
+            else:
+                self.flagged_counter.inc(rank=str(r))
+        if self.on_straggler is not None:
+            try:
+                self.on_straggler(worst_rank, skew)
+            except Exception as e:
+                log.debug("on_straggler hook failed: %s", e)
+        return worst_rank
+
+    def _pod_check(self, means: List[float]) -> Optional[int]:
+        """The pod dimension of the cross-rank check: fold per-rank
+        means into per-pod means (contiguous pod layout) and flag a pod
+        whose mean exceeds threshold x the cross-pod (lower) median.
+        Publishes the pod gauges; returns the worst pod index or None.
+        Skipped (gauges stay -1 / 1.0) without a multi-pod world."""
+        n_pods = len(means) // self.pod_size if self.pod_size > 1 else 0
+        if n_pods < 2:
+            return None
+        pod_means = [
+            sum(means[p * self.pod_size:(p + 1) * self.pod_size])
+            / self.pod_size for p in range(n_pods)]
+        ordered = sorted(pod_means)
+        median = ordered[(len(ordered) - 1) // 2]
+        worst_pod = max(range(n_pods), key=lambda p: pod_means[p])
+        skew = (pod_means[worst_pod] / median) if median > 0 else 1.0
+        self.pod_skew_gauge.set(skew)
+        if skew <= self.threshold:
+            self.straggler_pod_gauge.set(-1)
+            return None
+        log.warning(
+            "straggler pod detected: pod %d mean step %.4fs is %.2fx "
+            "the cross-pod median %.4fs",
+            worst_pod, pod_means[worst_pod], skew, median)
+        self.straggler_pod_gauge.set(worst_pod)
+        if self.on_pod_straggler is not None:
+            try:
+                self.on_pod_straggler(worst_pod, skew)
+            except Exception as e:
+                log.debug("on_pod_straggler hook failed: %s", e)
+        return worst_pod
+
+    # -- default transport --------------------------------------------------
+    def _eager_allgather(self, local_mean: float) -> Optional[List[float]]:
+        """Gather per-rank means over the eager negotiated path.  The
+        tensor name carries the round counter — every rank reaches round
+        N after the same N windows, so names line up without extra
+        coordination."""
+        from ..common import basics
+
+        state = basics._global_state()
+        if not state.initialized or state.topology is None:
+            return None
+        # Size 1 still rides the controller (single-rank collectives are
+        # the identity): the probe's own wire accounting stays visible
+        # in the registry, and single-process harnesses (bench.py)
+        # exercise the full instrumented path.
+        import numpy as np
+
+        from ..ops import eager
+
+        arr = np.asarray([local_mean], np.float64)
+        out = eager.allgather(
+            arr, name=f"hvdt.telemetry.straggler.{self._round}")
+        return [float(v) for v in np.asarray(out).reshape(-1)]

@@ -8,7 +8,9 @@ collective is done (the end marker carries the output shape), and an
 ``ERROR`` instant when it fails; under ``HVDT_TIMELINE_MARK_CYCLES`` a
 ``CYCLE`` instant on the ``_cycle`` row marks each negotiation cycle.
 Events go onto a queue that a writer thread drains into the file, so the
-controller never waits on file IO.
+controller never waits on file IO.  The writer also books each span's
+duration into ``hvdt_phase_<PHASE>_seconds`` (``HVDT_TELEMETRY``) and
+the distributed tracer (``HVDT_TRACE_DIR``).
 
 Enable with ``HVDT_TIMELINE=<path>`` (read when the controller starts) or
 at any time with :func:`start_timeline` / :func:`stop_timeline`, which a
@@ -101,11 +103,16 @@ class Timeline:
         self._file.write(json.dumps(record))
 
     def _writer_loop(self) -> None:
+        from .telemetry.instrument import get_recorder
+        from .telemetry.trace import get_tracer
+
+        open_spans: Dict[int, list] = {}
         while True:
             ev = self._queue.get()
             if ev is None:
                 break
-            rec = {"ph": ev.phase, "pid": self._pid_for(ev.tensor),
+            pid = self._pid_for(ev.tensor)
+            rec = {"ph": ev.phase, "pid": pid,
                    "tid": 0, "ts": round(ev.ts, 3)}
             if ev.phase in ("B", "i"):
                 rec["name"] = ev.marker
@@ -114,6 +121,23 @@ class Timeline:
             if ev.args:
                 rec["args"] = ev.args
             self._emit(rec)
+            # Each B/E span also goes into hvdt_phase_<PHASE>_seconds
+            # (HVDT_TELEMETRY) and the distributed tracer's buffer
+            # (HVDT_TRACE_DIR), which feeds the driver's merged trace.
+            if ev.phase == "B":
+                open_spans.setdefault(pid, []).append((ev.marker, ev.ts))
+            elif ev.phase == "E":
+                stack = open_spans.get(pid)
+                if stack:
+                    marker, t0 = stack.pop()
+                    dur_s = (ev.ts - t0) / 1e6
+                    recorder = get_recorder()
+                    if recorder is not None:
+                        recorder.observe_phase(marker, dur_s)
+                    tracer = get_tracer()
+                    if tracer is not None:
+                        tracer.complete(marker, dur_s, cat="timeline",
+                                        args={"tensor": ev.tensor})
 
     def close(self) -> None:
         """Write what is queued, close the JSON array and the file."""

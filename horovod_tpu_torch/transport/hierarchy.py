@@ -134,18 +134,24 @@ def hierarchical_allreduce_start(flat: torch.Tensor, res: ResolvedTransport,
         x = x.clone()               # the collectives reduce in place
 
     pad = 0
+    n_fast = math.prod(_axis_size(mesh, a) for a in res.fast_axes)
     if res.fast.algorithm == "tree":
+        _record_hop("allreduce", "+".join(res.fast_axes), dtype,
+                    res.fast.wire,
+                    2 * _ring_bytes(size, x.element_size(), n_fast))
         for a in res.fast_axes:
             dist.all_reduce(x, dist.ReduceOp.SUM, group=groups[a])
         shard, gathered = x, True
     else:
-        n_fast = math.prod(_axis_size(mesh, a) for a in res.fast_axes)
         pad = (-size) % n_fast
         if pad:
             x = torch.cat([x, x.new_zeros(pad)])
         shard = x
         for a in res.fast_axes:
-            out = shard.new_empty(shard.numel() // _axis_size(mesh, a))
+            k = _axis_size(mesh, a)
+            _record_hop("reduce_scatter", a, dtype, res.fast.wire,
+                        _ring_bytes(shard.numel(), shard.element_size(), k))
+            out = shard.new_empty(shard.numel() // k)
             dist.reduce_scatter_tensor(out, shard, dist.ReduceOp.SUM,
                                        group=groups[a])
             shard = out
@@ -161,7 +167,8 @@ def hierarchical_allreduce_start(flat: torch.Tensor, res: ResolvedTransport,
 
         inflight.quant_state = quantized_allreduce_start(
             shard, ReduceOp.SUM, wire=leg,
-            process_set=_AxisSet(groups[res.slow_axes[0]]))
+            process_set=_AxisSet(groups[res.slow_axes[0]]),
+            axis=res.slow_axes[0])
         inflight.shard = None
         inflight.slow_done = True
     return inflight
@@ -184,12 +191,21 @@ def hierarchical_allreduce_finish(inflight: InflightHierarchical,
             hop = shard
             if cast_slow is not None and hop.dtype != cast_slow:
                 hop = hop.to(cast_slow)
+            n_slow = math.prod(dist.get_world_size(groups[a])
+                               for a in res.slow_axes)
+            _record_hop("allreduce", "+".join(res.slow_axes),
+                        inflight.dtype, res.slow.wire,
+                        2 * _ring_bytes(shard.numel(), hop.element_size(),
+                                        n_slow))
             for a in res.slow_axes:
                 dist.all_reduce(hop, dist.ReduceOp.SUM, group=groups[a])
             shard = hop if hop.dtype == shard.dtype else hop.to(shard.dtype)
     if not inflight.gathered:
         for a in reversed(res.fast_axes):
             k = dist.get_world_size(groups[a])
+            _record_hop("allgather", a, inflight.dtype, res.fast.wire,
+                        _ring_bytes(shard.numel() * k, shard.element_size(),
+                                    k))
             out = shard.new_empty(shard.numel() * k)
             dist.all_gather_into_tensor(out, shard, group=groups[a])
             shard = out
@@ -213,6 +229,21 @@ def hierarchical_allreduce_flat(flat: torch.Tensor, res: ResolvedTransport,
     return hierarchical_allreduce_finish(
         hierarchical_allreduce_start(flat, res, op, prescale_factor, mesh),
         postscale_factor)
+
+
+def _record_hop(op: str, axis: str, dtype: torch.dtype, wire: str,
+                nbytes: int, count: int = 1) -> None:
+    """Per-tier-hop accounting (``path="jit"``, as in the reference): the
+    main collective counters gain the axis label and the per-axis
+    ``hvdt_wire_bytes_total{axis=...}`` counter books the hop, once per
+    execution (once per replay inside a ``donated_step`` capture)."""
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    if rec is not None:
+        rec.record_collective(op, str(dtype).rsplit(".", 1)[-1], wire,
+                              int(nbytes), count=count, path="jit",
+                              axis=axis)
 
 
 def _ring_bytes(size_elems: int, itemsize: int, k: int) -> int:

@@ -26,6 +26,7 @@ JAX package's runner/ on the same inputs.
 """
 
 import argparse
+import json
 import os
 import threading
 import time
@@ -160,11 +161,39 @@ def test_pod_layout_of_nothing_matches_reference():
     assert tpods.pod_layout([]) == jpods.pod_layout([])
 
 
+# Straggler windows of per-pod median step times (ms): p2 slow for a
+# streak of three (evicted once, at the second), p1 slow once and
+# recovered, then slow twice again (evicted); p3 exactly at the
+# threshold (1.5 x the lower median 100: not slow); a window of one pod
+# (no baseline) and a window with a zero median change nothing.
+_POD_WINDOWS = [
+    {"p0": 100.0, "p1": 160.0, "p2": 300.0, "p3": 100.0},
+    {"p0": 100.0, "p1": 100.0, "p2": 310.0, "p3": 150.0},
+    {"p0": 100.0, "p1": 170.0, "p2": 320.0, "p3": 100.0},
+    {"p0": 100.0},
+    {"p0": 0.0, "p1": 0.0},
+    {"p0": 100.0, "p1": 180.0, "p2": 90.0, "p3": 150.0},
+    {"p0": 100.0, "p1": 100.0, "p2": 300.0, "p3": 100.0},
+    {"p0": 100.0, "p1": 100.0, "p2": 300.0, "p3": 100.0},
+]
+_SNAP_ROUNDS = [
+    {0: {"steps": 10}, 1: {"steps": 10}},
+    {0: {"steps": 10}, 1: {"steps": 10}},       # no new step data
+    {0: {"steps": 20}, 1: {"steps": 10}},
+    {1: {"steps": 10}, 0: {"steps": 20}},       # same, other order
+    {0: {"steps": 20}, 1: {"steps": 10}, 2: {"steps": 5}},
+    {},
+]
+
+
 def test_pod_tracker_matches_reference():
-    """Exit correlation within the window, drains and their expiry: the
-    same answers at the same (virtual) times."""
+    """Exit correlation within the window, drains and their expiry, the
+    straggler-eviction windows (a streak, a recovery, a tie at the
+    threshold) and the snapshot fingerprints: the same answers at the
+    same (virtual) times."""
     def run(pmod):
-        tr = pmod.PodTracker(exit_window_s=10.0, drain_grace_s=60.0)
+        tr = pmod.PodTracker(exit_window_s=10.0, drain_grace_s=60.0,
+                             evict_windows=2, threshold=1.5)
         out = [tr.record_failure("p0", now=0.0),
                tr.record_failure("p0", now=5.0),
                tr.record_failure("p0", now=11.0),
@@ -172,9 +201,15 @@ def test_pod_tracker_matches_reference():
                tr.drain("p2", now=0.0), tr.drain("p2", now=1.0),
                sorted(tr.drained_pods(now=30.0)),
                sorted(tr.drained_pods(now=61.5))]
+        out += [tr.observe_step_medians(w) for w in _POD_WINDOWS]
+        out += [tr.snapshots_fingerprint(s) for s in _SNAP_ROUNDS]
+        off = pmod.PodTracker(evict_windows=0, threshold=1.5)
+        out += [off.observe_step_medians(w) for w in _POD_WINDOWS]
         return out
 
-    assert run(tpods) == run(jpods)
+    got = run(tpods)
+    assert got == run(jpods)
+    assert [e for e in got[9:17] if e] == [["p2"], ["p1"], ["p2"]]
 
 
 # -- config parser ----------------------------------------------------------
@@ -471,13 +506,76 @@ def test_reset_limit_bounds_a_crash_loop(monkeypatch):
 def test_unported_driver_hooks_raise(monkeypatch):
     tdriver.refuse_unported_hooks({"HVDT_CONTROLLER": "off",
                                    "HVDT_TRACE_DIR": ""})
-    for knob in ("HVDT_TRACE_DIR", "HVDT_EVENT_LOG", "HVDT_CONTROLLER",
-                 "HVDT_FLEET"):
+    for knob in ("HVDT_CONTROLLER", "HVDT_FLEET"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdriver.refuse_unported_hooks({knob: "on"})
+    # The telemetry hooks are ported: their knobs pass, and the
+    # pod-straggler rung arms the driver's tracker.
+    tdriver.refuse_unported_hooks({"HVDT_TRACE_DIR": "/tmp/t",
+                                   "HVDT_EVENT_LOG": "/tmp/e.jsonl"})
     monkeypatch.setenv("HVDT_POD_STRAGGLER_EVICT", "3")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _driver(_Cluster({"localhost": 1}), 1)
+    d = _driver(_Cluster({"localhost": 1}), 1)
+    assert d._pods.evict_windows == 3
+    assert d.telemetry_snapshots() == {} and d.telemetry_rollup() == {}
+
+
+class _FakeKV:
+    """The two attributes the drivers read of a RendezvousServer."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.store = {}
+
+
+# Rounds of per-rank step-time medians (ms) over pods A (ranks 0-1),
+# B (2-3) and C (4-5): B slow in the first round only (recovered); C
+# slow from the second; the third round republishes the second (no new
+# steps, so no window); C's second slow window evicts it.
+_STRAGGLER_ROUNDS = [
+    [50, 51, 110, 112, 50, 52],
+    [50, 52, 50, 51, 155, 150],
+    [50, 52, 50, 51, 155, 150],
+    [49, 50, 51, 50, 170, 150],
+]
+
+
+def test_pod_straggler_eviction_matches_reference(monkeypatch, capsys):
+    """An armed HVDT_POD_STRAGGLER_EVICT: both drivers read the same KV
+    snapshots round by round and blacklist the same pod at the same
+    round, with the same hosts left and the same operator line."""
+    from horovod_tpu.runner.elastic import driver as jdriver
+
+    monkeypatch.setenv("HVDT_POD_STRAGGLER_EVICT", "2")
+    monkeypatch.setenv("HVDT_STRAGGLER_THRESHOLD", "2.0")
+
+    def run(dmod, dmod_disc, hmod):
+        hosts = [hmod.HostInfo(f"h{i}", 2, f"pod{'ABC'[i]}")
+                 for i in range(3)]
+        hm = dmod_disc.HostManager(lambda: list(hosts))
+        hm.update_available_hosts()
+        kv, notes = _FakeKV(), []
+        d = dmod.ElasticDriver(hm, 6, kv_server=kv,
+                               hosts_updated_cb=notes.append)
+        out = []
+        for k, medians in enumerate(_STRAGGLER_ROUNDS):
+            steps = 10 * min(k + 1, 2) if k < 3 else 40
+            for rank, ms in enumerate(medians):
+                kv.store[f"/telemetry/{rank}"] = json.dumps({
+                    "rank": rank, "pod": f"pod{'ABC'[rank // 2]}",
+                    "steps": steps, "step_time_p50_ms": float(ms),
+                }).encode()
+            d._check_pod_stragglers()
+            out.append(([p for p in ("podA", "podB", "podC")
+                         if hm.is_pod_blacklisted(p)],
+                        hm.current.host_names(), list(notes)))
+        return out, capsys.readouterr().err.splitlines()
+
+    want = run(jdriver, jdisc, jhosts)
+    got = run(tdriver, tdisc, thosts)
+    assert got == want
+    assert [r[0] for r in got[0]] == [[], [], [], ["podC"]]
+    assert got[0][-1][1] == ["h0", "h1"]
+    assert len(got[1]) == 1 and "pod podC evicted" in got[1][0]
 
 
 # -- launcher ------------------------------------------------------------------
@@ -498,7 +596,13 @@ def test_card_check(monkeypatch):
 
 
 @pytest.mark.parametrize("sub", ["serve", "top", "fleet", "lint"])
-def test_unported_subcommands_raise(sub):
+def test_unported_subcommands_raise(sub, capsys):
+    if sub == "top":
+        # Ported: one frame over an endpoint that answers nothing.
+        assert tlaunch.main(["top", "--once", "--endpoints",
+                             "127.0.0.1:1"]) == 0
+        assert "hvdt top — 0/1 ranks" in capsys.readouterr().out
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tlaunch.main([sub])
 
