@@ -279,7 +279,12 @@ ring_cards_time, the ring's forward and backward beside the same kernel
 steps without transfers and a bare rotation; ring_cards_lm, the
 bert-large preset with sp = 4 at global seq 16384, batch 4: its hidden
 states against the whole sequence on one card, and 3 training steps
-(the ring's default on bf16 operands on the card: kernels #9-#11).
+(the ring's default on bf16 operands on the card: kernels #9-#11);
+ring_cards_graphed, that step under donated_step (the ring's NCCL P2P
+transfers captured) against it eagerly: losses, gradients and
+parameters after 3 calls in every byte, the kernels of one replay
+(torch.profiler) against one eager step's launches, step seconds in
+turns and peak memory.
 
     python3 chip_smoke.py --eager-cards 4
 
@@ -340,7 +345,10 @@ interop.torch.DistributedOptimizer(fused_sgd): its 161 named
 allreduces against one card running the global batch and against the
 fused exchange, #2 once; dp_cards_interop_sync_bn, the interop
 SyncBatchNorm with ragged batches against BatchNorm over the whole
-batch in f64.  Every dp line
+batch in f64; dp_cards_bench_allreduce, python -m
+horovod_tpu_torch.bench_allreduce's modes in this world at 1 to 64 MiB
+(the flat sweep on every wire and the eager path, --reduce-scatter,
+--a2a, --hierarchical on a 2x2 mesh), one line a mode.  Every dp line
 carries its phase's wall_s.
 
     python3 chip_smoke.py --parallel-cards 4
@@ -375,7 +383,12 @@ batch 64; par_cards_sp_dp, dp 2 x sp 2 at global seq 4096,
 HVDT_RING_PALLAS=1 (#9-#11 in every ring step), the members' loss
 (each shard's own targets) against one card's whole sequence, 3 steps
 with the ring's launches; par_cards_sp_pp, pp 2 x sp 2, the ring inside
-each pipeline stage, one step against one card.  Each phase runs under a
+each pipeline stage, one step against one card; par_cards_graphed_sp_dp
+and _pp, par_cards_sp_dp's and par_cards_pp's steps under donated_step
+against them eagerly, as ring_cards_graphed; par_cards_tp_ep, tp 2 x ep
+2 with 8 experts at 32 rows an ep member: one step against one card (in
+f32 loss and gradients, in bf16 the loss), 3 steps, and
+par_cards_tp_ep_graphed.  Each phase runs under a
 watchdog that names it if it hangs.  Then the bench's --moe and
 --pipeline sweeps with their autotune seeds.
 
@@ -4156,8 +4169,165 @@ def ring_cards_worker(device=None) -> None:
               "hidden_rel_l2_vs_whole_sequence": hid_err,
               "hidden_tolerance": RING_LM_HIDDEN_TOL, **out, "card": smi})
         assert hid_err <= RING_LM_HIDDEN_TOL, hid_err
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. The same sp LM step under donated_step against it eagerly.
+    def make():
+        m = transformer_init(0, cfg, device=dev)
+        return m, hvd.DistributedOptimizer(
+            hvd.fused_adam(m.parameters(), 3e-4, weight_decay=1e-4))
+
+    graphed_lm("ring_cards_graphed", cfg, make, mine, {"sp_group": mesh},
+               smi, sp=n, global_seq=seq, batch=b)
     dist.barrier()
     hvd.shutdown()
+
+
+# ---- the ring and the pipeline inside a donated_step capture ---------------
+
+GRAPHED_CALLS = 3        # eager warm-up, capture + replay, replay
+GRAPHED_TIMED = 3        # calls a turn of the graphed / eager timing
+# Graphed against eager: the same kernels and NCCL operations in the same
+# order on the same inputs, so equal bytes (relative errors of 0).
+GRAPHED_LM_TOL = 0.0
+# Kernel names in a torch.profiler trace, by kernel of the LM's path
+# (#13 is two CUDA kernels a call, dQ then dK/dV).
+LM_REPLAY_KERNELS = (("_kernel", "flash_fwd_kernel"),
+                     ("_dq_kernel", "flash_dq_kernel"),
+                     ("_dkv_kernel", "flash_dkv_kernel"),
+                     ("_smallseq_fwd_kernel", "smallseq_fwd_kernel"),
+                     ("_smallseq_dq", "smallseq_dq_kernel"),
+                     ("_smallseq_dkv", "smallseq_dkv_kernel"),
+                     ("_adam_kernel", "optim_multi<true>"),
+                     ("nccl", "nccl"))
+
+
+def _lm_step_fn(cfg, groups):
+    """One LM train step ``(model, opt, tokens) -> loss`` over the
+    parallel ``groups`` (the loss's ``sp_group`` / ``pp_group`` / ...)."""
+    from horovod_tpu_torch.models import transformer_loss
+
+    def step(model, opt, tokens):
+        opt.zero_grad(set_to_none=True)
+        loss = transformer_loss(model, tokens, cfg, **groups)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def _replay_want(first: dict) -> dict:
+    """A replay's kernels by :data:`LM_REPLAY_KERNELS`, from the launch
+    counters of one eager step."""
+    return {"_kernel": first["_kernel"], "_dq_kernel": first["_dq_kernel"],
+            "_dkv_kernel": first["_dkv_kernel"],
+            "_smallseq_fwd_kernel": first["_smallseq_fwd_kernel"],
+            "_smallseq_dq": first["_smallseq_bwd_kernel"],
+            "_smallseq_dkv": first["_smallseq_bwd_kernel"],
+            "_adam_kernel": first["_adam_kernel"]}
+
+
+def _rel_err(got, want) -> float:
+    """Relative L2 distance of two tensors (0 where both are 0)."""
+    d = (got.double() - want.double()).norm()
+    return (d / want.double().norm().clamp_min(1e-30)).item()
+
+
+def graphed_lm(name, cfg, make, tokens, groups, smi, **row):
+    """The LM step under ``step_pipeline.donated_step`` against the same
+    step eagerly, every rank of the world taking part.  ``make()`` gives
+    a fresh (model, optimizer) from the same seed; each leg runs
+    :data:`GRAPHED_CALLS` calls (graphed: the eager warm-up, the capture
+    and its replay, a replay).  Held: every call's loss, each rank's
+    gradients after the last call and its parameters, against the eager
+    leg's within :data:`GRAPHED_LM_TOL`; one replay's kernels
+    (torch.profiler) against one eager step's launch counters.  Then
+    the step's seconds graphed and eager in turns (eager, graphed,
+    graphed, eager; :data:`GRAPHED_TIMED` calls a turn, the slowest
+    rank's), and each leg's peak memory above what was allocated at its
+    start.  Rank 0 prints the line."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    step = _lm_step_fn(cfg, groups)
+    legs = {}
+    for leg in ("eager", "graphed"):
+        model, opt = make()
+        fn = donated_step(step) if leg == "graphed" else step
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        losses, first = [], None
+        for _ in range(GRAPHED_CALLS):
+            losses.append(fn(model, opt, tokens).float().clone())
+            if first is None:
+                first = counters()
+        torch.cuda.synchronize()
+        legs[leg] = {"model": model, "opt": opt, "fn": fn, "first": first,
+                     "losses": [x.item() for x in losses],
+                     "peak_gb": (torch.cuda.max_memory_allocated() - base)
+                     / 1e9}
+    e, g = legs["eager"], legs["graphed"]
+    pairs = list(zip(e["model"].parameters(), g["model"].parameters()))
+    errs = torch.tensor([
+        max(abs(a - b) / abs(a) for a, b in zip(e["losses"], g["losses"])),
+        max(_rel_err(pg.grad, pe.grad) for pe, pg in pairs),
+        max(_rel_err(pg, pe) for pe, pg in pairs),
+        float(not all(torch.equal(pe.grad, pg.grad) and torch.equal(pe, pg)
+                      for pe, pg in pairs))], device="cuda")
+    dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+    loss_err, grad_err, param_err, unequal = errs.tolist()
+    replay = replay_kernels(lambda: g["fn"](g["model"], g["opt"], tokens),
+                            LM_REPLAY_KERNELS)
+    want = _replay_want(e["first"])
+    replay_ok = all(replay[k] == v for k, v in want.items())
+
+    def turn(leg):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(GRAPHED_TIMED):
+            leg["fn"](leg["model"], leg["opt"], tokens)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / GRAPHED_TIMED
+
+    order = ("eager", "graphed", "graphed", "eager")
+    times = torch.tensor([turn(legs[leg]) for leg in order], device="cuda")
+    dist.all_reduce(times, op=dist.ReduceOp.MAX)
+    step_s = {leg: [t for o, t in zip(order, times.tolist()) if o == leg]
+              for leg in ("eager", "graphed")}
+    peaks = _gather_obj({leg: legs[leg]["peak_gb"] for leg in legs}, n)
+    every = _gather_obj({"replay": replay, "want": want,
+                         "eager_step_launches": e["first"]}, n)
+    if r == 0:
+        emit({"phase": name, "cards": n, "model": "bert-large",
+              "layers": cfg.layers, **row, "calls": GRAPHED_CALLS,
+              "losses_eager_rank0": e["losses"],
+              "losses_graphed_rank0": g["losses"],
+              "equal_bytes": not unequal, "loss_rel_err": loss_err,
+              "grad_rel_l2_max": grad_err, "param_rel_l2_max": param_err,
+              "tolerance": GRAPHED_LM_TOL,
+              "step_s_in_turns": {"order": list(order), **step_s},
+              "graphed_speedup": (sum(step_s["eager"])
+                                  / sum(step_s["graphed"])),
+              "peak_mem_gb_above_start_by_rank": peaks,
+              "replay_kernels_by_rank": [x["replay"] for x in every],
+              "eager_step_kernels_by_rank": [x["want"] for x in every],
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    assert max(loss_err, grad_err, param_err) <= GRAPHED_LM_TOL, (
+        name, loss_err, grad_err, param_err)
+    assert replay_ok, (name, replay, want)
+    del legs, e, g, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
 
 
 def _spawn_ranks(n: int, flag: str, timeout_s: float) -> int:
@@ -4645,24 +4815,24 @@ REPLAY_KERNELS = (("_mm_stats_kernel", "mm_stats_kernel"),
                   ("nccl", "nccl"))
 
 
-def replay_kernels(fn) -> dict:
-    """The kernels one call of ``fn`` launches on the card, by
-    :data:`REPLAY_KERNELS` (torch.profiler; a graph replay's kernels are
-    traced one by one)."""
+def replay_kernels(fn, table=REPLAY_KERNELS) -> dict:
+    """The kernels one call of ``fn`` launches on the card, by ``table``
+    (:data:`REPLAY_KERNELS` by default; torch.profiler: a graph replay's
+    kernels are traced one by one)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {name: 0 for name, _ in REPLAY_KERNELS}
+    out = {name: 0 for name, _ in table}
     total = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         total += 1
         key = e.name.lower()
-        for name, part in REPLAY_KERNELS:
+        for name, part in table:
             if part in key:
                 out[name] += 1
                 break
@@ -6197,14 +6367,90 @@ def dp_interop_sync_bn(hvd, smi, device="cuda"):
               "wall_s": time.perf_counter() - t0, "card": smi})
 
 
+# bench_allreduce at 1, 4, 16 and 64 MiB: 5 timed calls of 5 chained
+# operations after 2 warm-up calls, each mode in the dp world.
+DP_BENCH_ARGS = ["--min-bytes", str(1 << 20), "--max-bytes", str(1 << 26),
+                 "--iters", "5", "--inner", "5", "--warmup", "2"]
+DP_BENCH_MODES = {"f32": ["--eager"], "bf16": ["--wire", "bf16"],
+                  "fp16": ["--wire", "fp16"], "int8": ["--wire", "int8"],
+                  "int4": ["--wire", "int4"],
+                  "reduce_scatter": ["--reduce-scatter"], "a2a": ["--a2a"],
+                  "hierarchical": ["--hierarchical"]}
+# The per-size columns each mode's line keeps (the summary's rows).
+DP_BENCH_COLUMNS = ("bytes", "axis", "algorithm", "wire", "us", "jit_us",
+                    "jit_algbw_gbps", "jit_busbw_gbps", "bytes_on_wire",
+                    "speedup_vs_f32", "eager_us", "allreduce_us",
+                    "rs_ag_us", "rs_us", "rs_ag_speedup_vs_allreduce",
+                    "a2a_us", "a2a_wire_bytes", "int8_speedup_vs_f32",
+                    "hierarchical_speedup_vs_flat")
+
+
+def dp_bench_allreduce(hvd, smi):
+    """dp_cards_bench_allreduce: ``python -m
+    horovod_tpu_torch.bench_allreduce``'s modes in this NCCL world
+    (:data:`DP_BENCH_MODES` at the sizes of :data:`DP_BENCH_ARGS`): the
+    flat sweep on every wire (f32 with the eager path; int8 / int4
+    through #5-#8), --reduce-scatter (the ZeRO route), --a2a (the MoE
+    all-to-all, exact and int8), --hierarchical (a 2 x 2 ("dcn", "ici")
+    mesh under HVDT_TRANSPORT=auto).  One line a mode: the summary's
+    verdict, its rows' columns, the kernels #5-#8 launched."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import bench_allreduce as ba
+    from horovod_tpu_torch.common.basics import set_mesh
+    from horovod_tpu_torch.transport import policy as tpolicy
+
+    r = dist.get_rank()
+    t0 = time.perf_counter()
+    try:
+        for mode, extra in DP_BENCH_MODES.items():
+            args = ba.parse_args([*DP_BENCH_ARGS, *extra])
+            reset_counters()
+            sink = io.StringIO()
+            with contextlib.redirect_stdout(sink), \
+                    contextlib.redirect_stderr(sink):
+                summary = ba.run(args)
+            launches = counters()
+            quant = {k: launches[k] for k in (
+                "_quant_kernel", "_dequant_kernel", "_quant4_kernel",
+                "_dequant4_kernel")}
+            if mode in ("int8", "a2a"):
+                assert quant["_quant_kernel"] > 0, (mode, quant)
+                assert quant["_dequant_kernel"] > 0, (mode, quant)
+            if mode == "int4":
+                assert quant["_quant4_kernel"] > 0, (mode, quant)
+                assert quant["_dequant4_kernel"] > 0, (mode, quant)
+            assert all(math.isfinite(row["seconds"]) and row["seconds"] > 0
+                       for row in summary["rows"]), summary
+            if r == 0:
+                emit({"phase": "dp_cards_bench_allreduce", "mode": mode,
+                      "argv": [*DP_BENCH_ARGS, *extra],
+                      **{k: v for k, v in summary.items() if k != "rows"},
+                      "rows": [{k: row[k] for k in DP_BENCH_COLUMNS
+                                if k in row} for row in summary["rows"]],
+                      "quant_launches": quant, "card": smi})
+    finally:
+        os.environ.pop("HVDT_TRANSPORT", None)
+        tpolicy.reset()
+        set_mesh(None)
+    if r == 0:
+        emit({"phase": "dp_cards_bench_allreduce_total",
+              "wall_s": time.perf_counter() - t0})
+
+
 def dp_cards_worker(device=None) -> None:
     """One rank of ``--dp-cards``: :func:`dp_check`, :func:`dp_time`,
     :func:`dp_wire`, :func:`dp_vgg`, :func:`dp_accumulate`,
     :func:`dp_overlap`, :func:`dp_adasum`, :func:`dp_transport`,
-    :func:`dp_zero`, :func:`dp_missing_grad`, :func:`dp_interop` and
-    :func:`dp_interop_sync_bn` in an NCCL world of one process a card.
-    Rank 0 prints the lines.  The eager controller starts in the last
-    three (the interop optimizer and SyncBatchNorm negotiate by name)."""
+    :func:`dp_zero`, :func:`dp_missing_grad`, :func:`dp_interop`,
+    :func:`dp_interop_sync_bn` and :func:`dp_bench_allreduce` in an NCCL
+    world of one process a card.  Rank 0 prints the lines.  The eager
+    controller starts in dp_missing_grad's interop mode and the two
+    interop phases (the interop optimizer and SyncBatchNorm negotiate by
+    name); the bench_allreduce f32 sweep's eager path uses it too."""
     import torch.distributed as dist
 
     import horovod_tpu_torch as hvd
@@ -6217,7 +6463,8 @@ def dp_cards_worker(device=None) -> None:
     torch.backends.cudnn.deterministic = True
     phases = (dp_check, dp_time, dp_wire, dp_vgg, dp_accumulate,
               dp_overlap, dp_adasum, dp_transport, dp_zero,
-              dp_missing_grad, dp_interop, dp_interop_sync_bn)
+              dp_missing_grad, dp_interop, dp_interop_sync_bn,
+              dp_bench_allreduce)
     try:
         for phase in phases:
             phase(hvd, smi)
@@ -6724,6 +6971,7 @@ PAR_FSDP_BATCH = 32            # a card's rows (global 128)
 PAR_DPTP_BATCH = 32            # a dp member's rows (global 64)
 PAR_SPDP_SEQ, PAR_SPDP_BATCH = 4096, 4   # global seq; a dp member's rows
 PAR_SPPP_BATCH = 32            # every stage's rows (2 microbatches)
+PAR_TPEP_BATCH = 32            # an ep member's rows (global 64)
 PAR_PHASE_TIMEOUT_S = 300
 
 
@@ -7311,11 +7559,214 @@ def par_cards_sp_pp(hvd, smi):
     dist.barrier()
 
 
+def par_cards_graphed(hvd, smi):
+    """par_cards_graphed_sp_dp / _pp: :func:`graphed_lm` on
+    par_cards_sp_dp's configuration (dp 2 x sp 2, global seq 4096, 4
+    rows a dp member, HVDT_RING_PALLAS=1: #9-#11 in every ring step,
+    DistributedOptimizer(fused_adam, axis="dp") averaging over sp) and
+    on par_cards_pp's (pp 4, seq 512, the same 128 rows on every stage,
+    m = 4, HVDT_FLASH_SMALLSEQ=on: #12/#13 in every stage,
+    DistributedOptimizer(fused_adam, axis="dp", pipeline="pp"))."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh(dp=2, sp=2)
+    d, s = mesh.get_local_rank("dp"), mesh.get_local_rank("sp")
+    cfg = dataclasses.replace(lm_config(PAR_SPDP_SEQ), sp=2)
+    tokens = _lm_tokens(10, 2 * PAR_SPDP_BATCH, PAR_SPDP_SEQ, cfg.vocab)
+    shard = PAR_SPDP_SEQ // 2
+    mine = tokens[d * PAR_SPDP_BATCH:(d + 1) * PAR_SPDP_BATCH,
+                  s * shard:(s + 1) * shard].contiguous()
+
+    def make_sp_dp():
+        m = tt.transformer_init(0, cfg)
+        return m, hvd.DistributedOptimizer(
+            hvd.fused_adam(m.parameters(), 3e-4, weight_decay=1e-4),
+            axis="dp")
+
+    os.environ["HVDT_RING_PALLAS"] = "1"
+    try:
+        graphed_lm("par_cards_graphed_sp_dp", cfg, make_sp_dp, mine,
+                   {"sp_group": mesh}, smi, dp=2, sp=2,
+                   global_seq=PAR_SPDP_SEQ,
+                   batch_per_dp_member=PAR_SPDP_BATCH)
+    finally:
+        del os.environ["HVDT_RING_PALLAS"]
+    del tokens, mine
+
+    mesh = make_mesh(dp=1, pp=n)
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), pp=n)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (PAR_PP_BATCH, SS_SEQ),
+                           generator=gen, device="cuda")
+
+    def make_pp():
+        m = tt.transformer_init(0, cfg, pp_rank=r)
+        return m, hvd.DistributedOptimizer(
+            hvd.fused_adam(m.parameters(), 3e-4, weight_decay=1e-4),
+            axis="dp", pipeline="pp")
+
+    graphed_lm("par_cards_graphed_pp", cfg, make_pp, tokens,
+               {"pp_group": mesh}, smi, pp=n,
+               layers_per_stage=cfg.layers_per_stage, microbatches=n,
+               seq=SS_SEQ, batch=PAR_PP_BATCH)
+
+
+def par_cards_tp_ep(hvd, smi):
+    """par_cards_tp_ep: bert-large with 8 experts on a dp 1 x ep 2 x tp 2
+    mesh (4 experts a rank, each expert's d_ff and the attention heads
+    over tp, the router whole), seq 512, HVDT_FLASH_SMALLSEQ=on, 32 rows
+    an ep member (the same on its two tp members; 64 in all),
+    DistributedOptimizer(fused_adam, axis="dp", expert="ep").  At
+    capacity factor 8 (no drops) one step's loss (the ep members' mean)
+    and gradients (gathered over ep and tp) against one card running the
+    64 rows with every expert local, at par_cards_moe's bounds: in f32
+    (materialized attention) loss and gradients, in bf16 (#12/#13) the
+    loss, the gradients' distance reported; then 3 steps at 1.25 in
+    bf16: step seconds, tokens/s, the dropped fraction, #12/#13 and #1;
+    par_cards_tp_ep_graphed: that step under donated_step against it
+    eagerly (:func:`graphed_lm`)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.parallel import make_mesh
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    mesh = make_mesh(dp=1, ep=2, tp=2)
+    ep, tp = mesh.get_local_rank("ep"), mesh.get_local_rank("tp")
+    one = dist.new_group([0])
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    cfg = dataclasses.replace(lm_config(SS_SEQ), num_experts=PAR_EXPERTS,
+                              ep=2, tp=2)
+    check_cfg = dataclasses.replace(cfg, capacity_factor=float(PAR_EXPERTS))
+    tokens = _lm_tokens(13, 2 * PAR_TPEP_BATCH, SS_SEQ, cfg.vocab)
+    mine = tokens[ep * PAR_TPEP_BATCH:(ep + 1) * PAR_TPEP_BATCH]
+    groups = {"ep_group": mesh, "tp_group": mesh}
+    model = tt.transformer_init(0, cfg, ep_rank=ep, tp_rank=tp)
+    opt = hvd.DistributedOptimizer(
+        hvd.fused_adam(model.parameters(), 3e-4, weight_decay=1e-4),
+        axis="dp", expert="ep")
+    checks, replicated_equal = {}, True
+    # The check runs twice: in f32 (the materialized attention: the
+    # whole-sequence kernels take 16-bit operands) its loss and
+    # gradients are held; in bf16 (#12/#13 on the local heads) its loss
+    # is held and its gradients are reported.  In bf16 the members round
+    # their activations otherwise than one card (tp sums partial
+    # products), and a router logit near a tie then sends a token to
+    # another expert, which moves the gradients far more than the loss.
+    for dtype in ("float32", "bfloat16"):
+        ccfg = dataclasses.replace(check_cfg, dtype=getattr(torch, dtype))
+        smallseq = dtype == "bfloat16"
+        if smallseq:
+            os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+        else:
+            os.environ.pop("HVDT_FLASH_SMALLSEQ", None)
+        loss = tt.transformer_loss(model, mine, ccfg, **groups)
+        loss.backward()
+        opt.synchronize()
+        loss_mean = _world_mean(loss.detach())
+        drops_check = _moe_drops(model, mine, ccfg, **groups)
+        replicated_equal = replicated_equal and _replicated_equal(model)
+        got = _whole_grads(model, ccfg, mesh)
+        model.zero_grad(set_to_none=True)
+        if r == 0:
+            ref_cfg = dataclasses.replace(ccfg, ep=1, tp=1)
+            ref = tt.transformer_init(0, ref_cfg)
+            ref_loss = tt.transformer_loss(ref, tokens, ref_cfg,
+                                           ep_group=one)
+            ref_loss.backward()
+            # At top-1 the routed gate is v / v: the router's gradient
+            # is rounding noise on both sides, held to be small against
+            # the gradient of wq, not by relative error.
+            router = {"got_norm": got["block.w_router"].norm().item(),
+                      "one_card_norm": ref.block["w_router"].grad.float()
+                      .norm().item(),
+                      "wq_norm": got["block.wq"].norm().item()}
+            errs = {k: _rel_l2([got[k]], [p.grad]) for k, p in
+                    ref.named_parameters() if k != "block.w_router"}
+            checks[dtype] = {
+                "dropped_fraction_max": max(drops_check),
+                "router_grad": router, "loss_members": loss_mean,
+                "loss_one_card": ref_loss.item(),
+                "loss_rel_err": abs(loss_mean - ref_loss.item())
+                / abs(ref_loss.item()),
+                "grad_rel_l2": errs, "grad_rel_l2_max": max(errs.values()),
+                "grads_held": not smallseq}
+            del ref, ref_loss
+            assert max(drops_check) == 0.0, drops_check
+            assert checks[dtype]["loss_rel_err"] <= PAR_LOSS_TOL, checks
+            if not smallseq:
+                assert max(errs.values()) <= PAR_GRAD_TOL, errs
+                assert router["got_norm"] <= 1e-2 * router["wq_norm"], \
+                    router
+        del got, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    check = ({"capacity_factor": check_cfg.capacity_factor,
+              "tolerances": [PAR_LOSS_TOL, PAR_GRAD_TOL], **checks}
+             if r == 0 else None)
+    assert replicated_equal
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    times, losses = run_lm_steps(model, opt, mine, cfg, 3, **groups)
+    launches = counters()
+    drops = _moe_drops(model, mine, cfg, **groups)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert launches["_smallseq_fwd_kernel"] == 48 * 3, launches
+    assert launches["_smallseq_bwd_kernel"] == 24 * 3, launches
+    assert launches["_adam_kernel"] == 3, launches
+    every = _gather_obj({"step_s": times, "launches": launches}, n)
+    if r == 0:
+        steady = max(_steady(x["step_s"]) for x in every)
+        emit({"phase": "par_cards_tp_ep", "cards": n, "model": "bert-large",
+              "ep": 2, "tp": 2, "experts": PAR_EXPERTS, "seq": SS_SEQ,
+              "batch_per_ep_member": PAR_TPEP_BATCH,
+              "params_rank0": sum(p.numel() for p in model.parameters()),
+              "check_vs_one_card": check,
+              "replicated_grads_equal_on_every_card": replicated_equal,
+              "capacity_factor": cfg.capacity_factor,
+              "losses_rank0": losses,
+              "step_s_by_rank": [x["step_s"] for x in every],
+              "steady_step_s": steady,
+              "tokens_per_s": 2 * PAR_TPEP_BATCH * SS_SEQ / steady,
+              "dropped_fraction_by_layer_rank0": drops,
+              "peak_mem_gb_rank0": torch.cuda.max_memory_allocated() / 1e9,
+              "launches_by_rank": [x["launches"] for x in every],
+              "wall_s": time.perf_counter() - t0, "card": smi})
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The same step under donated_step against it eagerly.
+    def make():
+        m = tt.transformer_init(0, cfg, ep_rank=ep, tp_rank=tp)
+        return m, hvd.DistributedOptimizer(
+            hvd.fused_adam(m.parameters(), 3e-4, weight_decay=1e-4),
+            axis="dp", expert="ep")
+
+    graphed_lm("par_cards_tp_ep_graphed", cfg, make, mine, groups, smi,
+               ep=2, tp=2, experts=PAR_EXPERTS, seq=SS_SEQ,
+               batch_per_ep_member=PAR_TPEP_BATCH)
+    del tokens, mine
+
+
 def parallel_cards_worker() -> None:
     """One rank of ``--parallel-cards``: :func:`par_cards_moe`,
     :func:`par_cards_pp`, :func:`par_cards_4d`, :func:`par_cards_tp`,
     :func:`par_cards_fsdp`, :func:`par_cards_dp2_tp2`,
-    :func:`par_cards_sp_dp`, :func:`par_cards_sp_pp` and
+    :func:`par_cards_sp_dp`, :func:`par_cards_sp_pp`,
+    :func:`par_cards_graphed`, :func:`par_cards_tp_ep` and
     :func:`par_cards_sweeps` in an NCCL world of one process a card, each
     under a watchdog that names it.  Rank 0 prints the lines."""
     import torch.distributed as dist
@@ -7332,7 +7783,8 @@ def parallel_cards_worker() -> None:
     try:
         for phase in (par_cards_moe, par_cards_pp, par_cards_4d,
                       par_cards_tp, par_cards_fsdp, par_cards_dp2_tp2,
-                      par_cards_sp_dp, par_cards_sp_pp, par_cards_sweeps):
+                      par_cards_sp_dp, par_cards_sp_pp, par_cards_graphed,
+                      par_cards_tp_ep, par_cards_sweeps):
             with _PhaseTimeout(phase.__name__):
                 phase(hvd, smi)
                 dist.barrier()

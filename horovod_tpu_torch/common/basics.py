@@ -127,6 +127,26 @@ def _env_int(*names: str) -> int:
     return -1
 
 
+def _mesh_axes_from_env(world: int):
+    """``HVDT_MESH_AXES`` ('dp=2,tp=2') as ``(names, sizes)`` in the order
+    given, or None when unset; its product must be the world size."""
+    spec = config.get_str("HVDT_MESH_AXES")
+    if not spec:
+        return None
+    names, sizes = [], []
+    for part in spec.split(","):
+        name, _, sz = part.strip().partition("=")
+        names.append(name)
+        sizes.append(int(sz))
+    total = 1
+    for n in sizes:
+        total *= n
+    if total != world:
+        raise ValueError(
+            f"HVDT_MESH_AXES product {total} != device count {world}")
+    return tuple(names), tuple(sizes)
+
+
 def init(*, device: DeviceLike = None,
          coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
@@ -143,6 +163,10 @@ def init(*, device: DeviceLike = None,
         to torchrun's ``MASTER_ADDR``/``MASTER_PORT``.
       num_processes / process_id: override the env contract.
       process_sets: rank lists to register as process sets at init.
+
+    With ``HVDT_MESH_AXES`` set ('dp=2,tp=2'), a ``DeviceMesh`` over the
+    world with those dimensions, in that order, becomes the current mesh
+    (:func:`current_mesh`), as ``parallel.make_mesh`` would make it.
     """
     with _state.lock:
         if _state.initialized:
@@ -172,6 +196,8 @@ def init(*, device: DeviceLike = None,
             env_size if env_size > 0 else 1)
         proc_id = process_id if process_id is not None else (
             env_rank if env_rank >= 0 else 0)
+        mesh_axes = _mesh_axes_from_env(
+            dist.get_world_size() if dist.is_initialized() else n_proc)
 
         local_rank_ = config.get_int("HVDT_LOCAL_RANK")
         local_size_ = config.get_int("HVDT_LOCAL_SIZE")
@@ -244,6 +270,12 @@ def init(*, device: DeviceLike = None,
         for ranks in process_sets or ():
             _state.process_set_table.add(list(ranks))
         _state.initialized = True
+        if mesh_axes is not None:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            names, sizes = mesh_axes
+            _state.mesh = init_device_mesh(dev.type, sizes,
+                                           mesh_dim_names=names)
 
         # Telemetry exporter (HVDT_TELEMETRY=1): per-worker /metrics +
         # /healthz on HVDT_METRICS_PORT + local_rank.  No-op when the

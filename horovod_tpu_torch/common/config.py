@@ -206,6 +206,16 @@ KNOBS: Dict[str, Knob] = {
              "Path to a bench_allreduce --reduce-scatter --json-out file; "
              "when its measured rs_ag_speedup_vs_allreduce_at_peak exceeds "
              "1.0 the zero dimension starts on the sharded leg."),
+        Knob("HVDT_PP", 1, int,
+             "Pipeline-parallel extent of the pod mesh "
+             "(parallel.mesh.pod_mesh_spec): carves whole pod groups into "
+             "1F1B stages on the DCN tier.  Must divide the pod count; 1 "
+             "(default) keeps the (dcn, ici) 2-axis mesh."),
+        Knob("HVDT_EP", 1, int,
+             "Expert-parallel extent of the pod mesh "
+             "(parallel.mesh.pod_mesh_spec): carves ranks inside each pod "
+             "into expert ranks on the ICI tier.  Must divide the pod "
+             "size; 1 (default) keeps the 2-axis mesh."),
         Knob("HVDT_MOE_CAPACITY_FACTOR", 1.25, float,
              "Default expert capacity factor for "
              "parallel.moe.moe_dispatch_combine: per-expert slots = "
@@ -433,6 +443,10 @@ KNOBS: Dict[str, Knob] = {
              "Rendezvous HTTP KV server address."),
         Knob("HVDT_RENDEZVOUS_PORT", 0, int,
              "Rendezvous HTTP KV server port."),
+        Knob("HVDT_MESH_AXES", "", str,
+             "Comma list of axis=size pairs for the default mesh init() "
+             "builds, e.g. 'dp=4,tp=2'.  Empty = no mesh (the world is "
+             "the data-parallel group)."),
     ]
 }
 

@@ -129,8 +129,16 @@ gather over ``fsdp`` gives the ``tp``-local weight.  A member's gradient
 of an ``fsdp``-sharded leaf is the sum over ``fsdp`` of the members'
 gradients of their own tokens' losses; ``DistributedOptimizer(axis=
 "dp")`` divides it by the ``fsdp`` size and averages the replicated
-leaves over ``fsdp``.  ``tp`` together with experts raises (parallel
-axes, part 3).
+leaves over ``fsdp``.
+
+``tp`` with experts follows the reference's expert layout
+(``("stages", "experts", "embed", "mlp")`` / ``("stages", "experts",
+"mlp", "embed")``, ``mlp`` over ``tp``, ``experts`` over ``ep``): each
+expert's two products run on the member's ``d_ff / tp`` columns, the
+expert input enters through :class:`_TpEnter` and the down projection's
+partial output leaves through :class:`_TpLeave`, as in the dense MLP.
+The router stays replicated over ``tp``, so every member routes the
+same tokens the same way.
 
 ``remat_policy="dots"`` (``HVDT_REMAT=dots``) is the reference's
 ``dots_with_no_batch_dims_saveable``: ``torch.utils.checkpoint`` with a
@@ -215,10 +223,6 @@ def _moe_ep(cfg: TransformerConfig) -> bool:
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.tp > 1 and cfg.num_experts:
-        raise NotImplementedError(
-            "tp > 1 together with experts is not ported yet (ROADMAP "
-            "Queue 1: parallel axes, part 3)")
     for what, n in (("heads", cfg.heads), ("kv_heads", cfg.kv_heads),
                     ("d_ff", cfg.d_ff)):
         if n % max(cfg.tp, 1):
@@ -691,16 +695,25 @@ def _mlp(p, x, tp: Optional[_Ring] = None):
     return out if tp is None else _TpLeave.apply(out, tp)
 
 
-def _moe_mlp(p, x, cfg: TransformerConfig, ep_group=None):
-    """The MoE MLP of one block: ``(out [b, l, d], MoEAux or None)``."""
+def _moe_mlp(p, x, cfg: TransformerConfig, ep_group=None,
+             tp: Optional[_Ring] = None):
+    """The MoE MLP of one block: ``(out [b, l, d], MoEAux or None)``.
+    Under ``tp`` the expert leaves hold the member's ``mlp`` columns."""
     b, l, d = x.shape
     tokens = x.reshape(b * l, d)
     logits = tokens @ p["w_router"].to(x.dtype)
     w_up, w_down = p["w_up"].to(x.dtype), p["w_down"].to(x.dtype)
+
+    def enter(t):
+        return t if tp is None else _TpEnter.apply(t, tp)
+
+    def leave(t):
+        return t if tp is None else _TpLeave.apply(t, tp)
+
     if _moe_ep(cfg) or ep_group is not None:
         def expert_fn(toks):                     # [E_local, N, D]
-            return torch.bmm(torch.nn.functional.silu(torch.bmm(toks, w_up)),
-                             w_down)
+            return leave(torch.bmm(torch.nn.functional.silu(
+                torch.bmm(enter(toks), w_up)), w_down))
 
         out, aux = moe_dispatch_combine(
             tokens, logits, expert_fn, group=ep_group, axis="ep",
@@ -715,9 +728,9 @@ def _moe_mlp(p, x, cfg: TransformerConfig, ep_group=None):
         probs = torch.softmax(logits.float(), -1)
         top = torch.argmax(probs, -1)
         gate = probs.gather(1, top[:, None])[:, 0]
-        up = tokens @ w_up.permute(1, 0, 2).reshape(d, e * f)
+        up = enter(tokens) @ w_up.permute(1, 0, 2).reshape(d, e * f)
         hmid = torch.nn.functional.silu(up.reshape(-1, e, f).transpose(0, 1))
-        all_out = torch.bmm(hmid, w_down)                        # [E, N, d]
+        all_out = leave(torch.bmm(hmid, w_down))                 # [E, N, d]
         sel = all_out.gather(0, top[None, :, None].expand(1, -1, d))[0]
         out = sel * gate[:, None].to(x.dtype)
         aux = None
@@ -787,7 +800,7 @@ def _block(p, x, positions, cfg: TransformerConfig, sp_group=None,
     x = x + _attention(p, _rmsnorm(x, p["ln1"]), positions, cfg, sp_group,
                        tp)
     if cfg.num_experts:
-        y, _ = _moe_mlp(p, _rmsnorm(x, p["ln2"]), cfg, ep_group)
+        y, _ = _moe_mlp(p, _rmsnorm(x, p["ln2"]), cfg, ep_group, tp)
     else:
         y = _mlp(p, _rmsnorm(x, p["ln2"]), tp)
     return x + y

@@ -79,10 +79,13 @@ None, :func:`exchange_fn` returns ``overlap.exchange_fn()``'s result
 ``DistributedOptimizer`` builds the object it builds without ZeRO.
 
 Not ported: the reference's "unvarying leaf" pre-scale (a shard_map
-artifact: a rank's ``.grad`` is its own local gradient) and its
-per-bucket collective records of the sharded exchange.
-:func:`record_state_gauges` feeds the per-rank optimizer-state bytes
-into the telemetry memory gauges.
+artifact: a rank's ``.grad`` is its own local gradient).  Telemetry:
+each bucket's reduce-scatter and each all-gather (the ``grads`` gather,
+the ``states`` delta gather, the ``params`` gather before the forward)
+books one ``path="jit"`` record under the reference's op names, counted
+the port's way (each collective executed; a ``donated_step`` capture
+books through its replay hook); :func:`record_state_gauges` feeds the
+per-rank optimizer-state bytes into the telemetry memory gauges.
 """
 
 from __future__ import annotations
@@ -287,6 +290,35 @@ def _make_plan(leaves: Sequence[torch.Tensor], threshold_bytes: Optional[int],
 
 
 # ---------------------------------------------------------------------------
+# Telemetry
+# ---------------------------------------------------------------------------
+
+
+def _record_bucket(op: str, axis_label: str, dtype: torch.dtype, wire: str,
+                   nbytes: int, name: str, count: int = 1) -> None:
+    """One ZeRO collective's records, under the reference's labels
+    (``path="jit"``): the collective counters and a flight-recorder
+    event.  Each executed collective books once; inside a
+    ``donated_step`` capture the recorders book before each replay
+    (``telemetry/instrument.deferred_to_replay``)."""
+    from ..telemetry import flight_recorder as _frm
+    from ..telemetry import instrument as _ti
+
+    rec = _ti.get_recorder()
+    flight = _frm.get_flight_recorder()
+    if rec is None and flight is None:
+        return
+    dt = dev._dtype_name(dtype)
+    if rec is not None:
+        rec.record_collective(op, dt, wire, int(nbytes), count=count,
+                              path="jit", axis=axis_label)
+    if flight is not None:
+        flight.record(op=op, name=name, dtype=dt, shape=(int(nbytes),),
+                      nbytes=int(nbytes), wire=wire, path="jit",
+                      count=count, axis=axis_label)
+
+
+# ---------------------------------------------------------------------------
 # The reduce group
 # ---------------------------------------------------------------------------
 
@@ -301,6 +333,7 @@ class _Group:
         self.axis, self.mesh = axis, mesh
         self.hops = dev._hops(axis, mesh, self.ps)
         self.axes = tuple(a for a, _ in reversed(self.hops))  # outer first
+        self.label = "+".join(self.axes)
         self.size = math.prod(dist.get_world_size(g) for _, g in self.hops)
         self.owner = dev.shard_owner_index(axis, mesh, self.ps)
 
@@ -315,7 +348,17 @@ class _Group:
             return x.detach().reshape(-1).contiguous()
         return dev.reduce_scatter_flat(x, rest, self.mesh, self.ps)
 
-    def all_gather(self, shard: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, shard: torch.Tensor,
+                   name: Optional[str] = None) -> torch.Tensor:
+        """The shards of every member concatenated; ``name`` books the
+        gather as one ``allgather`` record (ring accounting: (n-1)/n of
+        the gathered bytes)."""
+        if name is not None:
+            n = self.size
+            nbytes = shard.numel() * n * shard.element_size()
+            _record_bucket("allgather", self.label, shard.dtype,
+                           dev._dtype_name(shard.dtype),
+                           nbytes * (n - 1) // max(1, n), name)
         return dev.allgather_flat_shards(shard, self.axis, self.mesh,
                                          self.ps)
 
@@ -415,10 +458,21 @@ class _ShardRoute:
         n = self.group.size
         return flat.numel() * flat.element_size() * (n - 1) // max(1, n)
 
-    def start(self, flat: torch.Tensor, async_op: bool = False) -> _Shard:
+    def start(self, flat: torch.Tensor, async_op: bool = False,
+              index: int = 0, count: int = 1) -> _Shard:
+        """Start bucket ``index`` (``count`` leaves) and book its
+        ``reduce_scatter`` record."""
         g = self.group
         b = _Shard(flat.dtype)
         floating = flat.is_floating_point()
+        if self.quant is not None and floating:
+            from ..quant.collectives import wire_sentinel
+
+            wire = wire_sentinel(self.quant[1])
+        else:
+            wire = dev._dtype_name(flat.dtype)
+        _record_bucket("reduce_scatter", g.label, flat.dtype, wire,
+                       self.wire_bytes(flat), f"zero.b{index}", count)
         if not self.rs_wire:
             # The replicated-exchange leg: full allreduce, own slice.
             full = g.all_reduce(flat)
@@ -541,8 +595,9 @@ class _ZeroPipeline(ovl._Pipeline):
         with self._fork(_device_of(leaves, self.plan.buckets[bi])):
             flat = _bucket_flat(leaves, self.plan, bi, self.route.pre)
             self.bucket_bytes.append(self.route.wire_bytes(flat))
-            self.issued.append(ovl._Issued([bi], None,
-                                           self.route.start(flat, True)))
+            self.issued.append(ovl._Issued(
+                [bi], None, self.route.start(
+                    flat, True, bi, len(self.plan.buckets[bi]))))
             self._finish_comm(len(self.issued) - 1)
 
     def drain(self):
@@ -615,7 +670,7 @@ class _ZeroHooked(ovl.HookedExchange):
     @torch.no_grad()
     def finish(self) -> None:
         for bi, shard in self.shards():
-            full = self.group.all_gather(shard)
+            full = self.group.all_gather(shard, f"zero.b{bi}.ag")
             for i, v in _split_bucket(full, self.zplan, bi).items():
                 self.params[i].grad.copy_(v)
 
@@ -643,7 +698,9 @@ class _SegmentExchange:
 
     def drain(self):
         for bi, shard in self.pipe.drain():
-            cells = _split_bucket(self.group.all_gather(shard), self.plan, bi)
+            cells = _split_bucket(
+                self.group.all_gather(shard, f"zero.b{bi}.ag"), self.plan,
+                bi)
             ids = list(self.plan.buckets[bi])
             yield ids, [self.tensors[i] for i in ids], [cells[i] for i in ids]
 
@@ -659,7 +716,8 @@ def _exchange_shards(leaves, plan: _Plan, route: _ShardRoute):
         return pipe.drain()
     out = []
     for bi in range(len(plan.buckets)):
-        b = route.start(_bucket_flat(leaves, plan, bi, route.pre))
+        b = route.start(_bucket_flat(leaves, plan, bi, route.pre),
+                        index=bi, count=len(plan.buckets[bi]))
         route.finish_comm(b)
         out.append((bi, route.finish(b)))
     return out
@@ -692,8 +750,8 @@ def rs_exchange(tensors: Sequence[torch.Tensor],
                         wire_dtype)
     cells: List[Any] = [None] * len(tensors)
     for bi, shard in _exchange_shards(tensors, plan, route):
-        for i, v in _split_bucket(group.all_gather(shard), plan,
-                                  bi).items():
+        for i, v in _split_bucket(group.all_gather(shard, f"zero.b{bi}.ag"),
+                                  plan, bi).items():
             cells[i] = v
     return cells
 
@@ -930,7 +988,8 @@ class _ZeroTx:
             if stack.dim() != 2:
                 raise ValueError("param shards must be [n|1, shard_len]")
             if stack.shape[0] == 1 and plan.num_shards > 1:
-                full = self.group().all_gather(stack[0])
+                full = self.group().all_gather(stack[0],
+                                               f"zero.b{bi}.params")
             else:
                 full = stack.reshape(-1)
             for i, v in _split_bucket(full, plan, bi).items():
@@ -1105,7 +1164,8 @@ class _ZeroTx:
                                     else rec.d[None] if mode == "local"
                                     else group.all_gather(rec.d).view(n, -1))
                 return
-            full = rec.d if mode == "unbound" else group.all_gather(rec.d)
+            full = rec.d if mode == "unbound" else group.all_gather(
+                rec.d, f"zero.b{bi}.ag")
             parts = _split_bucket(full, plan, bi)
             if apply:
                 ids = list(parts)

@@ -81,8 +81,9 @@ raises, as one naming ``pipeline`` or ``expert`` does.
 
 ZeRO then shards state within ``axis``'s group only.  Under
 ``HVDT_OVERLAP=on`` the fold runs after the hooked exchange (both are
-linear); the ZeRO ``states`` / ``params`` step with the hooks and a fold
-is not ported (parallel axes, part 3).
+linear): on the reduced gradients, or under ZeRO ``states`` / ``params``
+on each reduced shard, element by element as its parameter's gradient
+would be folded.
 
 ``HVDT_OVERLAP=on`` (``ops/overlap.py``) overlaps the exchange with the
 backward: a ``register_post_accumulate_grad_hook`` on every parameter
@@ -269,6 +270,51 @@ class _AxisPlan:
                 for g in grads:
                     g.copy_(flat[offset:offset + g.numel()].view_as(g))
                     offset += g.numel()
+
+
+    @torch.no_grad()
+    def fold_shards(self, shards, zplan, params: Sequence[torch.Tensor],
+                    owner: int):
+        """:meth:`fold` on ZeRO-reduced shards: ``shards`` yields
+        ``(bucket, shard)`` of ``zplan`` (over ``params``) as this rank,
+        member ``owner`` of the reduce group, holds them.  Each element
+        is folded as its parameter's gradient would be, one flat
+        all-reduce a bucket and fold group; yields the same pairs.  The
+        members of a fold group share the reduce group's coordinate, so
+        they hold the same ranges."""
+        import torch.distributed as dist
+
+        entry = {}
+        for k, (_, _, ps) in enumerate(self.plan):
+            for p in ps:
+                entry[p] = k
+        for bi, shard in shards:
+            lo = owner * zplan.shard_lens[bi]
+            hi = lo + zplan.shard_lens[bi]
+            ranges: Dict[int, List[tuple]] = {}
+            off = 0
+            for i in zplan.buckets[bi]:
+                end = off + zplan.leaf_sizes[i]
+                a, b = max(off, lo), min(end, hi)
+                if a < b and params[i] in entry:
+                    ranges.setdefault(entry[params[i]], []).append(
+                        (a - lo, b - lo))
+                off = end
+            for k, rs in ranges.items():
+                group, scale, _ = self.plan[k]
+                views = [shard[a:b] for a, b in rs]
+                if group is None:
+                    for v in views:
+                        v.mul_(scale)
+                    continue
+                flat = torch.cat(views)
+                dist.all_reduce(flat, group=group)
+                flat.mul_(scale / dist.get_world_size(group))
+                offset = 0
+                for v in views:
+                    v.copy_(flat[offset:offset + v.numel()])
+                    offset += v.numel()
+            yield bi, shard
 
 
 def _tree_chunk(tree, i: int, k: int):
@@ -650,9 +696,17 @@ class _ZeroStatesOptimizer(_DistributedOptimizer):
             # A parameter without a gradient steps as the wrapped
             # optimizer steps it on an explicit zero gradient.
             _zero_fill(self._zparams)
-            self._axis_fold()
-            shards = (self._hooked.shards() if self._hooked is not None
-                      else None)
+            shards = None
+            if self._hooked is None:
+                self._axis_fold()
+            else:
+                shards = self._hooked.shards()
+                if self._axis_plan is not None:
+                    from .ops import zero
+
+                    shards = self._axis_plan.fold_shards(
+                        shards, self._hooked.zplan, self._zparams,
+                        zero._impl(self.transform).group().owner)
             target = (self._zparams if self._zero_stage == "states"
                       else self.pshards)
             self.transform.update([p.grad for p in self._zparams],
@@ -770,14 +824,6 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, *,
                           for p in g["params"] if p.requires_grad],
                          axis, pipeline, expert)
         process_set = plan.process_set
-        if plan.plan and stage in ("states", "params"):
-            from .ops import overlap
-
-            if overlap.enabled():
-                raise NotImplementedError(
-                    "ZeRO states/params under HVDT_OVERLAP=on with a "
-                    "model-axis fold is not ported yet (ROADMAP Queue 1: "
-                    "parallel axes, part 3)")
     from .telemetry.instrument import get_recorder
 
     _rec = get_recorder()

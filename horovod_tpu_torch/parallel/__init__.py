@@ -39,6 +39,8 @@ from .mesh import (  # noqa: F401
     MeshSpec,
     make_mesh,
     mesh_shape_for,
+    pod_mesh_spec,
+    pod_axis_tiers,
     mark_sharded,
     sharded_axes,
     fiber_group,

@@ -20,8 +20,9 @@ hosts).  The transport-policy layer (``horovod_tpu_torch/transport``)
 keys its per-axis choices on them.  :func:`make_mesh` records the mesh
 it builds as the process's current mesh (``common.basics.current_mesh``),
 whose dimensions name the reduce group of a policy-routed
-``fused_allreduce``.  The reference's ``pod_*`` helpers belong to the
-elastic runtime and are not ported here.
+``fused_allreduce``.  :func:`pod_mesh_spec` and :func:`pod_axis_tiers`
+are the reference's pod contract: a spec whose axis names are the
+transport classes, ``(pp, dcn, ici, ep)``.
 """
 
 from __future__ import annotations
@@ -56,8 +57,8 @@ __all__ = [
     "AXIS_DP", "AXIS_FSDP", "AXIS_PP", "AXIS_TP", "AXIS_SP", "AXIS_EP",
     "CANONICAL_AXES", "TRANSPORT_ICI", "TRANSPORT_DCN",
     "TRANSPORT_CLASSES", "axis_transport_class", "split_transport_axes",
-    "MeshSpec", "make_mesh", "mesh_shape_for", "mark_sharded",
-    "sharded_axes", "fiber_group",
+    "MeshSpec", "make_mesh", "mesh_shape_for", "pod_mesh_spec",
+    "pod_axis_tiers", "mark_sharded", "sharded_axes", "fiber_group",
 ]
 
 
@@ -85,6 +86,76 @@ def split_transport_axes(axes: Sequence[str], fast_width: int = 1
         raise ValueError("empty reduce group")
     width = max(1, min(int(fast_width), len(axes) - 1 or 1))
     return axes[:-width], axes[-width:]
+
+
+def pod_mesh_spec(num_pods: Optional[int] = None,
+                  pod_size: Optional[int] = None,
+                  *,
+                  pp: Optional[int] = None,
+                  ep: Optional[int] = None) -> "MeshSpec":
+    """The data-parallel mesh of the elastic pod contract, axes
+    ``("dcn", "ici")`` sized ``(num_pods, pod_size)``, optionally
+    extended with pipeline and expert degrees.
+
+    Defaults come from the launcher's worker env (``HVDT_NUM_PODS``,
+    ``HVDT_POD_SIZE``, else ``HVDT_SIZE // num_pods``; ``HVDT_PP`` /
+    ``HVDT_EP``).  The axis names are the transport classes, so
+    :func:`split_transport_axes` puts ``ici`` in the fast tier and the
+    policy grammar's ``dcn:`` entries match the cross-pod exchange.
+    ``pp`` carves pod groups out of the ``dcn`` tier (it must divide
+    ``num_pods``), ``ep`` carves ranks out of each pod's ``ici`` tier
+    (it must divide ``pod_size``); the order ``(pp, dcn, ici, ep)``
+    keeps the data-parallel reduce group at ``("dcn", "ici")``.
+    """
+    import os
+
+    if num_pods is None:
+        num_pods = int(os.environ.get("HVDT_NUM_PODS", "1") or 1)
+    if pod_size is None:
+        pod_size = int(os.environ.get("HVDT_POD_SIZE", "0") or 0)
+        if pod_size <= 0:
+            pod_size = int(os.environ.get("HVDT_SIZE", "1") or 1) \
+                // max(1, num_pods)
+    if pp is None:
+        pp = int(os.environ.get("HVDT_PP", "1") or 1)
+    if ep is None:
+        ep = int(os.environ.get("HVDT_EP", "1") or 1)
+    if num_pods < 1 or pod_size < 1:
+        raise ValueError(
+            f"pod mesh needs num_pods >= 1 and pod_size >= 1, got "
+            f"({num_pods}, {pod_size})")
+    if pp < 1 or ep < 1:
+        raise ValueError(f"pp and ep must be >= 1, got ({pp}, {ep})")
+    if pp == 1 and ep == 1:
+        return MeshSpec(axes=((TRANSPORT_DCN, int(num_pods)),
+                              (TRANSPORT_ICI, int(pod_size))))
+    if num_pods % pp:
+        raise ValueError(
+            f"pipeline degree pp={pp} must divide num_pods={num_pods} "
+            "(stages are pod groups on the DCN tier)")
+    if pod_size % ep:
+        raise ValueError(
+            f"expert degree ep={ep} must divide pod_size={pod_size} "
+            "(experts share a pod's ICI tier)")
+    axes: List[Tuple[str, int]] = []
+    if pp > 1:
+        axes.append((AXIS_PP, int(pp)))
+    axes.append((TRANSPORT_DCN, int(num_pods // pp)))
+    axes.append((TRANSPORT_ICI, int(pod_size // ep)))
+    if ep > 1:
+        axes.append((AXIS_EP, int(ep)))
+    return MeshSpec(axes=tuple(axes))
+
+
+def pod_axis_tiers(spec: "MeshSpec") -> Dict[str, str]:
+    """The physical tier of each axis of a pod-contract spec: axes at or
+    outside ``dcn`` cross pods (``pp`` hops ride DCN), axes at or inside
+    ``ici`` stay within a pod (``ep`` all-to-alls ride ICI)."""
+    names = spec.names
+    boundary = names.index(TRANSPORT_ICI) if TRANSPORT_ICI in names \
+        else len(names) - 1
+    return {name: (TRANSPORT_ICI if i >= boundary else TRANSPORT_DCN)
+            for i, name in enumerate(names)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -39,12 +39,19 @@ Telemetry, as in the reference: each forward books the schedule's
 per-stage phase histograms (in tick units), the clock's ``ppermute``
 bytes (``path="jit"``, the ``pp`` axis) and one flight-recorder event
 per clock segment; :func:`report_pipeline_mfu` sets
-``hvdt_pipeline_mfu``.  The P2P waits are host-ordered, so the pipeline
-runs eagerly: not inside a CUDA-graph capture.
+``hvdt_pipeline_mfu``.
+
+Inside a ``step_pipeline.donated_step`` capture the pipeline is captured
+as it runs eagerly: the clock is fixed by ``(p, m)``, so the graph is the
+eager clock's sequence of stage kernels and NCCL P2P transfers, a wait
+on a transfer a stream wait, and the schedule's records are booked
+before each replay (``graphs.on_replay``); a capture by other means
+raises.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, List, Optional
 
 import torch
@@ -233,10 +240,6 @@ def pipeline_1f1b(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
 
     Returns ``[M, mb, ...]``: the last stage's outputs.
     """
-    if graphs.capturing():
-        raise RuntimeError(
-            "pipeline_1f1b cannot run inside a CUDA-graph capture: its "
-            "transfers are ordered by the host (parallel axes, part 3)")
     leaves, spec = pytree.tree_flatten(stage_params)
     if not all(isinstance(t, torch.Tensor) for t in leaves):
         raise TypeError("stage_params must be a tensor or a list / tuple / "
@@ -246,9 +249,14 @@ def pipeline_1f1b(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
     graph = torch.is_grad_enabled() and (
         microbatches.requires_grad or any(t.requires_grad for t in leaves))
     ring = _Ring(group, axis)
-    _record_schedule(axis, ring.size, microbatches.shape[0],
-                     microbatches[0].numel() * microbatches.element_size(),
-                     dtype=str(microbatches.dtype).rsplit(".", 1)[-1])
+    book = functools.partial(
+        _record_schedule, axis, ring.size, microbatches.shape[0],
+        microbatches[0].numel() * microbatches.element_size(),
+        dtype=str(microbatches.dtype).rsplit(".", 1)[-1])
+    if graphs.capturing():
+        graphs.on_replay(book)
+    else:
+        book()
     return _Pipeline.apply(microbatches, ring, stage_fn, spec,
                            bool(broadcast_out), graph, *leaves)
 

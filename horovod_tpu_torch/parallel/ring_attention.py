@@ -37,9 +37,19 @@ with their K/V block (and its key labels) and come home after sp
 rotations.  A tensor ``scale`` that requires grad gets ``sum(dq * q) /
 scale``.
 
-With one member there is no transfer.  A call inside a CUDA-graph
-capture raises: the transfers and the host's choice of step are not
-captured.
+With one member there is no transfer.
+
+Inside a ``step_pipeline.donated_step`` capture the ring is captured as
+it runs eagerly: its host choices (each step's case, ``use_pallas``, the
+masks) are constants of the member and the step, so the graph is the
+eager ring's sequence of kernels and NCCL P2P transfers, frozen; a wait
+on a transfer is a stream wait.  The transfers' records (the ``sp``
+axis's ``ppermute`` bytes and one flight-recorder event a pass, as the
+pipeline books its clock) are booked before each replay through
+``graphs.on_replay``, so a capture by other means raises.  The
+donated step's eager warm-up call posts both directions (forward K/V,
+backward dK/dV), which creates NCCL's P2P communicators before the
+capture.
 """
 
 from __future__ import annotations
@@ -231,6 +241,40 @@ def _backward_step(inp: _BwdInputs, k_blk, v_blk, *, src: int, my: int,
 # ---- the ring --------------------------------------------------------------
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _record_ring(ring: "_Ring", name: str, nbytes: int, count: int,
+                 dtype: torch.dtype) -> None:
+    """Book one ring pass's transfers (``count`` tensors, ``nbytes`` in
+    all) as one ``ppermute`` series entry (``path="jit"``, the ring's
+    axis) and one flight-recorder event.  Inside a CUDA-graph capture
+    the booking runs before each replay (``graphs.on_replay``)."""
+    dt = str(dtype).rsplit(".", 1)[-1]
+
+    def book() -> None:
+        if not count:
+            return
+        from ..telemetry import flight_recorder as _frm
+        from ..telemetry import instrument as _ti
+
+        rec = _ti.get_recorder()
+        if rec is not None:
+            rec.record_collective("ppermute", dt, "exact", nbytes,
+                                  count=count, path="jit", axis=ring.axis)
+        flight = _frm.get_flight_recorder()
+        if flight is not None:
+            flight.record(op="ppermute", name=name, dtype=dt,
+                          shape=(int(nbytes),), nbytes=nbytes, wire="exact",
+                          path="jit", count=count, axis=ring.axis)
+
+    if graphs.capturing():
+        graphs.on_replay(book)
+    else:
+        book()
+
+
 class _Pending:
     """Transfers in flight; the sent tensors stay referenced until they
     complete."""
@@ -252,6 +296,7 @@ class _Ring:
     """
 
     def __init__(self, group=None, axis: str = "sp"):
+        self.axis = axis
         if hasattr(group, "get_group"):
             group = group.get_group(axis)
         if group is None and not dist.is_initialized():
@@ -289,6 +334,8 @@ def _ring_forward(q, k, v, ring: _Ring, causal: bool, scale: float,
     """Forward ring pass; returns (out in q's dtype, lse [B, H, Lq] f32)."""
     carry = _init_carry(q)
     blk = (k, v) if segment_ids is None else (k, v, segment_ids)
+    _record_ring(ring, "ring.fwd", (ring.size - 1) * _nbytes(blk),
+                 (ring.size - 1) * len(blk), k.dtype)
     for s in range(ring.size):
         pending = None
         if s + 1 < ring.size:
@@ -314,6 +361,12 @@ def _ring_backward(q, k, v, out, lse, do, segment_ids, ring: _Ring,
     b, lk, hkv, d = k.shape
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     blk = (k, v) if segment_ids is None else (k, v, segment_ids)
+    # The block moves every step but the last, the f32 (dk, dv)
+    # accumulators every step of a ring of two or more.
+    moves = ring.size if ring.size > 1 else 0
+    _record_ring(ring, "ring.bwd",
+                 (ring.size - 1) * _nbytes(blk) + moves * 8 * k.numel(),
+                 (ring.size - 1) * len(blk) + moves * 2, k.dtype)
     acc_in: Optional[_Pending] = None
     acc_recv: Sequence[torch.Tensor] = ()
     for s in range(ring.size):
@@ -418,11 +471,6 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Returns ``[batch, local_seq, heads, head_dim]`` in q's dtype.
     """
-    if graphs.capturing():
-        raise RuntimeError(
-            "ring_attention cannot run inside a CUDA-graph capture: its "
-            "transfers and the host's choice of step are not captured "
-            "(parallel axes, part 3)")
     b, lq, h, d = q.shape
     if h % k.shape[2]:
         raise ValueError(

@@ -115,7 +115,12 @@ class _ErrorFeedbackOptimizer:
     def _compensate_one(self, p: torch.Tensor) -> None:
         g = p.grad
         if g is None:
-            return
+            if not p.requires_grad:
+                return
+            # As the reference's update on a zero gradient: this rank
+            # sends qdq(0 + r) in the slot the wrapped optimizer would
+            # zero-fill, and keeps the new residual.
+            g = p.grad = torch.zeros_like(p)
         r = self.residual[p]
         e = g.float() + r
         if self._enabled:

@@ -116,7 +116,6 @@ UNPORTED_KNOBS: Dict[str, str] = {
     "HVDT_CPU_OPERATIONS": _CONTROL,
     "HVDT_TCP_SET_PORT_STRIDE": _CONTROL,
     "HVDT_ALLREDUCE_DTYPE": _CONTROL,
-    "HVDT_MESH_AXES": "item 5, part 3: parallel axes",
 }
 
 

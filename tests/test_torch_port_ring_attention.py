@@ -19,8 +19,8 @@ models/transformer.py on the same numpy inputs.
   one ``DistributedOptimizer(fused_adam)`` step, with and without
   ``loss_chunk`` and under ``remat``.
 * In-process: ``MeshSpec``/``mesh_shape_for`` against the reference,
-  the mesh of a world of one, the config checks, the capture guard and
-  the knob, a world of one against ``flash_attention``, and a world of
+  the mesh of a world of one, the config checks, the ring under a
+  (simulated) capture and the knob, a world of one against ``flash_attention``, and a world of
   one with ``segment_ids`` or a scale that requires grad (plain and
   kernel steps) against dense attention under autograd.
 
@@ -435,10 +435,23 @@ def test_sp_group_size_must_match(world1):
 
 
 def test_capture_raises(monkeypatch):
-    q = torch.zeros((1, 8, 2, 16))
+    """Under a capture the ring books its records through
+    ``graphs.on_replay``: outside a ``donated_step`` capture that raises,
+    as ``on_replay`` does; inside one the ring runs, forward and
+    backward, with one replay hook a pass, and gives the eager values."""
+    q = torch.tensor(np.random.default_rng(0).standard_normal(
+        (1, 8, 2, 16)).astype(np.float32), requires_grad=True)
     monkeypatch.setattr(graphs, "capturing", lambda: True)
-    with pytest.raises(RuntimeError, match="CUDA-graph capture"):
+    with pytest.raises(RuntimeError, match="donated_step"):
         tring.ring_attention(q, q, q)
+    with graphs.collect_replay_hooks() as hooks:
+        out = tring.ring_attention(q, q, q)
+        (grad,) = torch.autograd.grad(out.square().sum(), q)
+    assert len(hooks) == 2
+    monkeypatch.setattr(graphs, "capturing", lambda: False)
+    want = tring.ring_attention(q, q, q)
+    (want_grad,) = torch.autograd.grad(want.square().sum(), q)
+    assert torch.equal(out, want) and torch.equal(grad, want_grad)
 
 
 def _qkv(seed, b=2, l=64, h=4, hkv=2, d=16):

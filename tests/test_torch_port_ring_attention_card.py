@@ -16,6 +16,11 @@ shard 256, H 4, Hkv 2, D 64, bf16, rings of 2 and 4).
   launch sp(sp+1)/2 times causal and sp² times not; the same ring with
   the plain step (``use_pallas=False``), with no launch, against the
   kernel ring.
+* The ring and the 1F1B pipeline (a group of one) captured by
+  ``step_pipeline.donated_step``: every replay equal to the eager call,
+  bit for bit (chip_smoke.py's ``--ring-cards 4`` and
+  ``--parallel-cards 4`` hold the graphed ring and pipeline across four
+  cards).
 
 Every test is marked ``cuda`` and skips without a card.  This file
 imports neither JAX nor the JAX package:
@@ -198,3 +203,65 @@ def test_virtual_ring_matches_whole_sequence(card, monkeypatch, sp, causal):
     plain = _virtual_ring(*shards, causal, False)
     assert _launches() == [0, 0, 0]
     _assert_close(plain, got, rel=2 * _ULP)
+
+
+# ---- the ring and the pipeline inside a donated_step capture ---------------
+
+
+def _graphed_and_eager(fn, *args):
+    """Four calls of ``fn(*args)`` eagerly and through ``donated_step``
+    (the eager warm-up, the capture and its replay, two replays): each
+    call's outputs, cloned."""
+    from horovod_tpu_torch.step_pipeline import donated_step
+
+    graphed = donated_step(fn, donate_argnums=())
+    out = {"eager": [], "graphed": []}
+    for _ in range(4):
+        out["eager"].append([t.clone() for t in fn(*args)])
+        out["graphed"].append([t.clone() for t in graphed(*args)])
+    assert graphed.graphed
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_graphed_ring_matches_eager(world1, causal):
+    """The ring (a group of one: its kernel step, and the replay hook
+    that books its records) captured by donated_step: every replay's
+    output and gradients equal the eager call's, bit for bit."""
+    q, k, v, do = _operands(world1, _N)
+
+    def fn(q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = rmod.ring_attention(*leaves, causal=causal, use_pallas=True)
+        return [out, *torch.autograd.grad(out, leaves, do)]
+
+    runs = _graphed_and_eager(fn, q, k, v, do)
+    for eager, graphed in zip(runs["eager"], runs["graphed"]):
+        for e, g in zip(eager, graphed):
+            assert torch.equal(e, g)
+
+
+def test_graphed_pipeline_matches_eager(world1):
+    """The 1F1B pipeline over a group of one, each microbatch through a
+    stage that runs flash_attention (#9 forward), captured by
+    donated_step (with the replay hook that books its schedule):
+    every replay's output and gradients equal the eager call's."""
+    from horovod_tpu_torch.parallel import pipeline_1f1b
+
+    q, k, v, _ = _operands(world1, _N)
+    mb = torch.stack([q, q.flip(0)])              # 2 microbatches
+
+    def stage(p, x):
+        return pk.flash_attention(x, p[0], p[1], causal=True)
+
+    def fn(mb, k, v):
+        leaves = [k.detach().requires_grad_(), v.detach().requires_grad_()]
+        x = mb.detach().requires_grad_()
+        out = pipeline_1f1b(stage, leaves, x)
+        return [out, *torch.autograd.grad(out.float().square().sum(),
+                                          [x, *leaves])]
+
+    runs = _graphed_and_eager(fn, mb, k, v)
+    for eager, graphed in zip(runs["eager"], runs["graphed"]):
+        for e, g in zip(eager, graphed):
+            assert torch.equal(e, g)

@@ -19,8 +19,10 @@ One gloo world of 2 processes runs ``tp2`` (heads and MLP columns over
 plain version of #12/#13 on the member's 2 local heads, the reference's
 kernel in interpret mode on all 4); one world of 4 runs ``dp2_tp2``,
 ``fsdp2_tp2`` (with ``remat``: the gathers run again in the recompute),
-``sp2_dp2``, ``sp2_ep2`` (4 experts, top-2, capacity factor 4: no drops)
-and ``sp2_pp2``.  Each world is spawned once, in a module-scoped fixture.
+``sp2_dp2``, ``sp2_ep2`` (4 experts, top-2, capacity factor 4: no drops),
+``sp2_pp2`` and ``tp2_ep2`` (the same experts, each expert's ``mlp``
+columns over ``tp``, the router replicated).  Each world is spawned
+once, in a module-scoped fixture.
 
 References: the reference's single-device ``transformer_loss`` /
 ``transformer_apply`` and ``jax.grad`` on the global batch (one jitted
@@ -34,7 +36,8 @@ the gate renormalised over the chosen experts, which the reference's
 single-device MoE (its dense top-1 fallback) does not compute: it is
 held against the reference's ``shard_map`` over ("ep", "sp"), the loss
 averaged by ``lax.pmean``, as its ``transformer_hidden`` composes the two
-manual axes.  Each member's gradients after
+manual axes; tp2_ep2 likewise against its ``shard_map`` over ("ep",),
+the whole (unsharded over ``tp``) experts of each ``ep`` member.  Each member's gradients after
 ``DistributedOptimizer(fused_adam, axis="dp", ...).synchronize()`` are
 held to its part of the reference's gradient, and its parameters after
 the step to its part of the reference's ``fused_adam`` step (the XLA
@@ -46,6 +49,7 @@ reference's own test_tp_matches_single_device); gradients and the step's
 parameter updates within 1e-4 relative L2 per leaf.
 """
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -97,6 +101,8 @@ _CASES = {
     "sp2_ep2": (4, dict(dp=1, ep=2, sp=2), dict(sp=2, **_MOE), ("ep", "sp"),
                 {"HVDT_MOE_TOPK": "2"}),
     "sp2_pp2": (4, dict(dp=1, pp=2, sp=2), dict(sp=2, pp=2), "single", {}),
+    "tp2_ep2": (4, dict(dp=1, ep=2, tp=2), dict(tp=2, **_MOE), ("ep",),
+                {"HVDT_MOE_TOPK": "2"}),
 }
 _SMALLSEQ_SHAPE = (2, 128)       # batch, seq of tp2_smallseq
 
@@ -160,7 +166,10 @@ def _sp_loss(logits, tokens, sp):
     return -jnp.take_along_axis(logp, tgt[..., None], -1).mean()
 
 
+@jax.jit
 def _adam_step(p, grads):
+    # One compiled program a parameter tree, not some hundred op-by-op
+    # dispatches a case.
     tx = jax_fused_adam(_LR, eps=_EPS, weight_decay=_WD, use_kernels=False)
     updates, _ = tx.update(grads, tx.init(p), p)
     return jax.tree.map(lambda a, u: a + u, p, updates)
@@ -197,8 +206,9 @@ def _reference(name, params, tokens):
         if kw.get("sp", 1) > 1:
             loss, grads = loss_sp, grads_sp
     else:
-        mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ref)
-        ecfg = _jcfg(**{k: v for k, v in kw.items() if k != "sp"}, sp=2)
+        mesh = Mesh(np.asarray(jax.devices()[:2 ** len(ref)]).reshape(
+            (2,) * len(ref)), ref)
+        ecfg = _jcfg(**{k: v for k, v in kw.items() if k != "tp"})
 
         def spec(lg):
             s = ["ep" if n == "experts" else None for n in lg]
@@ -520,14 +530,32 @@ def test_smallseq_runs_on_the_local_heads(worlds):
     (dict(tp=4), ValueError, "kv_heads 2 not divisible by tp 4"),
     (dict(tp=2, d_ff=127), ValueError, "d_ff 127 not divisible by tp 2"),
     (dict(fsdp=3), ValueError, "d_model 64 not divisible by fsdp 3"),
-    (dict(tp=2, num_experts=4), NotImplementedError,
-     "parallel axes, part 3")])
+    (dict(tp=2, num_experts=4), None, None)], ids=[
+        "kw0-ValueError-heads 4 not divisible by tp 3",
+        "kw1-ValueError-kv_heads 2 not divisible by tp 4",
+        "kw2-ValueError-d_ff 127 not divisible by tp 2",
+        "kw3-ValueError-d_model 64 not divisible by fsdp 3",
+        "kw4-NotImplementedError-parallel axes, part 3"])
 def test_config_checks(kw, exc, match):
+    """The configs a member cannot hold raise; tp with experts builds,
+    each expert's ``mlp`` columns over ``tp`` and the router whole (the
+    id of the last case is that of the raise it replaced)."""
     import torch
 
-    with pytest.raises(exc, match=match):
-        tt.transformer_init(0, tt.TransformerConfig(
-            dtype=torch.float32, **{**_KW, **kw}), device="cpu")
+    cfg = tt.TransformerConfig(dtype=torch.float32, **{**_KW, **kw})
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            tt.transformer_init(0, cfg, device="cpu")
+        return
+    model = tt.transformer_init(0, cfg, device="cpu", tp_rank=1)
+    f = _KW["d_ff"] // 2
+    assert model.block["w_up"].shape == (2, 4, _KW["d_model"], f)
+    assert model.block["w_down"].shape == (2, 4, f, _KW["d_model"])
+    assert model.block["w_router"].shape == (2, _KW["d_model"], 4)
+    whole = tt.transformer_init(0, dataclasses.replace(cfg, tp=1),
+                                device="cpu")
+    np.testing.assert_array_equal(model.block["w_up"].detach().numpy(),
+                                  whole.block["w_up"][..., f:].detach().numpy())
 
 
 def test_groups_and_optimizer_axis_checks():
