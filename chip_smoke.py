@@ -219,6 +219,27 @@ Phases, one JSON line each:
    (full, dots, dots, full) with step seconds, peak memory and #12
    launches, and the aten.mm the backward runs at batch 4 under none,
    full and dots (0 recomputed under dots);
+17f. serve — the serving engine (horovod_tpu_torch.serve) at full
+   width: the bert-large preset at seq 512 (bf16 compute, f32
+   parameters, seed 0, no remat) under HVDT_FLASH_SMALLSEQ=on with
+   buckets 1/8/32, one CUDA graph a bucket.  serve_engine: warmup makes
+   3 captures (#12's counter 144: an eager first use and a capture a
+   bucket, 24 layers each); every bucket's replay gives the eager
+   forward's bytes on the same padded batch, full and part-filled, and
+   the real rows agree with the eager forward of those rows alone
+   within SERVE_ROWS_TOL; 100 requests of 1-10 rows add no capture and
+   move no counter.  serve_times, per bucket: a replay's device ms
+   (behind a device sleep) against the FLOP bound, #12 24 times a replay
+   (torch.profiler), the engine's host copy of the bucket's logits, the
+   graphed against the eager forward in turns (G, E, E, G), rows/s and
+   tokens/s.  serve_smallseq_kernel: #12 at [bucket, 512, 16, 64] bf16
+   against its plain version.  serve_swap: swap_params of 1.25x the
+   weights while a thread keeps requesting: no failure, no capture,
+   every answer the old or the new weights' bytes.  serve_http: bench
+   --serve (the MLP, 8 clients, 3 s), then build_server(--model
+   transformer) at bert-large width and --seq 128 over a checkpoint of
+   the served weights: two single-row /predict answers against the
+   eager forward;
 18. bench — the port's bench leg (horovod_tpu_torch.bench, ResNet-50 at
    224x224, batch 128, bf16 compute, f32 params, 3 iterations of 20
    steps each) in turns: G (--fused-optimizer, HVDT_FUSED_CONV1X1=1,
@@ -388,7 +409,10 @@ and _pp, par_cards_sp_dp's and par_cards_pp's steps under donated_step
 against them eagerly, as ring_cards_graphed; par_cards_tp_ep, tp 2 x ep
 2 with 8 experts at 32 rows an ep member: one step against one card (in
 f32 loss and gradients, in bf16 the loss), 3 steps, and
-par_cards_tp_ep_graphed.  Each phase runs under a
+par_cards_tp_ep_graphed; par_cards_serve, the serving engine over a
+dp 4 mesh at bucket 32 (bert-large, seq 512, 8 rows a card through each
+card's CUDA graph, all-gathered) against the one-card engine.  Each
+phase runs under a
 watchdog that names it if it hangs.  Then the bench's --moe and
 --pipeline sweeps with their autotune seeds.
 
@@ -407,9 +431,14 @@ localhost:4 then localhost:2 once batch 7 is logged, and
 elastic_cards_grow, localhost:2 then localhost:4, each holding the
 reference's log contract (the new world resumes past batch 1, every
 rank of it logs, the LR is 0.01 x the world size, batch 30 is reached)
-with the recovery's ms.  Each scenario runs under a watchdog that names
-it if it hangs.  The multi-card modes end with the card's line and the
-last line of the one-card run.
+with the recovery's ms; then elastic_cards_serve, the serving fleet:
+hvdtrun serve --model mlp --replicas 2 --max-replicas 4 (router, driver,
+one replica process a card) under serve_crash@step=40:rank=1 with 4 HTTP
+clients on the router throughout, a --target-file resize to 4; zero
+failed requests, the replicas live at the end on 4 distinct cards.  Each
+scenario runs under a watchdog that names it if it hangs.  The
+multi-card modes end with the card's line and the last line of the
+one-card run.
 """
 
 import gc
@@ -7761,13 +7790,236 @@ def par_cards_tp_ep(hvd, smi):
     del tokens, mine
 
 
+# ---- slice 22: serving across cards ---------------------------------------
+
+PAR_SERVE_BUCKET = 32           # split 8 rows a card over dp 4
+
+
+def par_cards_serve(hvd, smi):
+    """par_cards_serve: the serving engine over a dp 4 mesh at bucket 32
+    (bert-large, seq 512, HVDT_FLASH_SMALLSEQ=on): each card runs its 8
+    rows through its own CUDA graph and the rows are all-gathered over
+    dp.  Every card answers with the same bytes, within SERVE_ROWS_TOL of
+    the one-card engine (rank 0's engine without a mesh: the same seed
+    and batch); one capture a card; a card's replay against the one-card
+    replay (device ms behind a device sleep), and the mesh call's host
+    ms (replay, all-gather and host copy)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.models import transformer_apply, transformer_init
+    from horovod_tpu_torch.parallel import make_mesh
+    from horovod_tpu_torch.serve import InferenceEngine
+
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    try:
+        cfg = serve_config()
+        model = transformer_init(0, cfg)
+
+        def apply_fn(p, x):
+            return transformer_apply(p, x, cfg)
+
+        mesh = make_mesh(dp=hvd.size())
+        eng = InferenceEngine(apply_fn, model, buckets=(PAR_SERVE_BUCKET,),
+                              mesh=mesh)
+        assert eng._batch_sharding(PAR_SERVE_BUCKET) == ("dp",)
+        eng.warmup((SERVE_SEQ,), dtype=np.int32)
+        x = _serve_tokens(3, PAR_SERVE_BUCKET, SERVE_SEQ, cfg.vocab)
+        calls = []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = eng.infer(x)
+            calls.append((time.perf_counter() - t0) * 1e3)
+        k = _serve_key(eng, PAR_SERVE_BUCKET, SERVE_SEQ)
+        rows = k.x.shape[0]
+        with torch.cuda.stream(eng._stream):
+            dev = device_ms_stats(k.graph.replay, iters=5, reps=5)
+        same = _same_on_every_rank([torch.from_numpy(got).cuda()])
+        compiles = eng.compile_count()
+        assert same and compiles == 1, (same, compiles)
+        assert got.shape == (PAR_SERVE_BUCKET, SERVE_SEQ, cfg.vocab)
+        del eng, k
+        _free()
+        row = None
+        if hvd.rank() == 0:
+            one = InferenceEngine(apply_fn, model,
+                                  buckets=(PAR_SERVE_BUCKET,))
+            one.warmup((SERVE_SEQ,), dtype=np.int32)
+            want = one.infer(x)
+            rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+            assert rel <= SERVE_ROWS_TOL, rel
+            k1 = _serve_key(one, PAR_SERVE_BUCKET, SERVE_SEQ)
+            with torch.cuda.stream(one._stream):
+                dev1 = device_ms_stats(k1.graph.replay, iters=5, reps=5)
+            row = {"phase": "par_cards_serve", "mesh": {"dp": hvd.size()},
+                   "bucket": PAR_SERVE_BUCKET, "rows_a_card": rows,
+                   "same_bytes_every_card": same, "captures": compiles,
+                   "rel_l2_vs_one_card": rel,
+                   "equal_to_one_card": bool(np.array_equal(got, want)),
+                   "replay_device_ms_a_card": dev["median"],
+                   "one_card_replay_device_ms": dev1["median"],
+                   "mesh_call_host_ms": calls,
+                   "tokens_per_s_replay": PAR_SERVE_BUCKET * SERVE_SEQ
+                   / dev["median"] * 1e3, "card": smi}
+            del one, k1
+        dist.barrier()
+        if row is not None:
+            emit(row)
+        del model
+        _free()
+    finally:
+        del os.environ["HVDT_FLASH_SMALLSEQ"]
+
+
+SERVE_FLEET_PLAN = "serve_crash@step=40:rank=1"
+SERVE_FLEET_CLIENTS = 4
+SERVE_FLEET_TIMEOUT_S = 300
+
+
+def _get_json(port, route, timeout=5.0):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", route)
+        return json.loads(conn.getresponse().read())
+    finally:
+        conn.close()
+
+
+def _serve_fleet(n: int, smi, workdir: str) -> None:
+    """elastic_cards_serve: ``hvdtrun serve --model mlp --replicas 2
+    --max-replicas 4`` (the router, the serving driver, one replica
+    process a card) under HVDT_FAULT_PLAN=serve_crash@step=40:rank=1,
+    with SERVE_FLEET_CLIENTS HTTP clients on the router throughout:
+    replica 1 dies at its 40th request, the router retries elsewhere,
+    the driver respawns it on the card it left; a --target-file of 4
+    scales the fleet to 4.  The clients count zero failed requests, and
+    the replicas live at the end sit on 4 distinct cards."""
+    import http.client
+    import signal
+    import socket
+    import threading
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        rport = sock.getsockname()[1]
+    target = os.path.join(workdir, "serve_target")
+    with open(target, "w") as f:
+        f.write("2\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, HVDT_FAULT_PLAN=SERVE_FLEET_PLAN,
+               HVDT_ELASTIC_BLACKLIST_COOLDOWN_S="1",
+               HVDT_SERVE_HEARTBEAT_S="0.5",
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            ""))
+    log_path = os.path.join(workdir, "serve_fleet.log")
+    log = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "serve",
+         "--checkpoint", os.path.join(workdir, "serve_ckpt"),
+         "--model", "mlp", "--replicas", "2", "--max-replicas", str(n),
+         "--router-port", str(rport), "--target-file", target,
+         "--buckets", "1,8,32"], env=env, stdout=log,
+        stderr=subprocess.STDOUT, cwd=here)
+    t0 = time.perf_counter()
+    stats = {"ok": 0, "failed": 0, "statuses": {}}
+    lock, stop = threading.Lock(), threading.Event()
+
+    def routable():
+        try:
+            return _get_json(rport, "/healthz")["routable"]
+        except (OSError, ValueError):
+            return []
+
+    def wait_for(cond, why):
+        deadline = time.perf_counter() + SERVE_FLEET_TIMEOUT_S
+        while not cond():
+            assert proc.poll() is None, (why, open(log_path).read()[-3000:])
+            assert time.perf_counter() < deadline, why
+            time.sleep(0.2)
+
+    def client(i):
+        rng = np.random.default_rng(i)
+        while not stop.is_set():
+            rows = 1 + int(rng.integers(0, 8))
+            body = json.dumps({"inputs": rng.normal(
+                size=(rows, 784)).astype(np.float32).tolist()})
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", rport,
+                                                  timeout=60)
+                conn.request("POST", "/predict", body,
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                doc = json.loads(r.read())
+                conn.close()
+                good = r.status == 200 and len(doc["outputs"]) == rows
+                key = str(r.status)
+            except Exception as e:      # counted as a failed request
+                good, key = False, type(e).__name__
+            with lock:
+                stats["ok" if good else "failed"] += 1
+                stats["statuses"][key] = stats["statuses"].get(key, 0) + 1
+
+    try:
+        wait_for(lambda: len(routable()) == 2, "2 replicas never routable")
+        up_s = time.perf_counter() - t0
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(SERVE_FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        wait_for(lambda: "replica-removal event" in open(log_path).read(),
+                 "serve_crash never fired")
+        crash_s = time.perf_counter() - t0
+        with open(target, "w") as f:
+            f.write(f"{n}\n")
+        wait_for(lambda: len(routable()) == n, f"never scaled to {n}")
+        scaled_s = time.perf_counter() - t0
+        time.sleep(3.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        health = _get_json(rport, "/healthz")
+    finally:
+        stop.set()
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    out = open(log_path).read()
+    cards = {}
+    for line in out.splitlines():
+        if ": ready on " in line and "serve-replica" in line:
+            rid = int(line.split("serve-replica ")[1].split(":")[0])
+            cards[rid] = line.rsplit("(", 1)[1].rstrip(")")
+    live = [r["id"] for r in health["replicas"]]
+    live_cards = [cards[r] for r in live]
+    assert stats["failed"] == 0 and stats["ok"] > 0, stats
+    assert sorted(live_cards) == [f"cuda:{i}" for i in range(n)], (
+        live, cards)
+    assert proc.returncode == 0, out[-3000:]
+    emit({"phase": "elastic_cards_serve", "fault_plan": SERVE_FLEET_PLAN,
+          "clients": SERVE_FLEET_CLIENTS, "requests_ok": stats["ok"],
+          "requests_failed": stats["failed"],
+          "statuses": stats["statuses"], "replica_cards": cards,
+          "live_at_end": live, "up_s": up_s, "crash_s": crash_s,
+          "scaled_to_4_s": scaled_s,
+          "driver": [ln for ln in out.splitlines()
+                     if ln.startswith("serve:")][:40],
+          "exit_code": proc.returncode, "card": smi})
+
+
 def parallel_cards_worker() -> None:
     """One rank of ``--parallel-cards``: :func:`par_cards_moe`,
     :func:`par_cards_pp`, :func:`par_cards_4d`, :func:`par_cards_tp`,
     :func:`par_cards_fsdp`, :func:`par_cards_dp2_tp2`,
     :func:`par_cards_sp_dp`, :func:`par_cards_sp_pp`,
-    :func:`par_cards_graphed`, :func:`par_cards_tp_ep` and
-    :func:`par_cards_sweeps` in an NCCL world of one process a card, each
+    :func:`par_cards_graphed`, :func:`par_cards_tp_ep`,
+    :func:`par_cards_serve` and :func:`par_cards_sweeps` in an NCCL world of one process a card, each
     under a watchdog that names it.  Rank 0 prints the lines."""
     import torch.distributed as dist
 
@@ -7784,7 +8036,7 @@ def parallel_cards_worker() -> None:
         for phase in (par_cards_moe, par_cards_pp, par_cards_4d,
                       par_cards_tp, par_cards_fsdp, par_cards_dp2_tp2,
                       par_cards_sp_dp, par_cards_sp_pp, par_cards_graphed,
-                      par_cards_tp_ep, par_cards_sweeps):
+                      par_cards_tp_ep, par_cards_serve, par_cards_sweeps):
             with _PhaseTimeout(phase.__name__):
                 phase(hvd, smi)
                 dist.barrier()
@@ -8349,7 +8601,7 @@ def elastic_cards(n: int) -> int:
 
 
 def _elastic_cards_run(n: int, smi, workdir: str):
-    """The four scenarios of :func:`elastic_cards` in ``workdir``."""
+    """The scenarios of :func:`elastic_cards` in ``workdir``."""
     disc = _discovery_script(os.path.join(workdir, "four.sh"),
                              os.path.join(workdir, "never"),
                              f"localhost:{n}", f"localhost:{n}")
@@ -8386,6 +8638,7 @@ def _elastic_cards_run(n: int, smi, workdir: str):
     _elastic_cards_peer(n, smi, workdir, fixed, want, disk_split)
     _resize("shrink", workdir, n, n // 2, smi)
     _resize("grow", workdir, n // 2, n, smi)
+    _serve_fleet(n, smi, workdir)
 
 
 def _elastic_cards_peer(n: int, smi, workdir: str, fixed: list, want: dict,
@@ -8456,6 +8709,381 @@ def _elastic_cards_peer(n: int, smi, workdir: str, fixed: list, want: dict,
           "driver": [ln for ln in lines
                      if not ln.startswith("elastic: telemetry roll-up")],
           "card": smi})
+
+
+# --- serve: the bucketed inference engine, one CUDA graph a bucket -------
+
+SERVE_BUCKETS = (1, 8, 32)
+SERVE_SEQ = 512                 # bert-large's own length: #12 engages
+SERVE_HTTP_SEQ = 128            # the HTTP leg's length (#12 still fits)
+SERVE_REQUESTS = 100            # mixed-size requests of the steady check
+# Real rows of a padded bucket against the eager forward of those rows
+# alone: another batch size is another GEMM tiling, so bf16 rounding
+# moves; relative L2 of the logits.
+SERVE_ROWS_TOL = 2e-2
+
+
+def serve_config(seq: int = SERVE_SEQ):
+    """The bert-large preset for serving: no remat, no loss chunking (a
+    forward only)."""
+    import dataclasses
+
+    return dataclasses.replace(lm_config(seq), remat=False, loss_chunk=0)
+
+
+def serve_flops(cfg, rows: int, seq: int) -> float:
+    """Forward FLOPs of ``rows`` sequences of ``seq`` tokens through the
+    LM (2 a multiply-add): the projections and the MLP of every layer and
+    the vocabulary head for each token, and the two attention products
+    over the (q, k) pairs the causal mask keeps."""
+    d, f, h, hk, dh = (cfg.d_model, cfg.d_ff, cfg.heads, cfg.kv_heads,
+                       cfg.head_dim)
+    per_token = 2 * cfg.layers * (d * (h * dh + 2 * hk * dh) + h * dh * d
+                                  + 3 * d * f) + 2 * d * cfg.vocab
+    attn = 2 * 2 * cfg.layers * h * dh * seq * (seq + 1) // 2
+    return float(rows * (seq * per_token + attn))
+
+
+def _serve_tokens(seed, rows, seq, vocab):
+    return np.random.default_rng(seed).integers(
+        0, vocab, size=(rows, seq)).astype(np.int32)
+
+
+def _eager_logits(apply_fn, model, tokens):
+    with torch.inference_mode():
+        return apply_fn(model, torch.from_numpy(tokens).cuda())
+
+
+def _serve_key(engine, bucket, seq):
+    return engine._keys[(bucket, (seq,), np.dtype(np.int32).str)]
+
+
+def serve_engine_check(engine, apply_fn, model, cfg):
+    """Every bucket's replay against the eager forward of the same padded
+    batch (the same bytes), for a full bucket and a part-filled one, and
+    the real rows of the part-filled bucket against the eager forward of
+    those rows alone (another batch size: within SERVE_ROWS_TOL)."""
+    compiles = engine.compile_count()
+    rows = {}
+    for b in SERVE_BUCKETS:
+        x = _serve_tokens(100 + b, b, SERVE_SEQ, cfg.vocab)
+        got = engine.infer(x)
+        want = _eager_logits(apply_fn, model, x).cpu().numpy()
+        same = bool(np.array_equal(got, want))
+        diff = float(np.abs(got - want).max())
+        assert same, (b, diff)
+        n = b // 2 + 1 if b > 1 else 1
+        xp = np.concatenate([x[:n], np.zeros_like(x[n:])])
+        part = engine.infer(x[:n])
+        padded = _eager_logits(apply_fn, model, xp)[:n].cpu().numpy()
+        part_same = bool(np.array_equal(part, padded))
+        assert part_same, (b, float(np.abs(part - padded).max()))
+        alone = _eager_logits(apply_fn, model, x[:n]).cpu().numpy()
+        rel = float(np.linalg.norm(part - alone) / np.linalg.norm(alone))
+        assert part.shape == (n, SERVE_SEQ, cfg.vocab)
+        assert np.isfinite(part).all() and rel <= SERVE_ROWS_TOL, (b, rel)
+        rows[b] = {"replay_equals_eager": same, "max_abs_err": diff,
+                   "part_rows": n, "part_replay_equals_padded_eager":
+                   part_same, "part_rel_l2_vs_alone": rel}
+        del got, want, part, padded, alone
+    assert engine.compile_count() == compiles
+    return rows
+
+
+def serve_steady(engine, cfg):
+    """SERVE_REQUESTS requests of 1 to 10 rows (buckets 1, 8 and 32)
+    straight through the engine: no new capture, and #12's launch
+    counter stays put (a replay moves no counter)."""
+    before = engine.compile_count()
+    reset_counters()
+    sizes = [1 + (i * 7) % 10 for i in range(SERVE_REQUESTS)]
+    t0 = time.perf_counter()
+    for i, n in enumerate(sizes):
+        y = engine.infer(_serve_tokens(i, n, SERVE_SEQ, cfg.vocab))
+        assert y.shape == (n, SERVE_SEQ, cfg.vocab)
+    wall = time.perf_counter() - t0
+    launches = counters()["_smallseq_fwd_kernel"]
+    assert engine.compile_count() == before, engine.compile_count()
+    assert launches == 0, launches
+    return {"requests": SERVE_REQUESTS, "rows": sum(sizes),
+            "buckets_touched": sorted({engine.bucket_for(n)
+                                       for n in sizes}),
+            "wall_s": wall, "rows_per_s": sum(sizes) / wall,
+            "tokens_per_s": sum(sizes) * SERVE_SEQ / wall,
+            "compiles_after": engine.compile_count(),
+            "smallseq_counter_moves": launches}
+
+
+def serve_times(engine, apply_fn, model, cfg):
+    """Per bucket: a replay's device time (CUDA events behind a device
+    sleep) against the FLOP bound, the host copy of a full bucket's
+    logits, the graphed forward against the eager one in turns (G, E,
+    E, G, host clock to the finished output on the device), #12's
+    launches a replay (torch.profiler) and rows/s and tokens/s of the
+    replay alone and of replay plus copy."""
+    out = {}
+    for b in SERVE_BUCKETS:
+        k = _serve_key(engine, b, SERVE_SEQ)
+        x = torch.from_numpy(_serve_tokens(7, b, SERVE_SEQ, cfg.vocab)
+                             ).cuda()
+
+        def replay():
+            k.graph.replay()
+
+        def eager():
+            with torch.inference_mode():
+                return apply_fn(model, x)
+
+        with torch.cuda.stream(engine._stream), torch.inference_mode():
+            k.x.copy_(x)
+            dev = device_ms_stats(replay, iters=5, reps=5)
+            per = profiled_launches(replay, "smallseq_fwd", calls=3)
+        torch.cuda.synchronize()
+        turns = {"G": [], "E": []}
+        for leg in "GEEG":
+            fn = replay if leg == "G" else eager
+            with torch.cuda.stream(engine._stream):
+                turns[leg].append(host_ms(fn, reps=3))
+        torch.cuda.synchronize()
+        copy = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            host = engine._rows(k.y, b, None)
+            copy.append((time.perf_counter() - t0) * 1e3)
+        del host
+        flops = serve_flops(cfg, b, SERVE_SEQ)
+        b_ms, b_by = bound(float(sum(p.numel() * 4 for p in
+                                     model.parameters())
+                                 + b * SERVE_SEQ * cfg.vocab * 4),
+                           flops, PEAK_BF16_FLOPS)
+        assert per is not None and per["launches"] == cfg.layers, per
+        replay_ms = dev["median"]
+        copy_ms = sorted(copy)[1]
+        out[b] = {"replay_device_ms": replay_ms,
+                  "replay_device_ms_min": dev["min"],
+                  "replay_device_ms_max": dev["max"],
+                  "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+                  "fraction_of_bound": b_ms / replay_ms,
+                  "host_copy_ms": copy_ms, "host_copy_ms_all": copy,
+                  "host_copy_gb_per_s": k.y.numel() * 4 / copy_ms / 1e6,
+                  "graphed_host_ms": turns["G"], "eager_host_ms": turns["E"],
+                  "smallseq_launches_per_replay": per["launches"],
+                  "smallseq_device_ms": per["device_ms"],
+                  "rows_per_s_replay": b / replay_ms * 1e3,
+                  "tokens_per_s_replay": b * SERVE_SEQ / replay_ms * 1e3,
+                  "rows_per_s_with_copy": b / (replay_ms + copy_ms) * 1e3,
+                  "tokens_per_s_with_copy": b * SERVE_SEQ
+                  / (replay_ms + copy_ms) * 1e3}
+        del x
+    return out
+
+
+def serve_kernel_shapes(gen):
+    """#12 at the serving shapes: [bucket, 512, 16, 64] bf16 causal, for
+    each bucket, against its plain version (the per-row rule of
+    :func:`closeness`), with its time on the device alone."""
+    from horovod_tpu_torch.ops import pallas_kernels as pk
+
+    out = {}
+    for b in SERVE_BUCKETS:
+        c = _smallseq_case(gen, b, SERVE_SEQ, LM_HEADS, LM_HEADS,
+                           LM_HEAD_DIM, torch.bfloat16)
+        kern, plain = _smallseq_calls(pk, c, True)["_smallseq_fwd_kernel"]
+        outs = _compare("_smallseq_fwd_kernel", kern(), plain())
+        b_ms, b_by = _smallseq_bounds(b, SERVE_SEQ, LM_HEADS, LM_HEADS,
+                                      LM_HEAD_DIM, True)[
+            "_smallseq_fwd_kernel"]
+        dev = device_ms_stats(kern, iters=20)
+        out[b] = {"outputs": outs, "kernel_ms": dev["median"],
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "fraction_of_bound": b_ms / dev["median"],
+                  "max_abs_err": max(o["max_abs_err"] for o in outs)}
+        del c
+    return out
+
+
+def serve_swap_under_load(engine, apply_fn, model, cfg):
+    """Requests keep arriving from a thread while swap_params copies new
+    weights in: no request fails, every answer is the old weights'
+    eager forward or the new weights' (whole, in bytes), nothing is
+    captured again, and after the swap the replay equals the new
+    weights' eager forward."""
+    import threading
+
+    x = _serve_tokens(11, 2, SERVE_SEQ, cfg.vocab)
+    old = engine.infer(x)
+    new_weights = {k: (v * 1.25).to(v.dtype)
+                   for k, v in engine.params_template().items()}
+    compiles = engine.compile_count()
+    stop = threading.Event()
+    answers, errors = [], []
+
+    def fire():
+        while not stop.is_set():
+            try:
+                answers.append(engine.infer(x))
+            except Exception as e:      # counted, then asserted empty
+                errors.append(repr(e))
+
+    t = threading.Thread(target=fire)
+    t.start()
+    time.sleep(0.5)
+    t0 = time.perf_counter()
+    version = engine.swap_params(new_weights)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    time.sleep(0.5)
+    stop.set()
+    t.join(timeout=120)
+    del new_weights
+    new = engine.infer(x)
+    want_new = _eager_logits(apply_fn, model, x).cpu().numpy()
+    assert not errors, errors[:3]
+    assert np.array_equal(new, want_new)
+    assert not np.array_equal(new, old)
+    kinds = ["old" if np.array_equal(a, old) else
+             "new" if np.array_equal(a, new) else "mixed" for a in answers]
+    assert "mixed" not in kinds and kinds.count("new") > 0, kinds
+    assert engine.compile_count() == compiles
+    return {"requests_during": len(answers), "failed": len(errors),
+            "old_answers": kinds.count("old"),
+            "new_answers": kinds.count("new"), "swap_ms": swap_ms,
+            "params_version": version,
+            "compiles_after": engine.compile_count()}
+
+
+def serve_http(cfg, model):
+    """The HTTP path: bench --serve (the MLP) for a few seconds, then two
+    single-row requests through build_server(--model transformer) at
+    bert-large width and --seq 128, whose checkpoint directory holds the
+    served model's weights as step 1: each answer equals the engine's
+    eager forward of that model for the row."""
+    import http.client
+    import tempfile
+
+    from horovod_tpu_torch import bench
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.models import transformer_apply
+    from horovod_tpu_torch.serve.__main__ import build_server, parse_args
+
+    doc = bench.run_serve_bench(bench._parse_args(
+        ["--serve", "--serve-duration", "3"]))
+    assert doc["requests_ok"] > 0 and doc["requests_failed"] == 0, doc
+    assert doc["steady_state_compiles"] == 0, doc
+    out = {"bench_serve": doc}
+    with tempfile.TemporaryDirectory() as ckpt:
+        CheckpointManager(ckpt).save(1, model.state_dict(), force=True)
+        args = parse_args([
+            "--checkpoint", ckpt, "--model", "transformer",
+            "--vocab", str(cfg.vocab), "--layers", str(cfg.layers),
+            "--d-model", str(cfg.d_model), "--heads", str(cfg.heads),
+            "--d-ff", str(cfg.d_ff), "--seq", str(SERVE_HTTP_SEQ),
+            "--port", "0", "--buckets", "1,8"])
+        server, feat = build_server(args)
+        try:
+            t0 = time.perf_counter()
+            assert server.watcher.check_once() == 1
+            load_s = time.perf_counter() - t0
+            server.engine.warmup(feat, dtype=np.int32)
+            port = server.start()
+            http_cfg = serve_config(SERVE_HTTP_SEQ)
+            reqs = []
+            for seed in (1, 2):
+                x = _serve_tokens(seed, 1, SERVE_HTTP_SEQ, cfg.vocab)
+                body = json.dumps({"inputs": x.tolist()})
+                t0 = time.perf_counter()
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=300)
+                conn.request("POST", "/predict", body,
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                raw = r.read()
+                conn.close()
+                got = np.asarray(json.loads(raw)["outputs"], np.float32)
+                ms = (time.perf_counter() - t0) * 1e3
+                want = _eager_logits(
+                    lambda p, t: transformer_apply(p, t, http_cfg), model,
+                    x).cpu().numpy()
+                assert r.status == 200 and got.shape == want.shape, (
+                    r.status, got.shape)
+                rel = float(np.linalg.norm(got - want)
+                            / np.linalg.norm(want))
+                assert rel <= SERVE_ROWS_TOL, rel
+                reqs.append({"status": r.status, "floats": int(got.size),
+                             "response_mb": len(raw) / 1e6, "ms": ms,
+                             "rel_l2_vs_eager": rel})
+        finally:
+            server.stop()
+        out.update({"transformer_http": reqs, "checkpoint_load_s": load_s,
+                    "http_compiles": server.engine.compile_count()})
+        del server
+    return out
+
+
+def phase_serve(hvd, gen, smi):
+    """serve: the bucketed inference engine at full width — bert-large
+    (24 layers, d 1024, 16 heads, d_ff 4096, vocab 30528, seq 512, bf16
+    compute, f32 parameters, seed 0) under HVDT_FLASH_SMALLSEQ=on with
+    buckets 1/8/32, one CUDA graph a bucket.  Every bucket's replay
+    against the eager forward of the same padded batch (the same bytes)
+    and part-filled buckets against the eager forward of the real rows
+    alone; 3 captures after warmup, flat over 100 mixed-size requests;
+    #12 24 times a replay (torch.profiler), and at the serving shapes
+    against its plain version; times; a hot swap under load; the HTTP
+    path.  Returns #12's launches on the main path (the eager first
+    uses and the captures: 2 x 3 x 24)."""
+    from horovod_tpu_torch.models import transformer_apply, transformer_init
+    from horovod_tpu_torch.serve import InferenceEngine
+
+    os.environ["HVDT_FLASH_SMALLSEQ"] = "on"
+    try:
+        cfg = serve_config()
+        model = transformer_init(0, cfg)
+        model.eval()
+
+        def apply_fn(p, x):
+            return transformer_apply(p, x, cfg)
+
+        torch.cuda.reset_peak_memory_stats()
+        engine = InferenceEngine(apply_fn, model, buckets=SERVE_BUCKETS)
+        reset_counters()
+        t0 = time.perf_counter()
+        engine.warmup((SERVE_SEQ,), dtype=np.int32)
+        warmup_s = time.perf_counter() - t0
+        launches = counters()
+        compiles = engine.compile_count()
+        assert compiles == len(SERVE_BUCKETS), compiles
+        # Each bucket's eager first use and its capture call #12 once a
+        # layer; a replay moves no counter (serve_times counts its
+        # launches with the profiler).
+        assert launches["_smallseq_fwd_kernel"] == 2 * len(SERVE_BUCKETS) \
+            * cfg.layers, launches
+        buckets = serve_engine_check(engine, apply_fn, model, cfg)
+        steady = serve_steady(engine, cfg)
+        emit({"phase": "serve_engine", "model": "bert-large",
+              "seq": SERVE_SEQ, "buckets": list(SERVE_BUCKETS),
+              "compiles_after_warmup": compiles, "warmup_s": warmup_s,
+              "per_bucket": buckets, "steady": steady,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "launches": launches, "rows_tol": SERVE_ROWS_TOL,
+              "card": smi})
+        emit({"phase": "serve_times", "per_bucket": serve_times(
+            engine, apply_fn, model, cfg), "card": smi})
+        kern = serve_kernel_shapes(gen)
+        emit({"phase": "serve_smallseq_kernel", "per_bucket": kern,
+              "card": smi})
+        swap = serve_swap_under_load(engine, apply_fn, model, cfg)
+        emit({"phase": "serve_swap", **swap, "card": smi})
+        del engine
+        _free()
+        # The swap scaled the served weights in place; the HTTP leg
+        # serves the model as it now is.
+        http = serve_http(cfg, model)
+        emit({"phase": "serve_http", **http, "card": smi})
+        del model
+        _free()
+    finally:
+        del os.environ["HVDT_FLASH_SMALLSEQ"]
+    return launches
 
 
 def main() -> int:
@@ -8635,6 +9263,7 @@ def main() -> int:
     phase_moe_dispatch(hvd, smi)
     phase_lm_moe(hvd, gen, smi)
     phase_lm_dots(hvd, gen, smi)
+    serve_launches = phase_serve(hvd, gen, smi)
     bench_mm_err = phase_bench(hvd, smi)
     conv["_mm_stats_kernel"]["max_abs_err"] = max(
         conv["_mm_stats_kernel"]["max_abs_err"], bench_mm_err)
@@ -8705,6 +9334,7 @@ def main() -> int:
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
     assert len(kernels) == 13, [k["name"] for k in kernels]
+    emit({"phase": "serve_launches", "launches": serve_launches})
     emit({"phase": "total", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     _last_lines(smi)

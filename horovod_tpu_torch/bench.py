@@ -108,6 +108,22 @@ recomputes the rest; the BatchNorm running statistics keep the values
 of the step's forward, as the reference's checkpointed function returns
 them once.  The JSON gains ``remat``.
 
+The serving leg (the reference's ``_run_serve_child``,
+``bench.py:563-649``):
+
+    python -m horovod_tpu_torch.bench --serve [--serve-duration S] \
+        [--serve-threads N]
+
+runs an in-process ``serve.ModelServer`` over the MLP 784-256-128-10
+(buckets 1/8/32, one CUDA graph a bucket on the card) and fires
+``--serve-threads`` HTTP clients with 1-4 row batches at it for
+``--serve-duration`` seconds; it prints one JSON line under the
+reference's keys (``serve_throughput_rps`` as ``metric``,
+``latency_p50_ms``, ``latency_p99_ms``, ``requests_ok``,
+``requests_failed``, ``steady_state_compiles``, ...), in a child with
+the same attempt and timeout rules, and never touches the last-good
+cache.
+
 The reference's other legs are not ported yet: each flag raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -133,7 +149,7 @@ LAST_GOOD_PATH = os.path.join(_ROOT, ".bench_torch_last_good.json")
 
 # The reference's other legs (argparse dest -> ROADMAP Queue 1 item).
 _UNPORTED = {
-    "serve": "serving", "serve_llm": "serving",
+    "serve_llm": "serving",
     "controller": "control, analysis and the edges",
     "fleet": "control, analysis and the edges",
     "report": "control, analysis and the edges",
@@ -157,7 +173,8 @@ def _save_last_good(line: str) -> None:
     """Keep a card run of the default leg as the last good one."""
     try:
         d = json.loads(line)
-        if d.get("platform") != "gpu" or any(d.get(k) for k in _VARIANTS):
+        if d.get("platform") != "gpu" or d.get("metric") != METRIC \
+                or any(d.get(k) for k in _VARIANTS):
             return
         if os.environ.get("HVDT_BENCH_NO_CACHE", "") not in ("", "0"):
             return
@@ -238,7 +255,17 @@ def _parse_args(argv=None):
                          "(HVDT_REMAT): full saves the inputs, dots also "
                          "the products without batch dims; JSON gains "
                          "remat")
-    for flag in ("serve", "serve-llm", "report", "controller"):
+    ap.add_argument("--serve", action="store_true",
+                    help="serving micro-benchmark instead of training: an "
+                         "in-process ModelServer (MLP, shape-bucketed "
+                         "engine + dynamic batcher) hammered over HTTP by "
+                         "--serve-threads clients; JSON: latency_p50_ms / "
+                         "latency_p99_ms / throughput_rps")
+    ap.add_argument("--serve-duration", type=float, default=5.0,
+                    help="seconds of sustained client fire for --serve")
+    ap.add_argument("--serve-threads", type=int, default=8,
+                    help="concurrent HTTP client threads for --serve")
+    for flag in ("serve-llm", "report", "controller"):
         ap.add_argument(f"--{flag}", action="store_true",
                         help="not ported yet (raises)")
     ap.add_argument("--fleet", default="", help="not ported yet (raises)")
@@ -834,6 +861,98 @@ def run_pipeline_bench(args) -> dict:
     }, args)
 
 
+SERVE_SIZES = (784, 256, 128, 10)
+SERVE_BUCKETS = (1, 8, 32)
+
+
+def run_serve_bench(args) -> dict:
+    """The serving leg: an in-process ModelServer over the MLP, N
+    concurrent HTTP clients firing 1-4 row batches for
+    ``--serve-duration`` seconds; the serving SLO metrics as a dict."""
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    from .common.basics import resolve_device
+    from .models.mlp import mlp_apply, mlp_init
+    from .serve import InferenceEngine, ModelServer
+
+    device = resolve_device(args.device)
+    on_card = device.type == "cuda"
+    kind = torch.cuda.get_device_name(device) if on_card else device.type
+    platform = "gpu" if on_card else device.type
+    print(f"serve bench on {platform}:{kind}", file=sys.stderr)
+    params = mlp_init(0, SERVE_SIZES, device=device)
+    engine = InferenceEngine(mlp_apply, params, buckets=SERVE_BUCKETS)
+    server = ModelServer(engine, host="127.0.0.1", port=0,
+                         max_delay_ms=2.0, max_queue_depth=4096)
+    port = server.start()
+    engine.warmup((SERVE_SIZES[0],))
+    warm_compiles = engine.compile_count()
+
+    stop = threading.Event()
+    counts = [0] * args.serve_threads
+    errors = [0] * args.serve_threads
+
+    def client(i):
+        rng = np.random.default_rng(i)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        while not stop.is_set():
+            rows = 1 + (i + counts[i]) % 4
+            x = rng.normal(size=(rows, SERVE_SIZES[0])).astype(np.float32)
+            try:
+                conn.request("POST", "/predict",
+                             json.dumps({"inputs": x.tolist()}),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                r.read()
+                if r.status == 200:
+                    counts[i] += 1
+                else:
+                    errors[i] += 1
+            except Exception:
+                errors[i] += 1
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=30)
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(args.serve_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(args.serve_duration)
+    stop.set()
+    for t in threads:
+        t.join(timeout=30)
+    dt = time.perf_counter() - t0
+    pct = server.metrics.summary(
+        "serve_request_latency_ms_predict").percentiles()
+    ok = sum(counts)
+    server.stop()
+    return {
+        "metric": "serve_throughput_rps",
+        "value": round(ok / dt, 2),
+        "unit": "req/s",
+        "throughput_rps": round(ok / dt, 2),
+        "latency_p50_ms": (round(pct[0.5], 3)
+                           if pct[0.5] is not None else None),
+        "latency_p99_ms": (round(pct[0.99], 3)
+                           if pct[0.99] is not None else None),
+        "requests_ok": ok,
+        "requests_failed": sum(errors),
+        "clients": args.serve_threads,
+        "duration_s": round(dt, 2),
+        "buckets": list(SERVE_BUCKETS),
+        "steady_state_compiles": engine.compile_count() - warm_compiles,
+        "platform": platform,
+        "device_kind": kind,
+    }
+
+
 def _spawn(child_args: List[str], timeout_s: int):
     """Run the measurement in a child; (ok, json_line or None, note)."""
     env = dict(os.environ)
@@ -870,7 +989,8 @@ def main(argv=None) -> int:
             print(json.dumps(doc))
         return 0
     if args._child:
-        print(json.dumps(measure(args).doc))
+        doc = run_serve_bench(args) if args.serve else measure(args).doc
+        print(json.dumps(doc))
         return 0
 
     child_args = ["--batch-size", str(args.batch_size),
@@ -887,6 +1007,9 @@ def main(argv=None) -> int:
         + (["--zero", args.zero] if args.zero else []) \
         + (["--ckpt-stall"] if args.ckpt_stall else []) \
         + (["--remat", args.remat] if args.remat else []) \
+        + (["--serve", "--serve-duration", str(args.serve_duration),
+            "--serve-threads", str(args.serve_threads)]
+           if args.serve else []) \
         + (["--device", args.device] if args.device else [])
     if args.device == "cpu":      # asked for: one attempt there
         timeouts = [int(os.environ.get("HVDT_BENCH_CPU_TIMEOUT", "600"))]

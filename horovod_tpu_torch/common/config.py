@@ -447,6 +447,83 @@ KNOBS: Dict[str, Knob] = {
              "Comma list of axis=size pairs for the default mesh init() "
              "builds, e.g. 'dp=4,tp=2'.  Empty = no mesh (the world is "
              "the data-parallel group)."),
+        # --- serving (serve/: engine, batcher, HTTP front end, hot
+        #     reload) ---
+        Knob("HVDT_SERVE_HOST", "127.0.0.1", str,
+             "Bind address for the serving HTTP front end."),
+        Knob("HVDT_SERVE_PORT", 8000, int,
+             "Bind port for the serving HTTP front end (0 = ephemeral)."),
+        Knob("HVDT_SERVE_BUCKETS", "1,8,32", str,
+             "Comma ladder of batch-size shape buckets the engine "
+             "captures (one CUDA graph a bucket); requests are padded up "
+             "to the smallest admitting bucket so steady-state traffic "
+             "never captures again."),
+        Knob("HVDT_SERVE_MAX_BATCH_SIZE", 32, int,
+             "Max rows the dynamic batcher coalesces into one dispatch."),
+        Knob("HVDT_SERVE_MAX_DELAY_MS", 5.0, float,
+             "Max linger (ms) the batcher waits for a fuller batch after "
+             "the first request arrives — the batching latency budget."),
+        Knob("HVDT_SERVE_MAX_QUEUE_DEPTH", 256, int,
+             "Admission-control bound (rows queued but not dispatched); "
+             "past it /predict sheds load with HTTP 503 instead of "
+             "growing the queue into an OOM."),
+        Knob("HVDT_SERVE_REQUEST_TIMEOUT_S", 30.0, float,
+             "Per-request deadline inside the server (504 past it)."),
+        Knob("HVDT_SERVE_RELOAD_INTERVAL_S", 10.0, float,
+             "Seconds between checkpoint-directory polls for hot weight "
+             "reload (serve/reload.py CheckpointWatcher)."),
+        # --- elastic serving control plane (serve/router.py +
+        #     serve/autoscale.py on the pod-aware elastic machinery) ---
+        Knob("HVDT_SERVE_HEARTBEAT_S", 2.0, float,
+             "Replica heartbeat period to the rendezvous KV "
+             "(/serve/replicas/<id>); the router treats a replica whose "
+             "heartbeat is older than 2x this as dead and routes around "
+             "it — the serving analog of the elastic dead-peer bound."),
+        Knob("HVDT_SERVE_SLO_P99_MS", 0.0, float,
+             "p99 latency SLO (ms) for routing and autoscaling: the "
+             "router ejects a replica whose reported p99 breaches it, "
+             "and the autoscaler scales up while the fleet p99 sits "
+             "above it.  0 = no SLO enforcement."),
+        Knob("HVDT_SERVE_REPLICAS", 1, int,
+             "Initial/target replica count for `hvdtrun serve "
+             "--replicas` (the elastic serving control plane; 1 = the "
+             "single-replica path unless --autoscale raises it)."),
+        Knob("HVDT_SERVE_MAX_REPLICAS", 4, int,
+             "Autoscaler ceiling on replica count (and the localhost "
+             "slot count of the default serve host discovery)."),
+        Knob("HVDT_SERVE_AUTOSCALE", False, _parse_bool,
+             "Enable the replica autoscaler loop: scale up on queue "
+             "depth per replica / p99-over-SLO, scale down on idle "
+             "queues, within [1, HVDT_SERVE_MAX_REPLICAS]."),
+        Knob("HVDT_SERVE_SCALE_COOLDOWN_S", 10.0, float,
+             "Minimum seconds between autoscaler scale events — resize "
+             "decisions must not flap faster than replicas boot/drain."),
+        Knob("HVDT_SERVE_QUEUE_HI", 16.0, float,
+             "Scale-UP watermark: mean queued rows per live replica "
+             "above this adds a replica (queue depth is the leading "
+             "indicator; p99 breaches confirm it)."),
+        Knob("HVDT_SERVE_QUEUE_LO", 2.0, float,
+             "Scale-DOWN watermark: mean queued rows per replica below "
+             "this (with p99 inside the SLO) drains the newest replica."),
+        Knob("HVDT_SERVE_ROUTER_PORT", 0, int,
+             "Bind port for the serving router front tier (0 = "
+             "ephemeral; the router logs the bound port on start)."),
+        Knob("HVDT_SERVE_EJECT_COOLDOWN_S", 3.0, float,
+             "Seconds an ejected replica (failed probe / SLO breach / "
+             "dispatch failures) sits out of routing before re-admission "
+             "— doubles per repeated ejection like the elastic host "
+             "blacklist cooldown."),
+        Knob("HVDT_SERVE_HEDGE_MS", 0.0, float,
+             "Hedge-request threshold (ms): a /predict still unanswered "
+             "past it is duplicated to a second replica and the first "
+             "response wins.  0 = adaptive (hedge past ~2x the router's "
+             "observed p99, floored at 50 ms); negative = hedging off."),
+        Knob("HVDT_SERVE_ENGINE", "static", str,
+             "Serving engine: 'static' (the shape-bucket InferenceEngine) "
+             "or 'continuous' (the continuous-batching decode engine with "
+             "a paged KV cache, --model transformer only; not in this "
+             "package yet).  The router and autoscaler are "
+             "engine-agnostic."),
     ]
 }
 

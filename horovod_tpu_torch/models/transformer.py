@@ -148,7 +148,7 @@ and ``aten._scaled_mm`` under ``HVDT_FP8=matmul``) and recomputes the
 rest: norms, RoPE, SiLU, the batched products (``bmm``: the expert
 products, the materialized scores) and the attention kernels'
 autograd Functions.  The paged serving functions are not defined here
-yet (ROADMAP Queue 1 item 7).
+yet (ROADMAP Queue 1 item 7 part 2: LLM serving).
 """
 
 from __future__ import annotations

@@ -41,11 +41,22 @@ i.e. comma-separated ``kind@key=value:key=value`` entries.  Kinds:
   a degraded filesystem.  Under the synchronous save the step loop
   stalls for the full sleep; under ``HVDT_ASYNC_CKPT`` only the
   background writer does — the testable form of the non-blocking claim.
-* ``serve_crash``, ``slow_replica``, ``traffic_spike`` — the serving
-  plane's kinds.  They parse, with the reference's default points
-  (``serve.predict``, ``serve.traffic``); firing one raises
-  ``NotImplementedError``: the serving plane is not ported (ROADMAP
-  Queue 1, item 7).
+* ``serve_crash`` — ``crash`` fired from the serving data path: the
+  replica's predict admission (``serve.predict`` point, ``step`` =
+  the replica's served-request count) or, via ``point=serve.dispatch``,
+  the router's dispatch loop.  ``serve_crash@step=40:rank=2`` kills
+  replica 2 at its 40th request — the mid-request death the router's
+  retry budget must absorb without a dropped request.
+* ``slow_replica`` — sleep ``secs`` in the serving path with
+  probability ``p`` (``slow_replica@p=0.1:secs=2``): a degraded
+  replica.  The router's hedging and p99-SLO ejection are the
+  production answer; this is how they are chaos-tested.
+* ``traffic_spike`` — add ``rps`` requests/second of synthetic offered
+  load for ``secs`` seconds, e.g.
+  ``traffic_spike@step=20:rps=300:secs=120``: the flash crowd.  A
+  data-only fault — firing (at the router's ``serve.traffic`` point,
+  ``step`` = the router's dispatch count) opens a spike window that
+  :meth:`FaultInjector.extra_rps` reports until it expires.
 
 Match keys: ``step`` (fires once at the first point whose step >= it —
 commits are periodic, so exact equality would silently never fire),
@@ -90,9 +101,6 @@ log = logging.getLogger(__name__)
 KINDS = ("crash", "hang", "exc", "corrupt_ckpt", "kv_drop",
          "pod_crash", "pod_partition", "slow_disk",
          "serve_crash", "slow_replica", "traffic_spike")
-
-# The serving plane's kinds: parsed, and raising when fired.
-_SERVE_KINDS = ("serve_crash", "slow_replica", "traffic_spike")
 
 # Default injection point per kind (spec may override with point=).
 _DEFAULT_POINT = {
@@ -286,6 +294,10 @@ class FaultInjector:
         self._sleep = sleep_fn
         self._exit = exit_fn
         self.counters: Dict[str, int] = {}
+        # traffic_spike windows: (expires_at, rps).  Timestamps come
+        # from the firing context (``now=``) when given, else
+        # time.monotonic().
+        self._spikes: List[tuple] = []
         # Fired-fault journal: the elastic model is PROCESS RESTART, so a
         # respawned worker builds a fresh injector — without persisted
         # fire counts, a once-only crash@step=N would kill the worker
@@ -359,19 +371,15 @@ class FaultInjector:
                  rank: Optional[int], ctx: Dict[str, Any]) -> None:
         log.warning("FAULT INJECTION: %s at point=%s step=%s rank=%s",
                     spec.kind, point, step, rank)
-        if spec.kind in _SERVE_KINDS:
-            raise NotImplementedError(
-                f"fault kind {spec.kind!r} fires in the serving plane, "
-                "which is not ported yet (ROADMAP Queue 1, item 7: "
-                "serving)")
-        if spec.kind in ("crash", "pod_crash"):
+        if spec.kind in ("crash", "pod_crash", "serve_crash"):
             # os._exit, not sys.exit: a real crash runs no finalizers, no
             # atexit checkpointing, no graceful shutdown — that is the
             # point.  pod_crash is the same hard death, pod-scoped: each
             # rank of the matched pod dies at its own injection point,
             # producing the correlated whole-slice loss.
             self._exit(spec.code)
-        elif spec.kind in ("hang", "pod_partition", "slow_disk"):
+        elif spec.kind in ("hang", "pod_partition", "slow_disk",
+                           "slow_replica"):
             # pod_partition: the matched pod's ranks block here — peers
             # outside the pod observe stalled heartbeats/collectives,
             # exactly what a network partition of the slice looks like.
@@ -395,6 +403,23 @@ class FaultInjector:
         elif spec.kind == "kv_drop":
             raise ConnectionError(
                 f"injected kv drop at point={point} (p={spec.p})")
+        elif spec.kind == "traffic_spike":
+            # Data-only: open a spike window instead of breaking
+            # anything — extra_rps() reports it until it expires.
+            now = ctx.get("now")
+            now = float(now) if now is not None else time.monotonic()
+            self._spikes.append((now + spec.secs, spec.rps))
+
+    def extra_rps(self, now: Optional[float] = None) -> float:
+        """Synthetic offered load (requests/second) from currently open
+        ``traffic_spike`` windows.  Expired windows are pruned; ``now``
+        follows the same clock the windows were opened on."""
+        if not self._spikes:
+            return 0.0
+        t = float(now) if now is not None else time.monotonic()
+        self._spikes = [(until, rps) for until, rps in self._spikes
+                        if t < until]
+        return sum(rps for _, rps in self._spikes)
 
 
 def truncate_file(path: str, keep_fraction: float = 0.5) -> bool:

@@ -95,11 +95,6 @@ __all__ = ["KNOB_FLAGS", "add_knob_arguments", "load_config_file",
 # the ROADMAP Queue 1 item that ports it.
 _CONTROL = "item 8: control, analysis and the edges"
 UNPORTED_KNOBS: Dict[str, str] = {
-    "HVDT_SERVE_REPLICAS": "item 7: serving",
-    "HVDT_SERVE_MAX_REPLICAS": "item 7: serving",
-    "HVDT_SERVE_AUTOSCALE": "item 7: serving",
-    "HVDT_SERVE_SLO_P99_MS": "item 7: serving",
-    "HVDT_SERVE_HEARTBEAT_S": "item 7: serving",
     "HVDT_CONTROLLER": _CONTROL,
     "HVDT_CONTROLLER_COOLDOWN_S": _CONTROL,
     "HVDT_CONTROLLER_RECOVERY_WINDOW": _CONTROL,

@@ -10,11 +10,15 @@ every slot of a new generation is a fresh process that runs
 
 Where the port differs from the reference:
 
-* A worker that fails ends its generation: the driver terminates the
-  generation's other workers (SIGTERM, then SIGKILL after the grace of
-  ``safe_shell_exec``) and records them READY.  A survivor blocked in an
-  NCCL collective on a dead peer runs no Python handler and would wait
-  for NCCL's watchdog; the driver does not wait for it.
+* A worker that fails, or that exits for re-rendezvous, ends its
+  generation: the driver terminates the generation's other workers
+  (SIGTERM, then SIGKILL after the grace of ``safe_shell_exec``) and
+  records them READY.  A survivor blocked in an NCCL collective on a
+  departed peer runs no Python handler and would wait for NCCL's
+  watchdog; the driver does not wait for it.  Each worker polls the KV
+  for a membership change at its own commit, after its own persist, so
+  one rank can leave at a commit whose change its peers did not see yet
+  and step on into a collective it alone is missing from.
 * A generation whose every worker failed is respawned when the
   blacklist has a cooldown (``HVDT_ELASTIC_BLACKLIST_COOLDOWN_S`` > 0:
   the hosts come back) and ``--reset-limit`` allows; the reference ends
@@ -443,17 +447,20 @@ class ElasticDriver:
         with self._lock:
             return self._terminate.setdefault(gen, threading.Event())
 
-    def _terminate_generation(self, gen: int, failed_rank: int) -> None:
-        """A worker of ``gen`` failed: end the generation.  Its other
-        workers may be blocked in a collective on the dead peer, where no
-        Python handler runs, so they are terminated and their exits
-        recorded READY."""
+    def _terminate_generation(self, gen: int, failed_rank: int,
+                              why: str = "failed") -> None:
+        """A worker of ``gen`` failed or left: end the generation.  Its
+        other workers may be blocked in a collective on the departed
+        peer, where no Python handler runs, so they are terminated and
+        their exits recorded READY."""
         with self._lock:
+            if gen in self._terminated:
+                return      # a peer's exit already ended it
             self._terminated[gen] = {s.rank for s in self._assignments
                                      if s.rank != failed_rank}
             event = self._terminate.setdefault(gen, threading.Event())
         print(f"elastic: terminating generation {gen} after rank "
-              f"{failed_rank} failed", file=sys.stderr)
+              f"{failed_rank} {why}", file=sys.stderr)
         event.set()
 
     def record_exit(self, slot: hosts_mod.SlotInfo, gen: int,
@@ -469,8 +476,12 @@ class ElasticDriver:
         if code == RESTART_EXIT_CODE or terminated:
             # Worker observed a membership change and exited for respawn,
             # or the driver ended its generation: it is READY for the
-            # next rendezvous, not failed.
+            # next rendezvous, not failed.  The first to leave ends the
+            # generation for the peers that have not seen the change.
             self.registry.record_ready(slot.rank)
+            if not terminated:
+                self._terminate_generation(gen, slot.rank,
+                                           "left for re-rendezvous")
             return
         if code == PREEMPT_EXIT_CODE:
             # Clean preemption exit (resilience/preempt.py): the worker

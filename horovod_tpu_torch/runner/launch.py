@@ -43,10 +43,8 @@ __all__ = ["main", "parse_args", "run_static"]
 _LOCAL_NAMES = {"localhost", "127.0.0.1", "::1"}
 
 # The reference's subcommands the port lacks, by the ROADMAP Queue 1 item
-# that ports them: the serving plane, the fleet simulator and the
-# static-analysis gate.
+# that ports them: the fleet simulator and the static-analysis gate.
 _UNPORTED_SUBCOMMANDS = {
-    "serve": "item 7: serving",
     "fleet": "item 8: control, analysis and the edges",
     "lint": "item 8: control, analysis and the edges",
 }
@@ -377,6 +375,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError(
             f"hvdtrun {argv[0]} is not ported yet (ROADMAP Queue 1, "
             f"{_UNPORTED_SUBCOMMANDS[argv[0]]})")
+    if argv and argv[0] == "serve":
+        # `hvdtrun serve ...` — the serving plane.  Bare: one replica,
+        # direct HTTP.  With --replicas/--autoscale: the elastic serving
+        # control plane (serve/autoscale.py) — rendezvous KV + replica
+        # fleet + SLO router.  Flags after `serve` are the serve CLI's
+        # (horovod_tpu_torch/serve/__main__.py).
+        from ..serve import main as serve_main
+
+        return serve_main(argv[1:])
     if argv and argv[0] == "top":
         # `hvdtrun top ...` — live terminal view over worker /timeseries
         # endpoints (telemetry/top.py).  Flags after `top` are the top

@@ -1,9 +1,8 @@
 """Per-worker /metrics HTTP exporter + driver-side snapshot aggregation.
 
 The port's copy of the JAX package's ``telemetry/exporter.py``; device
-memory comes from ``torch.cuda``, and the serving plane's
-``serve_snapshot_dict`` waits for the serving port (ROADMAP Queue 1,
-item 7).
+memory comes from ``torch.cuda``.  :func:`serve_snapshot_dict` is a
+serving replica's heartbeat roll-up (``serve/replica.py``).
 
 Every training worker gets its own scrape endpoint (stdlib
 ``ThreadingHTTPServer``, no dependency): ``/metrics`` renders the process-wide default registry as
@@ -40,7 +39,7 @@ from .metrics import MetricsRegistry, default_registry
 
 __all__ = ["MetricsExporter", "start_exporter", "stop_exporter",
            "get_exporter", "maybe_start_exporter", "snapshot_dict",
-           "collect_driver_snapshots",
+           "serve_snapshot_dict", "collect_driver_snapshots",
            "bind_process_gauges"]
 
 log = get_logger(__name__)
@@ -110,6 +109,53 @@ def snapshot_dict(registry: Optional[MetricsRegistry] = None
     pod = os.environ.get("HVDT_POD")
     if pod:
         out["pod"] = pod
+    return out
+
+
+def serve_snapshot_dict(registry: MetricsRegistry) -> Dict[str, Any]:
+    """Replica-side roll-up of one serving registry — the load + latency
+    story a replica heartbeats to the rendezvous KV
+    (``/serve/replicas/<id>``, serve/replica.py) and the router and
+    autoscaler route/scale on.  The serving analog of
+    :func:`snapshot_dict`: queue depth is the leading load signal,
+    predict p50/p99 the SLO signal, the counters the audit trail."""
+    out: Dict[str, Any] = {}
+    depth = registry.get("serve_queue_depth")
+    if depth is not None:
+        v = depth.value()
+        out["queue_depth"] = v if v == v else 0.0   # NaN-safe
+    lat = registry.get("serve_request_latency_ms_predict")
+    if lat is not None and lat.count:
+        pct = lat.percentiles()
+        out["p50_ms"] = (round(pct[0.5], 3)
+                         if pct[0.5] is not None else None)
+        out["p99_ms"] = (round(pct[0.99], 3)
+                         if pct[0.99] is not None else None)
+    for cname, key in (("serve_requests_total", "requests_total"),
+                       ("serve_rejected_total", "rejected_total"),
+                       ("serve_batches_total", "batches_total"),
+                       ("serve_deadline_expired_total",
+                        "deadline_expired_total")):
+        c = registry.get(cname)
+        if c is not None:
+            out[key] = c.total()
+    draining = registry.get("serve_draining")
+    if draining is not None:
+        out["draining"] = bool(draining.value() == 1.0)
+    # A continuous engine's extras (decode throughput, KV occupancy)
+    # ride the same heartbeat when its registry declares them.
+    tps = registry.get("hvdt_engine_tokens_per_sec")
+    if tps is not None:
+        out["engine"] = "continuous"
+        v = tps.value()
+        out["tokens_per_sec"] = round(v, 3) if v == v else 0.0
+        for gname, key in (("hvdt_engine_kv_blocks_in_use",
+                            "kv_blocks_in_use"),
+                           ("hvdt_engine_active_seqs", "active_seqs")):
+            g = registry.get(gname)
+            if g is not None:
+                gv = g.value()
+                out[key] = gv if gv == gv else 0.0
     return out
 
 

@@ -351,7 +351,7 @@ def reset_default_registry() -> MetricsRegistry:
 # The JAX package's catalog, entry for entry (names, kinds, label sets),
 # so a dashboard or roll-up reads the same keys from either package.
 # Every Counter/Gauge/Summary the port constructs is declared here; the
-# entries of subsystems the port does not have yet (serving, the
+# entries of subsystems the port does not have yet (LLM serving, the
 # controller, the fleet scheduler) stay declared.  Names ending in `*`
 # are prefix wildcards for dynamically-formatted families
 # (hvdt_phase_<PHASE>_seconds).  The lint rule that checks constructions

@@ -125,12 +125,12 @@ _LEG_IDS = [f"flag{i}-parallel axes" for i in range(3)] + [
     f"flag{i}-control, analysis and the edges" for i in (5, 6, 7)]
 
 
-# --remat, --moe and --pipeline are ported (parallel axes, part 1): item
-# None, the leg prints its JSON.  The ids are the ones these cases had
-# while every leg raised.
+# --remat, --moe and --pipeline are ported (parallel axes, part 1), and
+# --serve (serving, part 1): item None, the leg prints its JSON.  The ids
+# are the ones these cases had while every leg raised.
 @pytest.mark.parametrize("flag,item", [
     (["--remat", "full"], None), (["--moe"], None), (["--pipeline"], None),
-    (["--serve"], "serving"), (["--serve-llm"], "serving"),
+    (["--serve"], None), (["--serve-llm"], "serving"),
     (["--controller"], "control, analysis and the edges"),
     (["--fleet", "diurnal"], "control, analysis and the edges"),
     (["--report"], "control, analysis and the edges")], ids=_LEG_IDS)
@@ -143,6 +143,8 @@ def test_unported_legs_raise(flag, item, tmp_path, monkeypatch):
         return
     seed = tmp_path / "seed.json"
     extra = (_SMALL if flag[0] == "--remat"
+             else ["--serve-duration", "1", "--serve-threads", "2"]
+             if flag[0] == "--serve"
              else ["--num-iters", "1", "--num-warmup", "1", "--json-out",
                    str(seed)])
     out = subprocess.run(
@@ -153,6 +155,16 @@ def test_unported_legs_raise(flag, item, tmp_path, monkeypatch):
     doc = json.loads(out.stdout.strip().splitlines()[-1])
     if flag[0] == "--remat":
         assert doc["remat"] == "full" and doc["value"] > 0
+        return
+    if flag[0] == "--serve":
+        # The reference's _run_serve_child keys, on the CPU's MLP.
+        assert doc["metric"] == "serve_throughput_rps"
+        assert doc["requests_ok"] > 0 and doc["requests_failed"] == 0
+        assert doc["value"] == doc["throughput_rps"] > 0
+        assert doc["latency_p99_ms"] >= doc["latency_p50_ms"] > 0
+        assert doc["steady_state_compiles"] == 0
+        assert doc["buckets"] == [1, 8, 32] and doc["clients"] == 2
+        assert doc["platform"] == doc["device_kind"] == "cpu"
         return
     keys = ({"capacity_factor_at_peak", "dropped_fraction",
              "a2a_wire_bytes"} if flag[0] == "--moe" else
@@ -177,7 +189,7 @@ def test_unported_legs_raise(flag, item, tmp_path, monkeypatch):
 
 def test_unported_leg_exits_nonzero():
     out = subprocess.run(
-        [sys.executable, "-m", "horovod_tpu_torch.bench", "--serve"],
+        [sys.executable, "-m", "horovod_tpu_torch.bench", "--serve-llm"],
         env=_env(), capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert out.returncode != 0
     assert "ROADMAP Queue 1: serving" in out.stderr

@@ -155,10 +155,28 @@ def test_times_across_a_journal_both_ways(tmp_path, monkeypatch):
 @pytest.mark.parametrize("kind", ["serve_crash", "slow_replica",
                                   "traffic_spike"])
 def test_serving_kinds_raise_when_fired(kind):
-    inj = tfaults.configure(f"{kind}@step=1")
-    point = tfaults._DEFAULT_POINT[kind]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        inj.fire(point, step=1)
+    """Each serving kind fires at its default point as the reference's
+    does (the serving plane is ported): serve_crash exits with its code,
+    slow_replica sleeps its secs, traffic_spike opens a window of
+    synthetic load that extra_rps reports until it expires."""
+    plan = f"{kind}@step=1:secs=5:rps=40" if kind == "traffic_spike" \
+        else f"{kind}@step=1:secs=2:code=7"
+
+    def run(mod):
+        exits, naps = [], []
+        inj = mod.FaultInjector(mod.parse_plan(plan), exit_fn=exits.append,
+                                sleep_fn=naps.append)
+        inj.fire(mod._DEFAULT_POINT[kind], step=1, now=10.0)
+        inj.fire(mod._DEFAULT_POINT[kind], step=2, now=11.0)
+        return (exits, naps, inj.extra_rps(now=12.0),
+                inj.extra_rps(now=16.0), dict(inj.counters))
+
+    got = run(tfaults)
+    assert got == run(jfaults)
+    assert got[-1] == {kind: 1}
+    assert got[:4] == {"serve_crash": ([7], [], 0.0, 0.0),
+                       "slow_replica": ([], [2.0], 0.0, 0.0),
+                       "traffic_spike": ([], [], 40.0, 0.0)}[kind]
 
 
 def _arm(monkeypatch, plan):

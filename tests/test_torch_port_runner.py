@@ -18,8 +18,9 @@ JAX package's runner/ on the same inputs.
   its doubling, pod-granular state) and ``WorkerStateRegistry``
   transitions over scripted sequences, step by step against the
   reference's;
-* the port's ``ElasticDriver`` over a fake cluster: a failed worker ends
-  its generation (the others are terminated and count READY), a world
+* the port's ``ElasticDriver`` over a fake cluster: a failed worker, or
+  the first to exit for re-rendezvous, ends its generation (the others
+  are terminated and count READY), a world
   whose every worker failed is respawned only with a blacklist
   cooldown, all-success finishes 0;
 * the launcher's card check and the unported subcommands.
@@ -280,11 +281,23 @@ def test_config_file_precedence_matches_reference(tmp_path):
 
 def test_config_file_unported_entry_raises(tmp_path):
     path = tmp_path / "cfg.yaml"
-    path.write_text("serve:\n  replicas: 2\n")
+    path.write_text("controller:\n  enabled: observe\n")
     args = tlaunch.parse_args(["--config-file", str(path), "--", "p"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         tcp.env_from_args(args, tcp.apply_config_file(args, str(path)),
                           base_env={})
+    # The serve: section is ported: it forwards as the reference's does.
+    path.write_text("serve:\n  replicas: 2\n  max_replicas: 4\n"
+                    "  autoscale: true\n  slo_p99_ms: 250\n"
+                    "  heartbeat_s: 1.5\n")
+    args = tlaunch.parse_args(["--config-file", str(path), "--", "p"])
+    got = tcp.env_from_args(args, tcp.apply_config_file(args, str(path)),
+                            base_env={})
+    jargs = jlaunch.parse_args(["--config-file", str(path), "--", "p"])
+    assert got == jcp.env_from_args(
+        jargs, jcp.apply_config_file(jargs, str(path)), base_env={})
+    assert got["HVDT_SERVE_REPLICAS"] == "2"
+    assert got["HVDT_SERVE_AUTOSCALE"] == "1"
 
 
 @pytest.mark.parametrize("name", sorted(tconfig.KNOBS))
@@ -469,6 +482,32 @@ def test_failed_worker_ends_its_generation(monkeypatch):
         d.stop()
 
 
+def test_rank_leaving_for_rendezvous_ends_its_generation():
+    """Rank 2 saw a membership change at a commit and exited for
+    re-rendezvous; ranks 0 and 1 polled before the change landed and
+    stepped on into a collective without it (here: they never exit on
+    their own).  The driver terminates them and shrinks to the new
+    hosts instead of waiting on them."""
+    cluster = _Cluster({"localhost": 3})
+    published = []
+    d = _driver(cluster, 2, max_np=3, hosts_updated_cb=published.append)
+    d.start()
+    try:
+        assert _until(lambda: len(cluster.started) == 3)
+        cluster.hosts["localhost"] = 2
+        assert _until(lambda: published)
+        cluster.exit[(1, 2)] = tdriver.RESTART_EXIT_CODE
+        assert _until(lambda: d.generation == 2, timeout=5.0)
+        assert d.terminate_event(1).is_set()
+        assert [s.rank for s in d.assignments] == [0, 1]
+        for r in range(2):
+            cluster.exit[(2, r)] = 0
+        assert d.wait(timeout=10.0) == 0
+        assert d.registry.reset_count == 1
+    finally:
+        d.stop()
+
+
 @pytest.mark.parametrize("cooldown,want", [("0.2", (2, 0)), ("0", (1, 1))],
                          ids=["cooldown", "permanent"])
 def test_world_of_one_crash(monkeypatch, cooldown, want):
@@ -602,6 +641,16 @@ def test_unported_subcommands_raise(sub, capsys):
         assert tlaunch.main(["top", "--once", "--endpoints",
                              "127.0.0.1:1"]) == 0
         assert "hvdt top — 0/1 ranks" in capsys.readouterr().out
+        return
+    if sub == "serve":
+        # Ported: the flags after `serve` are the serve CLI's, whose
+        # parser rejects an unknown one (argparse's exit 2), as the
+        # reference's test_hvdtrun_serve_delegates_to_serve_cli.
+        for main in (tlaunch.main, jlaunch.main):
+            with pytest.raises(SystemExit) as e:
+                main(["serve", "--definitely-not-a-flag"])
+            assert e.value.code == 2
+        assert "--checkpoint" in capsys.readouterr().err
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tlaunch.main([sub])
